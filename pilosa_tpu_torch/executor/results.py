@@ -1,9 +1,10 @@
 """Query result types: RowResult (row.go:15, per-shard segments),
-ValCount (executor.go:8345) and Pair (cache.go:374, TopN entries)."""
+ValCount (executor.go:8345), DistinctValues, Pair (cache.go:374, TopN
+entries) and GroupCount (GroupBy groups)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -54,3 +55,20 @@ class Pair:
     """TopN/TopK entry: row id + count."""
     id: int = 0
     count: int = 0
+
+
+@dataclass
+class DistinctValues:
+    """Distinct over a BSI field: the sorted distinct values."""
+    values: list = field(default_factory=list)
+
+
+@dataclass
+class GroupCount:
+    """One GroupBy group: [{"field": ..., "row_id": ...}, ...], its
+    column count, and the aggregate with the count of columns feeding
+    it (non-null values)."""
+    group: list[dict]
+    count: int = 0
+    agg: Any = None
+    agg_count: Any = None

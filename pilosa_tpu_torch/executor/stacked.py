@@ -18,8 +18,17 @@ kernels end to end:
 - ``row_counts`` — TopN candidate counts: ``popcount_rows`` unfiltered,
   ``rows_filter_counts`` under a filter tree
 
+GroupBy and the BSI value histogram run beside the plan kinds: the
+one-pass group-code histogram (``groupby_fused``) for disjoint fields,
+the per-combo kernel (``groupby_sum``) for overlapping rows or past
+the histogram's bounds, and ``bsi_value_hist`` (``groupby_fused``
+over the plane stack) for Min, Max and BSI Distinct.
+
 Per-shard partials are int32 (counts < 2^20 per shard); cross-shard
 totals are summed as int64 on the device and combined as Python ints.
+Histogram and per-combo totals are int32 on the device, exact below
+``_REDUCE_MAX_SHARDS`` shards; past it the shards go in chunks whose
+totals are summed as int64 on the host.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.models.schema import FieldType
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -39,6 +49,11 @@ from pilosa_tpu_torch.pql.ast import Call, Condition
 
 class ExecError(Exception):
     pass
+
+
+class Unstackable(ExecError):
+    """A shape the JAX package hands to a host fallback (its per-shard
+    loops and decode streams), none of which is ported yet."""
 
 
 _NARY_OPS = {
@@ -59,6 +74,58 @@ _BSI_CMP = {
 
 # device-stack cache bound; least recently used stacks go first
 _CACHE_MAX_BYTES = 32 << 30
+
+# int32 device totals over S shards of 2^20 columns stay exact while
+# S * 2^20 < 2^31
+_REDUCE_MAX_SHARDS = 2000
+
+# one-pass GroupBy: the dense code space is 2^sum(digit bits) codes;
+# Min/Max over it keeps the reference's depth bound
+_ONEPASS_MAX_CODES = 1 << 20
+_ONEPASS_MINMAX_MAX_DEPTH = 16
+
+# value histogram: 2^(depth+1) signed-value codes, within the code bound
+_VALUEHIST_MAX_DEPTH = 19
+
+# bytes of (R, S, W) row stacks one per-combo kernel call may gather
+_GROUPBY_STACK_BUDGET = 1 << 31
+
+
+# ---------------------------------------------------------------------------
+# GroupBy code space
+# ---------------------------------------------------------------------------
+
+def _code_space(fields_rows):
+    """Power-of-two digit layout of the dense group-code space:
+    (bits_per_field, shift_per_field, n_codes).  Field f's digit (its
+    row-list index) occupies bits [shift_f, shift_f + bits_f) of the
+    code; codes with a digit >= R_f never occur."""
+    bits = [bm.digit_bits(len(rl)) for _, rl in fields_rows]
+    shifts, acc = [], 0
+    for b in bits:
+        shifts.append(acc)
+        acc += b
+    return bits, shifts, 1 << acc
+
+
+def _combo_codes(shifts, combos_arr: np.ndarray) -> np.ndarray:
+    """Combo index tuples (C, nf) → dense group codes (C,)."""
+    codes = np.zeros(combos_arr.shape[0], dtype=np.int64)
+    for fi, sh in enumerate(shifts):
+        codes |= combos_arr[:, fi].astype(np.int64) << sh
+    return codes
+
+
+def _zero_groupby_result(n_combos: int, depth: int, agg_field,
+                         agg_op: str = "sum"):
+    """(counts, agg) zeros for a statically empty filter."""
+    zeros = np.zeros(n_combos, dtype=np.int64)
+    if agg_field is None:
+        return zeros, None
+    if agg_op in ("min", "max"):
+        return zeros, (zeros.copy(), zeros.copy())
+    return zeros, (zeros.copy(), np.zeros((n_combos, depth), np.int64),
+                   np.zeros((n_combos, depth), np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +464,7 @@ class StackedEngine:
         self.executor = executor
         self.device = device
         self.cache = StackCache()
+        self._disjoint_cache: OrderedDict = OrderedDict()
 
     # -- stack builders (cached) -------------------------------------------
 
@@ -511,3 +579,242 @@ class StackedEngine:
             return np.zeros(rows_stack.shape[0], dtype=np.int64)
         c = self._run(("row_counts", rows_i, tree), b)
         return c.sum(dim=1, dtype=torch.int64).cpu().numpy()
+
+    # -- value histogram -----------------------------------------------------
+
+    def _filter_stack(self, idx, filter_call, skey: tuple):
+        """(S, W) device words of a filter tree, or None when the tree is
+        statically empty."""
+        b = PlanBuilder(self, idx, list(skey))
+        tree = b.build(filter_call)
+        if tree == ("zeros",):
+            return None
+        return self._run(("words", tree), b)
+
+    def bsi_value_hist(self, idx, field, filter_call, shards: list[int]):
+        """Per-value histogram of a BSI field under an optional filter
+        tree (kernels.bsi_value_hist, one groupby_fused pass per chunk of
+        at most _REDUCE_MAX_SHARDS shards): returns (pos (2^d,), neg
+        (2^d,)) int64, from which Min, Max and Distinct derive."""
+        depth = field.bit_depth
+        if not 1 <= depth <= _VALUEHIST_MAX_DEPTH:
+            raise Unstackable(
+                f"value histogram of {field.name} at depth {depth} (the "
+                f"decode stream past depth {_VALUEHIST_MAX_DEPTH}) is not "
+                "ported yet")
+        skey = tuple(shards)
+        total = np.zeros(2 << depth, dtype=np.int64)
+        for lo in range(0, len(skey), _REDUCE_MAX_SHARDS):
+            sc = skey[lo:lo + _REDUCE_MAX_SHARDS]
+            filt = None
+            if filter_call is not None:
+                filt = self._filter_stack(idx, filter_call, sc)
+                if filt is None:
+                    continue
+            pos, neg = kernels.bsi_value_hist(
+                self.plane_stack(idx, field, sc), filt)
+            total += torch.cat([pos, neg]).cpu().numpy().astype(np.int64)
+        return total[:1 << depth], total[1 << depth:]
+
+    # -- GroupBy ---------------------------------------------------------------
+    # The one-pass histogram reads every group-code and BSI plane word
+    # once whatever the combo count; it needs each field's rows to be
+    # disjoint in the data (mutex and bool fields always are; set fields
+    # are checked and cached).  Overlapping rows, and shapes past the
+    # histogram's code and shard bounds, go through the per-combo kernel.
+
+    def _rows_disjoint(self, idx, f, row_ids, skey: tuple) -> bool:
+        """True iff no column is set in two of `row_ids` of f: per
+        fragment, the sum of the rows' popcounts equals the popcount of
+        their union.  Cached by the fragments' version stamps."""
+        if f.options.type in (FieldType.MUTEX, FieldType.BOOL):
+            return True
+        row_key = tuple(int(r) for r in row_ids)
+        if len(set(row_key)) != len(row_key):
+            return False  # a duplicated row belongs to two combos
+        key = (idx.name, f.name, row_key, skey)
+        frags = self._frags(f, VIEW_STANDARD, skey)
+        versions = self._versions(frags)
+        ent = self._disjoint_cache.get(key)
+        if ent is not None and ent[0] == versions:
+            self._disjoint_cache.move_to_end(key)
+            return ent[1]
+        ok = True
+        for fr in frags:
+            if fr is None:
+                continue
+            acc = None
+            total = 0
+            for r in row_key:
+                wds = fr.row_words(r)
+                total += int(np.bitwise_count(wds).sum())
+                acc = wds.copy() if acc is None else acc | wds
+            if acc is not None and total != int(np.bitwise_count(acc).sum()):
+                ok = False
+                break
+        self._disjoint_cache[key] = (versions, ok)
+        while len(self._disjoint_cache) > 4096:
+            self._disjoint_cache.popitem(last=False)
+        return ok
+
+    def groupcode_stack(self, idx, fields_rows, skey: tuple) -> torch.Tensor:
+        """(S, CB+1, W) group-code stack: CB packed code bit-planes (each
+        field's digit planes at its _code_space shift) and the valid
+        plane last (the AND of the fields' row unions: the columns that
+        belong to some combo).  Built on the host in one pass and cached
+        by the fragments' version stamps."""
+        fkey = tuple((f.name, tuple(int(r) for r in rl))
+                     for f, rl in fields_rows)
+        per_field = [self._frags(f, VIEW_STANDARD, skey)
+                     for f, _ in fields_rows]
+        bits, shifts, _n_codes = _code_space(fields_rows)
+        cb = sum(bits)
+
+        def build_host():
+            w = idx.width // 32
+            out = np.zeros((len(skey), cb + 1, w), dtype=np.uint32)
+            out[:, cb] = 0xFFFFFFFF
+            for (_f, rl), frags, sh in zip(fields_rows, per_field, shifts):
+                union = np.zeros((len(skey), w), np.uint32)
+                for si, fr in enumerate(frags):
+                    if fr is None:
+                        continue
+                    for di, r in enumerate(rl):
+                        wds = fr.row_words(int(r))
+                        union[si] |= wds
+                        b = 0
+                        while di >> b:
+                            if (di >> b) & 1:
+                                out[si, sh + b] |= wds
+                            b += 1
+                out[:, cb] &= union
+            return out
+
+        return self._stack(("groupcodes", idx.name, fkey, skey),
+                           [fr for fs in per_field for fr in fs], build_host)
+
+    def _groupby_onepass_fits(self, idx, fields_rows, skey: tuple) -> bool:
+        """The one-pass histogram's correctness bounds: a dense code space
+        of at most 2^20 codes, int32-exact totals (at most
+        _REDUCE_MAX_SHARDS shards), and disjoint rows in every field."""
+        _bits, _shifts, n_codes = _code_space(fields_rows)
+        if n_codes > _ONEPASS_MAX_CODES or len(skey) > _REDUCE_MAX_SHARDS:
+            return False
+        return all(self._rows_disjoint(idx, f, rl, skey)
+                   for f, rl in fields_rows)
+
+    def _groupby_onepass_path(self, idx, fields_rows, agg_field, skey: tuple,
+                              combos, depth: int, signed: bool, filter_call,
+                              agg_op: str = "sum"):
+        """The one-pass histogram (groupby_fused) over the dense code
+        space, gathered at the requested combos.  Returns (counts, None |
+        (nn, pos, neg)) int64, or (counts, (nn, values)) for agg_op
+        "min"/"max"."""
+        minmax = agg_op in ("min", "max")
+        _bits, shifts, n_codes = _code_space(fields_rows)
+        codes = _combo_codes(shifts, np.asarray(combos, dtype=np.int64)
+                             .reshape(len(combos), len(fields_rows)))
+        cg = self.groupcode_stack(idx, fields_rows, skey)
+        valid = cg[:, -1]
+        if filter_call is not None:
+            filt = self._filter_stack(idx, filter_call, skey)
+            if filt is None:
+                return _zero_groupby_result(len(combos), depth, agg_field,
+                                            agg_op)
+            valid = valid & filt
+        planes = (self.plane_stack(idx, agg_field, skey)
+                  if agg_field is not None else None)
+        out = kernels.groupby_fused(cg[:, :-1], valid, planes, n_codes,
+                                    signed, minmax=minmax)
+        if planes is None:
+            counts = out[0].cpu().numpy().astype(np.int64)
+            return counts[codes], None
+        g = n_codes
+        flat = torch.cat([x.reshape(-1) for x in out]).cpu().numpy() \
+            .astype(np.int64)
+        counts, nn = flat[:g], flat[g:2 * g]
+        if minmax:
+            vals, _has = kernels.minmax_from_table(
+                flat[2 * g + 2 * g * depth:].reshape(4, g), depth, agg_op)
+            return counts[codes], (nn[codes], vals[codes])
+        pos = flat[2 * g:2 * g + g * depth].reshape(g, depth)
+        neg = flat[2 * g + g * depth:2 * g + 2 * g * depth].reshape(g, depth)
+        return counts[codes], (nn[codes], pos[codes], neg[codes])
+
+    def _groupby_kernel_path(self, idx, fields_rows, agg_field, skey: tuple,
+                             combos, depth: int, signed: bool, filt=None):
+        """The per-combo kernel (groupby_sum) over shard chunks whose
+        gathered row stacks fit _GROUPBY_STACK_BUDGET and whose int32
+        totals stay exact; chunk totals are summed as int64 on the host.
+        A filter, as (S, W) device words, is ANDed into the first field's
+        stack: every term of the kernel includes the combo's AND, so one
+        mask filters counts and aggregates alike."""
+        k, nf = len(combos), len(fields_rows)
+        counts = np.zeros(k, dtype=np.int64)
+        agg = None
+        if agg_field is not None:
+            agg = (np.zeros(k, np.int64), np.zeros((k, depth), np.int64),
+                   np.zeros((k, depth), np.int64))
+        sel = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(combos, dtype=np.int32).reshape(k, nf))).to(self.device)
+        per_shard = sum(len(rl) for _, rl in fields_rows) * idx.width // 8
+        chunk = max(1, min(_REDUCE_MAX_SHARDS,
+                           _GROUPBY_STACK_BUDGET // max(per_shard, 1)))
+        for lo in range(0, len(skey), chunk):
+            sc = skey[lo:lo + chunk]
+            stacks = [self.rows_stack_for(idx, f, (VIEW_STANDARD,), rl, sc)
+                      for f, rl in fields_rows]
+            if filt is not None:
+                stacks[0] = stacks[0] & filt[lo:lo + chunk].unsqueeze(0)
+            planes = (self.plane_stack(idx, agg_field, sc)
+                      if agg_field is not None else None)
+            out = kernels.groupby_sum(stacks, sel, planes, signed)
+            if agg is None:
+                counts += out[0].cpu().numpy()
+                continue
+            flat = torch.cat([x.reshape(-1) for x in out]).cpu().numpy() \
+                .astype(np.int64)
+            counts += flat[:k]
+            agg[0][:] += flat[k:2 * k]
+            agg[1][:] += flat[2 * k:2 * k + k * depth].reshape(k, depth)
+            agg[2][:] += flat[2 * k + k * depth:].reshape(k, depth)
+        return counts, agg
+
+    def groupby(self, idx, fields_rows, filter_call, agg_field,
+                shards: list[int], combos, agg_op: str = "sum"):
+        """GroupBy of the given combos (index tuples into each field's row
+        list, in product order): (counts (C,) int64, None | (nn (C,),
+        pos (C, d), neg (C, d)) int64) for a Sum aggregate, or (counts,
+        (nn, values)) for agg_op "min"/"max".  Min/Max run only on the
+        one-pass histogram; the shapes it cannot take raise."""
+        skey = tuple(shards)
+        n_combos = len(combos)
+        depth = agg_field.bit_depth if agg_field is not None else 0
+        # skip the sign split when no fragment holds a sign bit — checked
+        # against the data, since value writes are not range-enforced
+        signed = False
+        if agg_field is not None:
+            signed = any(fr is not None and 1 in fr.row_ids
+                         for fr in self._frags(agg_field, agg_field.bsi_view,
+                                               skey))
+        if agg_op in ("min", "max"):
+            if (depth > _ONEPASS_MINMAX_MAX_DEPTH
+                    or not self._groupby_onepass_fits(idx, fields_rows, skey)):
+                raise Unstackable(
+                    "GroupBy Min/Max over overlapping rows, past depth "
+                    f"{_ONEPASS_MINMAX_MAX_DEPTH} or past the one-pass "
+                    "bounds (the per-shard Min/Max loop) is not ported yet")
+            return self._groupby_onepass_path(
+                idx, fields_rows, agg_field, skey, combos, depth, signed,
+                filter_call, agg_op)
+        if n_combos and self._groupby_onepass_fits(idx, fields_rows, skey):
+            return self._groupby_onepass_path(
+                idx, fields_rows, agg_field, skey, combos, depth, signed,
+                filter_call)
+        filt = None
+        if filter_call is not None:
+            filt = self._filter_stack(idx, filter_call, skey)
+            if filt is None:
+                return _zero_groupby_result(n_combos, depth, agg_field)
+        return self._groupby_kernel_path(idx, fields_rows, agg_field, skey,
+                                         combos, depth, signed, filt)

@@ -202,3 +202,74 @@ def intersect_rows(rows: torch.Tensor) -> torch.Tensor:
     for i in range(1, rows.shape[0]):
         acc &= rows[i]
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Group-code planes (one-pass GroupBy)
+# ---------------------------------------------------------------------------
+#
+# A stack of R disjoint packed rows (no column in two rows) is a base-R
+# digit per column; these helpers re-encode that digit as
+# digit_bits(R) packed bit-planes, so the one-pass GroupBy histogram
+# composes a dense group code per column without unpacking the row
+# stacks.  digit_planes uses only | so it serves numpy and torch alike.
+
+def digit_bits(n_rows: int) -> int:
+    """Bit-planes needed to encode a digit in [0, n_rows)."""
+    return max(int(n_rows) - 1, 0).bit_length()
+
+
+def digit_planes(rows):
+    """Disjoint row stack (R, ..., W) → (digit_bits(R), ..., W) packed
+    digit planes: plane b is the OR of the rows whose index has bit b
+    set, so a column in row r carries the bits of r.  The caller
+    guarantees disjointness (an overlap would OR two digits)."""
+    nbits = digit_bits(rows.shape[0])
+    planes = []
+    for b in range(nbits):
+        acc = None
+        for i in range(rows.shape[0]):
+            if (i >> b) & 1:
+                acc = rows[i] if acc is None else acc | rows[i]
+        planes.append(acc)
+    if isinstance(rows, np.ndarray):
+        return (np.stack(planes) if planes
+                else np.zeros((0,) + rows.shape[1:], dtype=rows.dtype))
+    return (torch.stack(planes) if planes
+            else rows.new_zeros((0,) + tuple(rows.shape[1:])))
+
+
+_BIT_SHIFTS = torch.arange(BITS_PER_WORD, dtype=torch.int32)
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 words → (..., W*32) int32 0/1 per column
+    (column c = word c >> 5, bit c & 31).  The arithmetic shift is
+    masked to its low bit."""
+    shifts = _BIT_SHIFTS.to(words.device)
+    bits = (words.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], words.shape[-1] * BITS_PER_WORD)
+
+
+def code_from_planes(planes: torch.Tensor) -> torch.Tensor:
+    """(CB, ..., W) packed planes → (..., W*32) int32 per-column codes,
+    plane b contributing bit b.  CB = 0 gives all-zero codes."""
+    cb = planes.shape[0]
+    code = torch.zeros(tuple(planes.shape[1:-1])
+                       + (planes.shape[-1] * BITS_PER_WORD,),
+                       dtype=torch.int32, device=planes.device)
+    for b in range(cb):
+        code |= unpack_bits(planes[b]) << b
+    return code
+
+
+def code_from_planes_np(planes: np.ndarray) -> np.ndarray:
+    """Host twin of code_from_planes (numpy uint32 planes, same layout)."""
+    planes = np.asarray(planes, dtype=np.uint32)
+    out_shape = planes.shape[1:-1] + (planes.shape[-1] * BITS_PER_WORD,)
+    code = np.zeros(out_shape, dtype=np.int32)
+    shifts = np.arange(BITS_PER_WORD, dtype=np.uint32)
+    for b in range(planes.shape[0]):
+        bits = ((planes[b][..., None] >> shifts) & 1).astype(np.int32)
+        code |= bits.reshape(out_shape) << b
+    return code

@@ -1,14 +1,20 @@
-"""The query path's popcount kernels: CUDA on the card, plain PyTorch
-beside each.
+"""The query path's kernels: CUDA on the card, plain PyTorch beside each.
 
-Four hand-written CUDA kernels (``csrc/bitmap_kernels.cu``) replace the
-Pallas kernels of ``pilosa_tpu/ops/kernels.py`` that the main query
-path reaches:
+Six hand-written CUDA kernels replace the Pallas kernels of
+``pilosa_tpu/ops/kernels.py`` that the main query path reaches.  In
+``csrc/bitmap_kernels.cu``:
 
 - ``popcount_rows``       — Count of a leaf, unfiltered TopN row counts
 - ``pair_popcount``       — Count(Intersect(leaf, leaf))
 - ``rows_filter_counts``  — filtered TopN candidate counts
 - ``bsi_sum_counts``      — BSI Sum's filtered sign-split plane counts
+
+and in ``csrc/groupby_kernels.cu``:
+
+- ``groupby_fused``       — the one-pass group-code histogram (disjoint
+  GroupBy, GroupBy Min/Max, and through ``bsi_value_hist`` top-level
+  Min, Max and BSI Distinct)
+- ``groupby_sum``         — the per-combo GroupBy count and Sum partials
 
 Words are ``torch.int32`` tensors carrying uint32 bits.  Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs, and
@@ -24,12 +30,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi
 
-_LIB = "bitmap_kernels"
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _ARGTYPES = {
@@ -37,12 +43,30 @@ _ARGTYPES = {
     "pt_pair_popcount": [_P, _P, _P, _I, _I, _P],
     "pt_rows_filter_counts": [_P, _P, _P, _I, _I, _I, _P],
     "pt_bsi_sum_counts": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pt_groupby_fused": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P],
+    "pt_groupby_sum": [ctypes.POINTER(_P), _I, _P, _I, _P, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P],
 }
+_LIBS = {"pt_groupby_fused": "groupby_kernels",
+         "pt_groupby_sum": "groupby_kernels"}
 _GRID_MAX = (1 << 31) - 1
+_INT32_MAX = (1 << 31) - 1
+
+# kernel limits (csrc/groupby_kernels.cu): code bits and magnitude
+# planes held in registers, stack pointers passed by value
+GB_MAX_CODE_BITS = 24
+GB_MAX_DEPTH = 63
+GB_MINMAX_MAX_DEPTH = 30   # the (4, G) magnitude table is int32
+GB_MAX_FIELDS = 8
+
+# shard columns one plain-histogram step unpacks (bounded memory at
+# full width: 16 shards of 2^20 columns)
+_PLAIN_COLUMNS = 1 << 24
 
 LAUNCHES = {name: 0 for name in (
     "popcount_rows", "pair_popcount", "rows_filter_counts",
-    "bsi_sum_counts")}
+    "bsi_sum_counts", "groupby_fused", "groupby_sum")}
 
 
 def reset_launches() -> None:
@@ -52,7 +76,7 @@ def reset_launches() -> None:
 
 def _fn(name: str):
     from pilosa_tpu_torch.ops import _build
-    f = getattr(_build.library(_LIB), name)
+    f = getattr(_build.library(_LIBS.get(name, "bitmap_kernels")), name)
     if f.argtypes is None:
         f.argtypes = _ARGTYPES[name]
         f.restype = ctypes.c_int
@@ -67,17 +91,36 @@ def _launch(kernel: str, cname: str, *args) -> None:
     LAUNCHES[kernel] += 1
 
 
-def _check(name: str, t: torch.Tensor, ndim: int, device) -> None:
+def _check(name: str, t: torch.Tensor, ndim: int, device,
+           any_shard_stride: bool = False) -> None:
+    """dtype, rank, device and layout.  With ``any_shard_stride`` the
+    first (shard) axis may have any stride as long as, within a shard,
+    the words are contiguous and the planes W words apart, so a plane
+    range of a larger stack goes in as a view."""
     if t.dtype != torch.int32:
         raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
     if t.device != device:
         raise ValueError(f"{name}: tensors on {t.device} and {device}")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {t.device}")
+    if not any_shard_stride:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+        return
+    w = t.shape[-1]
+    if t.numel() and ((w > 1 and t.stride(-1) != 1) or (
+            ndim == 3 and t.shape[1] > 1 and t.stride(1) != w)):
+        raise ValueError(f"{name}: words must be contiguous within a shard")
+
+
+def _check_int32_totals(name: str, s: int, w: int) -> None:
+    # per-group and per-combo totals are int32 on the card: exact while
+    # every column of S shards could be counted once
+    if s * w * 32 > _INT32_MAX:
+        raise ValueError(f"{name}: {s} shards x {w} words can overflow "
+                         "int32 totals; chunk the shards")
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +142,127 @@ def rows_filter_counts_plain(rows: torch.Tensor,
 
 def bsi_sum_counts_plain(planes: torch.Tensor, filt=None):
     return bsi.sum_counts(planes, filt)
+
+
+def _hist_rows(depth: int, signed: bool) -> int:
+    """K, the payload rows [counts, nn, pos x d, neg x d] of the table."""
+    return 1 if depth == 0 else 2 + (2 if signed else 1) * depth
+
+
+def _bins(seg: torch.Tensor, mask: torch.Tensor, g: int) -> torch.Tensor:
+    """Per-code counts of the masked columns; the rest land in bucket g."""
+    return torch.bincount(torch.where(mask, seg, g), minlength=g + 1)
+
+
+def groupby_codes_plain(code_planes: torch.Tensor, valid: torch.Tensor,
+                        planes: torch.Tensor | None = None, n_codes: int = 1,
+                        signed: bool = True, minmax: bool = False):
+    """Plain version of groupby_fused: unpack each column's group code,
+    then scatter-add its payload, a few shards at a time so memory
+    stays bounded at full width (the port of groupby_codes_xla).
+
+    code_planes (S, CB, W), valid (S, W), planes (S, 2+d, W) or None →
+    counts (G,), nn (G,), pos (G, d), neg (G, d) int32, G = n_codes,
+    plus mm (4, G) int32 with ``minmax``; nn/pos/neg are None without
+    planes.  Invalid columns and codes >= G go to an overflow bucket
+    that is dropped."""
+    s, _cb, w = code_planes.shape
+    depth = 0 if planes is None else planes.shape[1] - 2
+    dev = valid.device
+    g = int(n_codes)
+    hist = torch.zeros((_hist_rows(depth, signed), g + 1), dtype=torch.int64,
+                       device=dev)
+    big = 1 << depth
+    mm = None
+    if minmax:
+        mm = torch.tensor([-1, big, -1, big], dtype=torch.int64,
+                          device=dev).unsqueeze(1).repeat(1, g + 1)
+    step = max(1, _PLAIN_COLUMNS // max(w * 32, 1))
+    for lo in range(0, s, step):
+        sl = slice(lo, lo + step)
+        code = bm.code_from_planes(code_planes[sl].transpose(0, 1))
+        code = code.reshape(-1).to(torch.int64)
+        va = bm.unpack_bits(valid[sl]).reshape(-1) == 1
+        seg = torch.where(va & (code < g), code, g)
+        hist[0] += torch.bincount(seg, minlength=g + 1)
+        if not depth:
+            continue
+        pl = planes[sl]
+        ex = (bm.unpack_bits(pl[:, 0]).reshape(-1) == 1) & va
+        sg = bm.unpack_bits(pl[:, 1]).reshape(-1) == 1
+        posm = ex & ~sg if signed else ex
+        negm = ex & sg
+        hist[1] += _bins(seg, ex, g)
+        mag = torch.zeros_like(seg)
+        for p in range(depth):
+            bit = bm.unpack_bits(pl[:, 2 + p]).reshape(-1) == 1
+            hist[2 + p] += _bins(seg, bit & posm, g)
+            if signed:
+                hist[2 + depth + p] += _bins(seg, bit & negm, g)
+            if minmax:
+                mag |= bit.to(torch.int64) << p
+        if minmax:
+            for side, mask in ((0, posm), (2, negm if signed else None)):
+                if mask is None:
+                    continue
+                idx = torch.where(mask, seg, g)
+                mm[side].scatter_reduce_(0, idx, mag, "amax")
+                mm[side + 1].scatter_reduce_(0, idx, mag, "amin")
+    hist = hist[:, :g].to(torch.int32)
+    counts = hist[0]
+    if depth == 0:
+        return counts, None, None, None
+    nn = hist[1]
+    pos = hist[2:2 + depth].T.contiguous()
+    neg = (hist[2 + depth:].T.contiguous() if signed
+           else torch.zeros_like(pos))
+    if not minmax:
+        return counts, nn, pos, neg
+    return counts, nn, pos, neg, mm[:, :g].to(torch.int32)
+
+
+def groupby_sum_plain(stacks, sel: torch.Tensor,
+                      planes: torch.Tensor | None = None,
+                      signed: bool = True):
+    """Plain version of groupby_sum: for each combo c, m = AND over
+    fields of stacks[f][sel[c, f]], counted alone, against exists, and
+    per magnitude plane split by sign (every exists column on the
+    positive side when ``signed`` is False).  Returns counts (C,), nn
+    (C,), pos (C, d), neg (C, d) int32; nn/pos/neg None without
+    planes."""
+    depth = 0 if planes is None else planes.shape[1] - 2
+    dev = sel.device
+    counts, nn, pos, neg = [], [], [], []
+    for row in sel.cpu().tolist():
+        m = stacks[0][row[0]]
+        for f in range(1, len(stacks)):
+            m = m & stacks[f][row[f]]
+        counts.append(bm.count(m).sum(dtype=torch.int64))
+        if not depth:
+            continue
+        em = m & planes[:, 0]
+        nn.append(bm.count(em).sum(dtype=torch.int64))
+        pm = em & ~planes[:, 1] if signed else em
+        nm = em & planes[:, 1]
+        pos.append(torch.stack([bm.count(planes[:, 2 + p] & pm)
+                                .sum(dtype=torch.int64)
+                                for p in range(depth)]))
+        neg.append(torch.stack([bm.count(planes[:, 2 + p] & nm)
+                                .sum(dtype=torch.int64)
+                                for p in range(depth)]) if signed
+                   else torch.zeros(depth, dtype=torch.int64, device=dev))
+    c = sel.shape[0]
+
+    def stacked(xs, shape):
+        if not xs:
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+        return torch.stack(xs).to(torch.int32)
+
+    out_counts = stacked(counts, (c,))
+    if not depth:
+        return out_counts, None, None, None
+    return (out_counts, stacked(nn, (c,)), stacked(pos, (c, depth)),
+            stacked(neg, (c, depth)))
 
 
 # ---------------------------------------------------------------------------
@@ -186,3 +350,228 @@ def bsi_sum_counts(planes: torch.Tensor, filt: torch.Tensor | None = None):
                 None if filt is None else filt.data_ptr(), cnt.data_ptr(),
                 pos.data_ptr(), neg.data_ptr(), s, p, w)
     return cnt, pos, neg
+
+
+def groupby_fused(code_planes: torch.Tensor, valid: torch.Tensor,
+                  planes: torch.Tensor | None = None, n_codes: int = 1,
+                  signed: bool = True, minmax: bool = False):
+    """One-pass GroupBy histogram over a dense code space of n_codes
+    groups: code_planes (S, CB, W) (plane b is bit b of each column's
+    code), valid (S, W), planes (S, 2+d, W) or None →
+    counts (G,), nn (G,), pos (G, d), neg (G, d) int32 (nn/pos/neg None
+    without planes; neg zero when ``signed`` is False), plus with
+    ``minmax`` a (4, G) int32 table [max_mag_pos, min_mag_pos,
+    max_mag_neg, min_mag_neg] with identities -1 and 1 << d (combine
+    with minmax_from_table).  Each input may be a view with any shard
+    stride (``_check``)."""
+    name = "groupby_fused"
+    dev = valid.device
+    _check(name, code_planes, 3, dev, any_shard_stride=True)
+    _check(name, valid, 2, dev, any_shard_stride=True)
+    s, cb, w = code_planes.shape
+    if valid.shape != (s, w):
+        raise ValueError(f"{name}: valid {tuple(valid.shape)} vs code "
+                         f"planes {tuple(code_planes.shape)}")
+    depth = 0
+    if planes is not None:
+        _check(name, planes, 3, dev, any_shard_stride=True)
+        if planes.shape[0] != s or planes.shape[2] != w or planes.shape[1] < 3:
+            raise ValueError(f"{name}: planes {tuple(planes.shape)} vs code "
+                             f"planes {tuple(code_planes.shape)}")
+        depth = planes.shape[1] - 2
+    if int(n_codes) < 1:
+        raise ValueError(f"{name}: n_codes must be >= 1")
+    if minmax and depth == 0:
+        raise ValueError(f"{name}: minmax requires BSI planes")
+    if minmax and depth > GB_MINMAX_MAX_DEPTH:
+        raise ValueError(f"{name}: minmax magnitudes need depth <= "
+                         f"{GB_MINMAX_MAX_DEPTH}")
+    if cb > GB_MAX_CODE_BITS or depth > GB_MAX_DEPTH:
+        raise ValueError(f"{name}: at most {GB_MAX_CODE_BITS} code planes "
+                         f"and depth {GB_MAX_DEPTH}")
+    _check_int32_totals(name, s, w)
+    if dev.type == "cpu":
+        return groupby_codes_plain(code_planes, valid, planes, n_codes,
+                                   signed, minmax)
+    g = int(n_codes)
+    hist = torch.zeros((_hist_rows(depth, signed), g), dtype=torch.int32,
+                       device=dev)
+    mm = None
+    if minmax:
+        mm = torch.tensor([-1, 1 << depth, -1, 1 << depth], dtype=torch.int32,
+                          device=dev).unsqueeze(1).repeat(1, g)
+    if s * w:
+        _launch(name, "pt_groupby_fused",
+                code_planes.data_ptr(), code_planes.stride(0), cb,
+                valid.data_ptr(), valid.stride(0),
+                None if planes is None else planes.data_ptr(),
+                0 if planes is None else planes.stride(0), depth, s, w, g,
+                int(bool(signed)), hist.data_ptr(),
+                None if mm is None else mm.data_ptr())
+    counts = hist[0]
+    if depth == 0:
+        return counts, None, None, None
+    nn = hist[1]
+    pos = hist[2:2 + depth].T.contiguous()
+    neg = (hist[2 + depth:].T.contiguous() if signed
+           else torch.zeros_like(pos))
+    if not minmax:
+        return counts, nn, pos, neg
+    return counts, nn, pos, neg, mm
+
+
+def groupby_sum(stacks, sel: torch.Tensor, planes: torch.Tensor | None = None,
+                signed: bool = True):
+    """Per-combo GroupBy count and Sum partials: stacks nf x (R_f, S, W),
+    sel (C, nf) int32 row indices, planes (S, 2+d, W) or None →
+    counts (C,), nn (C,), pos (C, d), neg (C, d) int32 (nn/pos/neg None
+    without planes; neg zero when ``signed`` is False)."""
+    name = "groupby_sum"
+    stacks = list(stacks)
+    dev = sel.device
+    nf = len(stacks)
+    if not 1 <= nf <= GB_MAX_FIELDS:
+        raise ValueError(f"{name}: 1 to {GB_MAX_FIELDS} fields, got {nf}")
+    for st in stacks:
+        _check(name, st, 3, dev)
+    s, w = stacks[0].shape[1:]
+    if any(st.shape[1:] != (s, w) for st in stacks):
+        raise ValueError(f"{name}: stacks differ in (S, W): "
+                         f"{[tuple(st.shape) for st in stacks]}")
+    _check(name, sel, 2, dev)
+    if sel.shape[1] != nf:
+        raise ValueError(f"{name}: sel {tuple(sel.shape)} for {nf} fields")
+    depth = 0
+    if planes is not None:
+        _check(name, planes, 3, dev)
+        if planes.shape[0] != s or planes.shape[2] != w or planes.shape[1] < 3:
+            raise ValueError(f"{name}: planes {tuple(planes.shape)} vs "
+                             f"stacks (S, W) = ({s}, {w})")
+        depth = planes.shape[1] - 2
+    if depth > GB_MAX_DEPTH:
+        raise ValueError(f"{name}: depth {depth} > {GB_MAX_DEPTH}")
+    _check_int32_totals(name, s, w)
+    c = sel.shape[0]
+    if c:
+        rows = torch.tensor([st.shape[0] for st in stacks], dtype=torch.int32,
+                            device=dev)
+        if bool(((sel < 0) | (sel >= rows)).any()):
+            raise ValueError(f"{name}: sel row index out of range")
+    if dev.type == "cpu":
+        return groupby_sum_plain(stacks, sel, planes, signed)
+    if s * ((w + 255) // 256) > _GRID_MAX:
+        raise ValueError(f"{name}: too many shards for one launch")
+    counts = torch.zeros(c, dtype=torch.int32, device=dev)
+    nn = pos = neg = None
+    if depth:
+        nn = torch.zeros(c, dtype=torch.int32, device=dev)
+        pos = torch.zeros((c, depth), dtype=torch.int32, device=dev)
+        neg = torch.zeros((c, depth), dtype=torch.int32, device=dev)
+    if c and s * w:
+        ptrs = (_P * nf)(*[st.data_ptr() for st in stacks])
+        _launch(name, "pt_groupby_sum", ptrs, nf, sel.data_ptr(), c,
+                None if planes is None else planes.data_ptr(), depth, s, w,
+                int(bool(signed)), counts.data_ptr(),
+                None if nn is None else nn.data_ptr(),
+                None if pos is None else pos.data_ptr(),
+                None if neg is None else neg.data_ptr())
+    return counts, nn, pos, neg
+
+
+# ---------------------------------------------------------------------------
+# host helpers around the histogram (numpy)
+# ---------------------------------------------------------------------------
+
+def minmax_from_table(mm, depth: int, op: str):
+    """Host combiner for the (4, G) Min/Max magnitude table: per group,
+    max = max_mag_pos when any non-negative member exists, else
+    -min_mag_neg; min = -max_mag_neg when any negative member exists,
+    else min_mag_pos.  Returns (values (G,) int64, has (G,) bool)."""
+    mm = np.asarray(mm, dtype=np.int64)
+    big = 1 << depth
+    mxp, mnp_, mxn, mnn = mm[0], mm[1], mm[2], mm[3]
+    if op == "max":
+        vals = np.where(mxp >= 0, mxp, -mnn)
+        has = (mxp >= 0) | (mnn < big)
+    else:
+        vals = np.where(mxn >= 0, -mxn, mnp_)
+        has = (mxn >= 0) | (mnp_ < big)
+    return vals, has
+
+
+def _value_hist_codes(planes: torch.Tensor, filter_words):
+    """The planes-to-code layout of the value histogram, owned here
+    alone: the code planes are the stack's own sign and magnitude
+    planes, ``planes[:, 1:]`` as a view (no copy), so the sign is the
+    LOW code bit and code = 2*|v| + sign; validity is exists AND the
+    filter.  Returns (code planes, valid, n_codes)."""
+    valid = planes[:, 0]
+    if filter_words is not None:
+        valid = valid & filter_words
+    return planes[:, 1:], valid, 1 << (planes.shape[1] - 1)
+
+
+def bsi_value_hist(planes: torch.Tensor, filter_words=None):
+    """Per-value histogram of a BSI stack through groupby_fused:
+    planes (S, 2+d, W), filter_words (S, W) or None → (pos (2^d,),
+    neg (2^d,)) int32, pos[v] = columns holding +v, neg[v] = columns
+    holding -v.  Distinct, Min/Max and Range counts derive from it
+    without decoding a column."""
+    codes, valid, n_codes = _value_hist_codes(planes, filter_words)
+    counts = groupby_fused(codes, valid, None, n_codes)[0]
+    return counts[0::2].contiguous(), counts[1::2].contiguous()
+
+
+def bsi_value_hist_plain(planes: torch.Tensor, filter_words=None):
+    """Plain version of bsi_value_hist (groupby_codes_plain)."""
+    codes, valid, n_codes = _value_hist_codes(planes, filter_words)
+    counts = groupby_codes_plain(codes, valid, None, n_codes)[0]
+    return counts[0::2].contiguous(), counts[1::2].contiguous()
+
+
+def range_count_from_hist(pos, neg, lo: int, hi: int) -> int:
+    """Columns whose value lies in [lo, hi], exact, from the value
+    histogram's pos/neg magnitude counts."""
+    pos = np.asarray(pos, dtype=np.int64)
+    neg = np.asarray(neg, dtype=np.int64)
+    total = 0
+    if hi >= 0:
+        total += int(pos[max(lo, 0):hi + 1].sum())
+    if lo < 0:
+        nlo, nhi = max(-hi, 1), -lo           # magnitudes of negatives
+        if nlo <= nhi:
+            total += int(neg[nlo:nhi + 1].sum())
+    return total
+
+
+def distinct_from_hist(pos, neg) -> list[int]:
+    """Sorted distinct signed values present in the value histogram
+    (-0 cannot occur: only v < 0 carries the sign)."""
+    pos = np.asarray(pos)
+    neg = np.asarray(neg)
+    vals = [-int(v) for v in np.nonzero(neg)[0][::-1] if v > 0]
+    vals += [int(v) for v in np.nonzero(pos)[0]]
+    return vals
+
+
+def groupby_onepass_hbm_bytes(n_shards: int, width_words: int,
+                              code_bits: int, depth: int = 0,
+                              has_filter: bool = False,
+                              signed: bool = True) -> int:
+    """Bytes the one-pass histogram must read: code planes + valid
+    plane, the BSI stack (its sign plane only when signed) and the
+    filter words, each once."""
+    per_shard = (code_bits + 1) + ((1 + depth + int(signed)) if depth else 0) \
+        + (1 if has_filter else 0)
+    return 4 * n_shards * width_words * per_shard
+
+
+def groupby_percombo_hbm_bytes(n_shards: int, width_words: int,
+                               n_rows: int, depth: int = 0,
+                               signed: bool = True) -> int:
+    """Bytes the per-combo kernel must read: each distinct stack row
+    that sel references once (a block walks every combo over one word
+    chunk, so a row shared by combos is read again from cache), the
+    plane stack (its sign plane only when signed) once."""
+    return 4 * n_shards * width_words * (
+        n_rows + ((1 + depth + int(signed)) if depth else 0))

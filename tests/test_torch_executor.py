@@ -4,8 +4,11 @@ The data crosses over as a state dict (pilosa_tpu_torch.models.state)
 filled from the JAX holder's public attributes; the port runs on the
 CPU (device="cpu", the kernels' plain versions).  The JAX side runs
 once with its defaults and once with PILOSA_TPU_PALLAS=1, which routes
-its hot paths through the Pallas kernels in interpret mode.  All
-answers are integers or column sets: the comparison is exact."""
+its hot paths through the Pallas kernels in interpret mode; GroupBy,
+Min, Max and Distinct run against its defaults, its forced fused
+one-pass arm and its forced per-combo kernel.  All answers are
+integers, decimals of integers or column sets: the comparison is
+exact."""
 
 import datetime as dt
 
@@ -70,6 +73,51 @@ DENSE_QUERIES = [
 ]
 
 
+# GroupBy, Min, Max and Distinct: Sum/Min/Max aggregates, filter=,
+# having=, limit=, previous=, signed values (v, dec), overlapping rows
+# (s, u, f) and mutex rows (m)
+GROUPBY_QUERIES = [
+    ("i", "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=b))"),
+    ("i", "GroupBy(Rows(f))"),
+    ("i", "Min(field=b)"),
+    ("i", "Max(field=b)"),
+    ("i", "Distinct(field=b)"),
+    ("d", "GroupBy(Rows(s))"),
+    ("d", "GroupBy(Rows(s), Rows(m), aggregate=Sum(field=v))"),
+    ("d", "GroupBy(Rows(m), aggregate=Sum(field=v))"),
+    ("d", "GroupBy(Rows(m), aggregate=Max(field=v))"),
+    ("d", "GroupBy(Rows(m), aggregate=Min(field=v))"),
+    ("d", "GroupBy(Rows(m), Rows(s), filter=Row(v > 0), "
+          "aggregate=Sum(field=dec))"),
+    ("d", "GroupBy(Rows(s), Rows(u), having=Condition(count > 3), limit=5)"),
+    ("d", "GroupBy(Rows(s), Rows(m), previous=[2, 1], "
+          "aggregate=Sum(field=v))"),
+    ("d", "GroupBy(Rows(s, previous=1, limit=3), Rows(m))"),
+    ("d", "GroupBy(Rows(m), aggregate=Sum(field=v), "
+          "having=Condition(sum > 0))"),
+    ("d", "GroupBy(Rows(m), filter=Row(s=9), aggregate=Sum(field=v))"),
+    ("d", "Min(field=v)"),
+    ("d", "Max(Row(s=2), field=v)"),
+    ("d", "Max(field=v)"),
+    ("d", "Min(Row(s=7), field=v)"),
+    ("d", "Distinct(Row(s=3), field=v)"),
+    ("c", "GroupBy(Rows(edu), Rows(gen), Rows(dom), aggregate=Sum(field=age))"),
+    ("c", "GroupBy(Rows(gen), Rows(dom), aggregate=Sum(field=age))"),
+    ("c", "GroupBy(Rows(edu), Rows(gen), Rows(dom), Rows(reg), "
+          "aggregate=Sum(field=age))"),
+    ("c", "GroupBy(Rows(edu), Rows(gen), filter=Row(a=1), "
+          "aggregate=Sum(field=age))"),
+    ("c", "GroupBy(Rows(edu), Rows(gen), aggregate=Max(field=age))"),
+    ("c", "GroupBy(Rows(dom), Rows(reg), aggregate=Min(field=sv))"),
+    ("c", "GroupBy(Rows(edu), Rows(dom), aggregate=Sum(field=sv))"),
+    ("c", "GroupBy(Rows(gen), Rows(a), aggregate=Sum(field=age))"),
+    ("c", "Min(field=age)"),
+    ("c", "Max(Row(a=1), field=age)"),
+    ("c", "Distinct(field=age)"),
+    ("c", "Distinct(Row(gen=1), field=sv)"),
+]
+
+
 def jax_state(h) -> dict:
     """The state dict, filled from the JAX holder's public attributes."""
     out = {"width": h.width, "indexes": {}}
@@ -117,10 +165,39 @@ def _dense(h, opts, ftype, tq_opts):
     return h
 
 
+def _categorical(h, opts, ftype):
+    """The able shape at small size: disjoint categorical fields edu,
+    gen, dom, reg (a digit >= R means absent), an overlapping set field
+    a, an unsigned BSI age and a signed BSI sv."""
+    rng = np.random.default_rng(23)
+    width, n_shards = h.width, 3
+    idx = h.create_index("c")
+    cols = np.arange(width * n_shards)
+    for name, n, spread in (("edu", 6, 8), ("gen", 2, 2), ("dom", 5, 8),
+                            ("reg", 4, 4)):
+        digit = rng.integers(0, spread, size=cols.size)
+        keep = digit < n
+        idx.create_field(name).import_bits(digit[keep], cols[keep])
+    a = idx.create_field("a")
+    pick = rng.integers(0, 2, size=cols.size).astype(bool)
+    a.import_bits(np.ones(int(pick.sum()), np.int64), cols[pick])
+    age = idx.create_field("age", opts(type=ftype.INT, min=0, max=127))
+    age.import_values(cols, rng.integers(0, 128, size=cols.size))
+    sv = idx.create_field("sv", opts(type=ftype.INT, min=-100, max=100))
+    vcols = cols[rng.integers(0, 3, size=cols.size) > 0]
+    sv.import_values(vcols, rng.integers(-100, 101, size=vcols.size))
+    return h
+
+
 def _norm(results):
     out = []
     for r in results:
-        if hasattr(r, "columns"):
+        if isinstance(r, list) and r and hasattr(r[0], "group"):
+            out.append([(tuple((g["field"], g["row_id"]) for g in gc.group),
+                         gc.count, gc.agg, gc.agg_count) for gc in r])
+        elif hasattr(r, "values") and not callable(r.values):
+            out.append(list(r.values))
+        elif hasattr(r, "columns"):
             out.append(r.columns().tolist())
         elif isinstance(r, list):
             out.append([(p.id, p.count) for p in r])
@@ -137,8 +214,10 @@ def holders():
     jd = _dense(JaxHolder(width=2048), JaxFieldOptions, JaxFieldType,
                 JaxFieldOptions(type=JaxFieldType.TIME,
                                 time_quantum=JaxTimeQuantum("YMD")))
+    jc = _categorical(JaxHolder(width=2048), JaxFieldOptions, JaxFieldType)
     return {"i": (jh, holder_from_state(jax_state(jh))),
-            "d": (jd, holder_from_state(jax_state(jd)))}
+            "d": (jd, holder_from_state(jax_state(jd))),
+            "c": (jc, holder_from_state(jax_state(jc)))}
 
 
 _CASES = [("i", q) for q in QUERIES] + [("d", q) for q in DENSE_QUERIES]
@@ -153,6 +232,52 @@ def test_execute_matches_jax(holders, monkeypatch, pallas, index, query):
     want = _norm(JaxExecutor(jh).execute(index, query))
     got = _norm(Executor(ph, device="cpu").execute(index, query))
     assert got == want
+
+
+# the JAX package's GroupBy arms: its defaults (the host histogram
+# and the XLA per-combo scan on the CPU), its fused one-pass Pallas
+# kernel and its per-combo Pallas kernel, both in interpret mode
+_JAX_GROUPBY_ARMS = {
+    "default": {},
+    "fused": {"PILOSA_TPU_GROUPBY_ONEPASS_ARM": "fused"},
+    "kernel": {"PILOSA_TPU_GROUPBY_KERNEL": "1"},
+}
+
+
+@pytest.mark.parametrize("arm", list(_JAX_GROUPBY_ARMS))
+@pytest.mark.parametrize("index,query", GROUPBY_QUERIES)
+def test_groupby_minmax_distinct_match_jax(holders, monkeypatch, arm, index,
+                                           query):
+    for k, v in _JAX_GROUPBY_ARMS[arm].items():
+        monkeypatch.setenv(k, v)
+    jh, ph = holders[index]
+    want = _norm(JaxExecutor(jh).execute(index, query))
+    got = _norm(Executor(ph, device="cpu").execute(index, query))
+    assert got == want
+
+
+def test_groupby_sees_writes(holders):
+    """The group-code stack and the disjointness cache follow fragment
+    versions: a write between two GroupBys shows in the second."""
+    ph = holder_from_state(holder_state(holders["c"][1]))
+    ex = Executor(ph, device="cpu")
+    q = "GroupBy(Rows(gen), Rows(dom), aggregate=Sum(field=age))"
+    before = {tuple(g["row_id"] for g in gc.group): (gc.count, gc.agg)
+              for gc in ex.execute("c", q)[0]}
+    idx = ph.index("c")
+
+    def has(fname, row, c):
+        words = idx.field(fname).views["standard"].fragments[0].row_words(row)
+        return bool(words[c >> 5] >> (c & 31) & 1)
+
+    # a column of gen row 1 in no dom row: dom stays disjoint
+    col = next(c for c in range(ph.width)
+               if has("gen", 1, c) and not any(has("dom", r, c)
+                                               for r in range(5)))
+    idx.field("dom").import_bits([0], [col])
+    after = {tuple(g["row_id"] for g in gc.group): (gc.count, gc.agg)
+             for gc in ex.execute("c", q)[0]}
+    assert after[(1, 0)][0] == before[(1, 0)][0] + 1
 
 
 def _same_state(a, b):
@@ -218,11 +343,26 @@ def test_state_round_trip(holders):
 
 
 @pytest.mark.parametrize("query", [
-    "GroupBy(Rows(f))", "Count(Distinct(field=g))", "Min(field=b)",
+    "GroupBy(Rows(f), aggregate=Count(Distinct(field=g)))",
+    "Percentile(field=b, nth=50)", "Extract(All(), Rows(f))",
     "Row(f='key')", "Rows(f)"])
 def test_calls_not_ported_yet_raise(holders, query):
     with pytest.raises(ExecError):
         Executor(holders["i"][1], device="cpu").execute("i", query)
+
+
+@pytest.mark.parametrize("query", [
+    "Max(field=dec)",                                  # depth 20 > 19
+    "Distinct(field=dec)",
+    "GroupBy(Rows(m), aggregate=Min(field=dec))",      # depth 20 > 16
+    "GroupBy(Rows(s), aggregate=Max(field=v))",        # overlapping rows
+    "Distinct(field=s)",                               # set field
+])
+def test_host_fallbacks_not_ported_yet_raise(holders, query):
+    """What the JAX package answers with its host loops (the per-shard
+    Min/Max walk, the decode stream, set-field Distinct) raises."""
+    with pytest.raises(ExecError, match="not ported yet"):
+        Executor(holders["d"][1], device="cpu").execute("d", query)
 
 
 def test_writes_are_seen_by_the_next_query(holders):

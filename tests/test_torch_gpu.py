@@ -83,6 +83,92 @@ def test_bsi_sum_counts(cuda, depth, s, w, filtered):
     _same(K.bsi_sum_counts(planes, filt), K.bsi_sum_counts_plain(planes, filt))
 
 
+# groupby_fused: (S, CB, W, depth, signed, n_codes).  W = 200/2049 are
+# ragged against the 2048-word tile; CB = 0 is the one-code case; the
+# last two tables exceed shared memory and take global atomics
+_FUSED = [
+    (3, 7, 200, 7, False, 128),
+    (3, 7, 2049, 7, True, 128),
+    (2, 0, 201, 3, True, 1),
+    (5, 9, 1000, 7, True, 512),
+    (2, 3, 64, 1, True, 8),
+    (2, 5, 300, 20, True, 32),
+    (2, 2, 300, 40, False, 4),
+    (2, 12, 700, 16, True, 4096),
+    (3, 20, 100, 0, True, 1 << 20),
+]
+
+
+@pytest.mark.parametrize("s,cb,w,depth,signed,g", _FUSED)
+@pytest.mark.parametrize("minmax", [False, True])
+def test_groupby_fused(cuda, s, cb, w, depth, signed, g, minmax):
+    if minmax and not 1 <= depth <= K.GB_MINMAX_MAX_DEPTH:
+        pytest.skip("minmax takes depth 1..30")
+    cp = _words((s, cb, w), cuda, 7)
+    valid = _words((s, w), cuda, 8)
+    planes = _words((s, 2 + depth, w), cuda, 9) if depth else None
+    before = K.LAUNCHES["groupby_fused"]
+    got = K.groupby_fused(cp, valid, planes, g, signed, minmax=minmax)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["groupby_fused"] == before + 1
+    want = K.groupby_codes_plain(cp, valid, planes, g, signed, minmax=minmax)
+    for a, b in zip(got, want):
+        if a is None:
+            assert b is None
+        else:
+            _same(a, b)
+
+
+def test_groupby_fused_all_invalid_and_views(cuda):
+    """An all-zero valid plane adds nothing; views with the shard stride
+    of a larger stack (the engine's group-code stack, a BSI stack's
+    sign and magnitude planes) read the same words as copies."""
+    cg = _words((4, 8, 2048), cuda, 10)
+    planes = _words((4, 9, 2048), cuda, 11)
+    zero = torch.zeros((4, 2048), dtype=torch.int32, device=cuda)
+    got = K.groupby_fused(cg[:, :-1], zero, planes, 128, minmax=True)
+    assert all(int(x.abs().sum()) == 0 for x in got[:4])
+    assert got[4].tolist() == [[-1] * 128, [128] * 128] * 2
+    _same(K.groupby_fused(cg[:, :-1], cg[:, -1], planes, 128)[1],
+          K.groupby_fused(cg[:, :-1].contiguous(), cg[:, -1].contiguous(),
+                          planes, 128)[1])
+    _same(K.bsi_value_hist(planes, cg[:, 0]),
+          K.bsi_value_hist_plain(planes, cg[:, 0]))
+    _same(K.bsi_value_hist(planes), K.bsi_value_hist_plain(planes))
+
+
+# groupby_sum: (field row counts, C, S, W, depth, signed)
+_SUM = [
+    ((4,), 1, 3, 200, 7, True),
+    ((4, 2), 8, 3, 2049, 7, True),
+    ((3, 2, 5), 30, 2, 1000, 5, False),
+    ((2, 2, 2, 2), 16, 2, 513, 1, True),
+    ((40, 30), 1100, 2, 64, 3, True),
+    ((5, 3), 15, 2, 300, 63, True),
+    ((5, 3), 15, 2, 300, 0, True),
+]
+
+
+@pytest.mark.parametrize("rows,c,s,w,depth,signed", _SUM)
+def test_groupby_sum(cuda, rows, c, s, w, depth, signed):
+    stacks = [_words((r, s, w), cuda, 12 + i) for i, r in enumerate(rows)]
+    g = torch.Generator()
+    g.manual_seed(c)
+    sel = torch.stack([torch.randint(0, r, (c,), generator=g) for r in rows],
+                      dim=1).to(torch.int32).to(cuda)
+    planes = _words((s, 2 + depth, w), cuda, 20) if depth else None
+    before = K.LAUNCHES["groupby_sum"]
+    got = K.groupby_sum(stacks, sel, planes, signed)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["groupby_sum"] == before + 1
+    want = K.groupby_sum_plain(stacks, sel, planes, signed)
+    for a, b in zip(got, want):
+        if a is None:
+            assert b is None
+        else:
+            _same(a, b)
+
+
 def test_empty_inputs_launch_nothing(cuda):
     before = dict(K.LAUNCHES)
     x = torch.zeros((0, 16), dtype=torch.int32, device=cuda)
@@ -104,15 +190,22 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
     f = idx.create_field("f", FieldOptions(cache_type="none"))
     v = idx.create_field("v", FieldOptions(type=FieldType.INT,
                                            min=-500, max=500))
+    cat = idx.create_field("cat")
     cols = rng.integers(0, 4096 * 5, size=20000)
     f.import_bits(rng.integers(0, 6, size=cols.size), cols)
     v.import_values(cols[:5000], rng.integers(-500, 501, size=5000))
+    every = np.arange(4096 * 5)
+    cat.import_bits(rng.integers(0, 7, size=every.size), every)
     idx.mark_columns_exist(cols)
     queries = ["Count(Intersect(Row(f=1), Row(f=2)))", "Count(Row(f=3))",
                "Count(Not(Row(f=1)))", "TopN(f, n=4)",
                "TopN(f, Union(Row(f=1), Row(v > 3)), n=4)",
                "Sum(field=v)", "Sum(Row(f=2), field=v)",
-               "Count(Row(-20 < v < 300))", "Row(v == 7)"]
+               "Count(Row(-20 < v < 300))", "Row(v == 7)",
+               "GroupBy(Rows(cat), aggregate=Sum(field=v))",
+               "GroupBy(Rows(cat), filter=Row(f=1), aggregate=Max(field=v))",
+               "GroupBy(Rows(f), Rows(cat), aggregate=Sum(field=v))",
+               "Min(field=v)", "Max(Row(f=2), field=v)", "Distinct(field=v)"]
     on_card, on_cpu = Executor(h), Executor(h, device="cpu")
     K.reset_launches()
     for q in queries:
