@@ -9,24 +9,43 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card   — nvidia-smi name and power limit, torch's device name
 2. build  — nvcc builds every kernel from pilosa_tpu_torch/ops/csrc
-3. kernels — each of the six CUDA kernels at the query path's shapes
+3. kernels — each of the eight CUDA kernels at the query path's shapes
    (954 shards x 32768 words, 8 TopN rows, BSI depth 7, with and
-   without a filter; the GroupBy histogram at the able shape of 7 code
-   bits, signed, unsigned and with Min/Max, at 9 code bits (240
+   without a filter; masked_popcount at one shard's (8, 32768) and
+   (256, 32768) row chunks; the GroupBy histogram at the able shape of 7
+   code bits, signed, unsigned and with Min/Max, at 9 code bits (240
    combos), as the value histogram of age, and past shared memory at
-   4096 codes x depth 16 on 64 shards; the per-combo kernel at the 8
-   combos of GroupBy(Rows(t), Rows(a))) on seeded random words, held
-   to its plain PyTorch version exactly (integer outputs, tolerance 0),
-   then timed with CUDA events beside its bound; and a disjoint field
-   of 2, 4 and 8 rows through both GroupBy arms, held equal and timed
+   4096 codes x depth 16 on 64 shards; the one-hot histogram at the able
+   shape, signed and unsigned, at 9 code bits and as the value
+   histogram, each also held equal to groupby_fused and timed beside it
+   on the same inputs; the per-combo kernel at the 8 combos of
+   GroupBy(Rows(t), Rows(a))) on seeded random words, held to its plain
+   PyTorch version exactly (integer outputs, tolerance 0), then timed
+   with CUDA events beside its bound; and a disjoint field of 2, 4 and
+   8 rows through both GroupBy arms, held equal and timed
 4. main path — the headline index (954 shards x 2^20 columns, random-
    word fields a, b, t, a 7-plane BSI field age and the disjoint
    categorical fields edu, gen, dom, reg, about 4.6 GB of words on the
-   card) built through the port's model API and queried through
-   Executor.execute: the headline queries, GroupBy (one-pass and per
-   combo), Min, Max and Distinct.  Every answer is held exactly to an
-   independent numpy reference, and every kernel's launch counter must
-   have grown during this phase
+   card, plus a depth-40 field ts on the first 64 shards) built through
+   the port's model API and queried through Executor.execute, every
+   answer held exactly to an independent numpy reference:
+   4.  the stacked engine (the default executor): the headline queries,
+       GroupBy (one pass and per combo), Min, Max and Distinct, whose
+       kernel launches must equal STACKED_LAUNCHES;
+   4a. the per-shard engine (use_stacked = False) at full width: the
+       headline queries, TopK, MinRow/MaxRow, set-field Distinct, Min
+       and Max of age and the able GroupBy Sum, each timed beside the
+       stacked engine; BSI Distinct (a host decode) on 16 shards;
+       masked_popcount must launch during TopN/TopK;
+   4b. the fallbacks on the default executor: Min, Max and Distinct of
+       ts (depth 40), GroupBy Max of ts, GroupBy Min over the
+       overlapping t rows and Count(Distinct), the host loops on the 64
+       shards of ts; the executor's path counter must show each route;
+   4c. the one-hot arm (onepass_arm = "onehot"): the disjoint GroupBy
+       Sums and Min, Max and Distinct of age, timed beside the fused arm;
+       groupby_onehot must launch.
+   Each phase's launches are counted from 0; every kernel must have
+   launched over 4-4c
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -46,24 +65,47 @@ S, W, R, DEPTH = 954, 32768, 8, 7
 S_WIDE = 64                 # shards of the over-shared-memory histogram
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 non-tensor 32-bit peak, used for bit ops
+INT8_TENSOR_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
 SRC = {
     "popcount_rows": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
     "pair_popcount": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
+    "masked_popcount": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
     "rows_filter_counts": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
     "bsi_sum_counts": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
     "groupby_fused": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
+    "groupby_onehot": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
     "groupby_sum": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
 }
 REPLACES = {
     "popcount_rows": "pilosa_tpu/ops/kernels.py:128",
     "pair_popcount": "pilosa_tpu/ops/kernels.py:160",
+    "masked_popcount": "pilosa_tpu/ops/kernels.py:201",
     "rows_filter_counts": "pilosa_tpu/ops/kernels.py:310",
     "bsi_sum_counts": "pilosa_tpu/ops/kernels.py:251",
     "groupby_fused": "pilosa_tpu/ops/kernels.py:867",
+    "groupby_onehot": "pilosa_tpu/ops/kernels.py:656",
     "groupby_sum": "pilosa_tpu/ops/kernels.py:411",
 }
+# the stacked engine's launches over phase 4's six runs of its query set
+STACKED_LAUNCHES = {"popcount_rows": 36, "pair_popcount": 6,
+                    "masked_popcount": 0, "rows_filter_counts": 6,
+                    "bsi_sum_counts": 12, "groupby_fused": 48,
+                    "groupby_onehot": 0, "groupby_sum": 6}
 # categorical fields of the able GroupBy (bench/common.py:129): rows
 CATEGORIES = {"edu": 6, "gen": 2, "dom": 5, "reg": 4}
+ABLE_SUM = "GroupBy(Rows(edu), Rows(gen), Rows(dom), aggregate=Sum(field=age))"
+# the one-hot arm's queries: the disjoint GroupBy Sums and the value
+# histogram's Min, Max and Distinct
+ONEHOT_QUERIES = [
+    ABLE_SUM,
+    "GroupBy(Rows(gen), Rows(dom), aggregate=Sum(field=age))",
+    "GroupBy(Rows(edu), Rows(gen), Rows(dom), Rows(reg), "
+    "aggregate=Sum(field=age))",
+    "GroupBy(Rows(edu), Rows(gen), filter=Row(a=1), aggregate=Sum(field=age))",
+    "Min(field=age)", "Max(Row(a=1), field=age)", "Distinct(field=age)"]
+S_DECODE = 16      # shards of the per-shard BSI Distinct (a host decode)
+S_DEEP = 64        # shards holding the depth-40 field ts
+TS_BASE = 1 << 39
 
 
 def card_line() -> str:
@@ -88,9 +130,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device milliseconds of one kernel per call of fn(), from
+    torch.profiler's CUDA activity: the kernel alone, without the
+    wrapper's host work or the output's zero fill."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    if not count:
+        raise AssertionError(f"the profiler saw no {kernel}")
+    return sum(e.device_time_total for e in events) / count / 1e3
+
+
+def bound(nbytes: int, ops: int,
+          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -104,6 +166,29 @@ def random_words(gen, shape, device):
     return x
 
 
+def max_abs_err(label: str, got, want) -> int:
+    """Largest |kernel - plain| over the outputs (integers); raises when
+    the outputs differ in number, shape or dtype."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} outputs vs {len(want)}")
+    err = 0
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            if g is not w:
+                raise AssertionError(f"{label}: None mismatch")
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label}: kernel {g.shape} {g.dtype} vs "
+                                 f"plain {w.shape} {w.dtype}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
 def _increments(out) -> int:
     """Histogram increments of a groupby_fused result: the sum of its
     table, what this run's data made the kernel add."""
@@ -114,7 +199,8 @@ def _increments(out) -> int:
 
 def phase_kernels(device) -> dict:
     """Each kernel against its plain version at main-path shapes, then
-    timed.  Returns per-kernel records (launches filled in later)."""
+    timed (the one-hot histogram also beside groupby_fused).  Returns
+    per-kernel records (launches filled in later)."""
     import torch
     from pilosa_tpu_torch.ops import kernels as K
 
@@ -189,6 +275,47 @@ def phase_kernels(device) -> dict:
          + R * (2 + 2 * DEPTH) * 4,
          R * (2 + 2 + 5 * DEPTH) * words, 20, 1),
     ]
+
+    def tensor_ops(k, g):
+        # the one-hot design's int8 tensor work: 2*K*G operations a
+        # column, unpadded, over every column of the stack
+        return 2 * k * g * words * 32
+
+    # the one-hot histogram: bytes as groupby_fused reads them; its
+    # operations are tensor work, at the int8 tensor rate
+    onehot_cases = [
+        ("groupby_onehot", f"able ({S}, 7, {W}) + ({S}, {2 + DEPTH}, {W}) "
+         "unsigned, G=128, K=9",
+         lambda: K.groupby_onehot(able, a, planes, 128, signed=False),
+         lambda: K.groupby_codes_plain(able, a, planes, 128, signed=False),
+         hist_bytes(7, False) + (2 + DEPTH) * 128 * 4,
+         tensor_ops(2 + DEPTH, 128), 20, 1,
+         lambda: K.groupby_fused(able, a, planes, 128, signed=False)),
+        ("groupby_onehot", "able signed, G=128, K=16",
+         lambda: K.groupby_onehot(able, a, planes, 128),
+         lambda: K.groupby_codes_plain(able, a, planes, 128),
+         hist_bytes(7, True) + (2 + 2 * DEPTH) * 128 * 4,
+         tensor_ops(2 + 2 * DEPTH, 128), 20, 1,
+         lambda: K.groupby_fused(able, a, planes, 128)),
+        ("groupby_onehot", f"240 combos ({S}, 9, {W}) + ({S}, {2 + DEPTH}, "
+         f"{W}) unsigned, G=512, K=9",
+         lambda: K.groupby_onehot(codes, a, planes, 512, signed=False),
+         lambda: K.groupby_codes_plain(codes, a, planes, 512, signed=False),
+         hist_bytes(9, False) + (2 + DEPTH) * 512 * 4,
+         tensor_ops(2 + DEPTH, 512), 20, 1,
+         lambda: K.groupby_fused(codes, a, planes, 512, signed=False)),
+        ("groupby_onehot", f"bsi_value_hist of age ({S}, {2 + DEPTH}, {W}), "
+         "G=256, K=1",
+         lambda: K.bsi_value_hist(planes, gb=K.groupby_onehot),
+         lambda: K.bsi_value_hist_plain(planes),
+         K.groupby_onepass_hbm_bytes(S, W, DEPTH + 1) + 256 * 4,
+         tensor_ops(1, 256), 20, 1,
+         lambda: K.bsi_value_hist(planes)),
+    ]
+    # the per-shard TopN loop's shapes: a chunk of one shard's rows
+    # (contiguous) against that shard's filter words
+    mask = a[0].contiguous()
+    flat_rows = rows.view(R * S, W)
     cases = [
         # name, shape label, kernel call, plain call, bytes, word-ops
         ("popcount_rows", f"({S}, {W})", lambda: K.popcount_rows(a),
@@ -214,41 +341,54 @@ def phase_kernels(device) -> dict:
          lambda: K.bsi_sum_counts_plain(planes, None),
          (2 + DEPTH) * stack + S * (1 + 2 * DEPTH) * 4,
          (4 + 6 * DEPTH) * S * W),
+        ("masked_popcount", f"(8, {W}) & ({W},)",
+         lambda: K.masked_popcount(flat_rows[:8], mask),
+         lambda: K.masked_popcount_plain(flat_rows[:8], mask),
+         9 * W * 4 + 8 * 4, 3 * 8 * W),
+        ("masked_popcount", f"(256, {W}) & ({W},)",
+         lambda: K.masked_popcount(flat_rows[:256], mask),
+         lambda: K.masked_popcount_plain(flat_rows[:256], mask),
+         257 * W * 4 + 256 * 4, 3 * 256 * W),
     ]
-    cases = [c + (50, 3) for c in cases] + gb_cases
+    cases = ([c + (50, 3, None) for c in cases] + [c + (None,) for c in gb_cases]
+             + onehot_cases)
     records = {}
-    for name, label, kern, plain, nbytes, ops, reps, plain_reps in cases:
+    for (name, label, kern, plain, nbytes, ops, reps, plain_reps,
+         beside) in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        if len(got) != len(want):
-            raise AssertionError(f"{name} {label}: {len(got)} outputs vs "
-                                 f"{len(want)}")
-        err = 0
-        for g, w in zip(got, want):
-            if g is None or w is None:
-                if g is not w:
-                    raise AssertionError(f"{name} {label}: None mismatch")
-                continue
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"{name} {label}: kernel {g.shape} "
-                                     f"{g.dtype} vs plain {w.shape} {w.dtype}")
-            if g.numel():
-                err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                                   .abs().max()))
+        err = max_abs_err(f"{name} {label}", got, want)
         if err != 0:
             raise AssertionError(f"{name} {label}: kernel differs from "
                                  f"its plain version, max |err| {err}")
         n_ops = ops(got) if callable(ops) else ops
         ms = cuda_ms(kern, reps=reps)
+        if name == "masked_popcount":
+            # back to back, the calls measure the wrapper's host work; the
+            # kernel's own time comes from the profiler
+            host_ms, ms = ms, device_ms(kern, "masked_popcount_kernel")
+            print(f"kernel {name} {label}: {host_ms:.4f} ms a call back to "
+                  f"back through the wrapper (its host work), {ms:.4f} ms "
+                  "of kernel (profiler)")
         plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
-        bound_ms, bound_by = bound(nbytes, n_ops)
+        rate = INT8_TENSOR_OPS_PER_S if name == "groupby_onehot" else OPS_PER_S
+        bound_ms, bound_by = bound(nbytes, n_ops, rate)
         print(f"kernel {name} {label}: exact vs plain; {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
               f"{bound_by} ({bound_ms / ms:.1%} of bound; {nbytes} bytes, "
               f"{n_ops} ops), library none (no single PyTorch call "
               "computes this from packed words)")
+        if beside is not None:
+            # the fused histogram on the same inputs: equal, timed in turn
+            if max_abs_err(f"{name} {label} vs groupby_fused", got,
+                           beside()) != 0:
+                raise AssertionError(f"{name} {label}: differs from "
+                                     "groupby_fused")
+            fused_ms = cuda_ms(beside, reps=reps)
+            again_ms = cuda_ms(kern, reps=reps)
+            print(f"kernel {name} {label}: equal to groupby_fused; "
+                  f"one-hot {ms:.4f} / {again_ms:.4f} ms, fused "
+                  f"{fused_ms:.4f} ms on the same inputs")
         records.setdefault(name, {
             "name": name, "route": "cuda", "source": SRC[name],
             "replaces": REPLACES[name], "launches": 0,
@@ -483,15 +623,172 @@ def normalise(res):
         return [(p.id, p.count) for p in res]
     if hasattr(res, "values") and not callable(res.values):
         return list(res.values)
+    if hasattr(res, "columns"):
+        return res.columns().tolist()
     if hasattr(res, "value"):
         return (res.value, res.count)
+    if hasattr(res, "id"):
+        return (res.id, res.count)
     return res
 
 
+def unpack(words):
+    """(..., W) uint32 words → (..., W*32) uint8 0/1 per column."""
+    import numpy as np
+    return np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                         axis=-1, bitorder="little")
+
+
+def digits(planes):
+    """Per-column digit of a categorical field from its digit planes."""
+    import numpy as np
+    out = np.zeros(planes.shape[1:-1] + (planes.shape[-1] * 32,), np.uint8)
+    for b in range(planes.shape[0]):
+        out |= unpack(planes[b]) << np.uint8(b)
+    return out
+
+
+def loop_answers(data, headline, groupby) -> tuple[dict, dict]:
+    """Phase 4a's reference: the queries answered at full width, and
+    those on a leading subset of shards (query -> (shards, answer))."""
+    import numpy as np
+    a, t, planes = data["a"], data["t"], data["age"]
+
+    def pc(x):
+        return int(np.bitwise_count(x).sum(dtype=np.int64))
+
+    full = dict(headline)
+    full["TopK(t, Row(a=1), k=8)"] = headline["TopN(t, Row(a=1), n=8)"]
+    full["MinRow(field=t)"] = (0, 1)
+    # per shard the highest row under the filter, shard 0 first; a later
+    # shard's equal row id does not replace it, and counts never sum
+    full["MaxRow(Row(a=1), field=t)"] = (R - 1, pc(t[R - 1, 0] & a[0]))
+    full["Distinct(Row(a=1), field=t)"] = [r for r in range(R)
+                                           if pc(t[r] & a)]
+    for q in ("Min(field=age)", "Max(Row(a=1), field=age)", ABLE_SUM):
+        full[q] = groupby[q]
+    sub = list(range(S_DECODE))
+    vals = np.zeros((S_DECODE, W * 32), np.uint8)
+    for p in range(DEPTH):
+        vals |= unpack(planes[p, :S_DECODE]) << np.uint8(p)
+    subset = {"Distinct(field=age)": (
+        sub, [int(v) for v in np.unique(vals)])}
+    return full, subset
+
+
+def add_deep_field(h, rng):
+    """An INT field ts of depth 40 on every column of the first S_DEEP
+    shards: 2^39 plus a uniform second of one day.  Written as planes
+    through the model API; returns the seconds (S_DEEP, W*32)."""
+    import numpy as np
+    from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+    idx = h.index("bench")
+    ts = idx.create_field("ts", FieldOptions(type=FieldType.INT, min=0,
+                                             max=(1 << 40) - 1))
+    view = ts.view(ts.bsi_view, create=True)
+    secs = rng.integers(0, 86400, size=(S_DEEP, W * 32), dtype=np.int32)
+    full = np.full(W, 0xFFFFFFFF, dtype=np.uint32)
+    for shard in range(S_DEEP):
+        frag = view.fragment(shard, create=True)
+        frag.import_row_words(0, full)                   # exists
+        frag.import_row_words(2 + 39, full)              # the 2^39 bit
+        for p in range(17):                              # 86399 < 2^17
+            bits = ((secs[shard] >> p) & 1).astype(np.uint8)
+            frag.import_row_words(2 + p, np.packbits(
+                bits, bitorder="little").view(np.uint32))
+    return secs
+
+
+def deep_answers(data, secs) -> dict:
+    """Phase 4b's reference over the deep field's S_DEEP shards."""
+    import numpy as np
+    sl = slice(0, S_DEEP)
+    abits = unpack(data["a"][sl]).astype(bool)
+    tbits = unpack(data["t"][:, sl]).astype(bool)
+    age = np.zeros((S_DEEP, W * 32), np.uint8)
+    for p in range(DEPTH):
+        age |= unpack(data["age"][p, sl]) << np.uint8(p)
+    edu, gen = digits(data["edu"][:, sl]), digits(data["gen"][:, sl])
+    lo = int(secs.min())
+    hi_a = int(secs[abits].max())
+    max_groups = []
+    for r in range(CATEGORIES["edu"]):
+        for g in range(CATEGORIES["gen"]):
+            m = (edu == r) & (gen == g)
+            n = int(m.sum())
+            if n:
+                max_groups.append(((r, g), n, TS_BASE + int(secs[m].max()),
+                                   n))
+    min_groups = []
+    for r in range(R):
+        m = tbits[r] & abits
+        n = int(m.sum())
+        if n:
+            min_groups.append(((r, 1), n, int(age[m].min()), n))
+    distinct_groups = []
+    for g in range(CATEGORIES["gen"]):
+        m = gen == g
+        n = int(m.sum())
+        k = sum(bool((m & (edu == r)).any()) for r in range(CATEGORIES["edu"]))
+        if n:
+            distinct_groups.append(((g,), n, k, k))
+    return {
+        "Min(field=ts)": (None, (TS_BASE + lo, int((secs == lo).sum()))),
+        "Max(Row(a=1), field=ts)": (S_DEEP, (TS_BASE + hi_a,
+                                             int((secs[abits] == hi_a).sum()))),
+        "Distinct(field=ts)": (None, [TS_BASE + int(v)
+                                      for v in np.unique(secs)]),
+        "GroupBy(Rows(edu), Rows(gen), aggregate=Max(field=ts))":
+            (S_DEEP, max_groups),
+        "GroupBy(Rows(t), Rows(a), aggregate=Min(field=age))":
+            (S_DEEP, min_groups),
+        "GroupBy(Rows(gen), aggregate=Count(Distinct(field=edu)))":
+            (S_DEEP, distinct_groups),
+    }
+
+
+def run_queries(ex, label: str, want: dict, reps: int,
+                shards=None) -> dict:
+    """Each query cold and then reps times warm through Executor.execute,
+    held exactly to its answer; returns query -> warm p50 (ms)."""
+    import torch
+    p50 = {}
+    for q, expect in want.items():
+        t0 = time.perf_counter()
+        got = normalise(ex.execute("bench", q, shards=shards)[0])
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        if got != expect:
+            raise AssertionError(f"{label} {q}: port {str(got)[:200]} != "
+                                 f"numpy {str(expect)[:200]}")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = normalise(ex.execute("bench", q, shards=shards)[0])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if again != expect:
+                raise AssertionError(f"{label} {q}: repeat gave "
+                                     f"{str(again)[:200]}")
+        p50[q] = statistics.median(times) * 1e3
+        print(f"{label}: {q} = {str(got)[:60]} exact; first "
+              f"{cold * 1e3:.2f} ms, warm p50 {p50[q]:.3f} ms over {reps}")
+    return p50
+
+
+def launches_of(run) -> tuple[dict, object]:
+    """The kernel launches of run(), counts set to 0 just before it."""
+    from pilosa_tpu_torch.ops import kernels as K
+    K.reset_launches()
+    out = run()
+    return dict(K.LAUNCHES), out
+
+
 def phase_main_path(device, reps: int = 5) -> dict:
+    """Phases 4 to 4c; returns each kernel's launches summed over them."""
+    import numpy as np
     import torch
     from pilosa_tpu_torch.executor.executor import Executor
-    from pilosa_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
     h, data = build_index()
@@ -499,36 +796,99 @@ def phase_main_path(device, reps: int = 5) -> dict:
     t0 = time.perf_counter()
     headline, groupby = numpy_answers(data)
     want = {**headline, **groupby}
-    print(f"main: numpy reference in {time.perf_counter() - t0:.1f} s")
-    del data
+    loop_full, loop_subset = loop_answers(data, headline, groupby)
+    secs = add_deep_field(h, np.random.default_rng(11))
+    deep = deep_answers(data, secs)
+    print(f"main: numpy reference and the deep field ts in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del data, secs
+    totals: dict = {}
+
+    def note(label, launches):
+        print(f"{label}: kernel launches {launches}")
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+
+    # 4: the stacked engine (the default executor)
+    t0 = time.perf_counter()
     ex = Executor(h)
-    K.reset_launches()
-    for q, expect in want.items():
-        t0 = time.perf_counter()
-        got = normalise(ex.execute("bench", q)[0])
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        if got != expect:
-            raise AssertionError(f"{q}: port {got} != numpy {expect}")
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            again = normalise(ex.execute("bench", q)[0])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if again != expect:
-                raise AssertionError(f"{q}: repeat gave {again}")
-        print(f"main: {q} = {str(got)[:60]} exact; first "
-              f"{cold * 1e3:.2f} ms (stack upload), warm p50 "
-              f"{statistics.median(times) * 1e3:.3f} ms over {reps}")
-    launches = dict(K.LAUNCHES)
-    print(f"main: kernel launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    launches, stacked_p50 = launches_of(
+        lambda: run_queries(ex, "main", want, reps))
+    note("main", launches)
+    if launches != STACKED_LAUNCHES:
+        raise AssertionError(f"the stacked engine's launches {launches} "
+                             f"differ from {STACKED_LAUNCHES}")
+    print(f"main: {time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+
+    # 4a: the per-shard engine at full width
+    t0 = time.perf_counter()
+    lp = Executor(h)
+    lp.use_stacked = False
+    topn = {q: e for q, e in loop_full.items() if q.startswith("Top")}
+    rest = {q: e for q, e in loop_full.items() if q not in topn}
+    launches, loop_p50 = launches_of(
+        lambda: run_queries(lp, "per-shard", topn, 3))
+    if launches["masked_popcount"] == 0:
+        raise AssertionError("the per-shard TopN/TopK never launched "
+                             "masked_popcount")
+    more, rest_p50 = launches_of(lambda: run_queries(lp, "per-shard", rest, 3))
+    loop_p50.update(rest_p50)
+    for q, (sub, expect) in loop_subset.items():
+        got, _ = launches_of(lambda: run_queries(
+            lp, f"per-shard ({len(sub)} shards)", {q: expect}, 1, shards=sub))
+        for k, n in got.items():
+            more[k] += n
+    note("per-shard", {k: launches[k] + more[k] for k in launches})
+    for q, ms in loop_p50.items():
+        print(f"per-shard vs stacked: {q}: warm p50 {ms:.3f} ms per shard "
+              f"engine, {stacked_p50.get(q, float('nan')):.3f} ms stacked")
+    if any(route not in ("asked", "only_route") for _q, route in lp.paths):
+        raise AssertionError(f"per-shard routes {dict(lp.paths)}")
+    print(f"per-shard: {time.perf_counter() - t0:.1f} s; routes "
+          f"{dict(lp.paths)}")
+    del lp
+    torch.cuda.empty_cache()
+
+    # 4b: the fallbacks on the default executor
+    t0 = time.perf_counter()
+    ex.paths.clear()
+
+    def fallbacks():
+        for q, (n_shards, expect) in deep.items():
+            sub = None if n_shards is None else list(range(n_shards))
+            run_queries(ex, "fallback" + (f" ({n_shards} shards)" if sub
+                                          else ""), {q: expect}, 1, shards=sub)
+    launches, _ = launches_of(fallbacks)
+    note("fallback", launches)
+    routes = {("Min", "value_hist_depth"), ("Max", "value_hist_depth"),
+              ("Distinct", "value_hist_depth"), ("GroupBy", "groupby_minmax"),
+              ("GroupBy", "count_distinct")}
+    if set(ex.paths) != routes:
+        raise AssertionError(f"fallback routes {dict(ex.paths)}, expected "
+                             f"{sorted(routes)}")
+    print(f"fallback: {time.perf_counter() - t0:.1f} s; routes "
+          f"{dict(ex.paths)}")
+
+    # 4c: the one-hot arm
+    t0 = time.perf_counter()
+    oh = Executor(h)
+    oh.stacked.onepass_arm = "onehot"
+    onehot_want = {q: want[q] for q in ONEHOT_QUERIES}
+    launches, onehot_p50 = launches_of(
+        lambda: run_queries(oh, "onehot", onehot_want, reps))
+    note("onehot", launches)
+    if launches["groupby_onehot"] == 0:
+        raise AssertionError("the one-hot arm never launched groupby_onehot")
+    for q, ms in onehot_p50.items():
+        print(f"onehot vs fused: {q}: warm p50 {ms:.3f} ms one-hot arm, "
+              f"{stacked_p50[q]:.3f} ms fused arm")
+    print(f"onehot: {time.perf_counter() - t0:.1f} s")
+    missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main: device memory allocated "
-          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
-    return launches
+    print(f"main path: kernel launches over phases 4-4c {totals}")
+    return totals
 
 
 def main() -> int:

@@ -1,14 +1,30 @@
 """Executor — PQL call dispatch (executor.go:634-843).
 
 ``Executor(holder).execute(index, pql)`` parses the query and runs each
-call on the stacked engine (``stacked.py``): bitmap calls (Row, Range,
-Union, Intersect, Difference, Xor, Not, All, Shift and BSI conditions)
-return RowResults; Count, Sum and TopN/TopK reduce per-shard device
-partials into exact Python ints; GroupBy runs the one-pass histogram or
-the per-combo kernel; Min, Max and BSI Distinct read the value
-histogram.  Other calls, and the shapes the JAX package hands to its
-host loops, are not ported yet and raise ExecError; nothing falls back
-to another engine or to the CPU.
+call on one of two engines, both on the executor's device:
+
+- the **stacked engine** (``stacked.py``), by default: a call's bitmap
+  tree runs over ``(S, W)`` shard stacks, Count/Sum/TopN reduce
+  per-shard partials, GroupBy runs the one-pass histogram or the
+  per-combo kernel, and Min, Max and BSI Distinct read the value
+  histogram;
+- the **per-shard engine** (this module and ``advanced.py``), which
+  walks the shards one at a time over ``(W,)`` row tiles and
+  ``(2+d, W)`` plane tiles from its own device cache (``TileCache``),
+  as the JAX package's loop does.
+
+The per-shard engine runs in two cases only: the caller sets
+``use_stacked = False`` (the JAX package's oracle mode), or the stacked
+engine refuses a shape with ``Unstackable`` under the JAX package's
+named conditions (Min/Max past the value histogram's depth, GroupBy
+Min/Max over overlapping rows or past depth 16).  MinRow/MaxRow,
+set-field Distinct without a filter and the GroupBy aggregate
+Count(Distinct(...)) run on it always, as in the JAX package; BSI
+Distinct past the value histogram's depth takes the stacked engine's
+decode stream.  Every route is counted in ``Executor.paths[(call,
+route)]`` (route "stacked", "asked", or the refusal's reason).  Nothing
+else falls back: a failed build or launch raises.  On the card every
+popcount of either engine goes through a kernel.
 
 The executor runs on the CUDA card by default and raises when there
 is none; ``device="cpu"`` runs the kernels' plain versions on the CPU
@@ -18,6 +34,7 @@ is none; ``device="cpu"`` runs the kernels' plain versions on the CPU
 from __future__ import annotations
 
 import datetime as dt
+from collections import Counter
 from decimal import Decimal
 from fractions import Fraction
 from math import ceil, floor
@@ -26,21 +43,41 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.executor.advanced import AdvancedOps
-from pilosa_tpu_torch.executor.results import DistinctValues, RowResult, ValCount
-from pilosa_tpu_torch.executor.stacked import ExecError, StackedEngine
+from pilosa_tpu_torch.executor.results import (
+    DistinctValues,
+    Pair,
+    RowResult,
+    ValCount,
+)
+from pilosa_tpu_torch.executor.stacked import (
+    ExecError,
+    StackCache,
+    StackedEngine,
+    Unstackable,
+)
 from pilosa_tpu_torch.models import timeq
 from pilosa_tpu_torch.models.field import FALSE_ROW, TRUE_ROW, Field
 from pilosa_tpu_torch.models.holder import Holder
-from pilosa_tpu_torch.models.index import Index
+from pilosa_tpu_torch.models.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.models.schema import FieldType
+from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.pql import ast as past
 from pilosa_tpu_torch.pql import parse
-from pilosa_tpu_torch.pql.ast import Call, Query
+from pilosa_tpu_torch.pql.ast import Call, Condition, Query
 
 __all__ = ["Executor", "ExecError", "resolve_device"]
 
 _BITMAP_CALLS = {"Row", "Range", "Union", "Intersect", "Difference", "Xor",
                  "Not", "All", "Shift"}
+
+# per-shard tile cache bound; least recently used tiles go first
+_TILE_CACHE_MAX_BYTES = 16 << 30
+
+# rows per device batch in the per-shard engine's row scans
+_ROW_CHUNK = 256
 
 
 def resolve_device(device=None) -> torch.device:
@@ -55,11 +92,43 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+class TileCache:
+    """The per-shard engine's device tiles: a fragment row as a (W,)
+    tensor, a BSI fragment's planes as a (2+d, W) tensor, keyed by the
+    fragment's gen and the row (or the plane depth) and tagged with its
+    version, so a write re-uploads.  Least recently used tiles go first
+    past max_bytes.  Its own cache, apart from the stacked engine's
+    stacks: the two engines share no device state."""
+
+    def __init__(self, device: torch.device,
+                 max_bytes: int = _TILE_CACHE_MAX_BYTES):
+        self.device = device
+        self._cache = StackCache(max_bytes)
+
+    def row(self, frag, row: int) -> torch.Tensor:
+        return self._cache.get(
+            (frag.gen, row), frag.version,
+            lambda: bm.to_tensor(frag.row_words(row), self.device))
+
+    def planes(self, frag, depth: int) -> torch.Tensor:
+        return self._cache.get(
+            (frag.gen, "planes", depth), frag.version,
+            lambda: bm.to_tensor(np.stack(
+                [frag.row_words(r) for r in range(2 + depth)]), self.device))
+
+
 class Executor(AdvancedOps):
     def __init__(self, holder: Holder, device=None):
         self.holder = holder
         self.device = resolve_device(device)
         self.stacked = StackedEngine(self, self.device)
+        # False runs every call on the per-shard engine (the oracle the
+        # JAX package holds its stacked engine to)
+        self.use_stacked = True
+        self.tiles = TileCache(self.device)
+        # (call, route) -> calls: "stacked", "asked" (use_stacked is
+        # False), or why the per-shard engine took it
+        self.paths: Counter = Counter()
 
     # -- entry point (executor.Execute analog) -------------------------------
 
@@ -85,6 +154,9 @@ class Executor(AdvancedOps):
             return self._execute_topnk(idx, call, shards, "k")
         if name in ("Min", "Max"):
             return self._execute_minmax(idx, call, shards, name == "Min")
+        if name in ("MinRow", "MaxRow"):
+            return self._execute_minmax_row(idx, call, shards,
+                                            name == "MinRow")
         if name == "Distinct":
             return self._execute_distinct(idx, call, shards)
         if name == "GroupBy":
@@ -103,17 +175,123 @@ class Executor(AdvancedOps):
             return sorted(shards)
         return sorted(idx.available_shards) or [0]
 
+    def _try_stacked(self, name: str, run):
+        """(True, run()) when the stacked engine answers; (False, None)
+        when the per-shard engine must, because use_stacked is False or
+        the stacked engine refused the shape (Unstackable, raised before
+        any device work).  Counts the route either way."""
+        if not self.use_stacked:
+            self.paths[(name, "asked")] += 1
+            return False, None
+        try:
+            out = run()
+        except Unstackable as e:
+            self.paths[(name, e.reason)] += 1
+            return False, None
+        self.paths[(name, "stacked")] += 1
+        return True, out
+
     # -- bitmap calls --------------------------------------------------------
 
     def _bitmap_result(self, idx: Index, call: Call, shards) -> RowResult:
         out = RowResult(idx.width)
         shard_list = self._shard_list(idx, shards)
-        words = self.stacked.words(idx, call, shard_list)
+        done, words = self._try_stacked(
+            call.name, lambda: self.stacked.words(idx, call, shard_list))
+        if not done:
+            words = bm.to_numpy(torch.stack(
+                [self._bitmap_call_shard(idx, call, s) for s in shard_list]))
         if words is not None:
             for i, shard in enumerate(shard_list):
                 if words[i].any():
                     out.segments[shard] = words[i]
         return out
+
+    # -- the per-shard engine: bitmap calls on one shard ---------------------
+
+    def _zeros(self, idx: Index) -> torch.Tensor:
+        return torch.zeros(idx.width // 32, dtype=torch.int32,
+                           device=self.device)
+
+    def _bitmap_call_shard(self, idx: Index, call: Call, shard: int):
+        """A bitmap call on one shard → (W,) device words
+        (executeBitmapCallShard)."""
+        name = call.name
+        if name in ("Row", "Range"):
+            return self._row_shard(idx, call, shard)
+        if name in ("Union", "Xor"):
+            return self._nary(idx, call, shard,
+                              bm.union if name == "Union" else bm.xor)
+        if name in ("Intersect", "Difference"):
+            if not call.children:
+                raise ExecError(f"{name} requires at least one subquery")
+            return self._nary(idx, call, shard, bm.intersect
+                              if name == "Intersect" else bm.difference)
+        if name == "Not":
+            return bm.difference(
+                self._existence_shard(idx, shard),
+                self._bitmap_call_shard(idx, self._only_child(call), shard))
+        if name == "All":
+            return self._existence_shard(idx, shard)
+        if name == "Shift":
+            n = int(call.arg("n", 1))
+            return bm.shift(
+                self._bitmap_call_shard(idx, self._only_child(call), shard), n)
+        raise ExecError(f"{name} is not ported yet")
+
+    def _nary(self, idx, call: Call, shard: int, op):
+        if not call.children:
+            return self._zeros(idx)  # Union() and Xor() of nothing
+        acc = self._bitmap_call_shard(idx, call.children[0], shard)
+        for c in call.children[1:]:
+            acc = op(acc, self._bitmap_call_shard(idx, c, shard))
+        return acc
+
+    def _existence_shard(self, idx: Index, shard: int):
+        if not idx.track_existence:
+            raise ExecError(
+                "All()/Not() require existence tracking on the index")
+        v = idx.fields[EXISTENCE_FIELD].views.get(VIEW_STANDARD)
+        frag = v.fragment(shard) if v else None
+        if frag is None:
+            return self._zeros(idx)
+        return self.tiles.row(frag, 0)
+
+    def _row_shard(self, idx: Index, call: Call, shard: int):
+        fname, cond = call.condition_field()
+        if cond is not None:
+            return self._bsi_condition_shard(idx, fname, cond, shard)
+        fname, row_val = call.field_arg()
+        if fname is None:
+            raise ExecError("Row() requires a field argument")
+        f = idx.field(fname)
+        if f is None:
+            raise ExecError(f"field not found: {fname}")
+        if f.options.type.is_bsi:
+            return self._bsi_condition_shard(
+                idx, fname, Condition(past.OP_EQ, row_val), shard)
+        row_id = self._row_id_for_value(f, row_val)
+        try:
+            views = f.views_for_range(call.arg("from"), call.arg("to"))
+        except ValueError as e:
+            raise ExecError(str(e)) from None
+        acc = self._zeros(idx)
+        for vn in views:
+            v = f.views.get(vn)
+            frag = v.fragment(shard) if v else None
+            if frag is not None:
+                acc = bm.union(acc, self.tiles.row(frag, row_id))
+        return acc
+
+    def _filter_words(self, idx: Index, call: Call, shard: int):
+        """The optional filter child of Sum/Min/Max/Distinct on a shard."""
+        if call.children:
+            return self._bitmap_call_shard(idx, call.children[0], shard)
+        return None
+
+    def _bsi_frag(self, f: Field, shard: int):
+        v = f.views.get(f.bsi_view)
+        return v.fragment(shard) if v else None
 
     def _row_id_for_value(self, f: Field, val) -> int:
         if isinstance(val, bool):
@@ -167,10 +345,83 @@ class Executor(AdvancedOps):
                 else Fraction(v)) * (10 ** scale)
         return ceil(frac) if round_up else floor(frac)
 
+    def _bsi_condition_shard(self, idx: Index, fname: str, cond: Condition,
+                             shard: int):
+        """A BSI predicate on one shard's plane tile, with the stacked
+        PlanBuilder's plan-time scaling and out-of-range short cuts."""
+        f = self._bsi_field(idx, fname)
+        depth = f.bit_depth
+        frag = self._bsi_frag(f, shard)
+        if frag is None:
+            if cond.value is None and cond.op == past.OP_EQ:
+                return self._existence_shard(idx, shard)
+            return self._zeros(idx)
+        planes = self.tiles.planes(frag, depth)
+        if cond.value is None:
+            if cond.op == past.OP_EQ:
+                return bm.difference(self._existence_shard(idx, shard),
+                                     bsi_ops.not_null(planes))
+            if cond.op == past.OP_NEQ:
+                return bsi_ops.not_null(planes)
+            raise ExecError(f"invalid null comparison {cond.op}")
+        max_mag = (1 << depth) - 1
+
+        def masks(up):
+            return bsi_ops.predicate_masks(up, depth)
+
+        if past.is_between(cond):
+            lo_raw, hi_raw = cond.value
+            lo = self._scaled_bound(f, lo_raw, round_up=True)
+            hi = self._scaled_bound(f, hi_raw, round_up=False)
+            if cond.op in (past.OP_BTWN_LT_LT, past.OP_BTWN_LT_LTE):
+                lo = max(lo, self._scaled_bound(f, lo_raw, round_up=False) + 1)
+            if cond.op in (past.OP_BTWN_LT_LT, past.OP_BTWN_LTE_LT):
+                hi = min(hi, self._scaled_bound(f, hi_raw, round_up=True) - 1)
+            lo, hi = max(lo, -max_mag), min(hi, max_mag)
+            if lo > hi:
+                return self._zeros(idx)
+            return bsi_ops.range_between(planes, masks(abs(lo)),
+                                         masks(abs(hi)), lo < 0, hi < 0)
+        op = cond.op
+        if op in (past.OP_EQ, past.OP_NEQ):
+            p_lo = self._scaled_bound(f, cond.value, round_up=False)
+            p_hi = self._scaled_bound(f, cond.value, round_up=True)
+            if p_lo != p_hi or abs(p_lo) > max_mag:
+                return (self._zeros(idx) if op == past.OP_EQ
+                        else bsi_ops.not_null(planes))
+            cmp = bsi_ops.range_eq if op == past.OP_EQ else bsi_ops.range_neq
+            return cmp(planes, masks(abs(p_lo)), p_lo < 0)
+        if op in (past.OP_LT, past.OP_LTE):
+            allow_eq = op == past.OP_LTE
+            p = self._scaled_bound(f, cond.value, round_up=not allow_eq)
+            if p > max_mag:
+                return bsi_ops.not_null(planes)
+            if p < -max_mag:
+                return self._zeros(idx)
+            return bsi_ops.range_lt(planes, masks(abs(p)), p < 0,
+                                    allow_eq=allow_eq)
+        if op in (past.OP_GT, past.OP_GTE):
+            allow_eq = op == past.OP_GTE
+            p = self._scaled_bound(f, cond.value, round_up=allow_eq)
+            if p < -max_mag:
+                return bsi_ops.not_null(planes)
+            if p > max_mag:
+                return self._zeros(idx)
+            return bsi_ops.range_gt(planes, masks(abs(p)), p < 0,
+                                    allow_eq=allow_eq)
+        raise ExecError(f"unsupported condition op {op}")
+
     # -- aggregates ----------------------------------------------------------
 
     def _reduce_count(self, idx: Index, call: Call, shards) -> int:
-        return self.stacked.count(idx, call, self._shard_list(idx, shards))
+        shard_list = self._shard_list(idx, shards)
+        done, n = self._try_stacked(
+            "Count", lambda: self.stacked.count(idx, call, shard_list))
+        if done:
+            return n
+        words = torch.stack([self._bitmap_call_shard(idx, call, s)
+                             for s in shard_list])
+        return int(kernels.popcount_rows(words).sum(dtype=torch.int64))
 
     def _execute_sum(self, idx: Index, call: Call, shards) -> ValCount:
         fname = call.arg("_field")
@@ -178,22 +429,74 @@ class Executor(AdvancedOps):
             raise ExecError("Sum requires field=")
         f = self._bsi_field(idx, fname)
         filter_call = call.children[0] if call.children else None
-        total, count = self.stacked.bsi_sum(
-            idx, f, filter_call, self._shard_list(idx, shards))
+        shard_list = self._shard_list(idx, shards)
+        done, out = self._try_stacked("Sum", lambda: self.stacked.bsi_sum(
+            idx, f, filter_call, shard_list))
+        if done:
+            total, count = out
+            return ValCount(value=f.int_to_value(total), count=count)
+        # one bsi_sum_counts launch per shard, fetched in one sync
+        parts = []
+        for shard in shard_list:
+            frag = self._bsi_frag(f, shard)
+            if frag is None:
+                continue
+            filt = self._filter_words(idx, call, shard)
+            parts.append(kernels.bsi_sum_counts(
+                self.tiles.planes(frag, f.bit_depth).unsqueeze(0),
+                None if filt is None else filt.unsqueeze(0)))
+        total, count = 0, 0
+        if parts:
+            total, count = bsi_ops.host_sum(
+                torch.cat([p[0] for p in parts]).sum(dtype=torch.int64).cpu(),
+                torch.cat([p[1] for p in parts]).sum(
+                    dim=0, dtype=torch.int64).cpu(),
+                torch.cat([p[2] for p in parts]).sum(
+                    dim=0, dtype=torch.int64).cpu())
         return ValCount(value=f.int_to_value(total), count=count)
 
     def _execute_minmax(self, idx: Index, call: Call, shards,
                         is_min: bool) -> ValCount:
-        """Min/Max and the count of columns holding it, read off the
-        value histogram (one groupby_fused pass over the planes)."""
+        """Min/Max and the count of columns holding it: on the stacked
+        engine read off the value histogram (one pass over the planes);
+        on the per-shard engine each shard's branch-free plane walk
+        (bsi.min_op/max_op), every shard queued before one fetch."""
         fname = call.arg("_field")
         if fname is None:
             raise ExecError(f"{call.name} requires field=")
         f = self._bsi_field(idx, fname)
         filter_call = call.children[0] if call.children else None
-        pos, neg = self.stacked.bsi_value_hist(
-            idx, f, filter_call, self._shard_list(idx, shards))
-        return self._minmax_from_hist(f, pos, neg, is_min)
+        shard_list = self._shard_list(idx, shards)
+        done, hist = self._try_stacked(
+            call.name, lambda: self.stacked.bsi_value_hist(
+                idx, f, filter_call, shard_list))
+        if done:
+            return self._minmax_from_hist(f, *hist, is_min)
+        op = bsi_ops.min_op if is_min else bsi_ops.max_op
+        outs = []
+        for shard in shard_list:
+            frag = self._bsi_frag(f, shard)
+            if frag is None:
+                continue
+            outs.append(op(self.tiles.planes(frag, f.bit_depth),
+                           self._filter_words(idx, call, shard)))
+        best, count = None, 0
+        if not outs:
+            return ValCount(value=None, count=0)
+        is_neg, bits, counts, nonempty = (
+            torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(4))
+        for i in range(len(outs)):
+            val, c = bsi_ops.host_minmax(is_neg[i], bits[i], counts[i],
+                                         nonempty[i])
+            if c == 0:
+                continue
+            if best is None or (val < best if is_min else val > best):
+                best, count = val, c
+            elif val == best:
+                count += c
+        if best is None:
+            return ValCount(value=None, count=0)
+        return ValCount(value=f.int_to_value(best), count=count)
 
     @staticmethod
     def _minmax_from_hist(f: Field, pos, neg, is_min: bool) -> ValCount:
@@ -221,25 +524,173 @@ class Executor(AdvancedOps):
                                 count=int(neg[mag]))
         return ValCount(value=None, count=0)
 
+    def _execute_minmax_row(self, idx: Index, call: Call, shards,
+                            is_min: bool) -> Pair:
+        """MinRow/MaxRow (fragment.minRow/maxRow), on the per-shard engine
+        only, as in the JAX package: per shard the lowest (highest) row
+        with a bit, under the filter its count there (pair_popcount,
+        rows in chunks, stopping at the first chunk with a hit), else
+        count 1; shards reduce by row id and never sum counts
+        (executor.go:1620)."""
+        fname = call.arg("_field")
+        f = idx.field(fname) if fname else None
+        if f is None:
+            raise ExecError(f"{call.name} requires a field")
+        self.paths[(call.name, "only_route")] += 1
+        filter_call = call.children[0] if call.children else None
+        best: Pair | None = None
+        for shard in self._shard_list(idx, shards):
+            v = f.views.get(VIEW_STANDARD)
+            frag = v.fragment(shard) if v else None
+            rows = sorted(frag.row_ids) if frag is not None else []
+            if not rows:
+                continue
+            if not is_min:
+                rows = rows[::-1]
+            if filter_call is None:
+                cand = Pair(id=rows[0], count=1)
+            else:
+                filt = self._bitmap_call_shard(idx, filter_call, shard)
+                cand = None
+                for i in range(0, len(rows), _ROW_CHUNK):
+                    chunk = rows[i:i + _ROW_CHUNK]
+                    got = self._pair_counts(f, shard, chunk, filt).tolist()
+                    hit = next((j for j, c in enumerate(got) if c > 0), None)
+                    if hit is not None:
+                        cand = Pair(id=chunk[hit], count=got[hit])
+                        break
+                if cand is None:
+                    continue
+            if best is None or (cand.id < best.id if is_min
+                                else cand.id > best.id):
+                best = cand
+        return best if best is not None else Pair(id=0, count=0)
+
+    def _pair_counts(self, f: Field, shard: int, rows, filt) -> torch.Tensor:
+        """popcount(row & filt) of each of a field's rows on one shard
+        (pair_popcount, the filter repeated per row)."""
+        return kernels.pair_popcount(
+            self._row_tiles(f, shard, rows, [VIEW_STANDARD]),
+            filt.unsqueeze(0).expand(len(rows), -1).contiguous())
+
     # -- Distinct / Rows -----------------------------------------------------
 
-    def _execute_distinct(self, idx: Index, call: Call,
-                          shards) -> DistinctValues:
-        """Distinct over a BSI field: the nonzero codes of the value
-        histogram.  Set fields are not ported yet."""
+    def _execute_distinct(self, idx: Index, call: Call, shards):
+        """Distinct over a BSI field (DistinctValues) or a set field (a
+        RowResult of the row ids with a bit under the filter)."""
         fname = call.arg("_field")
         if fname is None:
             raise ExecError("Distinct requires field=")
         f = idx.field(fname)
         if f is None:
             raise ExecError(f"field not found: {fname}")
-        if not f.options.type.is_bsi:
-            raise ExecError("Distinct on a set field is not ported yet")
-        pos, neg = self.stacked.bsi_value_hist(
-            idx, f, call.children[0] if call.children else None,
-            self._shard_list(idx, shards))
-        return DistinctValues(values=sorted(
-            f.int_to_value(v) for v in kernels.distinct_from_hist(pos, neg)))
+        if f.options.type.is_bsi:
+            return self._distinct_bsi(idx, f, call, shards)
+        return self._distinct_set(idx, f, call, shards)
+
+    def _distinct_bsi(self, idx: Index, f: Field, call: Call,
+                      shards) -> DistinctValues:
+        """The nonzero codes of the value histogram; past its depth the
+        stacked engine's decode stream; on the per-shard engine (or past
+        depth 62) the host loop."""
+        if self.use_stacked and f.bit_depth > 62:
+            self.paths[("Distinct", "decode_depth")] += 1
+            return self._distinct_bsi_loop(idx, f, call, shards)
+        filter_call = call.children[0] if call.children else None
+        shard_list = self._shard_list(idx, shards)
+        done, hist = self._try_stacked(
+            "Distinct", lambda: self.stacked.bsi_value_hist(
+                idx, f, filter_call, shard_list))
+        if done:
+            vals = kernels.distinct_from_hist(*hist)
+        elif not self.use_stacked:
+            return self._distinct_bsi_loop(idx, f, call, shards)
+        else:
+            vals = self._distinct_decode_stream(idx, f, filter_call,
+                                                shard_list)
+        return DistinctValues(values=sorted(f.int_to_value(v) for v in vals))
+
+    def _distinct_decode_stream(self, idx: Index, f: Field, filter_call,
+                                shard_list) -> list[int]:
+        """BSI Distinct past the value histogram's depth: the stacked
+        engine's decode stream, the filter tree evaluated per chunk of
+        shards, unique values taken on the device."""
+        uniq = []
+        for chunk, ex, vals in self.stacked.decode_stream(
+                idx, f, tuple(shard_list)):
+            sel = ex
+            if filter_call is not None:
+                filt = self.stacked.filter_stack(idx, filter_call,
+                                                 tuple(chunk))
+                if filt is None:
+                    return []
+                sel = sel & (bm.unpack_bits(filt) == 1)
+            uniq.append(torch.unique(vals[sel]))
+        if not uniq:
+            return []
+        return torch.unique(torch.cat(uniq)).cpu().tolist()
+
+    def _distinct_bsi_loop(self, idx: Index, f: Field, call: Call,
+                           shards) -> DistinctValues:
+        """BSI Distinct on the per-shard engine: a host loop that decodes
+        each fragment's row_words in exact ints (bsi.decode), as the JAX
+        package's loop does."""
+        vals: set[int] = set()
+        for shard in self._shard_list(idx, shards):
+            frag = self._bsi_frag(f, shard)
+            if frag is None:
+                continue
+            filt = self._filter_words(idx, call, shard)
+            cols, values = bsi_ops.decode(np.stack(
+                [frag.row_words(r) for r in range(2 + f.bit_depth)]))
+            if filt is not None:
+                fbits = bsi_ops.unpack_bits_np(bm.to_numpy(filt))
+                values = [v for c, v in zip(cols, values) if fbits[int(c)]]
+            vals.update(values)
+        return DistinctValues(values=sorted(f.int_to_value(v) for v in vals))
+
+    def _distinct_set(self, idx: Index, f: Field, call: Call,
+                      shards) -> RowResult:
+        """Set-field Distinct: the row ids with a bit in the filter.  With
+        a filter on the stacked engine, the TopN candidate scan; without
+        one a walk over the fragments' row ids (no device work), on the
+        per-shard engine pair_popcount per shard, fetched in one sync."""
+        filter_call = call.children[0] if call.children else None
+        present: set[int] = set()
+        done = False
+        if filter_call is not None:
+            def run():
+                row_ids = self._all_row_ids(idx, f, shards)
+                return [p.id for p in self._topnk_stacked(
+                    idx, f, row_ids, [VIEW_STANDARD], filter_call, shards,
+                    None)] if row_ids else []
+            done, got = self._try_stacked("Distinct", run)
+            if done:
+                present = set(got)
+        else:
+            self.paths[("Distinct", "unfiltered_set" if self.use_stacked
+                        else "asked")] += 1
+        if not done:
+            found = []
+            for shard in self._shard_list(idx, shards):
+                v = f.views.get(VIEW_STANDARD)
+                frag = v.fragment(shard) if v else None
+                if frag is None:
+                    continue
+                rows = frag.row_ids
+                if filter_call is None:
+                    present.update(rows)
+                    continue
+                filt = self._bitmap_call_shard(idx, filter_call, shard)
+                for i in range(0, len(rows), _ROW_CHUNK):
+                    chunk = rows[i:i + _ROW_CHUNK]
+                    found.append((chunk,
+                                  self._pair_counts(f, shard, chunk, filt)))
+            if found:
+                counts = torch.cat([c for _, c in found]).cpu().tolist()
+                ids = [r for chunk, _ in found for r in chunk]
+                present.update(r for r, c in zip(ids, counts) if c > 0)
+        return RowResult.from_columns(present, idx.width)
 
     def _rows_ids(self, idx: Index, call: Call, shards) -> list[int]:
         """Row ids of Rows(field) (executeRowsShard basics): column=,

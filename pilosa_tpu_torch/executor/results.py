@@ -20,6 +20,18 @@ class RowResult:
         self.width = width
         self.segments: dict[int, np.ndarray] = {}
 
+    @classmethod
+    def from_columns(cls, cols, width: int = SHARD_WIDTH) -> "RowResult":
+        """The RowResult holding the given absolute column ids."""
+        r = cls(width)
+        cols = np.asarray(sorted(int(c) for c in cols), dtype=np.int64)
+        if cols.size:
+            shards = cols // width
+            for s in np.unique(shards):
+                r.segments[int(s)] = bm.from_columns(
+                    cols[shards == s] % width, width)
+        return r
+
     def columns(self) -> np.ndarray:
         """Absolute column ids (shard*width + col), ascending."""
         parts = [bm.to_columns(self.segments[s]).astype(np.int64)

@@ -19,10 +19,19 @@ kernels end to end:
   ``rows_filter_counts`` under a filter tree
 
 GroupBy and the BSI value histogram run beside the plan kinds: the
-one-pass group-code histogram (``groupby_fused``) for disjoint fields,
-the per-combo kernel (``groupby_sum``) for overlapping rows or past
-the histogram's bounds, and ``bsi_value_hist`` (``groupby_fused``
-over the plane stack) for Min, Max and BSI Distinct.
+one-pass group-code histogram for disjoint fields, the per-combo kernel
+(``groupby_sum``) for overlapping rows or past the histogram's bounds,
+and ``bsi_value_hist`` (the one-pass histogram over the plane stack)
+for Min, Max and BSI Distinct.  The one-pass histogram is
+``groupby_fused``, or ``groupby_onehot`` where ``onepass_arm`` is
+``"onehot"`` and the shape is within its bounds (no Min/Max table, at
+most 4096 codes and depth 16).  ``decode_stream`` decodes BSI values
+per column in chunks of shards, for BSI Distinct past the value
+histogram's depth.
+
+Shapes the JAX package hands to its host loops raise ``Unstackable``
+with a reason; the executor routes them to its per-shard engine (or to
+``decode_stream``) and counts the route.
 
 Per-shard partials are int32 (counts < 2^20 per shard); cross-shard
 totals are summed as int64 on the device and combined as Python ints.
@@ -52,8 +61,14 @@ class ExecError(Exception):
 
 
 class Unstackable(ExecError):
-    """A shape the JAX package hands to a host fallback (its per-shard
-    loops and decode streams), none of which is ported yet."""
+    """A shape the stacked engine refuses, under the JAX package's own
+    conditions: the executor takes the per-shard engine (or, for BSI
+    Distinct, the decode stream) instead and counts ``reason``.  Raised
+    before any device work, never for a failed build or launch."""
+
+    def __init__(self, reason: str, message: str):
+        super().__init__(message)
+        self.reason = reason
 
 
 _NARY_OPS = {
@@ -89,6 +104,11 @@ _VALUEHIST_MAX_DEPTH = 19
 
 # bytes of (R, S, W) row stacks one per-combo kernel call may gather
 _GROUPBY_STACK_BUDGET = 1 << 31
+
+# shards per decode_stream step: a (64, 2^20) int64 value block is 512 MiB
+_DECODE_CHUNK = 64
+
+ONEPASS_ARMS = ("fused", "onehot")
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +485,9 @@ class StackedEngine:
         self.device = device
         self.cache = StackCache()
         self._disjoint_cache: OrderedDict = OrderedDict()
+        # which kernel serves the one-pass histogram: "fused", or
+        # "onehot" where its bounds hold (_onepass_kernel)
+        self.onepass_arm = "fused"
 
     # -- stack builders (cached) -------------------------------------------
 
@@ -582,7 +605,7 @@ class StackedEngine:
 
     # -- value histogram -----------------------------------------------------
 
-    def _filter_stack(self, idx, filter_call, skey: tuple):
+    def filter_stack(self, idx, filter_call, skey: tuple):
         """(S, W) device words of a filter tree, or None when the tree is
         statically empty."""
         b = PlanBuilder(self, idx, list(skey))
@@ -599,22 +622,36 @@ class StackedEngine:
         depth = field.bit_depth
         if not 1 <= depth <= _VALUEHIST_MAX_DEPTH:
             raise Unstackable(
-                f"value histogram of {field.name} at depth {depth} (the "
-                f"decode stream past depth {_VALUEHIST_MAX_DEPTH}) is not "
-                "ported yet")
+                "value_hist_depth", f"value histogram of {field.name} at "
+                f"depth {depth}: past depth {_VALUEHIST_MAX_DEPTH}")
         skey = tuple(shards)
+        gb = self._onepass_kernel(2 << depth, 0, minmax=False)
         total = np.zeros(2 << depth, dtype=np.int64)
         for lo in range(0, len(skey), _REDUCE_MAX_SHARDS):
             sc = skey[lo:lo + _REDUCE_MAX_SHARDS]
             filt = None
             if filter_call is not None:
-                filt = self._filter_stack(idx, filter_call, sc)
+                filt = self.filter_stack(idx, filter_call, sc)
                 if filt is None:
                     continue
             pos, neg = kernels.bsi_value_hist(
-                self.plane_stack(idx, field, sc), filt)
+                self.plane_stack(idx, field, sc), filt, gb=gb)
             total += torch.cat([pos, neg]).cpu().numpy().astype(np.int64)
         return total[:1 << depth], total[1 << depth:]
+
+    def decode_stream(self, idx, field, skey: tuple):
+        """Decoded BSI values of ``field``, one device decode
+        (bsi.decode_device) per chunk of at most _DECODE_CHUNK shards:
+        yields (shard ids, exists (S_c, N) bool, values (S_c, N) int64)
+        on the engine's device.  Shards with no fragment of the field
+        hold no value and are skipped."""
+        view = field.views.get(field.bsi_view)
+        have = [s for s in skey
+                if view is not None and view.fragment(s) is not None]
+        for lo in range(0, len(have), _DECODE_CHUNK):
+            sc = tuple(have[lo:lo + _DECODE_CHUNK])
+            ex, vals = bsi_ops.decode_device(self.plane_stack(idx, field, sc))
+            yield list(sc), ex, vals
 
     # -- GroupBy ---------------------------------------------------------------
     # The one-pass histogram reads every group-code and BSI plane word
@@ -703,10 +740,25 @@ class StackedEngine:
         return all(self._rows_disjoint(idx, f, rl, skey)
                    for f, rl in fields_rows)
 
+    def _onepass_kernel(self, n_codes: int, depth: int, minmax: bool):
+        """The one-pass histogram kernel for a shape: groupby_onehot under
+        the "onehot" arm within its bounds (no Min/Max table, at most
+        ONEHOT_MAX_CODES codes, depth ONEHOT_MAX_DEPTH), else
+        groupby_fused (the JAX package's _onepass_arm, with
+        groupby_fused standing in for its "xla" arm)."""
+        if self.onepass_arm not in ONEPASS_ARMS:
+            raise ValueError(f"onepass_arm must be one of {ONEPASS_ARMS}, "
+                             f"not {self.onepass_arm!r}")
+        if (self.onepass_arm == "onehot" and not minmax
+                and n_codes <= kernels.ONEHOT_MAX_CODES
+                and depth <= kernels.ONEHOT_MAX_DEPTH):
+            return kernels.groupby_onehot
+        return kernels.groupby_fused
+
     def _groupby_onepass_path(self, idx, fields_rows, agg_field, skey: tuple,
                               combos, depth: int, signed: bool, filter_call,
                               agg_op: str = "sum"):
-        """The one-pass histogram (groupby_fused) over the dense code
+        """The one-pass histogram (_onepass_kernel) over the dense code
         space, gathered at the requested combos.  Returns (counts, None |
         (nn, pos, neg)) int64, or (counts, (nn, values)) for agg_op
         "min"/"max"."""
@@ -717,15 +769,16 @@ class StackedEngine:
         cg = self.groupcode_stack(idx, fields_rows, skey)
         valid = cg[:, -1]
         if filter_call is not None:
-            filt = self._filter_stack(idx, filter_call, skey)
+            filt = self.filter_stack(idx, filter_call, skey)
             if filt is None:
                 return _zero_groupby_result(len(combos), depth, agg_field,
                                             agg_op)
             valid = valid & filt
         planes = (self.plane_stack(idx, agg_field, skey)
                   if agg_field is not None else None)
-        out = kernels.groupby_fused(cg[:, :-1], valid, planes, n_codes,
-                                    signed, minmax=minmax)
+        gb = self._onepass_kernel(n_codes, depth, minmax)
+        out = (gb(cg[:, :-1], valid, planes, n_codes, signed, minmax=True)
+               if minmax else gb(cg[:, :-1], valid, planes, n_codes, signed))
         if planes is None:
             counts = out[0].cpu().numpy().astype(np.int64)
             return counts[codes], None
@@ -786,7 +839,8 @@ class StackedEngine:
         list, in product order): (counts (C,) int64, None | (nn (C,),
         pos (C, d), neg (C, d)) int64) for a Sum aggregate, or (counts,
         (nn, values)) for agg_op "min"/"max".  Min/Max run only on the
-        one-pass histogram; the shapes it cannot take raise."""
+        one-pass histogram; the shapes it cannot take raise Unstackable
+        (the per-shard engine's _groupby_minmax_loop serves them)."""
         skey = tuple(shards)
         n_combos = len(combos)
         depth = agg_field.bit_depth if agg_field is not None else 0
@@ -801,9 +855,9 @@ class StackedEngine:
             if (depth > _ONEPASS_MINMAX_MAX_DEPTH
                     or not self._groupby_onepass_fits(idx, fields_rows, skey)):
                 raise Unstackable(
-                    "GroupBy Min/Max over overlapping rows, past depth "
-                    f"{_ONEPASS_MINMAX_MAX_DEPTH} or past the one-pass "
-                    "bounds (the per-shard Min/Max loop) is not ported yet")
+                    "groupby_minmax", "GroupBy Min/Max over overlapping "
+                    f"rows, past depth {_ONEPASS_MINMAX_MAX_DEPTH} or past "
+                    "the one-pass bounds")
             return self._groupby_onepass_path(
                 idx, fields_rows, agg_field, skey, combos, depth, signed,
                 filter_call, agg_op)
@@ -813,7 +867,7 @@ class StackedEngine:
                 filter_call)
         filt = None
         if filter_call is not None:
-            filt = self._filter_stack(idx, filter_call, skey)
+            filt = self.filter_stack(idx, filter_call, skey)
             if filt is None:
                 return _zero_groupby_result(n_combos, depth, agg_field)
         return self._groupby_kernel_path(idx, fields_rows, agg_field, skey,

@@ -14,8 +14,10 @@ BSI views reuse the row space: row 0 = exists, row 1 = sign, rows 2..
 
 Device copies do not live here: the stacked engine
 (``executor/stacked.py``) assembles (S, W) shard stacks from
-``row_words`` and keeps them on its device in a cache keyed by each
-fragment's ``(gen, version)`` stamp, which every mutation bumps.
+``row_words``, and the per-shard engine (``executor.TileCache``)
+uploads (W,) rows and (2+d, W) planes; each keeps them on its device
+in its own cache keyed by the fragment's ``(gen, version)`` stamp,
+which every mutation bumps.
 """
 
 from __future__ import annotations

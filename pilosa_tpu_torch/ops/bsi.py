@@ -240,3 +240,139 @@ def host_sum(count, pos_pc, neg_pc) -> tuple[int, int]:
     neg_pc = np.asarray(neg_pc, dtype=np.int64).tolist()
     total = sum((p - n) << i for i, (p, n) in enumerate(zip(pos_pc, neg_pc)))
     return int(total), int(np.asarray(count, dtype=np.int64).sum())
+
+
+# ---------------------------------------------------------------------------
+# Min/Max plane walks (fragment.go:745-857), branch-free
+# ---------------------------------------------------------------------------
+#
+# Every step keeps its decision on the device (torch.where on the
+# any-set flag), so a walk of d planes queues its work without a host
+# sync; the caller fetches all shards' results at once.  The walks take
+# (..., d, W) planes and (..., W) filters, one shard or a stack.
+
+def _walk_count(filt: torch.Tensor) -> torch.Tensor:
+    """Per-row popcount of the walk's surviving columns, through the
+    popcount_rows kernel (its plain version on a CPU tensor)."""
+    from pilosa_tpu_torch.ops import kernels
+    w = filt.shape[-1]
+    return kernels.popcount_rows(
+        filt.reshape(-1, w).contiguous()).reshape(filt.shape[:-1])
+
+
+def _max_unsigned_walk(mag_planes, filter_words):
+    """fragment.maxUnsigned (fragment.go:836-857): MSB first, keep the
+    columns with a one bit wherever any survive.  Returns (bits (..., d)
+    bool LSB-first, count int32 of the columns attaining the max)."""
+    depth = mag_planes.shape[-2]
+    filt = filter_words
+    bits = []
+    for i in range(depth - 1, -1, -1):
+        ones = filt & mag_planes[..., i, :]
+        took = bm.any_set(ones)
+        filt = torch.where(took.unsqueeze(-1), ones, filt)
+        bits.append(took)
+    return torch.stack(bits[::-1], dim=-1), _walk_count(filt)
+
+
+def _min_unsigned_walk(mag_planes, filter_words):
+    """fragment.minUnsigned (fragment.go:783-803): prefer zero bits; a
+    bit is forced to one when no zero survives."""
+    depth = mag_planes.shape[-2]
+    filt = filter_words
+    bits = []
+    for i in range(depth - 1, -1, -1):
+        zeroes = filt & ~mag_planes[..., i, :]
+        nonempty = bm.any_set(zeroes)
+        filt = torch.where(nonempty.unsqueeze(-1), zeroes, filt)
+        bits.append(~nonempty)
+    return torch.stack(bits[::-1], dim=-1), _walk_count(filt)
+
+
+def min_op(planes, filter_words=None):
+    """fragment.min (fragment.go:745-781): -(max unsigned over the
+    negatives) when any negative is in scope, else the min unsigned over
+    the non-negatives.  Returns device (is_neg, bits (..., d), count,
+    nonempty); host_minmax assembles the value."""
+    exists, sign = _exists(planes), _sign(planes)
+    consider = exists if filter_words is None else exists & filter_words
+    negs = consider & sign
+    pos = consider & ~sign
+    any_neg = bm.any_set(negs)
+    nb, ncount = _max_unsigned_walk(_mag(planes), negs)
+    pb, pcount = _min_unsigned_walk(_mag(planes), pos)
+    bits = torch.where(any_neg.unsqueeze(-1), nb, pb)
+    count = torch.where(any_neg, ncount, pcount)
+    return any_neg, bits, count, bm.any_set(consider)
+
+
+def max_op(planes, filter_words=None):
+    """fragment.max (fragment.go:805-834): non-negatives preferred, else
+    -(min unsigned over the negatives)."""
+    exists, sign = _exists(planes), _sign(planes)
+    consider = exists if filter_words is None else exists & filter_words
+    pos = consider & ~sign
+    negs = consider & sign
+    any_pos = bm.any_set(pos)
+    pb, pcount = _max_unsigned_walk(_mag(planes), pos)
+    nb, ncount = _min_unsigned_walk(_mag(planes), negs)
+    bits = torch.where(any_pos.unsqueeze(-1), pb, nb)
+    count = torch.where(any_pos, pcount, ncount)
+    return ~any_pos, bits, count, bm.any_set(consider)
+
+
+def host_minmax(is_neg, bits, count, nonempty) -> tuple[int, int]:
+    """(value, count) in exact ints from one shard's min_op/max_op
+    outputs (host values); (0, 0) on an empty scope, as the reference."""
+    if not bool(np.asarray(nonempty)):
+        return 0, 0
+    mag = sum(1 << i for i, b in enumerate(np.asarray(bits).tolist()) if b)
+    val = -mag if bool(np.asarray(is_neg)) else mag
+    return int(val), int(np.asarray(count))
+
+
+# ---------------------------------------------------------------------------
+# Per-column decode (the decode stream and the host loops)
+# ---------------------------------------------------------------------------
+
+def unpack_bits_np(words) -> np.ndarray:
+    """Host bit-unpack: (..., W) uint32 words → (..., W*32) bool per
+    column (column c = word c >> 5, bit c & 31)."""
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    return np.unpackbits(words.view(np.uint8), axis=-1,
+                         bitorder="little").view(bool)
+
+
+def decode_device(planes: torch.Tensor):
+    """Device decode of every column: planes (..., 2+d, W) →
+    (exists (..., W*32) bool, values (..., W*32) int64, 0 where no value
+    exists).  Values are built in int64 directly, so d <= 62."""
+    depth = planes.shape[-2] - 2
+    if depth > 62:
+        raise ValueError(f"decode_device: depth {depth} > 62")
+    exists = bm.unpack_bits(planes[..., BSI_EXISTS_BIT, :]) == 1
+    sign = bm.unpack_bits(planes[..., BSI_SIGN_BIT, :]) == 1
+    mag = torch.zeros(exists.shape, dtype=torch.int64, device=planes.device)
+    for i in range(depth):
+        mag |= bm.unpack_bits(planes[..., BSI_OFFSET_BIT + i, :]).to(
+            torch.int64) << i
+    vals = torch.where(sign, -mag, mag)
+    return exists, torch.where(exists, vals, 0)
+
+
+def decode_np(planes: np.ndarray):
+    """Host twin of decode_device for one fragment's (2+d, W) uint32
+    planes: (exists (W*32,) bool, values (W*32,) int64)."""
+    planes = np.asarray(planes, dtype=np.uint32)
+    depth = planes.shape[0] - 2
+    if depth > 62:
+        raise ValueError(f"decode_np: depth {depth} > 62")
+    exists = unpack_bits_np(planes[BSI_EXISTS_BIT])
+    sign = unpack_bits_np(planes[BSI_SIGN_BIT])
+    mag = np.zeros(exists.shape, dtype=np.int64)
+    for i in range(depth):
+        # a deep field's high planes are often empty
+        if planes[BSI_OFFSET_BIT + i].any():
+            mag |= unpack_bits_np(planes[BSI_OFFSET_BIT + i]).astype(
+                np.int64) << np.int64(i)
+    return exists, np.where(exists, np.where(sign, -mag, mag), 0)

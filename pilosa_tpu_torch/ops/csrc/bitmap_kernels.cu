@@ -126,11 +126,63 @@ __global__ void rows_filter_counts_kernel(const uint32_t* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// masked_popcount: x (N, W) & mask (W,) -> out (N,), zeroed by the caller.
+// Replaces pilosa_tpu/ops/kernels.py masked_popcount (Pallas), the per-shard
+// TopN/TopK candidate count under a filter.
+// Bound: (N+1)*W*4 + N*4 bytes over 3.35 TB/s (0.35 us at N = 8, 10.1 us at
+// N = 256, W = 32768).  The per-shard shape is small, so one block per row
+// would leave most SMs idle: the grid splits W into 1024-word chunks and N
+// into pairs of rows (128 blocks for (8, 32768)).  A block keeps its mask
+// chunk in registers (one 16-byte word group a thread), counts each of its
+// rows against it, and adds the block's count to out[row] with one atomic.
+// ---------------------------------------------------------------------------
+constexpr int kMaskChunk = kThreads * 4;  // words per block
+constexpr int kMaskRows = 2;              // rows per block
+
+__global__ void masked_popcount_kernel(const uint32_t* __restrict__ x,
+                                       const uint32_t* __restrict__ mask,
+                                       int* __restrict__ out, int64_t n, int64_t w) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kMaskChunk + 4 * threadIdx.x;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kMaskRows;
+  // with W % 4 == 0 every row starts 16-byte aligned and k < w covers k..k+3
+  const bool vec = (w & 3) == 0 && aligned16(x) && aligned16(mask);
+  uint4 m = make_uint4(0u, 0u, 0u, 0u);
+  if (vec) {
+    if (k < w) m = __ldg(reinterpret_cast<const uint4*>(mask + k));
+  } else {
+    if (k < w) m.x = __ldg(mask + k);
+    if (k + 1 < w) m.y = __ldg(mask + k + 1);
+    if (k + 2 < w) m.z = __ldg(mask + k + 2);
+    if (k + 3 < w) m.w = __ldg(mask + k + 3);
+  }
+  for (int r = 0; r < kMaskRows; ++r) {
+    const int64_t row = r0 + r;
+    if (row >= n) break;  // uniform across the block
+    const uint32_t* xr = x + row * w;
+    int acc = 0;
+    if (vec) {
+      if (k < w) acc = popc4_and(__ldg(reinterpret_cast<const uint4*>(xr + k)), m);
+    } else {
+      if (k < w) acc += __popc(__ldg(xr + k) & m.x);
+      if (k + 1 < w) acc += __popc(__ldg(xr + k + 1) & m.y);
+      if (k + 2 < w) acc += __popc(__ldg(xr + k + 2) & m.z);
+      if (k + 3 < w) acc += __popc(__ldg(xr + k + 3) & m.w);
+    }
+    acc = block_sum(acc);
+    if (threadIdx.x == 0 && acc) atomicAdd(out + row, acc);
+    __syncthreads();  // block_sum's shared partials are reused by the next row
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bsi_sum_counts: planes (S, 2+d, W), filt (S, W) or null ->
 //   cnt (S,), pos (S, d), neg (S, d), each zeroed by the caller.
 // Replaces pilosa_tpu/ops/kernels.py bsi_sum_counts (Pallas, vmapped over S).
 // Bound: S*(2+d)*W*4 (+ S*W*4 with a filter) + S*(1+2d)*4 bytes over
-// 3.35 TB/s (373.3 us filtered at S = 954, d = 7).  The grid is
+// 3.35 TB/s (373.3 us filtered at S = 954, d = 7).  The planes may have any
+// shard stride pl_ss (0 repeats one shard's planes against S filters: the
+// per-shard GroupBy's combo masks); a contiguous stack keeps its own
+// instance, since a runtime stride made it 23% slower on the H100.  The grid is
 // (S x word chunks), flattened.  A block first builds its chunk's
 // pos = exists & filt & ~sign and neg = exists & filt & sign masks in shared
 // memory (one read of exists, sign and filt), then streams each magnitude
@@ -141,10 +193,11 @@ __global__ void rows_filter_counts_kernel(const uint32_t* __restrict__ rows,
 // ---------------------------------------------------------------------------
 constexpr int kBsiChunk = 2048;  // words per block
 
+template <bool CONTIG>
 __global__ void bsi_sum_counts_kernel(const uint32_t* __restrict__ planes,
                                       const uint32_t* __restrict__ filt, int* __restrict__ cnt,
-                                      int* __restrict__ pos, int* __restrict__ neg, int64_t p,
-                                      int64_t w, int64_t chunks) {
+                                      int* __restrict__ pos, int* __restrict__ neg, int64_t pl_ss,
+                                      int64_t p, int64_t w, int64_t chunks) {
   extern __shared__ int smem[];
   const int d = static_cast<int>(p - 2);
   int* counters = smem;                                        // [0]=cnt, [1..d]=pos, [1+d..2d]=neg
@@ -152,7 +205,7 @@ __global__ void bsi_sum_counts_kernel(const uint32_t* __restrict__ planes,
   uint32_t* sneg = spos + kBsiChunk;
   const int64_t shard = blockIdx.x / chunks;
   const int64_t base = (blockIdx.x % chunks) * kBsiChunk;
-  const uint32_t* sp = planes + shard * p * w;
+  const uint32_t* sp = planes + shard * (CONTIG ? p * w : pl_ss);
   const uint32_t* exists = sp;
   const uint32_t* sign = sp + w;
   const uint32_t* fl = filt ? filt + shard * w : nullptr;
@@ -232,14 +285,25 @@ int pt_rows_filter_counts(const void* rows, const void* filt, void* out, int64_t
   return static_cast<int>(cudaGetLastError());
 }
 
-int pt_bsi_sum_counts(const void* planes, const void* filt, void* cnt, void* pos, void* neg,
-                      int64_t s, int64_t p, int64_t w, void* stream) {
+int pt_masked_popcount(const void* x, const void* mask, void* out, int64_t n, int64_t w,
+                       void* stream) {
+  const dim3 grid(static_cast<unsigned>((w + kMaskChunk - 1) / kMaskChunk),
+                  static_cast<unsigned>((n + kMaskRows - 1) / kMaskRows));
+  masked_popcount_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(mask), static_cast<int*>(out),
+      n, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pt_bsi_sum_counts(const void* planes, int64_t pl_ss, const void* filt, void* cnt, void* pos,
+                      void* neg, int64_t s, int64_t p, int64_t w, void* stream) {
   const int64_t chunks = (w + kBsiChunk - 1) / kBsiChunk;
   const size_t smem = (2 * (p - 2) + 1) * sizeof(int) + 2 * kBsiChunk * sizeof(uint32_t);
-  bsi_sum_counts_kernel<<<static_cast<unsigned>(s * chunks), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kern = pl_ss == p * w ? bsi_sum_counts_kernel<true> : bsi_sum_counts_kernel<false>;
+  kern<<<static_cast<unsigned>(s * chunks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(planes), static_cast<const uint32_t*>(filt),
-      static_cast<int*>(cnt), static_cast<int*>(pos), static_cast<int*>(neg), p, w, chunks);
+      static_cast<int*>(cnt), static_cast<int*>(pos), static_cast<int*>(neg), pl_ss, p, w,
+      chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

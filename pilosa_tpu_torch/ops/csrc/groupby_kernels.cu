@@ -9,6 +9,7 @@
 // identities); the kernels only add into them.
 
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -198,6 +199,172 @@ int dispatch_depth(const uint32_t* cp, int64_t cp_ss, int cb, const uint32_t* va
 }
 
 // ---------------------------------------------------------------------------
+// groupby_onehot: the one-pass histogram on the int8 tensor cores.
+//   Inputs as groupby_fused (any shard stride), without the Min/Max table;
+//   G <= 4096, d <= 16 (K <= 34) -> hist (K, G), zeroed by the caller.
+// Replaces pilosa_tpu/ops/kernels.py groupby_onehot (Pallas, f32 MXU one-hot
+// matmuls): hist = payload (K, columns) x one-hot (columns, G), a sum of 0/1
+// products, accumulated exactly in int32 by wmma m16n16k16 s8 x s8 -> s32.
+// Bound: the larger of the bytes groupby_fused reads and the tensor work,
+// 2*K*G operations a column at 1979 TOP/s (int8, dense).  Design: a
+// persistent grid walks (shard, 256-column) tiles; gridDim.y splits G into
+// groups of 128*SPW codes, and each of the 8 warps owns SPW 16-code slices
+// of its group, with MT x SPW accumulator fragments (MT = ceil(K/16) payload
+// tiles) resident in registers across all of its tiles.  Per tile:
+// 1. one thread per column reads its bit of each plane word, composes the
+//    column's code and its 0/1 payload rows [valid, nn, pos x d, neg x d]
+//    (the row order of _gc_payload_rows; an invalid column's payload is all
+//    zero) and stores them to shared memory as an int8 (columns x 16)
+//    column-major A tile per 16 payload rows, one 16-byte store each;
+// 2. each warp, per slice, writes the (columns x 16) one-hot of the tile's
+//    codes into its own shared B buffer (one 16-byte row a column), skips
+//    the slice when no code falls in it, and runs 16 k-steps of mma per
+//    payload tile.
+// At the end each warp stores its fragments through shared memory and adds
+// them to hist with one atomic per nonzero (k, g).  A tile with no valid
+// column is skipped whole; codes >= G, and columns with valid = 0, add
+// nothing.  The K = 1 value histogram pads A to 16 rows, so its tensor work
+// is 16x what it needs.
+// ---------------------------------------------------------------------------
+constexpr int kOhCols = kThreads;  // columns per tile: one a thread (8 words)
+
+__device__ __forceinline__ uint32_t spread4(uint64_t bits) {
+  // bits 0..3 -> bytes 0..3 of a word, each 0 or 1
+  const uint32_t n = static_cast<uint32_t>(bits) & 0xFu;
+  return (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
+}
+
+template <int MT, int SPW>
+__global__ void __launch_bounds__(kThreads)
+groupby_onehot_kernel(const uint32_t* __restrict__ cp, int64_t cp_ss, int cb,
+                      const uint32_t* __restrict__ valid, int64_t va_ss,
+                      const uint32_t* __restrict__ planes, int64_t pl_ss, int d,
+                      int64_t w, int64_t chunks, int64_t tiles, int g, int k,
+                      int is_signed, int* __restrict__ hist) {
+  using namespace nvcuda;
+  __shared__ __align__(32) signed char sa[MT * kOhCols * 16];
+  __shared__ __align__(32) signed char sb[kWarps * kOhCols * 16];
+  __shared__ int scode[kOhCols];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g_group = blockIdx.y * (kWarps * SPW * 16);
+  signed char* mb = sb + warp * (kOhCols * 16);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[MT][SPW];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) wmma::fill_fragment(acc[mt][j], 0);
+
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t shard = t / chunks;
+    const int64_t word = (t % chunks) * (kOhCols / 32) + warp;
+    uint32_t va = 0;
+    int code = -1;
+    uint64_t rows = 0;  // bit r = payload row r of this column
+    if (word < w) {
+      va = (__ldg(valid + shard * va_ss + word) >> lane) & 1u;
+      if (va) {
+        const uint32_t* cps = cp + shard * cp_ss + word;
+        code = 0;
+        for (int b = 0; b < cb; ++b) code |= static_cast<int>((__ldg(cps + b * w) >> lane) & 1u) << b;
+        rows = 1;
+        if (planes) {
+          const uint32_t* pls = planes + shard * pl_ss + word;
+          if ((__ldg(pls) >> lane) & 1u) {
+            const bool neg = is_signed && ((__ldg(pls + w) >> lane) & 1u);
+            uint64_t mag = 0;
+            for (int p = 0; p < d; ++p) mag |= static_cast<uint64_t>((__ldg(pls + (2 + p) * w) >> lane) & 1u) << p;
+            rows |= 2u | (mag << (neg ? 2 + d : 2));
+          }
+        }
+      }
+    }
+    __syncthreads();  // the previous tile's products are done with sa and scode
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint64_t r = rows >> (16 * mt);
+      reinterpret_cast<uint4*>(sa + mt * kOhCols * 16)[threadIdx.x] =
+          make_uint4(spread4(r), spread4(r >> 4), spread4(r >> 8), spread4(r >> 12));
+    }
+    scode[threadIdx.x] = code;
+    if (!__syncthreads_or(va)) continue;  // no valid column in the tile
+
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      const int gs = g_group + (warp + kWarps * j) * 16;
+      if (gs < g) {  // warp-uniform
+        __syncwarp();  // the previous slice's loads are done with mb
+        bool any = false;
+        for (int c = lane; c < kOhCols; c += 32) {
+          const int rel = scode[c] - gs;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (rel >= 0 && rel < 16) {
+            any = true;
+            const uint32_t one = 1u << ((rel & 3) * 8);
+            const int q = rel >> 2;
+            v = make_uint4(q == 0 ? one : 0u, q == 1 ? one : 0u, q == 2 ? one : 0u,
+                           q == 3 ? one : 0u);
+          }
+          reinterpret_cast<uint4*>(mb)[c] = v;
+        }
+        if (__any_sync(0xffffffffu, any)) {
+          __syncwarp();
+          for (int ks = 0; ks < kOhCols / 16; ++ks) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb;
+            wmma::load_matrix_sync(fb, mb + ks * 256, 16);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::col_major> fa;
+              wmma::load_matrix_sync(fa, sa + mt * kOhCols * 16 + ks * 256, 16);
+              wmma::mma_sync(acc[mt][j], fa, fb, acc[mt][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  int* scratch = reinterpret_cast<int*>(mb);  // 256 ints of the warp's own B buffer
+#pragma unroll
+  for (int j = 0; j < SPW; ++j) {
+    const int gs = g_group + (warp + kWarps * j) * 16;
+    if (gs >= g) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      __syncwarp();
+      wmma::store_matrix_sync(scratch, acc[mt][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int i = lane; i < 256; i += 32) {
+        const int kk = mt * 16 + (i >> 4);
+        const int gg = gs + (i & 15);
+        const int v = scratch[i];
+        if (v && kk < k && gg < g) atomicAdd(hist + static_cast<int64_t>(kk) * g + gg, v);
+      }
+    }
+  }
+}
+
+template <int MT, int SPW>
+int launch_onehot(const uint32_t* cp, int64_t cp_ss, int cb, const uint32_t* valid,
+                  int64_t va_ss, const uint32_t* planes, int64_t pl_ss, int d, int64_t s,
+                  int64_t w, int g, int k, int is_signed, int* hist, cudaStream_t stream) {
+  auto kern = groupby_onehot_kernel<MT, SPW>;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t chunks = (w + kOhCols / 32 - 1) / (kOhCols / 32);
+  const int64_t tiles = s * chunks;
+  const int groups = (g + kWarps * SPW * 16 - 1) / (kWarps * SPW * 16);
+  int64_t gx = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sm_count() / groups;
+  if (gx < 1) gx = 1;
+  if (gx > tiles) gx = tiles;
+  kern<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(groups)), kThreads, 0, stream>>>(
+      cp, cp_ss, cb, valid, va_ss, planes, pl_ss, d, w, chunks, tiles, g, k, is_signed, hist);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // groupby_sum: per-combo GroupBy count and BSI Sum partials.
 //   nf stacks (R_f, S, W), sel (C, nf) row indices, planes (S, 2+d, W) or
 //   null -> counts (C,), nn (C,), pos (C, d), neg (C, d), zeroed by the caller.
@@ -369,6 +536,25 @@ int pt_groupby_fused(const void* cp, int64_t cp_ss, int64_t cb, const void* vali
                                     h, m, smem, st);
   return dispatch_depth<24, false>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg,
                                    h, m, smem, st);
+}
+
+int pt_groupby_onehot(const void* cp, int64_t cp_ss, int64_t cb, const void* valid,
+                      int64_t va_ss, const void* planes, int64_t pl_ss, int64_t d, int64_t s,
+                      int64_t w, int64_t g, int64_t is_signed, void* hist, void* stream) {
+  if (cb > 24 || d > 16 || g < 1 || g > 4096) return static_cast<int>(cudaErrorInvalidValue);
+  const int k = planes ? static_cast<int>(2 + (is_signed ? 2 : 1) * d) : 1;
+  const uint32_t* cpu = static_cast<const uint32_t*>(cp);
+  const uint32_t* vau = static_cast<const uint32_t*>(valid);
+  const uint32_t* plu = static_cast<const uint32_t*>(planes);
+  int* h = static_cast<int*>(hist);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ci = static_cast<int>(cb), di = planes ? static_cast<int>(d) : 0;
+  const int gi = static_cast<int>(g), sg = static_cast<int>(is_signed);
+  if (k <= 16)
+    return launch_onehot<1, 8>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg, h, st);
+  if (k <= 32)
+    return launch_onehot<2, 4>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg, h, st);
+  return launch_onehot<3, 2>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg, h, st);
 }
 
 int pt_groupby_sum(const void* const* stacks, int64_t nf, const void* sel, int64_t c,

@@ -1,19 +1,24 @@
 """The query path's kernels: CUDA on the card, plain PyTorch beside each.
 
-Six hand-written CUDA kernels replace the Pallas kernels of
-``pilosa_tpu/ops/kernels.py`` that the main query path reaches.  In
-``csrc/bitmap_kernels.cu``:
+Eight hand-written CUDA kernels replace the eight Pallas kernels of
+``pilosa_tpu/ops/kernels.py``.  In ``csrc/bitmap_kernels.cu``:
 
-- ``popcount_rows``       — Count of a leaf, unfiltered TopN row counts
-- ``pair_popcount``       — Count(Intersect(leaf, leaf))
-- ``rows_filter_counts``  — filtered TopN candidate counts
-- ``bsi_sum_counts``      — BSI Sum's filtered sign-split plane counts
+- ``popcount_rows``       — Count of a leaf or a per-shard tree, unfiltered
+  TopN row counts, the per-shard GroupBy's combo counts
+- ``pair_popcount``       — Count(Intersect(leaf, leaf)), MinRow/MaxRow and
+  set-field Distinct under a filter
+- ``masked_popcount``     — the per-shard TopN/TopK loop under a filter
+- ``rows_filter_counts``  — filtered TopN candidate counts (stacked)
+- ``bsi_sum_counts``      — BSI Sum's filtered sign-split plane counts, and
+  the per-shard GroupBy's Sum partials
 
 and in ``csrc/groupby_kernels.cu``:
 
 - ``groupby_fused``       — the one-pass group-code histogram (disjoint
   GroupBy, GroupBy Min/Max, and through ``bsi_value_hist`` top-level
   Min, Max and BSI Distinct)
+- ``groupby_onehot``      — the same histogram without the Min/Max table,
+  as int8 tensor-core products (the stacked engine's ``"onehot"`` arm)
 - ``groupby_sum``         — the per-combo GroupBy count and Sum partials
 
 Words are ``torch.int32`` tensors carrying uint32 bits.  Each wrapper
@@ -41,14 +46,18 @@ _I = ctypes.c_int64
 _ARGTYPES = {
     "pt_popcount_rows": [_P, _P, _I, _I, _P],
     "pt_pair_popcount": [_P, _P, _P, _I, _I, _P],
+    "pt_masked_popcount": [_P, _P, _P, _I, _I, _P],
     "pt_rows_filter_counts": [_P, _P, _P, _I, _I, _I, _P],
-    "pt_bsi_sum_counts": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pt_bsi_sum_counts": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "pt_groupby_fused": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
+    "pt_groupby_onehot": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                          _P, _P],
     "pt_groupby_sum": [ctypes.POINTER(_P), _I, _P, _I, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P],
 }
 _LIBS = {"pt_groupby_fused": "groupby_kernels",
+         "pt_groupby_onehot": "groupby_kernels",
          "pt_groupby_sum": "groupby_kernels"}
 _GRID_MAX = (1 << 31) - 1
 _INT32_MAX = (1 << 31) - 1
@@ -59,14 +68,20 @@ GB_MAX_CODE_BITS = 24
 GB_MAX_DEPTH = 63
 GB_MINMAX_MAX_DEPTH = 30   # the (4, G) magnitude table is int32
 GB_MAX_FIELDS = 8
+# the one-hot kernel's tables: at most 4096 codes (16-code slices across
+# the grid) and 2 + 2*16 payload rows (three 16-row tensor-core tiles)
+ONEHOT_MAX_CODES = 4096
+ONEHOT_MAX_DEPTH = 16
+# masked_popcount's grid takes pairs of rows on gridDim.y
+_MASKED_MAX_ROWS = 2 * 65535
 
 # shard columns one plain-histogram step unpacks (bounded memory at
 # full width: 16 shards of 2^20 columns)
 _PLAIN_COLUMNS = 1 << 24
 
 LAUNCHES = {name: 0 for name in (
-    "popcount_rows", "pair_popcount", "rows_filter_counts",
-    "bsi_sum_counts", "groupby_fused", "groupby_sum")}
+    "popcount_rows", "pair_popcount", "masked_popcount", "rows_filter_counts",
+    "bsi_sum_counts", "groupby_fused", "groupby_onehot", "groupby_sum")}
 
 
 def reset_launches() -> None:
@@ -133,6 +148,10 @@ def popcount_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def pair_popcount_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return bm.count(a & b)
+
+
+def masked_popcount_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return bm.count(x & mask)
 
 
 def rows_filter_counts_plain(rows: torch.Tensor,
@@ -304,6 +323,26 @@ def pair_popcount(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def masked_popcount(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """popcount(x[i] & mask) per row, one filter for every row:
+    (N, W) & (W,) → (N,) int32 (the per-shard TopN/TopK count)."""
+    _check("masked_popcount", x, 2, x.device)
+    _check("masked_popcount", mask, 1, x.device)
+    if mask.shape[0] != x.shape[1]:
+        raise ValueError(f"masked_popcount: rows {tuple(x.shape)} vs mask "
+                         f"{tuple(mask.shape)}")
+    if x.device.type == "cpu":
+        return masked_popcount_plain(x, mask)
+    n, w = x.shape
+    if n > _MASKED_MAX_ROWS:
+        raise ValueError("masked_popcount: too many rows for one launch")
+    out = torch.zeros(n, dtype=torch.int32, device=x.device)
+    if n * w:
+        _launch("masked_popcount", "pt_masked_popcount", x.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), n, w)
+    return out
+
+
 def rows_filter_counts(rows: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     """popcount(rows[r, s] & filt[s]): (R, S, W), (S, W) → (R, S) int32."""
     _check("rows_filter_counts", rows, 3, rows.device)
@@ -326,8 +365,10 @@ def rows_filter_counts(rows: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
 def bsi_sum_counts(planes: torch.Tensor, filt: torch.Tensor | None = None):
     """Filtered count plus sign-split per-plane popcounts of a shard
     stack: planes (S, 2+d, W), filt (S, W) or None →
-    cnt (S,), pos (S, d), neg (S, d), all int32."""
-    _check("bsi_sum_counts", planes, 3, planes.device)
+    cnt (S,), pos (S, d), neg (S, d), all int32.  The planes may have
+    any shard stride (``_check``); stride 0 holds one shard's planes
+    against S filters."""
+    _check("bsi_sum_counts", planes, 3, planes.device, any_shard_stride=True)
     s, p, w = planes.shape
     if p < 3:
         raise ValueError("bsi_sum_counts: need at least one magnitude plane")
@@ -347,7 +388,8 @@ def bsi_sum_counts(planes: torch.Tensor, filt: torch.Tensor | None = None):
         raise ValueError("bsi_sum_counts: too many shards for one launch")
     if s * w:
         _launch("bsi_sum_counts", "pt_bsi_sum_counts", planes.data_ptr(),
-                None if filt is None else filt.data_ptr(), cnt.data_ptr(),
+                planes.stride(0), None if filt is None else filt.data_ptr(),
+                cnt.data_ptr(),
                 pos.data_ptr(), neg.data_ptr(), s, p, w)
     return cnt, pos, neg
 
@@ -365,22 +407,7 @@ def groupby_fused(code_planes: torch.Tensor, valid: torch.Tensor,
     with minmax_from_table).  Each input may be a view with any shard
     stride (``_check``)."""
     name = "groupby_fused"
-    dev = valid.device
-    _check(name, code_planes, 3, dev, any_shard_stride=True)
-    _check(name, valid, 2, dev, any_shard_stride=True)
-    s, cb, w = code_planes.shape
-    if valid.shape != (s, w):
-        raise ValueError(f"{name}: valid {tuple(valid.shape)} vs code "
-                         f"planes {tuple(code_planes.shape)}")
-    depth = 0
-    if planes is not None:
-        _check(name, planes, 3, dev, any_shard_stride=True)
-        if planes.shape[0] != s or planes.shape[2] != w or planes.shape[1] < 3:
-            raise ValueError(f"{name}: planes {tuple(planes.shape)} vs code "
-                             f"planes {tuple(code_planes.shape)}")
-        depth = planes.shape[1] - 2
-    if int(n_codes) < 1:
-        raise ValueError(f"{name}: n_codes must be >= 1")
+    s, cb, w, depth = _hist_inputs(name, code_planes, valid, planes, n_codes)
     if minmax and depth == 0:
         raise ValueError(f"{name}: minmax requires BSI planes")
     if minmax and depth > GB_MINMAX_MAX_DEPTH:
@@ -389,7 +416,7 @@ def groupby_fused(code_planes: torch.Tensor, valid: torch.Tensor,
     if cb > GB_MAX_CODE_BITS or depth > GB_MAX_DEPTH:
         raise ValueError(f"{name}: at most {GB_MAX_CODE_BITS} code planes "
                          f"and depth {GB_MAX_DEPTH}")
-    _check_int32_totals(name, s, w)
+    dev = valid.device
     if dev.type == "cpu":
         return groupby_codes_plain(code_planes, valid, planes, n_codes,
                                    signed, minmax)
@@ -408,16 +435,78 @@ def groupby_fused(code_planes: torch.Tensor, valid: torch.Tensor,
                 0 if planes is None else planes.stride(0), depth, s, w, g,
                 int(bool(signed)), hist.data_ptr(),
                 None if mm is None else mm.data_ptr())
+    out = _split_hist(hist, depth, signed)
+    return out if mm is None else out + (mm,)
+
+
+def groupby_onehot(code_planes: torch.Tensor, valid: torch.Tensor,
+                   planes: torch.Tensor | None = None, n_codes: int = 1,
+                   signed: bool = True):
+    """The one-pass histogram of groupby_fused, without its Min/Max
+    table, as payload x one-hot products on the int8 tensor cores:
+    the same inputs (views with any shard stride) and the same
+    counts (G,), nn (G,), pos (G, d), neg (G, d) int32, for
+    G <= ONEHOT_MAX_CODES codes and depth <= ONEHOT_MAX_DEPTH.  Its
+    plain version is groupby_codes_plain, the same function."""
+    name = "groupby_onehot"
+    s, cb, w, depth = _hist_inputs(name, code_planes, valid, planes, n_codes)
+    if (cb > GB_MAX_CODE_BITS or depth > ONEHOT_MAX_DEPTH
+            or int(n_codes) > ONEHOT_MAX_CODES):
+        raise ValueError(f"{name}: at most {GB_MAX_CODE_BITS} code planes, "
+                         f"depth {ONEHOT_MAX_DEPTH} and {ONEHOT_MAX_CODES} "
+                         "codes")
+    dev = valid.device
+    if dev.type == "cpu":
+        return groupby_codes_plain(code_planes, valid, planes, n_codes,
+                                   signed)
+    g = int(n_codes)
+    hist = torch.zeros((_hist_rows(depth, signed), g), dtype=torch.int32,
+                       device=dev)
+    if s * w:
+        _launch(name, "pt_groupby_onehot",
+                code_planes.data_ptr(), code_planes.stride(0), cb,
+                valid.data_ptr(), valid.stride(0),
+                None if planes is None else planes.data_ptr(),
+                0 if planes is None else planes.stride(0), depth, s, w, g,
+                int(bool(signed)), hist.data_ptr())
+    return _split_hist(hist, depth, signed)
+
+
+def _hist_inputs(name: str, code_planes, valid, planes, n_codes):
+    """The checks both one-pass histograms share: (S, CB, W) code
+    planes, (S, W) valid, (S, 2+d, W) planes or None, each with any
+    shard stride, n_codes >= 1 and int32-exact totals.  Returns
+    (S, CB, W, d)."""
+    dev = valid.device
+    _check(name, code_planes, 3, dev, any_shard_stride=True)
+    _check(name, valid, 2, dev, any_shard_stride=True)
+    s, cb, w = code_planes.shape
+    if valid.shape != (s, w):
+        raise ValueError(f"{name}: valid {tuple(valid.shape)} vs code "
+                         f"planes {tuple(code_planes.shape)}")
+    depth = 0
+    if planes is not None:
+        _check(name, planes, 3, dev, any_shard_stride=True)
+        if planes.shape[0] != s or planes.shape[2] != w or planes.shape[1] < 3:
+            raise ValueError(f"{name}: planes {tuple(planes.shape)} vs code "
+                             f"planes {tuple(code_planes.shape)}")
+        depth = planes.shape[1] - 2
+    if int(n_codes) < 1:
+        raise ValueError(f"{name}: n_codes must be >= 1")
+    _check_int32_totals(name, s, w)
+    return s, cb, w, depth
+
+
+def _split_hist(hist: torch.Tensor, depth: int, signed: bool):
+    """(K, G) table → counts, nn, pos (G, d), neg (G, d); nn/pos/neg
+    None without planes, neg zero when unsigned."""
     counts = hist[0]
     if depth == 0:
         return counts, None, None, None
-    nn = hist[1]
     pos = hist[2:2 + depth].T.contiguous()
     neg = (hist[2 + depth:].T.contiguous() if signed
            else torch.zeros_like(pos))
-    if not minmax:
-        return counts, nn, pos, neg
-    return counts, nn, pos, neg, mm
+    return counts, hist[1], pos, neg
 
 
 def groupby_sum(stacks, sel: torch.Tensor, planes: torch.Tensor | None = None,
@@ -511,14 +600,15 @@ def _value_hist_codes(planes: torch.Tensor, filter_words):
     return planes[:, 1:], valid, 1 << (planes.shape[1] - 1)
 
 
-def bsi_value_hist(planes: torch.Tensor, filter_words=None):
-    """Per-value histogram of a BSI stack through groupby_fused:
-    planes (S, 2+d, W), filter_words (S, W) or None → (pos (2^d,),
-    neg (2^d,)) int32, pos[v] = columns holding +v, neg[v] = columns
-    holding -v.  Distinct, Min/Max and Range counts derive from it
-    without decoding a column."""
+def bsi_value_hist(planes: torch.Tensor, filter_words=None, gb=None):
+    """Per-value histogram of a BSI stack through one of the one-pass
+    histograms ``gb`` (groupby_fused unless given): planes (S, 2+d, W),
+    filter_words (S, W) or None → (pos (2^d,), neg (2^d,)) int32,
+    pos[v] = columns holding +v, neg[v] = columns holding -v.
+    Distinct, Min/Max and Range counts derive from it without decoding
+    a column."""
     codes, valid, n_codes = _value_hist_codes(planes, filter_words)
-    counts = groupby_fused(codes, valid, None, n_codes)[0]
+    counts = (gb or groupby_fused)(codes, valid, None, n_codes)[0]
     return counts[0::2].contiguous(), counts[1::2].contiguous()
 
 

@@ -343,7 +343,7 @@ def test_state_round_trip(holders):
 
 
 @pytest.mark.parametrize("query", [
-    "GroupBy(Rows(f), aggregate=Count(Distinct(field=g)))",
+    "Sort(Row(f=1), field=b)",
     "Percentile(field=b, nth=50)", "Extract(All(), Rows(f))",
     "Row(f='key')", "Rows(f)"])
 def test_calls_not_ported_yet_raise(holders, query):
@@ -360,9 +360,12 @@ def test_calls_not_ported_yet_raise(holders, query):
 ])
 def test_host_fallbacks_not_ported_yet_raise(holders, query):
     """What the JAX package answers with its host loops (the per-shard
-    Min/Max walk, the decode stream, set-field Distinct) raises."""
-    with pytest.raises(ExecError, match="not ported yet"):
-        Executor(holders["d"][1], device="cpu").execute("d", query)
+    Min/Max walk, the decode stream, set-field Distinct) no longer
+    raises: the default executor routes it to the per-shard engine (or
+    the decode stream) and answers as the JAX package does."""
+    jh, ph = holders["d"]
+    want = _norm(JaxExecutor(jh).execute("d", query))
+    assert _norm(Executor(ph, device="cpu").execute("d", query)) == want
 
 
 def test_writes_are_seen_by_the_next_query(holders):

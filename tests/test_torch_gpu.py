@@ -83,6 +83,17 @@ def test_bsi_sum_counts(cuda, depth, s, w, filtered):
     _same(K.bsi_sum_counts(planes, filt), K.bsi_sum_counts_plain(planes, filt))
 
 
+@pytest.mark.parametrize("c,depth,w", [(1, 7, 8), (60, 7, 2049), (3, 40, 300)])
+def test_bsi_sum_counts_one_shard_many_filters(cuda, c, depth, w):
+    """Stride-0 planes: one shard's planes against C filters (the
+    per-shard GroupBy's combo masks)."""
+    planes = _words((1, 2 + depth, w), cuda, 30).expand(c, -1, -1)
+    filt = _words((c, w), cuda, 31)
+    _same(K.bsi_sum_counts(planes, filt), K.bsi_sum_counts_plain(planes, filt))
+    _same(K.bsi_sum_counts(planes, filt),
+          K.bsi_sum_counts(planes.contiguous(), filt))
+
+
 # groupby_fused: (S, CB, W, depth, signed, n_codes).  W = 200/2049 are
 # ragged against the 2048-word tile; CB = 0 is the one-code case; the
 # last two tables exceed shared memory and take global atomics
@@ -169,6 +180,97 @@ def test_groupby_sum(cuda, rows, c, s, w, depth, signed):
             _same(a, b)
 
 
+# masked_popcount: N = 0, 1, 256 (the TopN loop's chunk) and 300 (past a
+# chunk), W ragged against the 1024-word block and the 4-word vector
+@pytest.mark.parametrize("n", [0, 1, 256, 300])
+@pytest.mark.parametrize("w", [8, 1025, 32768, 4099])
+def test_masked_popcount(cuda, n, w):
+    x = _words((n + 1, w), cuda, 21)
+    mask = _words((w + 1,), cuda, 22)
+    for rows, m in ((x[:n], mask[:w]), (x[1:], mask[1:])):
+        before = K.LAUNCHES["masked_popcount"]
+        got = K.masked_popcount(rows, m)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["masked_popcount"] == before + (1 if n else 0)
+        assert got.shape == (n,)
+        _same(got, K.masked_popcount_plain(rows, m))
+
+
+def test_masked_popcount_refuses_strided(cuda):
+    x = _words((4, 64), cuda, 23)
+    with pytest.raises(ValueError):
+        K.masked_popcount(x[:, ::2], x[0, :32].contiguous())
+    with pytest.raises(ValueError):
+        K.masked_popcount(x[:, :32], x[0, :32].contiguous())
+
+
+def test_bad_cuda_shape_raises_before_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor the kernel does not take raises; it never reaches
+    the plain version."""
+    def plain(*_a, **_k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+    monkeypatch.setattr(K, "masked_popcount_plain", plain)
+    monkeypatch.setattr(K, "groupby_codes_plain", plain)
+    x = _words((4, 64), cuda, 24)
+    with pytest.raises(ValueError):
+        K.masked_popcount(x, x[0, :63].contiguous())
+    with pytest.raises(ValueError):
+        K.groupby_onehot(x.view(4, 1, 64), x[:3], None, 2)
+    with pytest.raises(ValueError):
+        K.groupby_onehot(x.view(4, 1, 64), x, None, 4097)
+    K.masked_popcount(x, x[0].contiguous())       # the kernel itself runs
+    torch.cuda.synchronize()
+
+
+# groupby_onehot: (S, CB, W, depth, signed, n_codes); CB 0 to 12, depth
+# 0, 7 and 16 (K up to 34: three payload tiles), G up to 4096 (16 code
+# groups on gridDim.y), W ragged against the 8-word tile
+_ONEHOT = [
+    (2, 0, 201, 0, True, 1),
+    (3, 1, 64, 7, False, 2),
+    (3, 3, 200, 7, True, 8),
+    (3, 7, 2049, 7, False, 128),
+    (3, 7, 2049, 7, True, 128),
+    (4, 8, 999, 0, True, 256),
+    (5, 9, 1000, 7, False, 512),
+    (2, 5, 300, 16, True, 20),
+    (2, 10, 513, 16, False, 1000),
+    (2, 12, 700, 16, True, 4096),
+    (2, 12, 96, 0, True, 4096),
+]
+
+
+@pytest.mark.parametrize("s,cb,w,depth,signed,g", _ONEHOT)
+def test_groupby_onehot(cuda, s, cb, w, depth, signed, g):
+    cp = _words((s, cb, w), cuda, 25)
+    valid = _words((s, w), cuda, 26)
+    planes = _words((s, 2 + depth, w), cuda, 27) if depth else None
+    before = K.LAUNCHES["groupby_onehot"]
+    got = K.groupby_onehot(cp, valid, planes, g, signed)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["groupby_onehot"] == before + 1
+    want = K.groupby_codes_plain(cp, valid, planes, g, signed)
+    fused = K.groupby_fused(cp, valid, planes, g, signed)
+    for a, b, c in zip(got, want, fused):
+        if a is None:
+            assert b is None and c is None
+        else:
+            _same(a, b)
+            _same(a, c)
+
+
+def test_groupby_onehot_views_and_value_hist(cuda):
+    """Strided views read the same words as copies; the value
+    histogram through the one-hot kernel equals its plain version."""
+    cg = _words((4, 8, 2048), cuda, 28)
+    planes = _words((4, 9, 2048), cuda, 29)
+    _same(K.groupby_onehot(cg[:, :-1], cg[:, -1], planes, 128)[2],
+          K.groupby_onehot(cg[:, :-1].contiguous(), cg[:, -1].contiguous(),
+                           planes, 128)[2])
+    _same(K.bsi_value_hist(planes, cg[:, 0], gb=K.groupby_onehot),
+          K.bsi_value_hist_plain(planes, cg[:, 0]))
+
+
 def test_empty_inputs_launch_nothing(cuda):
     before = dict(K.LAUNCHES)
     x = torch.zeros((0, 16), dtype=torch.int32, device=cuda)
@@ -206,9 +308,48 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
                "GroupBy(Rows(cat), filter=Row(f=1), aggregate=Max(field=v))",
                "GroupBy(Rows(f), Rows(cat), aggregate=Sum(field=v))",
                "Min(field=v)", "Max(Row(f=2), field=v)", "Distinct(field=v)"]
-    on_card, on_cpu = Executor(h), Executor(h, device="cpu")
+    on_cpu = Executor(h, device="cpu")
+    wants = [repr(on_cpu.execute("i", q)) for q in queries]
+    on_card = Executor(h)
+    per_shard = Executor(h)
+    per_shard.use_stacked = False
+    onehot = Executor(h)
+    onehot.stacked.onepass_arm = "onehot"
     K.reset_launches()
-    for q in queries:
-        got, want = on_card.execute("i", q), on_cpu.execute("i", q)
-        assert repr(got) == repr(want), q
+    for ex in (on_card, per_shard, onehot):
+        for q, want in zip(queries, wants):
+            assert repr(ex.execute("i", q)) == want, q
     assert all(n > 0 for n in K.LAUNCHES.values()), K.LAUNCHES
+    assert per_shard.paths[("TopN", "asked")] == 2
+
+
+def test_fallback_shapes_on_the_card_match_the_cpu(cuda):
+    """A depth-40 field's Min/Max/Distinct, GroupBy Max past depth 16 and
+    over overlapping rows, and Count(Distinct), on the default executor."""
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+
+    rng = np.random.default_rng(4)
+    h = Holder(width=4096)
+    idx = h.create_index("t")
+    cols = np.arange(4096 * 3)
+    ts = idx.create_field("ts", FieldOptions(type=FieldType.INT, min=0,
+                                             max=(1 << 40) - 1))
+    ts.import_values(cols[::2], (1 << 39) + rng.integers(0, 86400,
+                                                          size=cols[::2].size))
+    s = idx.create_field("s", FieldOptions(cache_type="none"))
+    s.import_bits(rng.integers(0, 4, size=cols.size),
+                  rng.integers(0, cols.size, size=cols.size))
+    m = idx.create_field("m", FieldOptions(type=FieldType.MUTEX))
+    m.import_bits(rng.integers(0, 3, size=cols.size), cols)
+    queries = ["Min(field=ts)", "Max(Row(m=1), field=ts)", "Distinct(field=ts)",
+               "Distinct(Row(m=2), field=ts)",
+               "GroupBy(Rows(m), aggregate=Max(field=ts))",
+               "GroupBy(Rows(s), aggregate=Min(field=ts))",
+               "GroupBy(Rows(m), aggregate=Count(Distinct(field=s)))",
+               "MinRow(Row(m=1), field=s)", "Distinct(Row(m=0), field=s)"]
+    on_card, on_cpu = Executor(h), Executor(h, device="cpu")
+    for q in queries:
+        assert repr(on_card.execute("t", q)) == repr(on_cpu.execute("t", q)), q
+    assert on_card.paths == on_cpu.paths
