@@ -11,18 +11,23 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build  — nvcc builds every kernel from pilosa_tpu_torch/ops/csrc
 3. kernels — each of the eight CUDA kernels at the query path's shapes
    (954 shards x 32768 words, 8 TopN rows, BSI depth 7, with and
-   without a filter; masked_popcount at one shard's (8, 32768) and
-   (256, 32768) row chunks; the GroupBy histogram at the able shape of 7
-   code bits, signed, unsigned and with Min/Max, at 9 code bits (240
-   combos), as the value histogram of age, and past shared memory at
-   4096 codes x depth 16 on 64 shards; the one-hot histogram at the able
-   shape, signed and unsigned, at 9 code bits and as the value
-   histogram, each also held equal to groupby_fused and timed beside it
-   on the same inputs; the per-combo kernel at the 8 combos of
-   GroupBy(Rows(t), Rows(a))) on seeded random words, held to its plain
+   without a filter, and bsi_sum_counts with one shard's planes at
+   shard stride 0 against 954 filters, the per-shard GroupBy's shape;
+   masked_popcount at one shard's (8, 32768) and (256, 32768) row
+   chunks; the GroupBy histogram at the able shape of 7 code bits,
+   signed, unsigned, with Min/Max and at the main path's density (every
+   column valid and present), at 9 code bits (240 combos), as the value
+   histogram of age, and past shared memory at 4096 codes x depth 16 on
+   64 shards; the one-hot histogram at the able shape, signed and
+   unsigned, at 9 code bits and as the value histogram, each also held
+   equal to groupby_fused and timed beside it on the same inputs; the
+   per-combo kernel at the 8 combos of GroupBy(Rows(t), Rows(a)),
+   unsigned and signed) on seeded random words, held to its plain
    PyTorch version exactly (integer outputs, tolerance 0), then timed
-   with CUDA events beside its bound; and a disjoint field of 2, 4 and
-   8 rows through both GroupBy arms, held equal and timed
+   with CUDA events beside its bound, whose byte and operation terms
+   (bit operations, and for groupby_sum its popcounts at the card's
+   __popc rate) are printed side by side; and a disjoint field of 2, 4
+   and 8 rows through both GroupBy arms, held equal and timed
 4. main path — the headline index (954 shards x 2^20 columns, random-
    word fields a, b, t, a 7-plane BSI field age and the disjoint
    categorical fields edu, gen, dom, reg, about 4.6 GB of words on the
@@ -66,6 +71,10 @@ S_WIDE = 64                 # shards of the over-shared-memory histogram
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 OPS_PER_S = 67e12           # H100 non-tensor 32-bit peak, used for bit ops
 INT8_TENSOR_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
+# __popc results a clock an SM, compute capability 9.0 (CUDA C++
+# Programming Guide, throughput of native arithmetic instructions); the
+# rate is this times the SMs times the card's maximum SM clock
+POPC_PER_CLOCK_PER_SM = 16
 SRC = {
     "popcount_rows": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
     "pair_popcount": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
@@ -149,11 +158,27 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(e.device_time_total for e in events) / count / 1e3
 
 
-def bound(nbytes: int, ops: int,
-          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
+def popc_per_s() -> float:
+    """The card's __popc rate: POPC_PER_CLOCK_PER_SM x SMs x the maximum
+    SM clock nvidia-smi reports."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S, popcs: int = 0,
+          popcs_per_s: float = 1.0) -> tuple[float, str, float, float]:
+    """(bound ms, "bytes" or "operations", byte term ms, operation term
+    ms): the operation term is the larger of the bit operations at
+    ops_per_s and the popcounts at popcs_per_s."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = max(ops / ops_per_s, popcs / popcs_per_s) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_bytes, t_ops
+    return t_ops, "operations", t_bytes, t_ops
 
 
 def random_words(gen, shape, device):
@@ -212,6 +237,10 @@ def phase_kernels(device) -> dict:
     planes = random_words(gen, (S, 2 + DEPTH, W), device)
     codes = random_words(gen, (S, 9, W), device)
     able = codes[:, :7]
+    # the main path's density: every column valid, every value present
+    every = torch.full((S, W), -1, dtype=torch.int32, device=device)
+    present = planes.clone()
+    present[:, 0] = -1
     wide_codes = random_words(gen, (S_WIDE, 12, W), device)
     wide_planes = random_words(gen, (S_WIDE, 2 + 16, W), device)
     # GroupBy(Rows(t), Rows(a)) as the main path lays it out: the 8 t
@@ -234,6 +263,13 @@ def phase_kernels(device) -> dict:
          "unsigned, G=128",
          lambda: K.groupby_fused(able, a, planes, 128, signed=False),
          lambda: K.groupby_codes_plain(able, a, planes, 128, signed=False),
+         hist_bytes(7, False) + (2 + DEPTH) * 128 * 4,
+         hist_ops(7, False), 20, 1),
+        ("groupby_fused", "able unsigned, every column valid and present "
+         "(the main path's density), G=128",
+         lambda: K.groupby_fused(able, every, present, 128, signed=False),
+         lambda: K.groupby_codes_plain(able, every, present, 128,
+                                       signed=False),
          hist_bytes(7, False) + (2 + DEPTH) * 128 * 4,
          hist_ops(7, False), 20, 1),
         ("groupby_fused", "able signed, G=128",
@@ -267,13 +303,22 @@ def phase_kernels(device) -> dict:
                                        4096),
          K.groupby_onepass_hbm_bytes(S_WIDE, W, 12, 16) + 34 * 4096 * 4,
          lambda out: (12 + 1 + 18) * S_WIDE * W + _increments(out), 5, 1),
+        # bit operations a combo and word: the rows' AND, the exists AND
+        # and a magnitude AND a plane (and the sign split when signed);
+        # popcounts: count, nn and one a plane (a side)
         ("groupby_sum", f"C={R} of ({R}, {S}, {W}) x (1, {S}, {W}) + "
          f"({S}, {2 + DEPTH}, {W}) unsigned",
          lambda: K.groupby_sum(stacks, sel, planes, signed=False),
          lambda: K.groupby_sum_plain(stacks, sel, planes, signed=False),
          K.groupby_percombo_hbm_bytes(S, W, R + 1, DEPTH, signed=False)
          + R * (2 + 2 * DEPTH) * 4,
-         R * (2 + 2 + 5 * DEPTH) * words, 20, 1),
+         (R * (2 + DEPTH) * words, R * (2 + DEPTH) * words), 20, 1),
+        ("groupby_sum", f"C={R} signed",
+         lambda: K.groupby_sum(stacks, sel, planes, signed=True),
+         lambda: K.groupby_sum_plain(stacks, sel, planes, signed=True),
+         K.groupby_percombo_hbm_bytes(S, W, R + 1, DEPTH, signed=True)
+         + R * (2 + 2 * DEPTH) * 4,
+         (R * (4 + 2 * DEPTH) * words, R * (2 + 2 * DEPTH) * words), 20, 1),
     ]
 
     def tensor_ops(k, g):
@@ -316,6 +361,7 @@ def phase_kernels(device) -> dict:
     # (contiguous) against that shard's filter words
     mask = a[0].contiguous()
     flat_rows = rows.view(R * S, W)
+    one_shard = planes[:1].expand(S, -1, -1)
     cases = [
         # name, shape label, kernel call, plain call, bytes, word-ops
         ("popcount_rows", f"({S}, {W})", lambda: K.popcount_rows(a),
@@ -341,6 +387,14 @@ def phase_kernels(device) -> dict:
          lambda: K.bsi_sum_counts_plain(planes, None),
          (2 + DEPTH) * stack + S * (1 + 2 * DEPTH) * 4,
          (4 + 6 * DEPTH) * S * W),
+        # the per-shard GroupBy's shape: one shard's planes at shard
+        # stride 0 against a filter (a combo's mask) each
+        ("bsi_sum_counts", f"(1, {2 + DEPTH}, {W}) at shard stride 0 & "
+         f"({S}, {W})",
+         lambda: K.bsi_sum_counts(one_shard, a),
+         lambda: K.bsi_sum_counts_plain(one_shard, a),
+         (2 + DEPTH) * W * 4 + stack + S * (1 + 2 * DEPTH) * 4,
+         (5 + 6 * DEPTH) * S * W),
         ("masked_popcount", f"(8, {W}) & ({W},)",
          lambda: K.masked_popcount(flat_rows[:8], mask),
          lambda: K.masked_popcount_plain(flat_rows[:8], mask),
@@ -353,6 +407,9 @@ def phase_kernels(device) -> dict:
     cases = ([c + (50, 3, None) for c in cases] + [c + (None,) for c in gb_cases]
              + onehot_cases)
     records = {}
+    popc_rate = popc_per_s()
+    print(f"kernels: popcount rate {popc_rate:.4e}/s ({POPC_PER_CLOCK_PER_SM} "
+          "a clock an SM x SMs x the maximum SM clock)")
     for (name, label, kern, plain, nbytes, ops, reps, plain_reps,
          beside) in cases:
         got, want = kern(), plain()
@@ -362,6 +419,7 @@ def phase_kernels(device) -> dict:
             raise AssertionError(f"{name} {label}: kernel differs from "
                                  f"its plain version, max |err| {err}")
         n_ops = ops(got) if callable(ops) else ops
+        n_ops, popcs = n_ops if isinstance(n_ops, tuple) else (n_ops, 0)
         ms = cuda_ms(kern, reps=reps)
         if name == "masked_popcount":
             # back to back, the calls measure the wrapper's host work; the
@@ -372,12 +430,15 @@ def phase_kernels(device) -> dict:
                   "of kernel (profiler)")
         plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
         rate = INT8_TENSOR_OPS_PER_S if name == "groupby_onehot" else OPS_PER_S
-        bound_ms, bound_by = bound(nbytes, n_ops, rate)
+        bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, n_ops, rate, popcs,
+                                                   popc_rate)
         print(f"kernel {name} {label}: exact vs plain; {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({bound_ms / ms:.1%} of bound; {nbytes} bytes, "
-              f"{n_ops} ops), library none (no single PyTorch call "
-              "computes this from packed words)")
+              f"{bound_by} ({bound_ms / ms:.1%} of bound; byte term "
+              f"{t_bytes:.4f} ms for {nbytes} bytes, operation term "
+              f"{t_ops:.4f} ms for {n_ops} ops and {popcs} popcounts), "
+              "library none (no single PyTorch call computes this from "
+              "packed words)")
         if beside is not None:
             # the fused histogram on the same inputs: equal, timed in turn
             if max_abs_err(f"{name} {label} vs groupby_fused", got,

@@ -53,8 +53,8 @@ _ARGTYPES = {
                          _P, _P, _P],
     "pt_groupby_onehot": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                           _P, _P],
-    "pt_groupby_sum": [ctypes.POINTER(_P), _I, _P, _I, _P, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P],
+    "pt_groupby_sum": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _I, _P,
+                       _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 _LIBS = {"pt_groupby_fused": "groupby_kernels",
          "pt_groupby_onehot": "groupby_kernels",
@@ -558,7 +558,8 @@ def groupby_sum(stacks, sel: torch.Tensor, planes: torch.Tensor | None = None,
         neg = torch.zeros((c, depth), dtype=torch.int32, device=dev)
     if c and s * w:
         ptrs = (_P * nf)(*[st.data_ptr() for st in stacks])
-        _launch(name, "pt_groupby_sum", ptrs, nf, sel.data_ptr(), c,
+        n_rows = (_I * nf)(*[st.shape[0] for st in stacks])
+        _launch(name, "pt_groupby_sum", ptrs, n_rows, nf, sel.data_ptr(), c,
                 None if planes is None else planes.data_ptr(), depth, s, w,
                 int(bool(signed)), counts.data_ptr(),
                 None if nn is None else nn.data_ptr(),

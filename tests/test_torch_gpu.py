@@ -95,11 +95,16 @@ def test_bsi_sum_counts_one_shard_many_filters(cuda, c, depth, w):
 
 
 # groupby_fused: (S, CB, W, depth, signed, n_codes).  W = 200/2049 are
-# ragged against the 2048-word tile; CB = 0 is the one-code case; the
-# last two tables exceed shared memory and take global atomics
+# ragged against the 2048-word tile of the (K, G) arm and 513/511/1023
+# against the joint arm's 1024-word tile; CB = 0 is the one-code case.
+# Arms (csrc/groupby_kernels.cu pt_groupby_fused): the joint (code, value)
+# table in one magnitude chunk or two, with lane copies when tiny; the
+# count-only table (lane copies up to 512 codes); the (K, G) table in
+# shared memory (depth 20, or Min/Max past one chunk) and past it in
+# global memory (the last two)
 _FUSED = [
     (3, 7, 200, 7, False, 128),
-    (3, 7, 2049, 7, True, 128),
+    (3, 7, 2049, 7, True, 128),    # the largest one-chunk joint table (132 KB)
     (2, 0, 201, 3, True, 1),
     (5, 9, 1000, 7, True, 512),
     (2, 3, 64, 1, True, 8),
@@ -107,6 +112,16 @@ _FUSED = [
     (2, 2, 300, 40, False, 4),
     (2, 12, 700, 16, True, 4096),
     (3, 20, 100, 0, True, 1 << 20),
+    (2, 8, 513, 7, True, 256),     # the first past it: two chunks
+    (2, 7, 200, 8, False, 225),    # more codes than 2^CB: the rest stay 0
+    (2, 8, 1023, 8, True, 128),    # depth 8 signed: two chunks
+    (3, 5, 511, 8, False, 32),     # depth 8 unsigned: one chunk
+    (2, 8, 300, 7, False, 200),    # codes >= G dropped, joint table
+    (2, 10, 600, 3, True, 700),
+    (2, 9, 130, 0, True, 300),     # codes >= G dropped, count only
+    (2, 4, 77, 2, True, 16),       # joint table in lane copies
+    (2, 8, 64, 0, False, 256),     # the value histogram's lane copies
+    (2, 14, 64, 0, False, 16384),  # a count-only table past lane copies
 ]
 
 
@@ -122,6 +137,38 @@ def test_groupby_fused(cuda, s, cb, w, depth, signed, g, minmax):
     got = K.groupby_fused(cp, valid, planes, g, signed, minmax=minmax)
     torch.cuda.synchronize()
     assert K.LAUNCHES["groupby_fused"] == before + 1
+    want = K.groupby_codes_plain(cp, valid, planes, g, signed, minmax=minmax)
+    for a, b in zip(got, want):
+        if a is None:
+            assert b is None
+        else:
+            _same(a, b)
+
+
+@pytest.mark.parametrize("s,cb,w,depth,signed,g", [
+    (3, 7, 1000, 7, False, 128), (3, 7, 600, 7, True, 128),
+    (2, 9, 700, 7, False, 512), (2, 8, 300, 0, False, 256),
+    (2, 12, 300, 16, True, 4096)])
+@pytest.mark.parametrize("fill", ["dense", "runs"])
+@pytest.mark.parametrize("minmax", [False, True])
+def test_groupby_fused_dense_and_empty_words(cuda, s, cb, w, depth, signed, g,
+                                             fill, minmax):
+    """The main path's density (every column valid, every value
+    present) and valid planes of all-zero and all-ones word runs."""
+    if minmax and not depth:
+        pytest.skip("minmax takes BSI planes")
+    cp = _words((s, cb, w), cuda, 32)
+    planes = _words((s, 2 + depth, w), cuda, 33) if depth else None
+    if fill == "dense":
+        valid = torch.full((s, w), -1, dtype=torch.int32, device=cuda)
+        if planes is not None:
+            planes[:, 0] = -1
+    else:
+        valid = _words((s, w), cuda, 34)
+        valid[:, 0:40] = 0
+        valid[:, 40:90] = -1
+        valid[:, -37:] = 0
+    got = K.groupby_fused(cp, valid, planes, g, signed, minmax=minmax)
     want = K.groupby_codes_plain(cp, valid, planes, g, signed, minmax=minmax)
     for a, b in zip(got, want):
         if a is None:
@@ -148,7 +195,13 @@ def test_groupby_fused_all_invalid_and_views(cuda):
     _same(K.bsi_value_hist(planes), K.bsi_value_hist_plain(planes))
 
 
-# groupby_sum: (field row counts, C, S, W, depth, signed)
+# groupby_sum: (field row counts, C, S, W, depth, signed).  Up to 16
+# rows in all are staged in shared memory with the planes; (40, 30) and
+# the 24 rows of eight fields are read per combo from global memory.
+# C = 60 signed and C = 1100 take several passes of combos; S = 1 is
+# fewer tiles than the persistent grid; W = 2049/513/77 are ragged
+# against the 512-word tile and not a multiple of 4 words (4-byte copies);
+# depth <= 8 and <= 16 keep the magnitudes in registers, 63 in the ring
 _SUM = [
     ((4,), 1, 3, 200, 7, True),
     ((4, 2), 8, 3, 2049, 7, True),
@@ -157,6 +210,12 @@ _SUM = [
     ((40, 30), 1100, 2, 64, 3, True),
     ((5, 3), 15, 2, 300, 63, True),
     ((5, 3), 15, 2, 300, 0, True),
+    ((4, 2), 60, 2, 700, 7, True),
+    ((3,), 5, 1, 77, 7, True),
+    ((2,) * 8, 10, 2, 300, 3, True),
+    ((3,) * 8, 10, 2, 260, 2, False),
+    ((3, 2), 6, 2, 300, 12, False),
+    ((3, 2), 6, 2, 300, 16, True),
 ]
 
 
@@ -178,6 +237,21 @@ def test_groupby_sum(cuda, rows, c, s, w, depth, signed):
             assert b is None
         else:
             _same(a, b)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_groupby_sum_main_path_layout(cuda, signed):
+    """GroupBy(Rows(t), Rows(a)) as the engine lays it out: 8 t rows x
+    the one a row, combo r = (t row r, a row 0), depth 7."""
+    s, w = 5, 4096
+    stacks = [_words((8, s, w), cuda, 35), _words((1, s, w), cuda, 36)]
+    sel = torch.tensor([[r, 0] for r in range(8)], dtype=torch.int32,
+                       device=cuda)
+    planes = _words((s, 9, w), cuda, 37)
+    got = K.groupby_sum(stacks, sel, planes, signed)
+    want = K.groupby_sum_plain(stacks, sel, planes, signed)
+    for a, b in zip(got, want):
+        _same(a, b)
 
 
 # masked_popcount: N = 0, 1, 256 (the TopN loop's chunk) and 300 (past a
