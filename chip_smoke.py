@@ -12,7 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels — each of the eight CUDA kernels at the query path's shapes
    (954 shards x 32768 words, 8 TopN rows, BSI depth 7, with and
    without a filter, and bsi_sum_counts with one shard's planes at
-   shard stride 0 against 954 filters, the per-shard GroupBy's shape;
+   shard stride 0 against 954 filters and against the per-shard
+   GroupBy's own 60 and 8 (one launch a shard a 256-combo chunk);
    masked_popcount at one shard's (8, 32768) and (256, 32768) row
    chunks; the GroupBy histogram at the able shape of 7 code bits,
    signed, unsigned, with Min/Max and at the main path's density (every
@@ -24,9 +25,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    per-combo kernel at the 8 combos of GroupBy(Rows(t), Rows(a)),
    unsigned and signed) on seeded random words, held to its plain
    PyTorch version exactly (integer outputs, tolerance 0), then timed
-   with CUDA events beside its bound, whose byte and operation terms
-   (bit operations, and for groupby_sum its popcounts at the card's
-   __popc rate) are printed side by side; and a disjoint field of 2, 4
+   with CUDA events (the profiler's device time for masked_popcount
+   and the short stride-0 bsi_sum_counts launches) beside its bound,
+   whose byte and operation terms (bit operations, and for groupby_sum
+   and bsi_sum_counts their popcounts at the card's __popc rate) are
+   printed side by side; the one-hot histogram's bound is
+   groupby_fused's, and its own int8 tensor work (2*K*min(G, 256) a
+   column, and the first port's dense 2*K*G) is printed beside it; the
+   per-shard TopN's loop of 954 masked_popcount calls, timed whole and
+   as the sum of its kernels; and a disjoint field of 2, 4
    and 8 rows through both GroupBy arms, held equal and timed
 4. main path — the headline index (954 shards x 2^20 columns, random-
    word fields a, b, t, a 7-plane BSI field age and the disjoint
@@ -258,6 +265,11 @@ def phase_kernels(device) -> dict:
         # one op per word read plus one per histogram increment
         return lambda out: hist_bytes(cb, signed) // 4 + _increments(out)
 
+    def vhist_ops(out):
+        # the value histogram's: a word read a plane, one a value counted
+        return (2 + DEPTH) * words + sum(int(x.sum(dtype=torch.int64))
+                                         for x in out)
+
     gb_cases = [
         ("groupby_fused", f"able ({S}, 7, {W}) + ({S}, {2 + DEPTH}, {W}) "
          "unsigned, G=128",
@@ -294,8 +306,7 @@ def phase_kernels(device) -> dict:
          "G=256",
          lambda: K.bsi_value_hist(planes), lambda: K.bsi_value_hist_plain(planes),
          K.groupby_onepass_hbm_bytes(S, W, DEPTH + 1) + 256 * 4,
-         lambda out: (2 + DEPTH) * words + sum(int(x.sum(dtype=torch.int64))
-                                               for x in out), 20, 1),
+         vhist_ops, 20, 1),
         ("groupby_fused", f"past shared memory: ({S_WIDE}, 12, {W}) + "
          f"({S_WIDE}, 18, {W}) signed, G=4096, K=34 (557 KB table)",
          lambda: K.groupby_fused(wide_codes, a[:S_WIDE], wide_planes, 4096),
@@ -321,47 +332,78 @@ def phase_kernels(device) -> dict:
          (R * (4 + 2 * DEPTH) * words, R * (2 + 2 * DEPTH) * words), 20, 1),
     ]
 
-    def tensor_ops(k, g):
-        # the one-hot design's int8 tensor work: 2*K*G operations a
-        # column, unpadded, over every column of the stack
-        return 2 * k * g * words * 32
+    # the one-hot histogram computes groupby_fused's function, so its
+    # bound is groupby_fused's on the same inputs: the bytes it reads, one
+    # op per word read and one per histogram increment.  The one-hot
+    # form's own int8 tensor work (2*K*min(G, 256) a column: a 32-column
+    # word touches at most 32 of the 8-code slices) and the first port's
+    # dense 2*K*G are printed beside it, not taken as its bound
+    form_ops = {}
 
-    # the one-hot histogram: bytes as groupby_fused reads them; its
-    # operations are tensor work, at the int8 tensor rate
+    def onehot_case(label, k, g, kern, plain, nbytes, ops, beside):
+        form_ops[label] = (2 * k * min(g, 256) * words * 32,
+                           2 * k * g * words * 32)
+        return ("groupby_onehot", label, kern, plain, nbytes, ops, 20, 1,
+                beside)
+
     onehot_cases = [
-        ("groupby_onehot", f"able ({S}, 7, {W}) + ({S}, {2 + DEPTH}, {W}) "
-         "unsigned, G=128, K=9",
-         lambda: K.groupby_onehot(able, a, planes, 128, signed=False),
-         lambda: K.groupby_codes_plain(able, a, planes, 128, signed=False),
-         hist_bytes(7, False) + (2 + DEPTH) * 128 * 4,
-         tensor_ops(2 + DEPTH, 128), 20, 1,
-         lambda: K.groupby_fused(able, a, planes, 128, signed=False)),
-        ("groupby_onehot", "able signed, G=128, K=16",
-         lambda: K.groupby_onehot(able, a, planes, 128),
-         lambda: K.groupby_codes_plain(able, a, planes, 128),
-         hist_bytes(7, True) + (2 + 2 * DEPTH) * 128 * 4,
-         tensor_ops(2 + 2 * DEPTH, 128), 20, 1,
-         lambda: K.groupby_fused(able, a, planes, 128)),
-        ("groupby_onehot", f"240 combos ({S}, 9, {W}) + ({S}, {2 + DEPTH}, "
-         f"{W}) unsigned, G=512, K=9",
-         lambda: K.groupby_onehot(codes, a, planes, 512, signed=False),
-         lambda: K.groupby_codes_plain(codes, a, planes, 512, signed=False),
-         hist_bytes(9, False) + (2 + DEPTH) * 512 * 4,
-         tensor_ops(2 + DEPTH, 512), 20, 1,
-         lambda: K.groupby_fused(codes, a, planes, 512, signed=False)),
-        ("groupby_onehot", f"bsi_value_hist of age ({S}, {2 + DEPTH}, {W}), "
-         "G=256, K=1",
-         lambda: K.bsi_value_hist(planes, gb=K.groupby_onehot),
-         lambda: K.bsi_value_hist_plain(planes),
-         K.groupby_onepass_hbm_bytes(S, W, DEPTH + 1) + 256 * 4,
-         tensor_ops(1, 256), 20, 1,
-         lambda: K.bsi_value_hist(planes)),
+        onehot_case(f"able ({S}, 7, {W}) + ({S}, {2 + DEPTH}, {W}) "
+                    "unsigned, G=128, K=9", 2 + DEPTH, 128,
+                    lambda: K.groupby_onehot(able, a, planes, 128, signed=False),
+                    lambda: K.groupby_codes_plain(able, a, planes, 128,
+                                                  signed=False),
+                    hist_bytes(7, False) + (2 + DEPTH) * 128 * 4,
+                    hist_ops(7, False),
+                    lambda: K.groupby_fused(able, a, planes, 128, signed=False)),
+        onehot_case("able signed, G=128, K=16", 2 + 2 * DEPTH, 128,
+                    lambda: K.groupby_onehot(able, a, planes, 128),
+                    lambda: K.groupby_codes_plain(able, a, planes, 128),
+                    hist_bytes(7, True) + (2 + 2 * DEPTH) * 128 * 4,
+                    hist_ops(7, True),
+                    lambda: K.groupby_fused(able, a, planes, 128)),
+        onehot_case(f"240 combos ({S}, 9, {W}) + ({S}, {2 + DEPTH}, {W}) "
+                    "unsigned, G=512, K=9", 2 + DEPTH, 512,
+                    lambda: K.groupby_onehot(codes, a, planes, 512, signed=False),
+                    lambda: K.groupby_codes_plain(codes, a, planes, 512,
+                                                  signed=False),
+                    hist_bytes(9, False) + (2 + DEPTH) * 512 * 4,
+                    hist_ops(9, False),
+                    lambda: K.groupby_fused(codes, a, planes, 512, signed=False)),
+        onehot_case(f"bsi_value_hist of age ({S}, {2 + DEPTH}, {W}), G=256, "
+                    "K=1", 1, 256,
+                    lambda: K.bsi_value_hist(planes, gb=K.groupby_onehot),
+                    lambda: K.bsi_value_hist_plain(planes),
+                    K.groupby_onepass_hbm_bytes(S, W, DEPTH + 1) + 256 * 4,
+                    vhist_ops, lambda: K.bsi_value_hist(planes)),
     ]
     # the per-shard TopN loop's shapes: a chunk of one shard's rows
     # (contiguous) against that shard's filter words
     mask = a[0].contiguous()
     flat_rows = rows.view(R * S, W)
     one_shard = planes[:1].expand(S, -1, -1)
+
+    def bsi_pop(c):
+        # bit operations and popcounts of bsi_sum_counts over c filtered
+        # shards: count, and a pos and a neg popcount a plane, a word
+        return ((5 + 6 * DEPTH) * c * W, (1 + 2 * DEPTH) * c * W)
+
+    # kernels too short for back-to-back CUDA events, which would time
+    # the wrapper's host work: their time comes from the profiler
+    profiled = set()
+
+    def stride0(c):
+        # the per-shard GroupBy's shape (executor/advanced.py
+        # _groupby_loop): one shard's planes at shard stride 0 against one
+        # filter (a combo's mask) each, up to _ROW_CHUNK = 256 combos a
+        # launch
+        planes_c = planes[:1].expand(c, -1, -1)
+        label = f"(1, {2 + DEPTH}, {W}) at shard stride 0 & ({c}, {W})"
+        profiled.add(label)
+        return ("bsi_sum_counts", label,
+                lambda: K.bsi_sum_counts(planes_c, a[:c]),
+                lambda: K.bsi_sum_counts_plain(planes_c, a[:c]),
+                (2 + DEPTH) * W * 4 + c * W * 4 + c * (1 + 2 * DEPTH) * 4,
+                bsi_pop(c))
     cases = [
         # name, shape label, kernel call, plain call, bytes, word-ops
         ("popcount_rows", f"({S}, {W})", lambda: K.popcount_rows(a),
@@ -380,21 +422,22 @@ def phase_kernels(device) -> dict:
         ("bsi_sum_counts", f"({S}, {2 + DEPTH}, {W}) & ({S}, {W})",
          lambda: K.bsi_sum_counts(planes, a),
          lambda: K.bsi_sum_counts_plain(planes, a),
-         (3 + DEPTH) * stack + S * (1 + 2 * DEPTH) * 4,
-         (5 + 6 * DEPTH) * S * W),
+         (3 + DEPTH) * stack + S * (1 + 2 * DEPTH) * 4, bsi_pop(S)),
         ("bsi_sum_counts", f"({S}, {2 + DEPTH}, {W}) no filter",
          lambda: K.bsi_sum_counts(planes, None),
          lambda: K.bsi_sum_counts_plain(planes, None),
          (2 + DEPTH) * stack + S * (1 + 2 * DEPTH) * 4,
-         (4 + 6 * DEPTH) * S * W),
-        # the per-shard GroupBy's shape: one shard's planes at shard
-        # stride 0 against a filter (a combo's mask) each
+         ((4 + 6 * DEPTH) * S * W, (1 + 2 * DEPTH) * S * W)),
+        # one shard's planes at shard stride 0 against S filters, and at
+        # the per-shard engine's own counts: the able GroupBy's 60 combos
+        # and GroupBy(Rows(t), Rows(a))'s 8
         ("bsi_sum_counts", f"(1, {2 + DEPTH}, {W}) at shard stride 0 & "
          f"({S}, {W})",
          lambda: K.bsi_sum_counts(one_shard, a),
          lambda: K.bsi_sum_counts_plain(one_shard, a),
-         (2 + DEPTH) * W * 4 + stack + S * (1 + 2 * DEPTH) * 4,
-         (5 + 6 * DEPTH) * S * W),
+         (2 + DEPTH) * W * 4 + stack + S * (1 + 2 * DEPTH) * 4, bsi_pop(S)),
+        stride0(60),
+        stride0(8),
         ("masked_popcount", f"(8, {W}) & ({W},)",
          lambda: K.masked_popcount(flat_rows[:8], mask),
          lambda: K.masked_popcount_plain(flat_rows[:8], mask),
@@ -421,17 +464,14 @@ def phase_kernels(device) -> dict:
         n_ops = ops(got) if callable(ops) else ops
         n_ops, popcs = n_ops if isinstance(n_ops, tuple) else (n_ops, 0)
         ms = cuda_ms(kern, reps=reps)
-        if name == "masked_popcount":
-            # back to back, the calls measure the wrapper's host work; the
-            # kernel's own time comes from the profiler
-            host_ms, ms = ms, device_ms(kern, "masked_popcount_kernel")
+        if name == "masked_popcount" or label in profiled:
+            host_ms, ms = ms, device_ms(kern, f"{name}_kernel")
             print(f"kernel {name} {label}: {host_ms:.4f} ms a call back to "
                   f"back through the wrapper (its host work), {ms:.4f} ms "
                   "of kernel (profiler)")
         plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
-        rate = INT8_TENSOR_OPS_PER_S if name == "groupby_onehot" else OPS_PER_S
-        bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, n_ops, rate, popcs,
-                                                   popc_rate)
+        bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, n_ops, OPS_PER_S,
+                                                   popcs, popc_rate)
         print(f"kernel {name} {label}: exact vs plain; {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
               f"{bound_by} ({bound_ms / ms:.1%} of bound; byte term "
@@ -439,6 +479,13 @@ def phase_kernels(device) -> dict:
               f"{t_ops:.4f} ms for {n_ops} ops and {popcs} popcounts), "
               "library none (no single PyTorch call computes this from "
               "packed words)")
+        if name == "groupby_onehot":
+            t8, dense = form_ops[label]
+            print(f"kernel {name} {label}: the one-hot form's int8 tensor "
+                  f"work (not its bound): {t8 / INT8_TENSOR_OPS_PER_S * 1e3:.4f}"
+                  f" ms for {t8} ops at 2*K*min(G, 256) a column; the first "
+                  f"port's dense 2*K*G: {dense / INT8_TENSOR_OPS_PER_S * 1e3:.4f}"
+                  f" ms for {dense} ops")
         if beside is not None:
             # the fused histogram on the same inputs: equal, timed in turn
             if max_abs_err(f"{name} {label} vs groupby_fused", got,
@@ -456,8 +503,28 @@ def phase_kernels(device) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
+    topn_loop(flat_rows, a)
     compare_arms(device, codes, planes)
     return records
+
+
+def topn_loop(flat_rows, filt) -> None:
+    """The per-shard TopN's loop at full width: one masked_popcount a
+    shard of its 8 rows against the shard's filter words, timed whole
+    with CUDA events (the wrapper's host work included) and as the sum
+    of its kernels' device times from the profiler."""
+    from pilosa_tpu_torch.ops import kernels as K
+
+    def loop():
+        for s in range(S):
+            K.masked_popcount(flat_rows[R * s:R * (s + 1)], filt[s])
+
+    whole = cuda_ms(loop, reps=3, warmup=1)
+    kernels = S * device_ms(loop, "masked_popcount_kernel", reps=3)
+    print(f"kernel masked_popcount per-shard TopN loop, {S} calls of "
+          f"({R}, {W}) & ({W},): {whole:.4f} ms a loop through the wrapper "
+          f"(CUDA events), {kernels:.4f} ms of kernel summed over its "
+          f"{S} launches (profiler)")
 
 
 def compare_arms(device, codes, planes) -> None:

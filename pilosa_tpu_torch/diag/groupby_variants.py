@@ -19,6 +19,18 @@ leave out one part of the work (no valid column: loads alone; no
 present value: one bin a code), the per-combo kernel at C = 1, 2, 4, 8
 and without planes, and prints what ptxas reports for each instance of
 ``ops/csrc/groupby_kernels.cu`` (registers, stack frame, spills).
+
+Part 3, alone with ``python3 -m pilosa_tpu_torch.diag.groupby_variants
+onehot``, times the first port's one-hot histogram (a copy in
+``groupby_variants.cu``) at the four phase-3 shapes and at the G = 4096
+card-test shape on 64 shards, and at G = 10 (GroupBy(gen, dom)) and
+G = 64: as it stood, loads only, loads and the one-hot build without
+the mma, the mma alone on constant fragments, and the template trimmed
+to the slices G needs; then the query path's groupby_onehot and the
+other instances of its kernel (the payload as A with 32 or 16 slices a
+warp, or with G in one range of 16 or 8 slices; the factored form with
+16 or 8 payload rows a warp), each held equal to the first port's
+output.
 """
 
 from __future__ import annotations
@@ -44,7 +56,11 @@ def build():
     p, i = ctypes.c_void_p, ctypes.c_int64
     lib.pt_diag_fused.argtypes = [i, p, i, p, p, i, i, i, i, i, i, i, p, p, p]
     lib.pt_diag_sum.argtypes = [i, p, p, p, i, p, i, i, i, p, p]
-    lib.pt_diag_fused.restype = lib.pt_diag_sum.restype = ctypes.c_int
+    lib.pt_diag_onehot_old.argtypes = [i, i, p, i, i, p, i, p, i, i, i, i, i, i, p, p, p]
+    lib.pt_diag_onehot_new.argtypes = [i, p, i, i, p, i, p, i, i, i, i, i, i, p, p]
+    for fn in (lib.pt_diag_fused, lib.pt_diag_sum, lib.pt_diag_onehot_old,
+               lib.pt_diag_onehot_new):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -76,6 +92,11 @@ def main() -> int:
     def words(shape):
         return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
                              dtype=torch.int32)
+
+    if sys.argv[1:] == ["onehot"]:
+        onehot(lib, dev, words)
+        print(f"card: {card_line()}")
+        return 0
 
     stream = torch.cuda.current_stream().cuda_stream
     codes = words((S, 8, W))
@@ -144,11 +165,100 @@ def main() -> int:
     print(f"sum C=8, the query path's groupby_sum: "
           f"{cuda_ms(lambda: K.groupby_sum([rows, arow.unsqueeze(0)], sel, planes, signed=False)):.4f} ms")
     current(dev, words, planes, valid, rows, sel)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    print(f"card: {card_line()}")
+    return 0
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(f"card: {card}")
-    return 0
+
+
+def onehot(lib, dev, words) -> None:
+    """Part 3: the first port's one-hot histogram with parts dropped, and
+    the query path's kernel beside it on the same inputs."""
+    import torch
+    from pilosa_tpu_torch.ops import kernels as K
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = words((S, 9, W))
+    planes = words((S, 2 + DEPTH, W))
+    valid = words((S, W))
+    vcodes, vvalid, vg = K._value_hist_codes(planes, None)
+    wide_codes = words((64, 12, W))
+    wide_planes = words((64, 18, W))
+    sink = torch.zeros(256, dtype=torch.int32, device=dev)
+    cases = [
+        ("able unsigned, G=128, K=9", codes[:, :7], valid, planes, 128, False),
+        ("able signed, G=128, K=16", codes[:, :7], valid, planes, 128, True),
+        ("9 code bits, G=512, K=9", codes, valid, planes, 512, False),
+        ("gen x dom, 4 code bits, G=10, K=9", codes[:, :4], valid, planes, 10,
+         False),
+        ("6 code bits, G=64, K=16", codes[:, :6], valid, planes, 64, True),
+        ("value histogram, G=256, K=1", vcodes, vvalid, None, vg, False),
+        ("64 shards, 12 code bits, G=4096, K=34", wide_codes, valid[:64],
+         wide_planes, 4096, True),
+    ]
+    for label, cp, va, pl, g, signed in cases:
+        d = 0 if pl is None else pl.shape[1] - 2
+        k = 1 if pl is None else 2 + (2 if signed else 1) * d
+        hist = torch.zeros(k * g, dtype=torch.int32, device=dev)
+        args = (cp.data_ptr(), cp.stride(0), cp.shape[1], va.data_ptr(),
+                va.stride(0), None if pl is None else pl.data_ptr(),
+                0 if pl is None else pl.stride(0), d, cp.shape[0], W, g,
+                int(signed))
+
+        def old(variant, spw=0):
+            def run():
+                hist.zero_()
+                err = lib.pt_diag_onehot_old(variant, spw, *args,
+                                             hist.data_ptr(), sink.data_ptr(),
+                                             stream)
+                if err:
+                    raise RuntimeError(f"old variant {variant}: cudaError {err}")
+            return run
+
+        def new(variant):
+            def run():
+                hist.zero_()
+                err = lib.pt_diag_onehot_new(variant, *args, hist.data_ptr(),
+                                             stream)
+                if err:
+                    raise RuntimeError(f"new variant {variant}: cudaError {err}")
+            return run
+
+        old(0)()
+        want = hist.clone()
+        got = K.groupby_onehot(cp, va, pl, g, signed)
+        rows = [got[0]] if pl is None else (
+            [got[0], got[1], got[2].T] + ([got[3].T] if signed else []))
+        if not torch.equal(torch.cat([r.reshape(-1) for r in rows]), want):
+            raise AssertionError(f"onehot {label}: the query path's kernel "
+                                 "differs from the first port's")
+        times = {name: cuda_ms(old(v), reps=3)
+                 for v, name in enumerate(("full", "loads", "build", "mma"))}
+        spw = -(-g // 128)
+        if k <= 16 and spw < 8:
+            times[f"trimmed spw={spw}"] = cuda_ms(old(0, spw), reps=3)
+        line = ", ".join(f"{n} {t:.4f} ms" for n, t in times.items())
+        print(f"onehot first port {label}: {line}")
+        times = {"query path": cuda_ms(
+            lambda: K.groupby_onehot(cp, va, pl, g, signed), reps=10)}
+        for v, name in ((0, "payload A, 32 slices"),
+                        (1, "payload A, 16 slices, present-slice test"),
+                        (2, "factored, 16 rows x 1 block"),
+                        (3, "factored, 8 rows x 2 blocks"),
+                        (4, "payload A, one range of 16 slices"),
+                        (5, "payload A, one range of 8 slices")):
+            if (k > 16 or (v == 3 and k > 8) or (v == 4 and g > 128)
+                    or (v == 5 and g > 64)):
+                continue
+            new(v)()
+            if not torch.equal(hist, want):
+                raise AssertionError(f"onehot {label}: instance {name} differs")
+            times[name] = cuda_ms(new(v), reps=10)
+        line = ", ".join(f"{n} {t:.4f} ms" for n, t in times.items())
+        print(f"onehot redesigned {label}: {line}")
 
 
 def current(dev, words, planes, valid, rows, sel) -> None:

@@ -10,7 +10,6 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -183,6 +182,24 @@ struct JointArgs {
   int64_t bins;   // table bins (each RF counters)
 };
 
+// The columns of a word whose code (CBM planes q, cb of them) is < g:
+// a bit-sliced compare.
+template <int CBM>
+__device__ __forceinline__ uint32_t below_g(const uint32_t (&q)[CBM], int cb, int g) {
+  uint32_t lt = 0, eq = ~0u;
+#pragma unroll
+  for (int b = CBM - 1; b >= 0; --b) {
+    if (b >= cb) continue;
+    if ((g >> b) & 1) {
+      lt |= eq & ~q[b];
+      eq &= q[b];
+    } else {
+      eq &= ~q[b];
+    }
+  }
+  return lt;
+}
+
 // One word of a joint-table tile: v its valid bits, ex its exists bits and
 // q the key planes' words.  tiles < 2^31 (S * W * 32 < 2^31), so the tile
 // splits into (shard, chunk) by 32-bit division.
@@ -208,20 +225,7 @@ template <int NT, int NCH, int RF>
 __device__ __forceinline__ void joint_count(const JointArgs& a, uint32_t (&q)[NT * 8],
                                             uint32_t v, uint32_t ex, int* tab) {
   constexpr int NS = NT * 8;
-  if (!a.all_codes) {  // keep the columns whose code < g (bit-sliced compare)
-    uint32_t lt = 0, eq = ~0u;
-#pragma unroll
-    for (int b = NS - 1; b >= 0; --b) {
-      if (b >= a.cb) continue;
-      if ((a.g >> b) & 1) {
-        lt |= eq & ~q[b];
-        eq &= q[b];
-      } else {
-        eq &= ~q[b];
-      }
-    }
-    v &= lt;
-  }
+  if (!a.all_codes) v &= below_g(q, a.cb, a.g);  // keep the columns whose code < g
   if (!v) return;
   if (a.exists) {
     // value bits count only where the value exists, and the no-value bit is
@@ -564,173 +568,6 @@ int dispatch_depth(const uint32_t* cp, int64_t cp_ss, int cb, const uint32_t* va
   if (d <= 32) PT_TABLE(32);
   PT_TABLE(64);
 #undef PT_TABLE
-}
-
-
-// ---------------------------------------------------------------------------
-// groupby_onehot: the one-pass histogram on the int8 tensor cores.
-//   Inputs as groupby_fused (any shard stride), without the Min/Max table;
-//   G <= 4096, d <= 16 (K <= 34) -> hist (K, G), zeroed by the caller.
-// Replaces pilosa_tpu/ops/kernels.py groupby_onehot (Pallas, f32 MXU one-hot
-// matmuls): hist = payload (K, columns) x one-hot (columns, G), a sum of 0/1
-// products, accumulated exactly in int32 by wmma m16n16k16 s8 x s8 -> s32.
-// Bound: the larger of the bytes groupby_fused reads and the tensor work,
-// 2*K*G operations a column at 1979 TOP/s (int8, dense).  Design: a
-// persistent grid walks (shard, 256-column) tiles; gridDim.y splits G into
-// groups of 128*SPW codes, and each of the 8 warps owns SPW 16-code slices
-// of its group, with MT x SPW accumulator fragments (MT = ceil(K/16) payload
-// tiles) resident in registers across all of its tiles.  Per tile:
-// 1. one thread per column reads its bit of each plane word, composes the
-//    column's code and its 0/1 payload rows [valid, nn, pos x d, neg x d]
-//    (the row order of _gc_payload_rows; an invalid column's payload is all
-//    zero) and stores them to shared memory as an int8 (columns x 16)
-//    column-major A tile per 16 payload rows, one 16-byte store each;
-// 2. each warp, per slice, writes the (columns x 16) one-hot of the tile's
-//    codes into its own shared B buffer (one 16-byte row a column), skips
-//    the slice when no code falls in it, and runs 16 k-steps of mma per
-//    payload tile.
-// At the end each warp stores its fragments through shared memory and adds
-// them to hist with one atomic per nonzero (k, g).  A tile with no valid
-// column is skipped whole; codes >= G, and columns with valid = 0, add
-// nothing.  The K = 1 value histogram pads A to 16 rows, so its tensor work
-// is 16x what it needs.
-// ---------------------------------------------------------------------------
-constexpr int kOhCols = kThreads;  // columns per tile: one a thread (8 words)
-
-__device__ __forceinline__ uint32_t spread4(uint64_t bits) {
-  // bits 0..3 -> bytes 0..3 of a word, each 0 or 1
-  const uint32_t n = static_cast<uint32_t>(bits) & 0xFu;
-  return (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
-}
-
-template <int MT, int SPW>
-__global__ void __launch_bounds__(kThreads)
-groupby_onehot_kernel(const uint32_t* __restrict__ cp, int64_t cp_ss, int cb,
-                      const uint32_t* __restrict__ valid, int64_t va_ss,
-                      const uint32_t* __restrict__ planes, int64_t pl_ss, int d,
-                      int64_t w, int64_t chunks, int64_t tiles, int g, int k,
-                      int is_signed, int* __restrict__ hist) {
-  using namespace nvcuda;
-  __shared__ __align__(32) signed char sa[MT * kOhCols * 16];
-  __shared__ __align__(32) signed char sb[kWarps * kOhCols * 16];
-  __shared__ int scode[kOhCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g_group = blockIdx.y * (kWarps * SPW * 16);
-  signed char* mb = sb + warp * (kOhCols * 16);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[MT][SPW];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < SPW; ++j) wmma::fill_fragment(acc[mt][j], 0);
-
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int64_t shard = t / chunks;
-    const int64_t word = (t % chunks) * (kOhCols / 32) + warp;
-    uint32_t va = 0;
-    int code = -1;
-    uint64_t rows = 0;  // bit r = payload row r of this column
-    if (word < w) {
-      va = (__ldg(valid + shard * va_ss + word) >> lane) & 1u;
-      if (va) {
-        const uint32_t* cps = cp + shard * cp_ss + word;
-        code = 0;
-        for (int b = 0; b < cb; ++b) code |= static_cast<int>((__ldg(cps + b * w) >> lane) & 1u) << b;
-        rows = 1;
-        if (planes) {
-          const uint32_t* pls = planes + shard * pl_ss + word;
-          if ((__ldg(pls) >> lane) & 1u) {
-            const bool neg = is_signed && ((__ldg(pls + w) >> lane) & 1u);
-            uint64_t mag = 0;
-            for (int p = 0; p < d; ++p) mag |= static_cast<uint64_t>((__ldg(pls + (2 + p) * w) >> lane) & 1u) << p;
-            rows |= 2u | (mag << (neg ? 2 + d : 2));
-          }
-        }
-      }
-    }
-    __syncthreads();  // the previous tile's products are done with sa and scode
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const uint64_t r = rows >> (16 * mt);
-      reinterpret_cast<uint4*>(sa + mt * kOhCols * 16)[threadIdx.x] =
-          make_uint4(spread4(r), spread4(r >> 4), spread4(r >> 8), spread4(r >> 12));
-    }
-    scode[threadIdx.x] = code;
-    if (!__syncthreads_or(va)) continue;  // no valid column in the tile
-
-#pragma unroll
-    for (int j = 0; j < SPW; ++j) {
-      const int gs = g_group + (warp + kWarps * j) * 16;
-      if (gs < g) {  // warp-uniform
-        __syncwarp();  // the previous slice's loads are done with mb
-        bool any = false;
-        for (int c = lane; c < kOhCols; c += 32) {
-          const int rel = scode[c] - gs;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (rel >= 0 && rel < 16) {
-            any = true;
-            const uint32_t one = 1u << ((rel & 3) * 8);
-            const int q = rel >> 2;
-            v = make_uint4(q == 0 ? one : 0u, q == 1 ? one : 0u, q == 2 ? one : 0u,
-                           q == 3 ? one : 0u);
-          }
-          reinterpret_cast<uint4*>(mb)[c] = v;
-        }
-        if (__any_sync(0xffffffffu, any)) {
-          __syncwarp();
-          for (int ks = 0; ks < kOhCols / 16; ++ks) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, mb + ks * 256, 16);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::col_major> fa;
-              wmma::load_matrix_sync(fa, sa + mt * kOhCols * 16 + ks * 256, 16);
-              wmma::mma_sync(acc[mt][j], fa, fb, acc[mt][j]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  int* scratch = reinterpret_cast<int*>(mb);  // 256 ints of the warp's own B buffer
-#pragma unroll
-  for (int j = 0; j < SPW; ++j) {
-    const int gs = g_group + (warp + kWarps * j) * 16;
-    if (gs >= g) continue;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      __syncwarp();
-      wmma::store_matrix_sync(scratch, acc[mt][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int i = lane; i < 256; i += 32) {
-        const int kk = mt * 16 + (i >> 4);
-        const int gg = gs + (i & 15);
-        const int v = scratch[i];
-        if (v && kk < k && gg < g) atomicAdd(hist + static_cast<int64_t>(kk) * g + gg, v);
-      }
-    }
-  }
-}
-
-template <int MT, int SPW>
-int launch_onehot(const uint32_t* cp, int64_t cp_ss, int cb, const uint32_t* valid,
-                  int64_t va_ss, const uint32_t* planes, int64_t pl_ss, int d, int64_t s,
-                  int64_t w, int g, int k, int is_signed, int* hist, cudaStream_t stream) {
-  auto kern = groupby_onehot_kernel<MT, SPW>;
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t chunks = (w + kOhCols / 32 - 1) / (kOhCols / 32);
-  const int64_t tiles = s * chunks;
-  const int groups = (g + kWarps * SPW * 16 - 1) / (kWarps * SPW * 16);
-  int64_t gx = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sm_count() / groups;
-  if (gx < 1) gx = 1;
-  if (gx > tiles) gx = tiles;
-  kern<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(groups)), kThreads, 0, stream>>>(
-      cp, cp_ss, cb, valid, va_ss, planes, pl_ss, d, w, chunks, tiles, g, k, is_signed, hist);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -1097,6 +934,525 @@ int dispatch_sum(SumArgs a, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// groupby_onehot: the one-pass histogram on the int8 tensor cores.
+//   Inputs as groupby_fused (any shard stride), without the Min/Max table;
+//   G <= 4096, d <= 16 (K <= 34) -> hist (K, G), zeroed by the caller.
+// Replaces pilosa_tpu/ops/kernels.py groupby_onehot (Pallas, f32 MXU one-hot
+// matmuls): hist = payload (K, columns) x one-hot (columns, G), a sum of 0/1
+// products, accumulated exactly in int32 by mma.sync m16n8k32 s8 x s8 -> s32.
+// The payload rows are [valid, nn, pos x d, neg x d] (the row order of
+// _gc_payload_rows; pos takes every exists column when unsigned); a column
+// whose valid bit is clear or whose code is >= G has an all-zero payload.
+//
+// Bound: groupby_fused's, as it computes the same function: the larger of
+// the bytes it reads and one operation a word read plus one a histogram
+// increment; the bytes bind.  The one-hot form's own tensor work is not the
+// function's: a warp takes one 32-column word at a time, and 32 columns
+// touch at most 32 of the 8-code slices, so it is at most 2 * K *
+// min(G, 256) int8 operations a column at 1979 TOP/s (the first port's
+// dense 2 * K * G counted every slice of every tile): below the byte term
+// for the value histogram (K = 1), 2-3.3x it at the able shapes (K = 9,
+// 16).  The kernel is held by neither: by the instructions that build the
+// fragments, ~170 a lane a word at the able shape (PERF.md).
+//
+// Design.  The first port staged a 256-column tile through shared memory,
+// wrote a one-hot and a payload tile there for every slice and ran wmma on
+// them behind two block barriers a tile: its loads, build and mma each take
+// a fraction of its time, and their chain the rest (PERF.md).  Here:
+// 1. Staging: a persistent grid walks (shard, kOhTile-word) tiles through a
+//    kOhStages-deep cp.async ring (copy_words, as groupby_sum) holding every
+//    plane a column needs: the code planes, valid, exists, [sign], the d
+//    magnitudes.  No thread waits on a global load.
+// 2. Words in batches of 8: lane group q loads word i0 + q's valid and code
+//    words and transposes byte t of them once (transpose8: lo = the low code
+//    bytes of columns 8t..8t+3, hi = those of 8t+4..8t+7, four to a
+//    register; glo, ghi the second code byte where G > 256); each word of the
+//    batch is then counted by the whole warp, its lanes shuffling the bytes
+//    in from the owner.
+// 3. Fragments are built in registers, never in shared memory.  A lane
+//    (group q = lane / 4, thread t = lane % 4) owns the k-slots 4t..4t+3 and
+//    16+4t..16+4t+3 of the m16n8k32 fragments; the kernel maps them to the
+//    word's columns 8t..8t+3 and 8t+4..8t+7 (k is summed over, so any
+//    permutation of it that A and B share is exact), which are the columns
+//    of lo and hi.  PTX fragment layout (ISA, mma.m16n8k32 .s8): A (16x32,
+//    row) a0 = row q, k 4t..4t+3; a1 = row q+8, same k; a2 = row q, k
+//    16+4t..16+4t+3; a3 = row q+8, those k; B (32x8, col) b0 = k 4t..4t+3,
+//    column q; b1 = k 16+4t..16+4t+3, column q; C/D (16x8) c0, c1 = row q,
+//    columns 2t, 2t+1; c2, c3 = row q+8, the same columns.  Byte i of a
+//    register is element i.  Two forms, by K:
+//    - K > 8, the payload as A: m-tile mt holds payload rows 16mt..16mt+15,
+//      a0 = spread4(P[16mt+q] >> 8t), a1 = spread4(P[16mt+q+8] >> 8t), a2, a3
+//      the same >> (8t + 4), where P[r] is payload row r's 32 column bits
+//      (whole-word ANDs of the planes).  B is the one-hot of the word's
+//      columns against the 8 codes of a slice: byte j of b0 is 1 where
+//      column 8t+j's code is slice base + q.  __vseteq4 would build it but
+//      is no instruction on sm_90 (about 5 a register); instead the code
+//      bits below the slice (= q) and above it (the range, the 256-code
+//      group) are matched once a word by one byte-wise zero test, the two
+//      low slice bits give 4 masks and the rest up to 8, and a slice's B is
+//      one AND of two masks a register.  acc[s][mt]: c = (payload row, code
+//      8s + 2t (+1)).  Where G spans several ranges, only the slices
+//      present: each lane takes column 8t+q, and __reduce_or_sync of 1 <<
+//      its slice (its code in the warp's range, valid) is the warp-uniform
+//      mask of the slices the word touches; a word with none in the range
+//      is skipped.  Where G fits one range (G <= 128, 8 or 16 slices) every
+//      slice runs: a random word touches most of them, and the test cost
+//      more than it saved.
+//    - K <= 8 (the value histogram, a count-only GroupBy), factored: code =
+//      128 * block + 16 * n + low.  A is the one-hot of the low nibble (a0 =
+//      low == q over lo, a1 = low == q+8, a2, a3 the same over hi), built
+//      once a word; B for payload row r and block b is the payload times
+//      the one-hot of code bits 4..6 (== q) and of bits 7..11 (== b); the
+//      owner lanes transpose the payload rows like the codes, so B is one
+//      AND a register.  One mma covers 128 codes of one payload row: the
+//      value histogram takes 2 mma a word where 16-code slices took ~10.
+//      acc[b][r]: c = (code 128b + 16 * (2t (+1)) + q (+8), row r).
+// 4. The accumulators stay in registers across all of a warp's words: a
+//    warp holds a range of NS slices or blocks (64 registers a thread, 128
+//    with 32 slices).  G past one range splits into ranges over the block's
+//    warps (warps of one range take alternate batches of the tile) and, past
+//    8 ranges, over gridDim.y.  At the end each warp adds its nonzero counts
+//    to hist with one global atomic each.
+// ---------------------------------------------------------------------------
+constexpr int kOhThreads = 256;
+constexpr int kOhWarps = kOhThreads / 32;
+constexpr int kOhTile = 256;             // words of each plane a ring stage holds
+constexpr int kOhPitch = kOhTile + 4;    // a plane's row in a stage: 16-byte aligned, 4 banks on
+constexpr int kOhStages = 4;
+constexpr int kOhMaxCodeBits = 24;
+constexpr int kOhSlots = kOhMaxCodeBits + 3 + 16;  // code planes, valid, exists, sign, magnitudes
+
+struct OnehotArgs {
+  const uint32_t* src[kOhSlots];  // slot q's words in shard 0
+  int64_t ss[kOhSlots];           // and its shard stride
+  int nslot;
+  int cb;          // code planes in slots [0, cb), valid in slot cb
+  int has_planes;  // exists in slot cb + 1, then the sign when signed, then the magnitudes
+  int is_signed;
+  int d;
+  int k;           // payload rows
+  int g;           // codes
+  int all_codes;   // g >= 2^cb: no code is dropped
+  int ranges;      // code ranges of the instance's width
+  int ranges_blk;  // ranges a block; gridDim.y = ceil(ranges / ranges_blk)
+  int vec;         // 16-byte copies
+  int64_t w, chunks, tiles;
+  int* hist;
+};
+
+// bits 0..3 of x as bytes 0..3, each 0 or 1
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  return ((x & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 1 in each byte of z that is zero, else 0
+__device__ __forceinline__ uint32_t bytes_zero(uint32_t z) {
+  return (~(((z & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | z) & 0x80808080u) >> 7;
+}
+
+// f (1 or 0 a byte) where bits 0..L-1 of the slice index in each byte
+// (bit 0 of p[b], above it anything) equal those of s
+template <int L>
+__device__ __forceinline__ uint32_t slice_bytes(uint32_t f, const uint32_t (&p)[L], int s) {
+#pragma unroll
+  for (int b = 0; b < L; ++b) f &= ((s >> b) & 1) ? p[b] : ~p[b];
+  return f;
+}
+
+// Payload row r of a word as masks on its planes' words:
+// P = v & (ex | eo) & (m | mo) & ((sg ^ sx) | so) & kz, m read from `slot`.
+struct PayRow {
+  int slot;
+  uint32_t eo, mo, sx, so, kz;
+};
+
+__device__ __forceinline__ PayRow pay_row(const OnehotArgs& a, int r) {
+  PayRow p{a.cb, ~0u, ~0u, 0u, ~0u, 0u};  // absent: kz = 0
+  if (r >= a.k) return p;
+  p.kz = ~0u;
+  if (r == 0) return p;  // valid
+  p.eo = 0u;
+  if (r == 1) return p;  // nn: valid & exists
+  const int q = r - 2;   // pos q, or neg q - d
+  p.slot = a.cb + 2 + a.is_signed + q % a.d;
+  p.mo = 0u;
+  if (a.is_signed) {
+    p.so = 0u;
+    p.sx = q < a.d ? ~0u : 0u;
+  }
+  return p;
+}
+
+template <bool FACT, int MT, int NS, int CBM, bool MULTI, bool ONE>
+__global__ void __launch_bounds__(kOhThreads)
+groupby_onehot_kernel(const OnehotArgs a) {
+  // FACT: MT payload rows and NS 128-code blocks a warp; else MT payload
+  // m-tiles and NS 8-code slices a warp.  ONE: G fits one range of slices
+  constexpr int RC = FACT ? NS * 128 : NS * 8;  // codes a range
+  constexpr int NR = FACT ? MT : 2 * MT;        // payload rows a lane builds
+  constexpr int NPT = FACT ? (MT + 7) / 8 : 1;  // FACT: transposes of 8 payload rows
+  constexpr int LNS = NS == 32 ? 5 : NS == 16 ? 4 : NS == 8 ? 3 : NS == 4 ? 2 : NS == 2 ? 1 : 0;
+  constexpr int LQ = LNS < 2 ? LNS : 2;  // slice bits resolved by the q masks, the rest by r
+  constexpr int LR = LNS - LQ;
+  constexpr uint32_t kRangeBits = (0xFFu << (3 + LNS)) & 0xFFu;
+  // the code bits that match once a word: the lane's code within a slice,
+  // and the range
+  constexpr uint32_t kFixed = (7u | kRangeBits) * 0x01010101u;
+  static_assert(FACT || (256 % RC == 0 && NS >= 4), "a range lies in one 256-code group");
+  extern __shared__ __align__(16) uint32_t oh_smem[];
+  const int64_t stage_words = static_cast<int64_t>(a.nslot) * kOhPitch;
+  const uint32_t** slot_src =
+      reinterpret_cast<const uint32_t**>(oh_smem + kOhStages * stage_words);
+  int64_t* slot_ss = reinterpret_cast<int64_t*>(slot_src + a.nslot);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int q = tid; q < a.nslot; q += kOhThreads) {
+    slot_src[q] = a.src[q];
+    slot_ss[q] = a.ss[q];
+  }
+
+  // the warp's code range, and which of the tile's words it takes
+  const int parts = kOhWarps / a.ranges_blk;
+  const int part = warp / a.ranges_blk;
+  const int range = blockIdx.y * a.ranges_blk + warp % a.ranges_blk;
+  const bool active = part < parts && range < a.ranges;
+  const int code0 = range * RC;
+  const uint32_t grp = static_cast<uint32_t>(code0 >> 8);
+  // a code byte's range bits, and the lane's code within a slice (the B
+  // fragment column it owns), in each byte
+  const uint32_t rkey = static_cast<uint32_t>((code0 & 255) + gq) * 0x01010101u;
+  const uint32_t grep = static_cast<uint32_t>(gq) * 0x01010101u;
+  const int col = 8 * tq + gq;  // the column whose presence this lane reports
+  const int blocks = (a.g + 127) >> 7;  // 128-code blocks (FACT)
+
+  // FACT: the owner lanes' payload rows 0..MT-1; else the lane's own A rows
+  PayRow pr[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) pr[i] = pay_row(a, FACT ? i : 16 * (i >> 1) + 8 * (i & 1) + gq);
+
+  int acc[NS][MT][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][mt][e] = 0;
+
+  // cp.async of tile t into ring stage `stage`, zero past W
+  auto fill = [&](int64_t t, int stage) {
+    const int64_t shard = t / a.chunks;
+    const int64_t base = (t % a.chunks) * kOhTile;
+    uint32_t* dst = oh_smem + stage * stage_words;
+    if (a.vec) {
+      for (int it = tid; it < a.nslot * (kOhTile / 4); it += kOhThreads) {
+        const int q = it / (kOhTile / 4);
+        const int k = (it % (kOhTile / 4)) * 4;
+        copy_words<4>(dst + q * kOhPitch + k, slot_src[q] + shard * slot_ss[q] + base + k,
+                      a.w - base - k);
+      }
+    } else {
+      for (int it = tid; it < a.nslot * kOhTile; it += kOhThreads) {
+        const int q = it / kOhTile;
+        const int k = it % kOhTile;
+        copy_words<1>(dst + q * kOhPitch + k, slot_src[q] + shard * slot_ss[q] + base + k,
+                      a.w - base - k);
+      }
+    }
+  };
+
+  // A warp takes its words in batches of 8: lane group q loads word i0 + q's
+  // valid and code words and transposes byte t of them (each transpose done
+  // once, not by all 8 lanes of a t), then the batch's words are counted one
+  // at a time, each lane shuffling in its 8 columns' code bytes.
+  auto count = [&](const uint32_t* stg) {
+    for (int i0 = 8 * part; i0 < kOhTile; i0 += 8 * parts) {
+      const uint32_t* so = stg + i0 + gq;
+      uint32_t vo = so[a.cb * kOhPitch];
+      uint32_t q[CBM];
+#pragma unroll
+      for (int b = 0; b < CBM; ++b) q[b] = b < a.cb ? so[b * kOhPitch] : 0u;
+      if (!a.all_codes) vo &= below_g(q, a.cb, a.g);
+      uint32_t lo_o, hi_o, glo_o = 0u, ghi_o = 0u, plo_o[NPT] = {}, phi_o[NPT] = {};
+      PT_TRANSPOSE8(q, 0, tq, lo_o, hi_o);
+      if constexpr (MULTI) PT_TRANSPOSE8(q, 8, tq, glo_o, ghi_o);
+      if constexpr (FACT) {  // the word's payload rows, transposed: byte bit r = row r
+        uint32_t ex = 0u, sg = 0u;
+        if (a.has_planes) {
+          ex = so[(a.cb + 1) * kOhPitch];
+          if (a.is_signed) sg = so[(a.cb + 2) * kOhPitch];
+        }
+        uint32_t p[8 * NPT];
+#pragma unroll
+        for (int r = 0; r < 8 * NPT; ++r) {
+          const uint32_t m = r < NR ? so[pr[r < NR ? r : 0].slot * kOhPitch] : 0u;
+          const PayRow& d = pr[r < NR ? r : 0];
+          p[r] = r < NR ? vo & (ex | d.eo) & (m | d.mo) & ((sg ^ d.sx) | d.so) & d.kz : 0u;
+        }
+        if constexpr (MT == 1) {
+          plo_o[0] = spread4(p[0] >> (8 * tq));
+          phi_o[0] = spread4(p[0] >> (8 * tq + 4));
+        } else {
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) PT_TRANSPOSE8(p, 8 * j, tq, plo_o[j], phi_o[j]);
+        }
+      }
+      const uint32_t live = __ballot_sync(~0u, vo != 0u);
+#pragma unroll 1
+      for (int w = 0; w < 8; ++w) {
+        if (!((live >> (4 * w)) & 1u)) continue;  // warp-uniform
+        const int src = 4 * w + tq;
+        const uint32_t v = __shfl_sync(~0u, vo, src);
+        const uint32_t lo = __shfl_sync(~0u, lo_o, src), hi = __shfl_sync(~0u, hi_o, src);
+        uint32_t glo = 0u, ghi = 0u;
+        if constexpr (MULTI) {
+          glo = __shfl_sync(~0u, glo_o, src);
+          ghi = __shfl_sync(~0u, ghi_o, src);
+        }
+        const uint32_t byte = __byte_perm(lo, hi, static_cast<uint32_t>(gq)) & 0xFFu;
+        const uint32_t gbyte = __byte_perm(glo, ghi, static_cast<uint32_t>(gq)) & 0xFu;
+        uint32_t in = (v >> col) & 1u;  // lane (q, t) reports column 8t + q
+        if constexpr (FACT) {
+          // A: the one-hot of the low code nibble, rows q and q + 8; B
+          // (per payload row and 128-code block): the payload times the
+          // one-hot of code bits 4..6 (column q) and of bits 7..11 (the block)
+          uint32_t plo[NPT], phi[NPT];
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) {
+            plo[j] = __shfl_sync(~0u, plo_o[j], src);
+            phi[j] = __shfl_sync(~0u, phi_o[j], src);
+          }
+          if (a.ranges > 1) {  // skip a word with no column in the warp's blocks
+            const uint32_t blk = (gbyte << 1 | byte >> 7) - static_cast<uint32_t>(range * NS);
+            if (!__any_sync(~0u, in && blk < NS)) continue;
+          }
+          const uint32_t el = bytes_zero((lo ^ grep) & 0x07070707u);
+          const uint32_t eh = bytes_zero((hi ^ grep) & 0x07070707u);
+          const uint32_t a0 = el & ~(lo >> 3), a1 = el & (lo >> 3);
+          const uint32_t a2 = eh & ~(hi >> 3), a3 = eh & (hi >> 3);
+          const uint32_t nl = bytes_zero(((lo >> 4) ^ grep) & 0x07070707u);
+          const uint32_t nh = bytes_zero(((hi >> 4) ^ grep) & 0x07070707u);
+          const uint32_t bl = ((lo >> 7) & 0x01010101u) | ((glo << 1) & 0x1E1E1E1Eu);
+          const uint32_t bh = ((hi >> 7) & 0x01010101u) | ((ghi << 1) & 0x1E1E1E1Eu);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int blk = range * NS + s;
+            if (blk >= blocks) break;
+            const uint32_t brep = static_cast<uint32_t>(blk) * 0x01010101u;
+            const uint32_t hl = nl & bytes_zero(bl ^ brep), hh = nh & bytes_zero(bh ^ brep);
+#pragma unroll
+            for (int r = 0; r < MT; ++r) {
+              if (r >= a.k) break;
+              mma_s8(acc[s][r], a0, a1, a2, a3, hl & (plo[r >> 3] >> (r & 7)),
+                     hh & (phi[r >> 3] >> (r & 7)));
+            }
+          }
+        } else {
+          // the slices present, where G spans several ranges; with one
+          // range every slice runs (a random word touches most of them,
+          // and the test cost more than the mma it saved; slices past G
+          // add zeros, their columns' payload being zero)
+          uint32_t pm = NS >= 32 ? ~0u : (1u << NS) - 1u;
+          if constexpr (!ONE) {
+            if constexpr (MULTI) in &= gbyte == grp;
+            in &= (byte & kRangeBits) == (rkey & kRangeBits);
+            pm = __reduce_or_sync(~0u, in << ((byte >> 3) & (NS - 1)));
+            if (!pm) continue;
+          }
+
+          const uint32_t* st = stg + i0 + w;
+          uint32_t ex = 0u, sg = 0u;
+          if (a.has_planes) {
+            ex = st[(a.cb + 1) * kOhPitch];
+            if (a.is_signed) sg = st[(a.cb + 2) * kOhPitch];
+          }
+          // A: the payload rows 16mt + q and 16mt + q + 8, as bytes
+          uint32_t fa[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t x[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const PayRow& d = pr[2 * mt + h];
+              const uint32_t m = st[d.slot * kOhPitch];
+              x[h] = (v & (ex | d.eo) & (m | d.mo) & ((sg ^ d.sx) | d.so) & d.kz) >> (8 * tq);
+            }
+            fa[mt][0] = spread4(x[0]);
+            fa[mt][1] = spread4(x[1]);
+            fa[mt][2] = spread4(x[0] >> 4);
+            fa[mt][3] = spread4(x[1] >> 4);
+          }
+          // B: bytes 1 where a column's code is the slice's code q.  The
+          // code bits below the slice (q) and above it (range, 256-code
+          // group) match once a word; the slice bits split into q masks
+          // (the low two) and r masks (the rest), one AND a slice.
+          const uint32_t fl = bytes_zero(((lo ^ rkey) & kFixed) |
+                                         (MULTI ? (glo ^ grp * 0x01010101u) & 0x0F0F0F0Fu : 0u));
+          const uint32_t fh = bytes_zero(((hi ^ rkey) & kFixed) |
+                                         (MULTI ? (ghi ^ grp * 0x01010101u) & 0x0F0F0F0Fu : 0u));
+          uint32_t ql[1 << LQ], qh[1 << LQ], rl[1 << LR], rh[1 << LR];
+#pragma unroll
+          for (int c = 0; c < (1 << LQ); ++c) {
+            ql[c] = fl;
+            qh[c] = fh;
+#pragma unroll
+            for (int b = 0; b < LQ; ++b) {
+              ql[c] &= ((c >> b) & 1) ? lo >> (3 + b) : ~(lo >> (3 + b));
+              qh[c] &= ((c >> b) & 1) ? hi >> (3 + b) : ~(hi >> (3 + b));
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < (1 << LR); ++c) {
+            rl[c] = ~0u;
+            rh[c] = ~0u;
+#pragma unroll
+            for (int b = 0; b < LR; ++b) {
+              rl[c] &= ((c >> b) & 1) ? lo >> (3 + LQ + b) : ~(lo >> (3 + LQ + b));
+              rh[c] &= ((c >> b) & 1) ? hi >> (3 + LQ + b) : ~(hi >> (3 + LQ + b));
+            }
+          }
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            if (!((pm >> s) & 1u)) continue;
+            const uint32_t b0 = ql[s & ((1 << LQ) - 1)] & rl[s >> LQ];
+            const uint32_t b1 = qh[s & ((1 << LQ) - 1)] & rh[s >> LQ];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_s8(acc[s][mt], fa[mt][0], fa[mt][1], fa[mt][2], fa[mt][3], b0, b1);
+          }
+        }
+      }
+    }
+  };
+
+  // kOhStages - 1 tiles in flight ahead of the one counted; one commit group
+  // a tile (empty past the last), so wait_prior(kOhStages - 1) finds tile t's
+  const int64_t step = gridDim.x;
+  __syncthreads();  // the slot table
+  for (int k = 0; k < kOhStages - 1; ++k) {
+    const int64_t tk = blockIdx.x + k * step;
+    if (tk < a.tiles) fill(tk, k);
+    __pipeline_commit();
+  }
+  int stage = 0;
+  for (int64_t t = blockIdx.x; t < a.tiles; t += step) {
+    const int64_t ahead = t + (kOhStages - 1) * step;
+    if (ahead < a.tiles) fill(ahead, (stage + kOhStages - 1) % kOhStages);
+    __pipeline_commit();
+    __pipeline_wait_prior(kOhStages - 1);
+    __syncthreads();
+    if (active) count(oh_smem + stage * stage_words);
+    __syncthreads();  // the stage is refilled next
+    stage = (stage + 1) % kOhStages;
+  }
+  __pipeline_wait_prior(0);
+  if (!active) return;
+
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int val = acc[s][mt][e];
+        if (!val) continue;
+        const int hi8 = 8 * (e >> 1), odd = e & 1;
+        // FACT: row = low nibble, column = code bits 4..6, acc[s][r] = row r
+        // of block s; else row = payload row, column = code within slice s
+        const int kk = FACT ? mt : 16 * mt + gq + hi8;
+        const int code = code0 + (FACT ? 128 * s + 16 * (2 * tq + odd) + gq + hi8
+                                       : 8 * s + 2 * tq + odd);
+        if (kk < a.k && code < a.g) atomicAdd(a.hist + static_cast<int64_t>(kk) * a.g + code, val);
+      }
+}
+
+// The ring and the slot table of an instance.
+inline size_t onehot_smem(const OnehotArgs& a) {
+  return static_cast<size_t>(kOhStages) * a.nslot * kOhPitch * sizeof(uint32_t) +
+         static_cast<size_t>(a.nslot) * (sizeof(void*) + sizeof(int64_t));
+}
+
+template <bool FACT, int MT, int NS, int CBM, bool MULTI, bool ONE = false>
+int launch_onehot(OnehotArgs a, int64_t s, cudaStream_t stream) {
+  auto kern = groupby_onehot_kernel<FACT, MT, NS, CBM, MULTI, ONE>;
+  constexpr int RC = FACT ? NS * 128 : NS * 8;
+  a.ranges = (a.g + RC - 1) / RC;
+  a.ranges_blk = a.ranges < kOhWarps ? a.ranges : kOhWarps;
+  const int gy = (a.ranges + a.ranges_blk - 1) / a.ranges_blk;
+  a.chunks = (a.w + kOhTile - 1) / kOhTile;
+  a.tiles = s * a.chunks;
+  const size_t smem = onehot_smem(a);
+  int64_t grid = 0;
+  cudaError_t e = persistent_grid(kern, kOhThreads, smem, a.tiles * gy, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int64_t gx = grid / gy;
+  if (gx < 1) gx = 1;
+  if (gx > a.tiles) gx = a.tiles;
+  kern<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)), kOhThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The slots and flags of pt_groupby_onehot's arguments.
+inline OnehotArgs onehot_args(const uint32_t* cp, int64_t cp_ss, int cb, const uint32_t* valid,
+                              int64_t va_ss, const uint32_t* planes, int64_t pl_ss, int d,
+                              int64_t w, int g, int is_signed, int* hist) {
+  OnehotArgs a{};
+  a.cb = cb;
+  a.has_planes = planes ? 1 : 0;
+  a.is_signed = planes && is_signed ? 1 : 0;
+  a.d = planes ? d : 0;
+  a.k = planes ? 2 + (a.is_signed ? 2 : 1) * a.d : 1;
+  a.g = g;
+  a.all_codes = static_cast<int64_t>(g) >= (int64_t{1} << cb);
+  a.w = w;
+  a.hist = hist;
+  int q = 0;
+  auto slot = [&](const uint32_t* p, int64_t ss) {
+    a.src[q] = p;
+    a.ss[q++] = ss;
+  };
+  for (int b = 0; b < cb; ++b) slot(cp + b * w, cp_ss);
+  slot(valid, va_ss);
+  if (planes) {
+    slot(planes, pl_ss);
+    if (a.is_signed) slot(planes + w, pl_ss);
+    for (int p = 0; p < a.d; ++p) slot(planes + (2 + p) * w, pl_ss);
+  }
+  a.nslot = q;
+  bool vec = w % 4 == 0;
+  for (int i = 0; i < q; ++i)
+    vec = vec && reinterpret_cast<uintptr_t>(a.src[i]) % 16 == 0 && a.ss[i] % 4 == 0;
+  a.vec = vec ? 1 : 0;
+  return a;
+}
+
+// The instance by K and G, as measured (PERF.md): K = 1 and
+// K <= 8 the factored form (one mma a payload row and 128-code block);
+// K <= 16 the payload as one A m-tile, G <= 128 in one range of slices that
+// all run (8 slices up to G = 64: 28% faster there than 16), past it 32
+// slices a warp (two ranges at G = 512, not four) with the present-slice
+// test; K <= 32 two m-tiles, K <= 34 three, 64 accumulator registers a
+// thread.
+template <int CBM, bool MULTI>
+int dispatch_onehot(const OnehotArgs& a, int64_t s, cudaStream_t stream) {
+  if (a.k == 1) return launch_onehot<true, 1, 16, CBM, MULTI>(a, s, stream);
+  if (a.k <= 8) return launch_onehot<true, 8, 2, CBM, MULTI>(a, s, stream);
+  if (a.k <= 16 && a.g <= 64) return launch_onehot<false, 1, 8, CBM, MULTI, true>(a, s, stream);
+  if (a.k <= 16 && a.g <= 128) return launch_onehot<false, 1, 16, CBM, MULTI, true>(a, s, stream);
+  if (a.k <= 16) return launch_onehot<false, 1, 32, CBM, MULTI>(a, s, stream);
+  if (a.k <= 32) return launch_onehot<false, 2, 8, CBM, MULTI>(a, s, stream);
+  return launch_onehot<false, 3, 4, CBM, MULTI>(a, s, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1168,20 +1524,16 @@ int pt_groupby_fused(const void* cp, int64_t cp_ss, int64_t cb, const void* vali
 int pt_groupby_onehot(const void* cp, int64_t cp_ss, int64_t cb, const void* valid,
                       int64_t va_ss, const void* planes, int64_t pl_ss, int64_t d, int64_t s,
                       int64_t w, int64_t g, int64_t is_signed, void* hist, void* stream) {
-  if (cb > 24 || d > 16 || g < 1 || g > 4096) return static_cast<int>(cudaErrorInvalidValue);
-  const int k = planes ? static_cast<int>(2 + (is_signed ? 2 : 1) * d) : 1;
-  const uint32_t* cpu = static_cast<const uint32_t*>(cp);
-  const uint32_t* vau = static_cast<const uint32_t*>(valid);
-  const uint32_t* plu = static_cast<const uint32_t*>(planes);
-  int* h = static_cast<int*>(hist);
+  if (cb > kOhMaxCodeBits || d > 16 || (planes && d < 1) || g < 1 || g > 4096)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const OnehotArgs a = onehot_args(
+      static_cast<const uint32_t*>(cp), cp_ss, static_cast<int>(cb),
+      static_cast<const uint32_t*>(valid), va_ss, static_cast<const uint32_t*>(planes), pl_ss,
+      static_cast<int>(d), w, static_cast<int>(g), static_cast<int>(is_signed),
+      static_cast<int*>(hist));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ci = static_cast<int>(cb), di = planes ? static_cast<int>(d) : 0;
-  const int gi = static_cast<int>(g), sg = static_cast<int>(is_signed);
-  if (k <= 16)
-    return launch_onehot<1, 8>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg, h, st);
-  if (k <= 32)
-    return launch_onehot<2, 4>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg, h, st);
-  return launch_onehot<3, 2>(cpu, cp_ss, ci, vau, va_ss, plu, pl_ss, di, s, w, gi, k, sg, h, st);
+  // codes past 256 only where there are more than 8 code planes
+  return cb <= 8 ? dispatch_onehot<8, false>(a, s, st) : dispatch_onehot<24, true>(a, s, st);
 }
 
 int pt_groupby_sum(const void* const* stacks, const int64_t* rows, int64_t nf, const void* sel,

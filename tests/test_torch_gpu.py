@@ -311,6 +311,21 @@ _ONEHOT = [
     (2, 10, 513, 16, False, 1000),
     (2, 12, 700, 16, True, 4096),
     (2, 12, 96, 0, True, 4096),
+    # the redesign's edges: K <= 8 (the factored form) at 5 and 8, K = 18
+    # (two payload m-tiles), K = 16 past 128 codes (32 slices a warp), G
+    # not a multiple of 8, codes past the first 256-code group at K = 6, 9
+    # and 34, more code planes than G needs, W short of, just past and not
+    # a multiple of the 256-word ring tile
+    (3, 3, 130, 3, False, 8),
+    (2, 5, 77, 3, True, 20),
+    (3, 7, 127, 7, False, 100),
+    (2, 10, 333, 16, False, 1000),
+    (3, 12, 640, 7, False, 4096),
+    (2, 12, 256, 2, True, 4096),
+    (2, 13, 129, 16, True, 4096),
+    (2, 9, 255, 7, True, 300),
+    (3, 8, 300, 7, True, 200),
+    (954, 7, 64, 7, False, 128),
 ]
 
 
@@ -331,6 +346,64 @@ def test_groupby_onehot(cuda, s, cb, w, depth, signed, g):
         else:
             _same(a, b)
             _same(a, c)
+
+
+def _onehot_equals_plain_and_fused(cp, valid, planes, g, signed):
+    got = K.groupby_onehot(cp, valid, planes, g, signed)
+    torch.cuda.synchronize()
+    want = K.groupby_codes_plain(cp, valid, planes, g, signed)
+    fused = K.groupby_fused(cp, valid, planes, g, signed)
+    for a, b, c in zip(got, want, fused):
+        if a is None:
+            assert b is None and c is None
+        else:
+            _same(a, b)
+            _same(a, c)
+    return got
+
+
+@pytest.mark.parametrize("depth,signed,g", [(0, True, 128), (7, False, 128),
+                                            (7, True, 128), (16, True, 1000)])
+def test_groupby_onehot_dense_codes(cuda, depth, signed, g):
+    """Every column valid and in one code (the same slice for every word),
+    then every column valid with every code of G present in every shard."""
+    s, w = 3, 520
+    cb = max(g - 1, 1).bit_length()
+    planes = _words((s, 2 + depth, w), cuda, 30) if depth else None
+    every = torch.full((s, w), -1, dtype=torch.int32, device=cuda)
+    one_code = torch.zeros((s, cb, w), dtype=torch.int32, device=cuda)
+    one_code[:, 0] = -1                                   # code 1 everywhere
+    counts = _onehot_equals_plain_and_fused(one_code, every, planes, g, signed)[0]
+    assert int(counts[1]) == s * w * 32
+    codes = torch.arange(w * 32, device=cuda) % g
+    bits = torch.stack([(codes >> b) & 1 for b in range(cb)])  # (cb, w * 32)
+    packed = (bits.view(cb, w, 32).to(torch.int64)
+              << torch.arange(32, device=cuda)).sum(-1)
+    cp = packed.where(packed < 2**31, packed - 2**32).to(torch.int32)
+    cp = cp.unsqueeze(0).repeat(s, 1, 1)
+    counts = _onehot_equals_plain_and_fused(cp, every, planes, g, signed)[0]
+    assert bool((counts > 0).all())
+
+
+@pytest.mark.parametrize("cb,depth,signed,g", [(7, 7, True, 128), (8, 0, True, 256),
+                                               (10, 16, False, 1000)])
+def test_groupby_onehot_strided_views(cuda, cb, depth, signed, g):
+    """Code planes and valid as views of one (S, CB+1, W) stack, planes
+    at an odd word offset (no 16-byte copies), W odd: the same words as
+    contiguous copies."""
+    s, w = 3, 301
+    stack = _words((s, cb + 1, w), cuda, 31)
+    flat = _words((s * (2 + depth) * w + 1,), cuda, 32)
+    planes = flat[1:].view(s, 2 + depth, w) if depth else None
+    got = _onehot_equals_plain_and_fused(stack[:, :-1], stack[:, -1], planes,
+                                         g, signed)
+    copies = K.groupby_onehot(stack[:, :-1].contiguous(),
+                              stack[:, -1].contiguous(),
+                              None if planes is None else planes.contiguous(),
+                              g, signed)
+    for a, b in zip(got, copies):
+        if a is not None:
+            _same(a, b)
 
 
 def test_groupby_onehot_views_and_value_hist(cuda):
