@@ -9,7 +9,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card   — nvidia-smi name and power limit, torch's device name
 2. build  — nvcc builds every kernel from pilosa_tpu_torch/ops/csrc
-3. kernels — each of the eight CUDA kernels at the query path's shapes
+3. kernels — each of the nine CUDA kernels at the query path's shapes
    (954 shards x 32768 words, 8 TopN rows, BSI depth 7, with and
    without a filter, and bsi_sum_counts with one shard's planes at
    shard stride 0 against 954 filters and against the per-shard
@@ -23,17 +23,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    unsigned, at 9 code bits and as the value histogram, each also held
    equal to groupby_fused and timed beside it on the same inputs; the
    per-combo kernel at the 8 combos of GroupBy(Rows(t), Rows(a)),
-   unsigned and signed) on seeded random words, held to its plain
+   unsigned and signed; the BSI comparator bsi_range for all seven
+   comparisons at 954 x 9 planes and on the 64-shard depth-40 ts shape)
+   on seeded random words, held to its plain
    PyTorch version exactly (integer outputs, tolerance 0), then timed
    with CUDA events (the profiler's device time for masked_popcount
    and the short stride-0 bsi_sum_counts launches) beside its bound,
    whose byte and operation terms (bit operations, and for groupby_sum
-   and bsi_sum_counts their popcounts at the card's __popc rate) are
-   printed side by side; the one-hot histogram's bound is
+   and bsi_sum_counts their popcounts at the card's __popc rate, for
+   bsi_sum_counts at shard stride 0 its tensor-core AND+popcount at the
+   int8 rate, with the __popc form's term beside it) are printed side by
+   side; the one-hot histogram's bound is
    groupby_fused's, and its own int8 tensor work (2*K*min(G, 256) a
    column, and the first port's dense 2*K*G) is printed beside it; the
    per-shard TopN's loop of 954 masked_popcount calls, timed whole and
-   as the sum of its kernels; and a disjoint field of 2, 4
+   as the sum of its kernels; an empty kernel's device time (the launch
+   floor, printed beside the profiled rows); and a disjoint field of 2, 4
    and 8 rows through both GroupBy arms, held equal and timed
 4. main path — the headline index (954 shards x 2^20 columns, random-
    word fields a, b, t, a 7-plane BSI field age and the disjoint
@@ -53,6 +58,8 @@ Phases, each printing its own lines; any failure exits non-zero:
        ts (depth 40), GroupBy Max of ts, GroupBy Min over the
        overlapping t rows and Count(Distinct), the host loops on the 64
        shards of ts; the executor's path counter must show each route;
+       then Range counts of ts on both engines, which must launch
+       bsi_range;
    4c. the one-hot arm (onepass_arm = "onehot"): the disjoint GroupBy
        Sums and Min, Max and Distinct of age, timed beside the fused arm;
        groupby_onehot must launch.
@@ -91,6 +98,7 @@ SRC = {
     "groupby_fused": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
     "groupby_onehot": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
     "groupby_sum": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
+    "bsi_range": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
 }
 REPLACES = {
     "popcount_rows": "pilosa_tpu/ops/kernels.py:128",
@@ -101,12 +109,15 @@ REPLACES = {
     "groupby_fused": "pilosa_tpu/ops/kernels.py:867",
     "groupby_onehot": "pilosa_tpu/ops/kernels.py:656",
     "groupby_sum": "pilosa_tpu/ops/kernels.py:411",
+    # no Pallas kernel: the jnp comparator (cmp_unsigned, range_*,
+    # bsi.py:199-305) that XLA fuses under the stacked plan's jit
+    "bsi_range": "pilosa_tpu/ops/bsi.py:199",
 }
 # the stacked engine's launches over phase 4's six runs of its query set
 STACKED_LAUNCHES = {"popcount_rows": 36, "pair_popcount": 6,
                     "masked_popcount": 0, "rows_filter_counts": 6,
                     "bsi_sum_counts": 12, "groupby_fused": 48,
-                    "groupby_onehot": 0, "groupby_sum": 6}
+                    "groupby_onehot": 0, "groupby_sum": 6, "bsi_range": 18}
 # categorical fields of the able GroupBy (bench/common.py:129): rows
 CATEGORIES = {"edu": 6, "gen": 2, "dom": 5, "reg": 4}
 ABLE_SUM = "GroupBy(Rows(edu), Rows(gen), Rows(dom), aggregate=Sum(field=age))"
@@ -122,6 +133,19 @@ ONEHOT_QUERIES = [
 S_DECODE = 16      # shards of the per-shard BSI Distinct (a host decode)
 S_DEEP = 64        # shards holding the depth-40 field ts
 TS_BASE = 1 << 39
+TS_DEPTH = 40
+# bsi_range's phase-3 cases, (op, p, q): the main path's predicates
+# (Count(Row(age >= 64)), < 64, 10 < age < 100) and the other comparisons
+# at 64 on age (depth 7); on ts (depth 40) at noon and a day's span
+AGE_RANGES = [("gte", 64, None), ("lt", 64, None), ("between", 11, 99),
+              ("eq", 64, None), ("neq", 64, None), ("lte", 64, None),
+              ("gt", 64, None)]
+TS_RANGES = [(op, TS_BASE + 43200, None)
+             for op in ("gte", "lt", "eq", "neq", "lte", "gt")] + [
+    ("between", TS_BASE + 1000, TS_BASE + 80000)]
+# the Range counts of ts in phase 4b, on both engines
+TS_QUERIES = [f"Count(Row(ts >= {TS_BASE + 43200}))",
+              f"Count(Row({TS_BASE + 1000} < ts < {TS_BASE + 80000}))"]
 
 
 def card_line() -> str:
@@ -177,12 +201,15 @@ def popc_per_s() -> float:
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S, popcs: int = 0,
-          popcs_per_s: float = 1.0) -> tuple[float, str, float, float]:
+          popcs_per_s: float = 1.0,
+          tensor_ops: int = 0) -> tuple[float, str, float, float]:
     """(bound ms, "bytes" or "operations", byte term ms, operation term
-    ms): the operation term is the larger of the bit operations at
-    ops_per_s and the popcounts at popcs_per_s."""
+    ms): the operation term is the largest of the bit operations at
+    ops_per_s, the popcounts at popcs_per_s and the tensor-core ops at
+    the int8 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / ops_per_s, popcs / popcs_per_s) * 1e3
+    t_ops = max(ops / ops_per_s, popcs / popcs_per_s,
+                tensor_ops / INT8_TENSOR_OPS_PER_S) * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", t_bytes, t_ops
     return t_ops, "operations", t_bytes, t_ops
@@ -250,6 +277,7 @@ def phase_kernels(device) -> dict:
     present[:, 0] = -1
     wide_codes = random_words(gen, (S_WIDE, 12, W), device)
     wide_planes = random_words(gen, (S_WIDE, 2 + 16, W), device)
+    ts_planes = random_words(gen, (S_DEEP, 2 + TS_DEPTH, W), device)
     # GroupBy(Rows(t), Rows(a)) as the main path lays it out: the 8 t
     # rows and the one a row, combo r = (t row r, a row 0)
     sel = torch.tensor([[r, 0] for r in range(R)], dtype=torch.int32,
@@ -390,6 +418,17 @@ def phase_kernels(device) -> dict:
     # kernels too short for back-to-back CUDA events, which would time
     # the wrapper's host work: their time comes from the profiler
     profiled = set()
+    popc_forms = {}
+
+    def stride0_ops(c, label):
+        # the stride-0 instance counts on the tensor cores (mma .b1
+        # .and.popc): an AND and an add a bit product, of each filter's
+        # positive and negative masks with the d planes and the count's
+        # all-ones column, at the int8 tensor rate (no .b1 rate is
+        # published for the H100); ~4 bit operations a word a filter build
+        # the masks.  The __popc form's popcounts are printed beside it
+        popc_forms[label] = bsi_pop(c)[1]
+        return (4 * c * W, 0, 2 * c * W * 32 * 2 * (DEPTH + 1))
 
     def stride0(c):
         # the per-shard GroupBy's shape (executor/advanced.py
@@ -403,7 +442,8 @@ def phase_kernels(device) -> dict:
                 lambda: K.bsi_sum_counts(planes_c, a[:c]),
                 lambda: K.bsi_sum_counts_plain(planes_c, a[:c]),
                 (2 + DEPTH) * W * 4 + c * W * 4 + c * (1 + 2 * DEPTH) * 4,
-                bsi_pop(c))
+                stride0_ops(c, label))
+    one_label = f"(1, {2 + DEPTH}, {W}) at shard stride 0 & ({S}, {W})"
     cases = [
         # name, shape label, kernel call, plain call, bytes, word-ops
         ("popcount_rows", f"({S}, {W})", lambda: K.popcount_rows(a),
@@ -431,11 +471,10 @@ def phase_kernels(device) -> dict:
         # one shard's planes at shard stride 0 against S filters, and at
         # the per-shard engine's own counts: the able GroupBy's 60 combos
         # and GroupBy(Rows(t), Rows(a))'s 8
-        ("bsi_sum_counts", f"(1, {2 + DEPTH}, {W}) at shard stride 0 & "
-         f"({S}, {W})",
-         lambda: K.bsi_sum_counts(one_shard, a),
+        ("bsi_sum_counts", one_label, lambda: K.bsi_sum_counts(one_shard, a),
          lambda: K.bsi_sum_counts_plain(one_shard, a),
-         (2 + DEPTH) * W * 4 + stack + S * (1 + 2 * DEPTH) * 4, bsi_pop(S)),
+         (2 + DEPTH) * W * 4 + stack + S * (1 + 2 * DEPTH) * 4,
+         stride0_ops(S, one_label)),
         stride0(60),
         stride0(8),
         ("masked_popcount", f"(8, {W}) & ({W},)",
@@ -447,9 +486,26 @@ def phase_kernels(device) -> dict:
          lambda: K.masked_popcount_plain(flat_rows[:256], mask),
          257 * W * 4 + 256 * 4, 3 * 256 * W),
     ]
+
+    def range_case(pl, op, p, q):
+        # bytes: every plane read once, the row written once; operations:
+        # ~6 a plane a word a predicate, and the final combination
+        s_, p_, _ = pl.shape
+        npred = 2 if op == "between" else 1
+        return ("bsi_range", f"{op} ({s_}, {p_}, {W}) p={p}"
+                + ("" if q is None else f" q={q}"),
+                lambda: K.bsi_range(pl, op, p, q),
+                lambda: K.bsi_range_plain(pl, op, p, q),
+                s_ * p_ * W * 4 + s_ * W * 4,
+                (6 * (p_ - 2) * npred + 6) * s_ * W)
+    cases += [range_case(planes, *c) for c in AGE_RANGES]
+    cases += [range_case(ts_planes, *c) for c in TS_RANGES]
     cases = ([c + (50, 3, None) for c in cases] + [c + (None,) for c in gb_cases]
              + onehot_cases)
     records = {}
+    floor_ms = empty_launch_ms()
+    print(f"kernels: an empty kernel (torch.cuda._sleep(0)) takes {floor_ms:.4f} "
+          "ms of device time (profiler): the floor of any launch")
     popc_rate = popc_per_s()
     print(f"kernels: popcount rate {popc_rate:.4e}/s ({POPC_PER_CLOCK_PER_SM} "
           "a clock an SM x SMs x the maximum SM clock)")
@@ -462,23 +518,29 @@ def phase_kernels(device) -> dict:
             raise AssertionError(f"{name} {label}: kernel differs from "
                                  f"its plain version, max |err| {err}")
         n_ops = ops(got) if callable(ops) else ops
-        n_ops, popcs = n_ops if isinstance(n_ops, tuple) else (n_ops, 0)
+        n_ops, popcs, tensor_ops = (n_ops + (0,) * 3)[:3] if isinstance(
+            n_ops, tuple) else (n_ops, 0, 0)
         ms = cuda_ms(kern, reps=reps)
         if name == "masked_popcount" or label in profiled:
             host_ms, ms = ms, device_ms(kern, f"{name}_kernel")
             print(f"kernel {name} {label}: {host_ms:.4f} ms a call back to "
                   f"back through the wrapper (its host work), {ms:.4f} ms "
-                  "of kernel (profiler)")
+                  f"of kernel (profiler), empty-kernel floor {floor_ms:.4f} ms")
         plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
         bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, n_ops, OPS_PER_S,
-                                                   popcs, popc_rate)
+                                                   popcs, popc_rate, tensor_ops)
         print(f"kernel {name} {label}: exact vs plain; {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
               f"{bound_by} ({bound_ms / ms:.1%} of bound; byte term "
               f"{t_bytes:.4f} ms for {nbytes} bytes, operation term "
-              f"{t_ops:.4f} ms for {n_ops} ops and {popcs} popcounts), "
-              "library none (no single PyTorch call computes this from "
-              "packed words)")
+              f"{t_ops:.4f} ms for {n_ops} ops, {popcs} popcounts and "
+              f"{tensor_ops} tensor ops), library none (no single PyTorch "
+              "call computes this from packed words)")
+        if label in popc_forms:
+            t_popc = popc_forms[label] / popc_rate * 1e3
+            print(f"kernel {name} {label}: the __popc form's popcount term "
+                  f"(not this kernel's bound): {t_popc:.4f} ms for "
+                  f"{popc_forms[label]} popcounts ({t_popc / ms:.1%})")
         if name == "groupby_onehot":
             t8, dense = form_ops[label]
             print(f"kernel {name} {label}: the one-hot form's int8 tensor "
@@ -506,6 +568,13 @@ def phase_kernels(device) -> dict:
     topn_loop(flat_rows, a)
     compare_arms(device, codes, planes)
     return records
+
+
+def empty_launch_ms() -> float:
+    """Device time of an empty kernel (torch.cuda._sleep of 0 cycles, one
+    thread), from the profiler: the least any launch takes."""
+    import torch
+    return device_ms(lambda: torch.cuda._sleep(0), "spin_kernel", reps=50)
 
 
 def topn_loop(flat_rows, filt) -> None:
@@ -793,7 +862,8 @@ def loop_answers(data, headline, groupby) -> tuple[dict, dict]:
     full["MaxRow(Row(a=1), field=t)"] = (R - 1, pc(t[R - 1, 0] & a[0]))
     full["Distinct(Row(a=1), field=t)"] = [r for r in range(R)
                                            if pc(t[r] & a)]
-    for q in ("Min(field=age)", "Max(Row(a=1), field=age)", ABLE_SUM):
+    for q in ("Min(field=age)", "Max(Row(a=1), field=age)", ABLE_SUM,
+              "GroupBy(Rows(t), Rows(a), aggregate=Sum(field=age))"):
         full[q] = groupby[q]
     sub = list(range(S_DECODE))
     vals = np.zeros((S_DECODE, W * 32), np.uint8)
@@ -875,6 +945,12 @@ def deep_answers(data, secs) -> dict:
     }
 
 
+def ts_range_answers(secs) -> dict:
+    """The Range counts of ts over its S_DEEP shards, from the seconds."""
+    return {TS_QUERIES[0]: int((secs >= 43200).sum()),
+            TS_QUERIES[1]: int(((secs > 1000) & (secs < 80000)).sum())}
+
+
 def run_queries(ex, label: str, want: dict, reps: int,
                 shards=None) -> dict:
     """Each query cold and then reps times warm through Executor.execute,
@@ -927,6 +1003,7 @@ def phase_main_path(device, reps: int = 5) -> dict:
     loop_full, loop_subset = loop_answers(data, headline, groupby)
     secs = add_deep_field(h, np.random.default_rng(11))
     deep = deep_answers(data, secs)
+    ts_ranges = ts_range_answers(secs)
     print(f"main: numpy reference and the deep field ts in "
           f"{time.perf_counter() - t0:.1f} s")
     del data, secs
@@ -997,6 +1074,19 @@ def phase_main_path(device, reps: int = 5) -> dict:
                              f"{sorted(routes)}")
     print(f"fallback: {time.perf_counter() - t0:.1f} s; routes "
           f"{dict(ex.paths)}")
+    # Range counts of ts (depth 40) on both engines
+    t0 = time.perf_counter()
+    deep_shards = list(range(S_DEEP))
+    dp = Executor(h)
+    dp.use_stacked = False
+    for label, e in (("ts range", ex), ("ts range per-shard", dp)):
+        launches, _ = launches_of(lambda: run_queries(
+            e, f"{label} ({S_DEEP} shards)", ts_ranges, 3, shards=deep_shards))
+        note(label, launches)
+        if launches["bsi_range"] == 0:
+            raise AssertionError(f"{label}: bsi_range never launched")
+    print(f"ts range: {time.perf_counter() - t0:.1f} s")
+    del dp
 
     # 4c: the one-hot arm
     t0 = time.perf_counter()

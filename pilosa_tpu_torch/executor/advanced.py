@@ -365,6 +365,10 @@ class AdvancedOps:
         reduce_ = np.minimum if agg_op == "min" else np.maximum
         combo_idx = np.asarray(combos, dtype=np.int64).reshape(n, len(fields))
         depth = agg_field.bit_depth
+        if depth > 63:
+            # int64 holds magnitudes below 2^63 (bsi.decode_np)
+            raise ExecError(f"GroupBy Min/Max unsupported for depth {depth}"
+                            " > 63")
         for shard in shard_list:
             filt_bits = None
             if filter_call is not None:

@@ -345,30 +345,20 @@ class Executor(AdvancedOps):
                 else Fraction(v)) * (10 ** scale)
         return ceil(frac) if round_up else floor(frac)
 
-    def _bsi_condition_shard(self, idx: Index, fname: str, cond: Condition,
-                             shard: int):
-        """A BSI predicate on one shard's plane tile, with the stacked
-        PlanBuilder's plan-time scaling and out-of-range short cuts."""
-        f = self._bsi_field(idx, fname)
-        depth = f.bit_depth
-        frag = self._bsi_frag(f, shard)
-        if frag is None:
-            if cond.value is None and cond.op == past.OP_EQ:
-                return self._existence_shard(idx, shard)
-            return self._zeros(idx)
-        planes = self.tiles.planes(frag, depth)
+    def _bsi_predicate(self, f: Field, cond: Condition):
+        """A BSI condition planned on the host with the reference's
+        plan-time scaling and out-of-range short cuts (executor.go
+        Row(x > n)), for both engines: ("null",), ("notnull",),
+        ("zeros",), or ("range", op, p, q, p_neg, q_neg), the arguments
+        of kernels.bsi_range (unsigned magnitudes; q None but for
+        "between")."""
         if cond.value is None:
             if cond.op == past.OP_EQ:
-                return bm.difference(self._existence_shard(idx, shard),
-                                     bsi_ops.not_null(planes))
+                return ("null",)
             if cond.op == past.OP_NEQ:
-                return bsi_ops.not_null(planes)
+                return ("notnull",)
             raise ExecError(f"invalid null comparison {cond.op}")
-        max_mag = (1 << depth) - 1
-
-        def masks(up):
-            return bsi_ops.predicate_masks(up, depth)
-
+        max_mag = (1 << f.bit_depth) - 1
         if past.is_between(cond):
             lo_raw, hi_raw = cond.value
             lo = self._scaled_bound(f, lo_raw, round_up=True)
@@ -379,37 +369,55 @@ class Executor(AdvancedOps):
                 hi = min(hi, self._scaled_bound(f, hi_raw, round_up=True) - 1)
             lo, hi = max(lo, -max_mag), min(hi, max_mag)
             if lo > hi:
-                return self._zeros(idx)
-            return bsi_ops.range_between(planes, masks(abs(lo)),
-                                         masks(abs(hi)), lo < 0, hi < 0)
+                return ("zeros",)
+            return ("range", "between", abs(lo), abs(hi), lo < 0, hi < 0)
         op = cond.op
         if op in (past.OP_EQ, past.OP_NEQ):
             p_lo = self._scaled_bound(f, cond.value, round_up=False)
             p_hi = self._scaled_bound(f, cond.value, round_up=True)
             if p_lo != p_hi or abs(p_lo) > max_mag:
-                return (self._zeros(idx) if op == past.OP_EQ
-                        else bsi_ops.not_null(planes))
-            cmp = bsi_ops.range_eq if op == past.OP_EQ else bsi_ops.range_neq
-            return cmp(planes, masks(abs(p_lo)), p_lo < 0)
+                return ("zeros",) if op == past.OP_EQ else ("notnull",)
+            return ("range", "eq" if op == past.OP_EQ else "neq", abs(p_lo),
+                    None, p_lo < 0, False)
         if op in (past.OP_LT, past.OP_LTE):
             allow_eq = op == past.OP_LTE
             p = self._scaled_bound(f, cond.value, round_up=not allow_eq)
             if p > max_mag:
-                return bsi_ops.not_null(planes)
+                return ("notnull",)
             if p < -max_mag:
-                return self._zeros(idx)
-            return bsi_ops.range_lt(planes, masks(abs(p)), p < 0,
-                                    allow_eq=allow_eq)
+                return ("zeros",)
+            return ("range", "lte" if allow_eq else "lt", abs(p), None, p < 0,
+                    False)
         if op in (past.OP_GT, past.OP_GTE):
             allow_eq = op == past.OP_GTE
             p = self._scaled_bound(f, cond.value, round_up=allow_eq)
             if p < -max_mag:
-                return bsi_ops.not_null(planes)
+                return ("notnull",)
             if p > max_mag:
-                return self._zeros(idx)
-            return bsi_ops.range_gt(planes, masks(abs(p)), p < 0,
-                                    allow_eq=allow_eq)
+                return ("zeros",)
+            return ("range", "gte" if allow_eq else "gt", abs(p), None, p < 0,
+                    False)
         raise ExecError(f"unsupported condition op {op}")
+
+    def _bsi_condition_shard(self, idx: Index, fname: str, cond: Condition,
+                             shard: int):
+        """A BSI predicate on one shard's plane tile, through bsi_range."""
+        f = self._bsi_field(idx, fname)
+        frag = self._bsi_frag(f, shard)
+        if frag is None:
+            if cond.value is None and cond.op == past.OP_EQ:
+                return self._existence_shard(idx, shard)
+            return self._zeros(idx)
+        pred = self._bsi_predicate(f, cond)
+        if pred[0] == "zeros":
+            return self._zeros(idx)
+        planes = self.tiles.planes(frag, f.bit_depth)
+        if pred[0] == "null":
+            return bm.difference(self._existence_shard(idx, shard),
+                                 bsi_ops.not_null(planes))
+        if pred[0] == "notnull":
+            return bsi_ops.not_null(planes)
+        return kernels.bsi_range(planes.unsqueeze(0), *pred[1:])[0]
 
     # -- aggregates ----------------------------------------------------------
 

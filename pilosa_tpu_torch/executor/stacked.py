@@ -78,15 +78,6 @@ _NARY_OPS = {
     "xor": bm.xor,
 }
 
-_BSI_CMP = {
-    "eq": lambda p, pb, neg: bsi_ops.range_eq(p, pb, neg),
-    "neq": lambda p, pb, neg: bsi_ops.range_neq(p, pb, neg),
-    "lt": lambda p, pb, neg: bsi_ops.range_lt(p, pb, neg, allow_eq=False),
-    "lte": lambda p, pb, neg: bsi_ops.range_lt(p, pb, neg, allow_eq=True),
-    "gt": lambda p, pb, neg: bsi_ops.range_gt(p, pb, neg, allow_eq=False),
-    "gte": lambda p, pb, neg: bsi_ops.range_gt(p, pb, neg, allow_eq=True),
-}
-
 # device-stack cache bound; least recently used stacks go first
 _CACHE_MAX_BYTES = 32 << 30
 
@@ -169,13 +160,9 @@ def _eval(node, leaves, params):
         return bm.difference(leaves[node[1]], _eval(node[2], leaves, params))
     if k == "shift":
         return bm.shift(_eval(node[2], leaves, params), node[1])
-    if k == "bsi_cmp":
-        return _BSI_CMP[node[2]](leaves[node[1]], params[node[3]],
-                                 params[node[4]])
-    if k == "bsi_between":
-        return bsi_ops.range_between(
-            leaves[node[1]], params[node[2]], params[node[3]],
-            params[node[4]], params[node[5]])
+    if k == "bsi_range":
+        return kernels.bsi_range(leaves[node[1]], node[2],
+                                 *(params[i] for i in node[3:]))
     if k == "bsi_notnull":
         return bsi_ops.not_null(leaves[node[1]])
     if k == "bsi_null":
@@ -366,80 +353,26 @@ class PlanBuilder:
         return ("leaf", self._row_leaf(f, views, row_id))
 
     def _build_bsi(self, fname: str, cond: Condition):
-        """BSI predicate → IR with the reference's plan-time scaling and
-        out-of-range short-circuits (executor.go Row(x > n) handling)."""
+        """BSI predicate → IR, planned by Executor._bsi_predicate: a
+        ("bsi_range", planes, op, p, q, p_neg, q_neg) node whose
+        predicate magnitudes and signs are params."""
         ex = self.ex
         f = ex._bsi_field(self.idx, fname)
-        depth = f.bit_depth
         v = f.views.get(f.bsi_view)
         if v is None or not v.fragments:
             if cond.value is None and cond.op == past.OP_EQ:
                 return ("leaf", self._existence_leaf())
             return ("zeros",)
+        pred = ex._bsi_predicate(f, cond)
+        if pred[0] == "zeros":
+            return ("zeros",)
         planes_i = self._planes_leaf(f)
-
-        if cond.value is None:
-            if cond.op == past.OP_EQ:
-                return ("bsi_null", planes_i, self._existence_leaf())
-            if cond.op == past.OP_NEQ:
-                return ("bsi_notnull", planes_i)
-            raise ExecError(f"invalid null comparison {cond.op}")
-
-        max_mag = (1 << depth) - 1
-
-        def masks(up):
-            return self._param(bsi_ops.predicate_masks(up, depth))
-
-        def flag(b):
-            return self._param(bool(b))
-
-        if past.is_between(cond):
-            lo_raw, hi_raw = cond.value
-            lo = ex._scaled_bound(f, lo_raw, round_up=True)
-            hi = ex._scaled_bound(f, hi_raw, round_up=False)
-            if cond.op in (past.OP_BTWN_LT_LT, past.OP_BTWN_LT_LTE):
-                lo = max(lo, ex._scaled_bound(f, lo_raw, round_up=False) + 1)
-            if cond.op in (past.OP_BTWN_LT_LT, past.OP_BTWN_LTE_LT):
-                hi = min(hi, ex._scaled_bound(f, hi_raw, round_up=True) - 1)
-            lo, hi = max(lo, -max_mag), min(hi, max_mag)
-            if lo > hi:
-                return ("zeros",)
-            return ("bsi_between", planes_i, masks(abs(lo)), masks(abs(hi)),
-                    flag(lo < 0), flag(hi < 0))
-
-        op = cond.op
-        if op in (past.OP_EQ, past.OP_NEQ):
-            p_lo = ex._scaled_bound(f, cond.value, round_up=False)
-            p_hi = ex._scaled_bound(f, cond.value, round_up=True)
-            out_of_range = p_lo != p_hi or abs(p_lo) > max_mag
-            if op == past.OP_EQ:
-                if out_of_range:
-                    return ("zeros",)
-                return ("bsi_cmp", planes_i, "eq", masks(abs(p_lo)),
-                        flag(p_lo < 0))
-            if out_of_range:
-                return ("bsi_notnull", planes_i)
-            return ("bsi_cmp", planes_i, "neq", masks(abs(p_lo)),
-                    flag(p_lo < 0))
-        if op in (past.OP_LT, past.OP_LTE):
-            allow_eq = op == past.OP_LTE
-            p = ex._scaled_bound(f, cond.value, round_up=not allow_eq)
-            if p > max_mag:
-                return ("bsi_notnull", planes_i)
-            if p < -max_mag:
-                return ("zeros",)
-            return ("bsi_cmp", planes_i, "lte" if allow_eq else "lt",
-                    masks(abs(p)), flag(p < 0))
-        if op in (past.OP_GT, past.OP_GTE):
-            allow_eq = op == past.OP_GTE
-            p = ex._scaled_bound(f, cond.value, round_up=allow_eq)
-            if p < -max_mag:
-                return ("bsi_notnull", planes_i)
-            if p > max_mag:
-                return ("zeros",)
-            return ("bsi_cmp", planes_i, "gte" if allow_eq else "gt",
-                    masks(abs(p)), flag(p < 0))
-        raise ExecError(f"unsupported condition op {op}")
+        if pred[0] == "null":
+            return ("bsi_null", planes_i, self._existence_leaf())
+        if pred[0] == "notnull":
+            return ("bsi_notnull", planes_i)
+        return ("bsi_range", planes_i, pred[1],
+                *(self._param(x) for x in pred[2:]))
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ Range predicates are fixed-shape bit-serial comparator chains: one pass
 over the magnitude planes yields per-column LT/EQ masks against a
 predicate given as per-plane broadcast masks (``predicate_masks``).
 The predicate's sign is a Python bool, so the sign regime is chosen by
-a Python branch.  Sum returns per-plane popcounts that the host
-combines as exact Python ints (``host_sum``).
+a Python branch.  Here they are eager torch, the plain version of the
+``kernels.bsi_range`` kernel that both engines call.  Sum returns
+per-plane popcounts that the host combines as exact Python ints
+(``host_sum``).
 """
 
 from __future__ import annotations
@@ -346,10 +348,11 @@ def unpack_bits_np(words) -> np.ndarray:
 def decode_device(planes: torch.Tensor):
     """Device decode of every column: planes (..., 2+d, W) →
     (exists (..., W*32) bool, values (..., W*32) int64, 0 where no value
-    exists).  Values are built in int64 directly, so d <= 62."""
+    exists).  Values are built in int64 directly: magnitude bits 0..62
+    fit, so d <= 63."""
     depth = planes.shape[-2] - 2
-    if depth > 62:
-        raise ValueError(f"decode_device: depth {depth} > 62")
+    if depth > 63:
+        raise ValueError(f"decode_device: depth {depth} > 63")
     exists = bm.unpack_bits(planes[..., BSI_EXISTS_BIT, :]) == 1
     sign = bm.unpack_bits(planes[..., BSI_SIGN_BIT, :]) == 1
     mag = torch.zeros(exists.shape, dtype=torch.int64, device=planes.device)
@@ -362,11 +365,11 @@ def decode_device(planes: torch.Tensor):
 
 def decode_np(planes: np.ndarray):
     """Host twin of decode_device for one fragment's (2+d, W) uint32
-    planes: (exists (W*32,) bool, values (W*32,) int64)."""
+    planes: (exists (W*32,) bool, values (W*32,) int64), d <= 63."""
     planes = np.asarray(planes, dtype=np.uint32)
     depth = planes.shape[0] - 2
-    if depth > 62:
-        raise ValueError(f"decode_np: depth {depth} > 62")
+    if depth > 63:
+        raise ValueError(f"decode_np: depth {depth} > 63")
     exists = unpack_bits_np(planes[BSI_EXISTS_BIT])
     sign = unpack_bits_np(planes[BSI_SIGN_BIT])
     mag = np.zeros(exists.shape, dtype=np.int64)

@@ -14,6 +14,7 @@
 // launches on that stream, does not synchronise, and returns
 // cudaGetLastError() so that a refused launch reaches the Python wrapper.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,7 +43,7 @@ __device__ __forceinline__ int block_sum(int v) {
   return v;
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
@@ -180,9 +181,10 @@ __global__ void masked_popcount_kernel(const uint32_t* __restrict__ x,
 // Replaces pilosa_tpu/ops/kernels.py bsi_sum_counts (Pallas, vmapped over S).
 // Bound: S*(2+d)*W*4 (+ S*W*4 with a filter) + S*(1+2d)*4 bytes over
 // 3.35 TB/s (373.3 us filtered at S = 954, d = 7).  The planes may have any
-// shard stride pl_ss (0 repeats one shard's planes against S filters: the
-// per-shard GroupBy's combo masks); a contiguous stack keeps its own
-// instance, since a runtime stride made it 23% slower on the H100.  The grid is
+// shard stride pl_ss; a contiguous stack keeps its own instance, since a
+// runtime stride made it 23% slower on the H100, and stride 0 with a filter
+// (one shard's planes against S filters: the per-shard GroupBy's combo
+// masks) takes bsi_sum_counts_kernel_stride0 below.  The grid is
 // (S x word chunks), flattened.  A block first builds its chunk's
 // pos = exists & filt & ~sign and neg = exists & filt & sign masks in shared
 // memory (one read of exists, sign and filt), then streams each magnitude
@@ -256,6 +258,278 @@ __global__ void bsi_sum_counts_kernel(const uint32_t* __restrict__ planes,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bsi_sum_counts, stride-0 instance: one shard's planes (2+d, W) against C
+// filters (C, W) -> cnt (C,), pos (C, d), neg (C, d), zeroed by the caller.
+// The per-shard GroupBy Sum's shape (executor/advanced.py _groupby_loop: a
+// launch a shard, C = the combos of a chunk, 8 to 256).
+// The function is (1+2d) popcounts a word a filter: C*W*(1+2d) of them, 7.1
+// us at C = 60, d = 7, W = 32768 at __popc's 16 a clock an SM.  On the H100
+// the strided instance's grid of C x 16 blocks, which re-read the one
+// shard's planes for every filter and walked them a plane at a time, took
+// 26.9 us there (15.5 us at C = 8, on 128 blocks), and a form that staged
+// the planes once a chunk and streamed the filters through __popc still
+// took 15.6 us, held by the __popc rate.  So the popcounts run on the tensor
+// cores (7.7 us at C = 60, 4.1 us at C = 8):
+// mma.sync m16n8k256 .b1 with .and.popc adds popc(A row & B column) over
+// 256 bits, and one instruction counts 8 filters' positive and negative
+// masks (A: rows q = exists & filter & ~sign, q + 8 = exists & filter & sign)
+// against 8 columns (B: the magnitude planes, then an all-ones column whose
+// two counts sum to the filter's cnt) over 8 words.  What is left is bytes:
+// the filters, C*W*4 (2.3 us at C = 60), and the planes once.
+// The grid is 256-word chunks x groups of 8-filter m-tiles, sized to about 4
+// blocks an SM.  A block stages its chunk of exists, sign and the d planes in
+// shared memory once (cp.async, a word a thread a plane; the plane rows are
+// padded by 4 words so a B load by 8 columns x 4 words is conflict-free),
+// then each warp takes 4 of the chunk's 32 k-steps for every m-tile of its
+// group, its lanes loading their filter words straight into the A fragments
+// (lane 4q + r: filter q, words 8k + r and 8k + r + 4).  The k-sum of a warp
+// stays in the accumulators; the 8 warps add them into the block's shared
+// counters (16 x 8 a tile), which reach the outputs with one global atomic
+// each at the end.  PTX fragment layout (ISA, mma.m16n8k256 .b1, as
+// m16n8k32 .s8 with 32 elements a register): a0 = row q, k 32r..32r+31;
+// a1 = row q+8, same k; a2, a3 = the same rows, k + 128; b0 = k 32r..32r+31,
+// column q; b1 = k + 128; c0, c1 = row q, columns 2r, 2r+1; c2, c3 = row
+// q+8.  k is summed over, so the word each k-slot holds only has to be the
+// same in A and B.
+// ---------------------------------------------------------------------------
+constexpr int kS0Words = 256;                   // words a block stages, a word a thread
+constexpr int kS0Stride = kS0Words + 4;         // a staged plane's row, padded
+constexpr int kS0Steps = kS0Words / 8 / kWarps;  // k-steps of 8 words, a warp an m-tile
+constexpr int kS0CounterBytes = 48 * 1024;      // the block's counters, at most
+static_assert(kS0Words == kThreads, "the stage takes a word a thread a plane");
+
+__device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// NT n-tiles of 8 columns: the d planes and the count column, padded
+template <int NT>
+__global__ void bsi_sum_counts_kernel_stride0(const uint32_t* __restrict__ planes,
+                                              const uint32_t* __restrict__ filt,
+                                              int* __restrict__ cnt, int* __restrict__ pos,
+                                              int* __restrict__ neg, int64_t c, int64_t p,
+                                              int64_t w, int64_t chunks, int mtb) {
+  extern __shared__ uint32_t stage[];  // p staged planes, then mtb x 16 x NC counters
+  constexpr int NC = NT * 8;
+  const int d = static_cast<int>(p - 2);
+  int* counters = reinterpret_cast<int*>(stage + p * kS0Stride);
+  const int64_t base = (blockIdx.x % chunks) * kS0Words;
+  const int64_t f0 = (blockIdx.x / chunks) * 8 * static_cast<int64_t>(mtb);
+  const int t = threadIdx.x, warp = t >> 5, q = (t & 31) >> 2, r = t & 3;
+
+  const int64_t k = base + t;
+  for (int pl = 0; pl < p; ++pl) {
+    uint32_t* dst = stage + pl * kS0Stride + t;
+    if (k < w) __pipeline_memcpy_async(dst, planes + pl * w + k, sizeof(uint32_t));
+    else *dst = 0u;
+  }
+  __pipeline_commit();
+  for (int i = t; i < mtb * 16 * NC; i += kThreads) counters[i] = 0;
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the stage and the zeroed counters are the block's
+
+  for (int mt = 0; mt < mtb; ++mt) {
+    const int64_t f = f0 + 8 * mt + q;  // this lane's filter
+    int acc[NT][4] = {};
+#pragma unroll
+    for (int i = 0; i < kS0Steps; ++i) {
+      const int wa = (warp + kWarps * i) * 8 + r, wb = wa + 4;  // words of the chunk
+      uint32_t fa = 0u, fb = 0u;
+      if (f < c) {
+        if (base + wa < w) fa = __ldg(filt + f * w + base + wa);
+        if (base + wb < w) fb = __ldg(filt + f * w + base + wb);
+      }
+      const uint32_t ea = stage[wa] & fa, eb = stage[wb] & fb;
+      const uint32_t sa = stage[kS0Stride + wa], sb = stage[kS0Stride + wb];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = 8 * nt + q;  // this lane's B column
+        uint32_t b0 = 0u, b1 = 0u;
+        if (col < d) {
+          b0 = stage[(2 + col) * kS0Stride + wa];
+          b1 = stage[(2 + col) * kS0Stride + wb];
+        } else if (col == d) {
+          b0 = b1 = ~0u;
+        }
+        mma_b1(acc[nt], ea & ~sa, ea & sa, eb & ~sb, eb & sb, b0, b1);
+      }
+    }
+    int* ctr = counters + mt * 16 * NC;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (acc[nt][j]) atomicAdd(ctr + (q + 8 * (j >> 1)) * NC + 8 * nt + 2 * r + (j & 1), acc[nt][j]);
+  }
+  __syncthreads();
+  for (int i = t; i < mtb * 8 * (d + 1); i += kThreads) {
+    const int ff = i / (d + 1), col = i % (d + 1);
+    const int64_t f = f0 + ff;
+    if (f >= c) continue;
+    const int* row = counters + (ff >> 3) * 16 * NC + (ff & 7) * NC + col;
+    const int pv = row[0], nv = row[8 * NC];  // rows q and q + 8
+    if (col == d) {
+      if (pv + nv) atomicAdd(cnt + f, pv + nv);
+    } else {
+      if (pv) atomicAdd(pos + f * d + col, pv);
+      if (nv) atomicAdd(neg + f * d + col, nv);
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_bsi_sum_counts_stride0(const uint32_t* planes, const uint32_t* filt, int* cnt,
+                                          int* pos, int* neg, int64_t c, int64_t p, int64_t w,
+                                          cudaStream_t stream) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  const int64_t chunks = (w + kS0Words - 1) / kS0Words;
+  const int64_t mtiles = (c + 7) / 8;
+  // about 4 blocks an SM: the m-tile groups wanted, and the m-tiles a group
+  const int64_t groups = (4 * static_cast<int64_t>(sms) + chunks - 1) / chunks;
+  const int64_t cap = kS0CounterBytes / (16 * NT * 8 * static_cast<int64_t>(sizeof(int)));
+  int64_t mtb = (mtiles + groups - 1) / groups;
+  mtb = mtb > cap ? cap : mtb;
+  const int64_t blocks = chunks * ((mtiles + mtb - 1) / mtb);
+  const size_t smem = (p * kS0Stride + mtb * 16 * NT * 8) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(bsi_sum_counts_kernel_stride0<NT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  bsi_sum_counts_kernel_stride0<NT><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      planes, filt, cnt, pos, neg, c, p, w, chunks, static_cast<int>(mtb));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bsi_range: planes (S, 2+d, W) at shard stride pl_ss -> out (S, W), the
+// columns whose value satisfies op against the predicate(s).
+// Replaces the BSI comparator of pilosa_tpu/ops/bsi.py (cmp_unsigned and
+// range_eq/neq/lt/gt/between, bsi.py:199-305).  That is pure jnp, which XLA
+// fuses into one pass under the stacked plan's jit
+// (pilosa_tpu/executor/stacked.py:1477-1488), so it has no Pallas kernel;
+// eager torch ran it as d steps of ~7 full-stack ops.
+// Bound: S*(2+d)*W*4 + S*W*4 bytes over 3.35 TB/s (0.373 ms at S = 954,
+// d = 7, W = 32768); the ~6 bit operations a plane a word a predicate are far
+// below that at 67 TOP/s.  One pass: the grid is shards x 1024-word chunks; a
+// thread owns 4 consecutive words (one 16-byte load a plane where the rows
+// are 16-byte aligned), loads exists and sign once, walks the magnitude
+// planes MSB first with lt/eq in registers (for between, both predicates'
+// lt/eq from the same single read of the planes), and writes its words once.
+// The predicate bit of plane i, (p >> i) & 1, is expanded to a word mask; d
+// is a runtime loop bound.  The sign regime (op, p_neg, q_neg) is uniform
+// over the launch, as the JAX package's jnp.where on the plan's flags.
+// ---------------------------------------------------------------------------
+constexpr int kRangeChunk = kThreads * 4;  // words per block
+enum RangeOp { kEq = 0, kNeq, kLt, kLte, kGt, kGte, kBetween };
+
+template <bool VEC>
+__device__ __forceinline__ uint4 load4(const uint32_t* x, int64_t k, int64_t w) {
+  if (VEC) return __ldg(reinterpret_cast<const uint4*>(x + k));  // W % 4 == 0, k < w
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  v.x = __ldg(x + k);
+  if (k + 1 < w) v.y = __ldg(x + k + 1);
+  if (k + 2 < w) v.z = __ldg(x + k + 2);
+  if (k + 3 < w) v.w = __ldg(x + k + 3);
+  return v;
+}
+
+// lt/eq of one word against the predicate bit's mask pm (0 or ~0),
+// cmp_unsigned's step
+__device__ __forceinline__ void cmp_step(uint32_t& lt, uint32_t& eq, uint32_t m, uint32_t pm) {
+  lt |= eq & ~m & pm;
+  eq &= ~(m ^ pm);
+}
+
+// range_eq/neq/lt/gt/between of one word from exists, sign and the walk's
+// lt/eq against p (and lt_q/eq_q against q for between)
+__device__ __forceinline__ uint32_t range_word(int op, uint32_t e, uint32_t s, uint32_t lt,
+                                               uint32_t eq, uint32_t lt_q, uint32_t eq_q,
+                                               bool p_neg, bool q_neg) {
+  const uint32_t neg = e & s, pos = e & ~s;
+  switch (op) {
+    case kEq:
+      return (p_neg ? neg : pos) & eq;
+    case kNeq:
+      return e & ~((p_neg ? neg : pos) & eq);
+    case kLt:
+    case kLte: {
+      const bool allow_eq = op == kLte;
+      const uint32_t ltu = allow_eq ? (lt | eq) : lt, gtu = allow_eq ? ~lt : ~(lt | eq);
+      return p_neg ? (neg & gtu) : (neg | (pos & ltu));
+    }
+    case kGt:
+    case kGte: {
+      const bool allow_eq = op == kGte;
+      const uint32_t ltu = allow_eq ? (lt | eq) : lt, gtu = allow_eq ? ~lt : ~(lt | eq);
+      return p_neg ? (pos | (neg & ltu)) : (pos & gtu);
+    }
+    default: {  // between: p <= value <= q
+      if (!p_neg && q_neg) return 0u;  // inverted range: empty
+      const uint32_t lte_p = lt | eq, lte_q = lt_q | eq_q;
+      if (!p_neg) return pos & ~lt & lte_q;
+      if (q_neg) return neg & ~lt_q & lte_p;
+      return (neg & lte_p) | (pos & lte_q);
+    }
+  }
+}
+
+template <bool VEC, bool TWO>
+__global__ void bsi_range_kernel(const uint32_t* __restrict__ planes, uint32_t* __restrict__ out,
+                                 int64_t pl_ss, int64_t p, int64_t w, int64_t chunks, int op,
+                                 uint64_t pa, uint64_t qa, bool p_neg, bool q_neg) {
+  const int64_t shard = blockIdx.x / chunks;
+  const int64_t k = (blockIdx.x % chunks) * kRangeChunk + 4 * threadIdx.x;
+  if (k >= w) return;
+  const uint32_t* sp = planes + shard * pl_ss;
+  const uint4 e = load4<VEC>(sp, k, w);
+  const uint4 s = load4<VEC>(sp + w, k, w);
+  uint4 lt = make_uint4(0u, 0u, 0u, 0u), eq = make_uint4(~0u, ~0u, ~0u, ~0u);
+  uint4 lt_q = lt, eq_q = eq;
+#pragma unroll 4
+  for (int i = static_cast<int>(p - 3); i >= 0; --i) {
+    const uint4 m = load4<VEC>(sp + (2 + i) * w, k, w);
+    const uint32_t pm = 0u - static_cast<uint32_t>((pa >> i) & 1u);
+    cmp_step(lt.x, eq.x, m.x, pm);
+    cmp_step(lt.y, eq.y, m.y, pm);
+    cmp_step(lt.z, eq.z, m.z, pm);
+    cmp_step(lt.w, eq.w, m.w, pm);
+    if (TWO) {
+      const uint32_t qm = 0u - static_cast<uint32_t>((qa >> i) & 1u);
+      cmp_step(lt_q.x, eq_q.x, m.x, qm);
+      cmp_step(lt_q.y, eq_q.y, m.y, qm);
+      cmp_step(lt_q.z, eq_q.z, m.z, qm);
+      cmp_step(lt_q.w, eq_q.w, m.w, qm);
+    }
+  }
+  uint4 r;
+  r.x = range_word(op, e.x, s.x, lt.x, eq.x, lt_q.x, eq_q.x, p_neg, q_neg);
+  r.y = range_word(op, e.y, s.y, lt.y, eq.y, lt_q.y, eq_q.y, p_neg, q_neg);
+  r.z = range_word(op, e.z, s.z, lt.z, eq.z, lt_q.z, eq_q.z, p_neg, q_neg);
+  r.w = range_word(op, e.w, s.w, lt.w, eq.w, lt_q.w, eq_q.w, p_neg, q_neg);
+  uint32_t* o = out + shard * w;
+  if (VEC) {
+    *reinterpret_cast<uint4*>(o + k) = r;
+  } else {
+    o[k] = r.x;
+    if (k + 1 < w) o[k + 1] = r.y;
+    if (k + 2 < w) o[k + 2] = r.z;
+    if (k + 3 < w) o[k + 3] = r.w;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -299,11 +573,40 @@ int pt_bsi_sum_counts(const void* planes, int64_t pl_ss, const void* filt, void*
                       void* neg, int64_t s, int64_t p, int64_t w, void* stream) {
   const int64_t chunks = (w + kBsiChunk - 1) / kBsiChunk;
   const size_t smem = (2 * (p - 2) + 1) * sizeof(int) + 2 * kBsiChunk * sizeof(uint32_t);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pl_ss == 0 && filt && p - 1 <= 72) {  // up to 9 n-tiles: d <= 71
+    const uint32_t* pl = static_cast<const uint32_t*>(planes);
+    const uint32_t* fl = static_cast<const uint32_t*>(filt);
+    int* c = static_cast<int*>(cnt);
+    int* ps = static_cast<int*>(pos);
+    int* ng = static_cast<int*>(neg);
+    // n-tiles for the d plane columns and the count column
+    const int64_t cols = p - 1;
+    cudaError_t e;
+    if (cols <= 8) e = launch_bsi_sum_counts_stride0<1>(pl, fl, c, ps, ng, s, p, w, st);
+    else if (cols <= 16) e = launch_bsi_sum_counts_stride0<2>(pl, fl, c, ps, ng, s, p, w, st);
+    else if (cols <= 32) e = launch_bsi_sum_counts_stride0<4>(pl, fl, c, ps, ng, s, p, w, st);
+    else e = launch_bsi_sum_counts_stride0<9>(pl, fl, c, ps, ng, s, p, w, st);
+    return static_cast<int>(e);
+  }
   auto kern = pl_ss == p * w ? bsi_sum_counts_kernel<true> : bsi_sum_counts_kernel<false>;
-  kern<<<static_cast<unsigned>(s * chunks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<static_cast<unsigned>(s * chunks), kThreads, smem, st>>>(
       static_cast<const uint32_t*>(planes), static_cast<const uint32_t*>(filt),
       static_cast<int*>(cnt), static_cast<int*>(pos), static_cast<int*>(neg), pl_ss, p, w,
       chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pt_bsi_range(const void* planes, int64_t pl_ss, void* out, int64_t s, int64_t p, int64_t w,
+                 int64_t op, uint64_t pa, uint64_t qa, int64_t p_neg, int64_t q_neg, void* stream) {
+  const int64_t chunks = (w + kRangeChunk - 1) / kRangeChunk;
+  const bool vec = (w & 3) == 0 && (pl_ss & 3) == 0 && aligned16(planes) && aligned16(out);
+  const bool two = op == kBetween;
+  auto kern = vec ? (two ? bsi_range_kernel<true, true> : bsi_range_kernel<true, false>)
+                  : (two ? bsi_range_kernel<false, true> : bsi_range_kernel<false, false>);
+  kern<<<static_cast<unsigned>(s * chunks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(planes), static_cast<uint32_t*>(out), pl_ss, p, w, chunks,
+      static_cast<int>(op), pa, qa, p_neg != 0, q_neg != 0);
   return static_cast<int>(cudaGetLastError());
 }
 

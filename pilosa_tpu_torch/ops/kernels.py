@@ -1,7 +1,8 @@
 """The query path's kernels: CUDA on the card, plain PyTorch beside each.
 
 Eight hand-written CUDA kernels replace the eight Pallas kernels of
-``pilosa_tpu/ops/kernels.py``.  In ``csrc/bitmap_kernels.cu``:
+``pilosa_tpu/ops/kernels.py``, and a ninth the BSI comparator that the
+JAX package fuses under its plan's jit.  In ``csrc/bitmap_kernels.cu``:
 
 - ``popcount_rows``       — Count of a leaf or a per-shard tree, unfiltered
   TopN row counts, the per-shard GroupBy's combo counts
@@ -11,6 +12,9 @@ Eight hand-written CUDA kernels replace the eight Pallas kernels of
 - ``rows_filter_counts``  — filtered TopN candidate counts (stacked)
 - ``bsi_sum_counts``      — BSI Sum's filtered sign-split plane counts, and
   the per-shard GroupBy's Sum partials
+- ``bsi_range``           — the BSI comparator: a Range row of
+  eq/neq/lt/lte/gt/gte/between from one read of the planes (no Pallas
+  kernel: the JAX package leaves ``ops/bsi.py``'s jnp walk to XLA)
 
 and in ``csrc/groupby_kernels.cu``:
 
@@ -49,6 +53,8 @@ _ARGTYPES = {
     "pt_masked_popcount": [_P, _P, _P, _I, _I, _P],
     "pt_rows_filter_counts": [_P, _P, _P, _I, _I, _I, _P],
     "pt_bsi_sum_counts": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pt_bsi_range": [_P, _I, _P, _I, _I, _I, _I, ctypes.c_uint64,
+                     ctypes.c_uint64, _I, _I, _P],
     "pt_groupby_fused": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     "pt_groupby_onehot": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
@@ -74,6 +80,8 @@ ONEHOT_MAX_CODES = 4096
 ONEHOT_MAX_DEPTH = 16
 # masked_popcount's grid takes pairs of rows on gridDim.y
 _MASKED_MAX_ROWS = 2 * 65535
+# words of one bsi_range block (csrc/bitmap_kernels.cu kRangeChunk)
+_RANGE_CHUNK = 1024
 
 # shard columns one plain-histogram step unpacks (bounded memory at
 # full width: 16 shards of 2^20 columns)
@@ -81,7 +89,14 @@ _PLAIN_COLUMNS = 1 << 24
 
 LAUNCHES = {name: 0 for name in (
     "popcount_rows", "pair_popcount", "masked_popcount", "rows_filter_counts",
-    "bsi_sum_counts", "groupby_fused", "groupby_onehot", "groupby_sum")}
+    "bsi_sum_counts", "bsi_range", "groupby_fused", "groupby_onehot",
+    "groupby_sum")}
+
+# bsi_range's comparisons, in the C entry's numbering
+RANGE_OPS = ("eq", "neq", "lt", "lte", "gt", "gte", "between")
+# int64 values have magnitudes up to 2^63, so depth 64, and predicate
+# magnitudes below 2^64 fit the kernel's uint64
+RANGE_MAX_DEPTH = 64
 
 
 def reset_launches() -> None:
@@ -161,6 +176,21 @@ def rows_filter_counts_plain(rows: torch.Tensor,
 
 def bsi_sum_counts_plain(planes: torch.Tensor, filt=None):
     return bsi.sum_counts(planes, filt)
+
+
+def bsi_range_plain(planes: torch.Tensor, op: str, p: int, q=None,
+                    p_neg: bool = False, q_neg: bool = False) -> torch.Tensor:
+    """The comparator as ops/bsi.py's eager walk, on per-plane predicate
+    masks built here."""
+    depth = planes.shape[-2] - 2
+    pb = bsi.predicate_masks(p, depth)
+    if op == "between":
+        return bsi.range_between(planes, pb, bsi.predicate_masks(q, depth),
+                                 p_neg, q_neg)
+    if op in ("eq", "neq"):
+        return getattr(bsi, f"range_{op}")(planes, pb, p_neg)
+    fn = bsi.range_lt if op.startswith("lt") else bsi.range_gt
+    return fn(planes, pb, p_neg, allow_eq=op.endswith("e"))
 
 
 def _hist_rows(depth: int, signed: bool) -> int:
@@ -392,6 +422,40 @@ def bsi_sum_counts(planes: torch.Tensor, filt: torch.Tensor | None = None):
                 cnt.data_ptr(),
                 pos.data_ptr(), neg.data_ptr(), s, p, w)
     return cnt, pos, neg
+
+
+def bsi_range(planes: torch.Tensor, op: str, p: int, q=None,
+              p_neg: bool = False, q_neg: bool = False) -> torch.Tensor:
+    """The columns of each shard whose value satisfies a comparison:
+    planes (S, 2+d, W) with any shard stride (``_check``), 1 <= d <= 64
+    → (S, W) int32 words.  ``op`` is one of RANGE_OPS; ``p`` (and for
+    "between", ``q``) are unsigned predicate magnitudes below 2^d, with
+    their signs ``p_neg``/``q_neg``, as ops/bsi.py's range_* take them:
+    "between" is p <= value <= q, empty when p >= 0 > q."""
+    name = "bsi_range"
+    _check(name, planes, 3, planes.device, any_shard_stride=True)
+    s, pl, w = planes.shape
+    depth = pl - 2
+    if not 1 <= depth <= RANGE_MAX_DEPTH:
+        raise ValueError(f"{name}: depth {depth} outside 1..{RANGE_MAX_DEPTH}")
+    if op not in RANGE_OPS:
+        raise ValueError(f"{name}: op {op!r} not in {RANGE_OPS}")
+    if (q is None) != (op != "between"):
+        raise ValueError(f"{name}: q is given exactly for 'between'")
+    for v in (p, 0 if q is None else q):
+        if not 0 <= int(v) < (1 << depth):
+            raise ValueError(f"{name}: predicate {v} outside depth {depth}")
+    if planes.device.type == "cpu":
+        return bsi_range_plain(planes, op, p, q, p_neg, q_neg).contiguous()
+    chunks = (w + _RANGE_CHUNK - 1) // _RANGE_CHUNK
+    if s * chunks > _GRID_MAX:
+        raise ValueError(f"{name}: too many shards for one launch")
+    out = torch.empty((s, w), dtype=torch.int32, device=planes.device)
+    if s * w:
+        _launch(name, "pt_bsi_range", planes.data_ptr(), planes.stride(0),
+                out.data_ptr(), s, pl, w, RANGE_OPS.index(op), int(p),
+                int(q or 0), int(bool(p_neg)), int(bool(q_neg)))
+    return out
 
 
 def groupby_fused(code_planes: torch.Tensor, valid: torch.Tensor,

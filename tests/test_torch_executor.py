@@ -26,6 +26,7 @@ from pilosa_tpu_torch.executor.executor import ExecError, Executor
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType, TimeQuantum
 from pilosa_tpu_torch.models.state import holder_from_state, holder_state
+from pilosa_tpu_torch.ops import kernels as K
 
 # one intra-op thread: these tests share the machine with the rest of
 # the suite's workers, several of which time their own work
@@ -232,6 +233,59 @@ def test_execute_matches_jax(holders, monkeypatch, pallas, index, query):
     want = _norm(JaxExecutor(jh).execute(index, query))
     got = _norm(Executor(ph, device="cpu").execute(index, query))
     assert got == want
+
+
+# Range rows: every comparison and sign regime (signed v and dec, the
+# unsigned age), and the plan-time short cuts that need no comparator
+RANGE_QUERIES = [
+    ("d", "Count(Row(v >= -20))", True),
+    ("d", "Count(Row(v > 20))", True),
+    ("d", "Count(Row(v < -17))", True),
+    ("d", "Count(Row(v <= 17))", True),
+    ("d", "Count(Row(v == -7))", True),
+    ("d", "Count(Row(v != 7))", True),
+    ("d", "Row(v == 0)", True),
+    ("d", "Count(Row(-100 <= v <= 100))", True),
+    ("d", "Count(Row(20 < v < 300))", True),
+    ("d", "Count(Row(-300 <= v < -2))", True),
+    ("d", "Count(Row(dec > 1.25))", True),
+    ("d", "Count(Row(dec < -3.5))", True),
+    ("d", "Count(Intersect(Row(v > 0), Row(s=1)))", True),
+    ("c", "Count(Row(age >= 64))", True),
+    ("c", "Count(Row(age < 64))", True),
+    ("c", "Count(Row(10 < age < 100))", True),
+    ("c", "Count(Row(-5 < sv <= 5))", True),
+    ("d", "Count(Row(v > 5000))", False),
+    ("d", "Count(Row(v < 5000))", False),
+    ("d", "Count(Row(v == 2.5))", False),
+    ("d", "Count(Row(300 < v < 20))", False),
+    ("d", "Count(Row(v == null))", False),
+    ("d", "Count(Row(v != null))", False),
+]
+
+
+@pytest.mark.parametrize("engine", ["stacked", "per_shard"])
+@pytest.mark.parametrize("index,query,compares", RANGE_QUERIES)
+def test_range_rows_go_through_bsi_range(holders, monkeypatch, engine, index,
+                                         query, compares):
+    """Both engines answer a Range row through kernels.bsi_range, once
+    for the stack or once a shard (three shards here), and equal the JAX
+    executor; a short cut planned on the host launches none."""
+    calls = []
+    real = K.bsi_range
+
+    def counted(*args, **kwargs):
+        calls.append(args[1])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(K, "bsi_range", counted)
+    jh, ph = holders[index]
+    ex = Executor(ph, device="cpu")
+    ex.use_stacked = engine == "stacked"
+    got = _norm(ex.execute(index, query))
+    assert got == _norm(JaxExecutor(jh).execute(index, query))
+    assert len(calls) == (0 if not compares else
+                          1 if engine == "stacked" else 3)
 
 
 # the JAX package's GroupBy arms: its defaults (the host histogram

@@ -94,6 +94,115 @@ def test_bsi_sum_counts_one_shard_many_filters(cuda, c, depth, w):
           K.bsi_sum_counts(planes.contiguous(), filt))
 
 
+@pytest.mark.parametrize("c", [1, 8, 60, 954])
+@pytest.mark.parametrize("depth", [1, 7, 12, 25, 40, 63])
+def test_bsi_sum_counts_stride0_instance(cuda, c, depth):
+    """The stride-0 instance (planes staged once a word chunk, filters
+    counted against them on the tensor cores) at the per-shard GroupBy's
+    filter counts, a part-filled last m-tile, every n-tile count (1, 2, 4
+    and 9 tiles of plane columns), several m-tiles a block (C = 954), a
+    ragged W, and planes without negatives."""
+    w = 2049 if c < 954 else 1031
+    planes = _words((1, 2 + depth, w), cuda, 32)
+    filt = _words((c, w), cuda, 33)
+    for pl in (planes, torch.cat([planes[:, :1], torch.zeros_like(
+            planes[:, :1]), planes[:, 2:]], dim=1)):
+        one = pl.expand(c, -1, -1)
+        _same(K.bsi_sum_counts(one, filt), K.bsi_sum_counts_plain(one, filt))
+
+
+_RANGE_OPS = ["eq", "neq", "lt", "lte", "gt", "gte", "between"]
+
+
+def _range_cases(depth, seed):
+    """(op, p, q, p_neg, q_neg) over every op, sign and between regime at
+    predicates 0, 2^d - 1 and one at random."""
+    rng = np.random.default_rng(seed)
+    preds = [0, (1 << depth) - 1,
+             int.from_bytes(rng.bytes(8), "little") >> (64 - depth)]
+    for op in _RANGE_OPS:
+        for p in preds:
+            for p_neg in (False, True):
+                if op != "between":
+                    yield op, p, None, p_neg, False
+                    continue
+                for q in preds:
+                    for q_neg in (False, True):
+                        yield op, p, q, p_neg, q_neg
+
+
+def _range_planes(shape, device, seed):
+    """Random planes with some columns at each case's predicate: word 0
+    of every shard holds the magnitude bits of 2^d - 1, word 1 of 0."""
+    x = _words(shape, device, seed)
+    x[:, 2:, 0] = -1
+    x[:, 2:, 1] = 0
+    return x
+
+
+@pytest.mark.parametrize("depth", [1, 7, 40, 63, 64])
+@pytest.mark.parametrize("s,w", [(3, 2049), (2, 8), (5, 1027)])
+def test_bsi_range(cuda, depth, s, w):
+    """Every op and sign regime against the plain version, contiguous,
+    on an unaligned view (the scalar path), a shard-strided plane range
+    and one shard's planes at shard stride 0."""
+    base = _range_planes((s, 3 + depth, w), cuda, 40)
+    flat = _words((s * (2 + depth) * w + 1,), cuda, 41)
+    views = [base[:, 1:].contiguous(), base[:, 1:],
+             flat[1:].view(s, 2 + depth, w),
+             base[:1, 1:].expand(s, -1, -1)]
+    for op, p, q, p_neg, q_neg in _range_cases(depth, depth):
+        for pl in views:
+            before = K.LAUNCHES["bsi_range"]
+            got = K.bsi_range(pl, op, p, q, p_neg, q_neg)
+            assert K.LAUNCHES["bsi_range"] == before + 1
+            _same(got, K.bsi_range_plain(pl, op, p, q, p_neg, q_neg)
+                  .contiguous())
+
+
+def test_bsi_range_main_path_shape(cuda):
+    planes = _range_planes((954, 9, 32768), cuda, 42)
+    for op, p, q in (("gte", 64, None), ("lt", 64, None),
+                     ("between", 11, 99), ("neq", 0, None)):
+        _same(K.bsi_range(planes, op, p, q),
+              K.bsi_range_plain(planes, op, p, q).contiguous())
+
+
+def test_cuda_ranges_never_take_the_eager_comparator(cuda, monkeypatch):
+    """Range rows on the card, on both engines, go through the kernel:
+    ops/bsi.py's range_* (the plain version) must not run."""
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+    from pilosa_tpu_torch.ops import bsi
+
+    rng = np.random.default_rng(5)
+    h = Holder(width=4096)
+    idx = h.create_index("i")
+    v = idx.create_field("v", FieldOptions(type=FieldType.INT,
+                                           min=-500, max=500))
+    cols = rng.integers(0, 4096 * 3, size=6000)
+    v.import_values(cols, rng.integers(-500, 501, size=cols.size))
+    queries = ["Count(Row(v >= -20))", "Count(Row(v < 17))",
+               "Count(Row(-100 <= v <= 100))", "Count(Row(v == 7))",
+               "Count(Row(v != -7))", "Count(Row(v > 3))",
+               "Count(Row(20 < v < 300))"]
+    wants = [Executor(h, device="cpu").execute("i", q) for q in queries]
+
+    def eager(*_a, **_k):
+        raise AssertionError("the eager comparator ran on the card")
+    for name in ("range_eq", "range_neq", "range_lt", "range_gt",
+                 "range_between", "cmp_unsigned"):
+        monkeypatch.setattr(bsi, name, eager)
+    for stacked in (True, False):
+        ex = Executor(h)
+        ex.use_stacked = stacked
+        before = K.LAUNCHES["bsi_range"]
+        for q, want in zip(queries, wants):
+            assert ex.execute("i", q) == want, q
+        assert K.LAUNCHES["bsi_range"] > before
+
+
 # groupby_fused: (S, CB, W, depth, signed, n_codes).  W = 200/2049 are
 # ragged against the 2048-word tile of the (K, G) arm and 513/511/1023
 # against the joint arm's 1024-word tile; CB = 0 is the one-code case.

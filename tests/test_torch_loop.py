@@ -7,8 +7,8 @@ with ``use_stacked = False`` — once with the JAX defaults and once with
 PILOSA_TPU_PALLAS=1, which sends the JAX loop's filtered TopN/TopK
 through ``masked_popcount`` and its Sum through ``bsi_sum_counts`` in
 interpret mode.  The shapes the stacked engine refuses (a depth-40
-field, GroupBy Min/Max over overlapping rows, Count(Distinct)) run on
-both of the port's arms.  At kernel level, ``masked_popcount`` and the
+field, GroupBy Min/Max over overlapping rows, Count(Distinct)) and a
+depth-63 field run on both of the port's arms.  At kernel level, ``masked_popcount`` and the
 one-hot histogram's plain versions are held to the JAX Pallas kernels
 in interpret mode, and the port's ``onepass_arm = "onehot"`` to the JAX
 executor's forced one-hot arm.  Every answer is an integer, a decimal
@@ -155,6 +155,56 @@ def test_fallback_shapes_match_jax(holders, arm, query):
     jh, ph = holders["t"]
     got, _ex = _port(ph, "t", query, use_stacked=arm == "stacked")
     assert got == _jax_loop(jh, "t", query)
+
+
+def _depth63(h, opts, ftype):
+    """An INT field of bit depth 63 (min -2^62, max 2^62) holding 5,
+    -2^62 and 7 on three columns, set rows g=0 on the first two and g=1
+    on the third; and huge, of depth 64, holding 5, -2^63 and 2^63 - 1."""
+    idx = h.create_index("big")
+    big = idx.create_field("big", opts(type=ftype.INT, min=-(1 << 62),
+                                       max=1 << 62))
+    big.import_values(np.array([0, 1, 2]), np.array([5, -(1 << 62), 7]))
+    huge = idx.create_field("huge", opts(type=ftype.INT, min=-(1 << 63),
+                                         max=(1 << 63) - 1))
+    huge.import_values(np.array([0, 1, 2]),
+                       np.array([5, -(1 << 63), (1 << 63) - 1]))
+    idx.create_field("g").import_bits(np.array([0, 0, 1]), np.array([0, 1, 2]))
+    idx.mark_columns_exist(np.array([0, 1, 2]))
+    return h
+
+
+@pytest.fixture(scope="module")
+def deep63():
+    jh = _depth63(JaxHolder(width=WIDTH), JaxFieldOptions, JaxFieldType)
+    return jh, holder_from_state(jax_state(jh))
+
+
+# the depth-63 GroupBy Min/Max raised "decode_np: depth 63 > 62" on both
+# of the port's engines; the JAX loop answers them in int64
+DEPTH63_PINNED = {
+    "GroupBy(Rows(g), aggregate=Max(field=big))":
+        [((("g", 0),), 2, 5, 2), ((("g", 1),), 1, 7, 1)],
+    "GroupBy(Rows(g), aggregate=Min(field=big))":
+        [((("g", 0),), 2, -(1 << 62), 2), ((("g", 1),), 1, 7, 1)],
+}
+DEPTH63_QUERIES = list(DEPTH63_PINNED) + [
+    "Min(field=big)", "Max(field=big)", "Sum(field=big)",
+    "Distinct(field=big)", "Count(Row(big < 0))", "Count(Row(big >= 6))",
+    f"Count(Row(big == {-(1 << 62)}))",
+    f"Count(Row({-(1 << 62)} <= big <= 5))",
+    "Count(Row(huge < 0))", f"Count(Row(huge == {-(1 << 63)}))",
+    f"Count(Row(huge > {(1 << 63) - 2}))", "Count(Row(-10 < huge < 10))"]
+
+
+@pytest.mark.parametrize("arm", ["stacked", "per_shard"])
+@pytest.mark.parametrize("query", DEPTH63_QUERIES)
+def test_depth63_field_matches_jax(deep63, arm, query):
+    jh, ph = deep63
+    got, _ex = _port(ph, "big", query, use_stacked=arm == "stacked")
+    assert got == _norm_all(JaxExecutor(jh).execute("big", query))
+    if query in DEPTH63_PINNED:
+        assert got == [DEPTH63_PINNED[query]]
 
 
 @pytest.mark.parametrize("query,route", [
