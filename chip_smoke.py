@@ -14,10 +14,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    without a filter, and bsi_sum_counts with one shard's planes at
    shard stride 0 against 954 filters and against the per-shard
    GroupBy's own 60 and 8 (one launch a shard a 256-combo chunk);
-   masked_popcount at one shard's (8, 32768) and (256, 32768) row
-   chunks; the GroupBy histogram at the able shape of 7 code bits,
-   signed, unsigned, with Min/Max and at the main path's density (every
-   column valid and present), at 9 code bits (240 combos), as the value
+   masked_popcount over every shard at once as the per-shard TopN/TopK
+   hands it over (954 shards x 8 row tiles of 32768 words, with and
+   without filters, and with 2 views), and at one shard's (8, 32768)
+   and (256, 32768) rows (the latter over 4 input copies in turn, so it
+   streams from HBM, not L2); the GroupBy histogram at the able shape of 7
+   code bits, signed, unsigned, with Min/Max and at the main path's
+   density (every column valid and present), at 9 code bits (240
+   combos), as the value
    histogram of age, and past shared memory at 4096 codes x depth 16 on
    64 shards; the one-hot histogram at the able shape, signed and
    unsigned, at 9 code bits and as the value histogram, each also held
@@ -36,8 +40,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    side; the one-hot histogram's bound is
    groupby_fused's, and its own int8 tensor work (2*K*min(G, 256) a
    column, and the first port's dense 2*K*G) is printed beside it; the
-   per-shard TopN's loop of 954 masked_popcount calls, timed whole and
-   as the sum of its kernels; an empty kernel's device time (the launch
+   per-shard TopN's former loop of 954 masked_popcount calls, timed
+   whole and as the sum of its kernels, beside the one
+   masked_popcount_shards call that replaced it and its address table's
+   host time; an empty kernel's device time (the launch
    floor, printed beside the profiled rows); and a disjoint field of 2, 4
    and 8 rows through both GroupBy arms, held equal and timed
 4. main path — the headline index (954 shards x 2^20 columns, random-
@@ -53,7 +59,8 @@ Phases, each printing its own lines; any failure exits non-zero:
        headline queries, TopK, MinRow/MaxRow, set-field Distinct, Min
        and Max of age and the able GroupBy Sum, each timed beside the
        stacked engine; BSI Distinct (a host decode) on 16 shards;
-       masked_popcount must launch during TopN/TopK;
+       each TopN/TopK must launch masked_popcount once a run (one
+       launch over its 954 shards) and popcount_rows never;
    4b. the fallbacks on the default executor: Min, Max and Distinct of
        ts (depth 40), GroupBy Max of ts, GroupBy Min over the
        overlapping t rows and Count(Distinct), the host loops on the 64
@@ -408,6 +415,21 @@ def phase_kernels(device) -> dict:
     # (contiguous) against that shard's filter words
     mask = a[0].contiguous()
     flat_rows = rows.view(R * S, W)
+    # ... and as the per-shard TopN/TopK now hands them over: per shard
+    # the R row tiles of a view, as the tile cache gives them (rows[r, s],
+    # and planes[s, :R] as a second view), and the shard's filter words,
+    # read where they lie
+    view1 = [[K.RowTiles(list(rows[:, s]), W, device)] for s in range(S)]
+    view2 = [[K.RowTiles(list(rows[:, s]), W, device),
+              K.RowTiles(list(planes[s, :R]), W, device)] for s in range(S)]
+
+    def rotating(fn, n=4):
+        # fn(i) over n distinct input copies in turn: back-to-back calls
+        # on inputs of 33.7 MB would otherwise read them from the 50 MB
+        # L2, not from HBM as the byte bound assumes
+        turn = itertools.cycle(range(n))
+        return lambda: fn(next(turn))
+    filters = list(a)
     one_shard = planes[:1].expand(S, -1, -1)
 
     def bsi_pop(c):
@@ -477,13 +499,34 @@ def phase_kernels(device) -> dict:
          stride0_ops(S, one_label)),
         stride0(60),
         stride0(8),
+        # bytes: every tile and filter read once, the address table, the
+        # int64 counts; bit operations a row and word: the views' OR,
+        # the AND and the popcount's add, and a popcount each
+        ("masked_popcount", f"{S} shards x {R} row tiles ({W},) & {S} "
+         "filters, V=1 (the per-shard TopN/TopK)",
+         lambda: K.masked_popcount_shards(view1, filters, R, W, device),
+         lambda: K.masked_popcount_shards_plain(view1, filters, R, W, device),
+         (S * R + S) * W * 4 + (S * R + S) * 8 + R * 8,
+         (3 * S * R * W, S * R * W)),
+        ("masked_popcount", f"{S} shards x {R} row tiles, no filter, V=1 "
+         "(the per-shard unfiltered TopN/TopK)",
+         lambda: K.masked_popcount_shards(view1, None, R, W, device),
+         lambda: K.masked_popcount_shards_plain(view1, None, R, W, device),
+         S * R * W * 4 + (S * R + S) * 8 + R * 8, (2 * S * R * W, S * R * W)),
+        ("masked_popcount", f"{S} shards x {R} row tiles & {S} filters, V=2",
+         lambda: K.masked_popcount_shards(view2, filters, R, W, device),
+         lambda: K.masked_popcount_shards_plain(view2, filters, R, W, device),
+         (2 * S * R + S) * W * 4 + (2 * S * R + S) * 8 + R * 8,
+         (4 * S * R * W, S * R * W)),
         ("masked_popcount", f"(8, {W}) & ({W},)",
          lambda: K.masked_popcount(flat_rows[:8], mask),
          lambda: K.masked_popcount_plain(flat_rows[:8], mask),
          9 * W * 4 + 8 * 4, 3 * 8 * W),
-        ("masked_popcount", f"(256, {W}) & ({W},)",
-         lambda: K.masked_popcount(flat_rows[:256], mask),
-         lambda: K.masked_popcount_plain(flat_rows[:256], mask),
+        ("masked_popcount", f"(256, {W}) & ({W},), 4 input copies in turn",
+         rotating(lambda i: K.masked_popcount(flat_rows[256 * i:256 * (i + 1)],
+                                              a[i])),
+         rotating(lambda i: K.masked_popcount_plain(
+             flat_rows[256 * i:256 * (i + 1)], a[i])),
          257 * W * 4 + 256 * 4, 3 * 256 * W),
     ]
 
@@ -503,6 +546,7 @@ def phase_kernels(device) -> dict:
     cases = ([c + (50, 3, None) for c in cases] + [c + (None,) for c in gb_cases]
              + onehot_cases)
     records = {}
+    case_ms = {}
     floor_ms = empty_launch_ms()
     print(f"kernels: an empty kernel (torch.cuda._sleep(0)) takes {floor_ms:.4f} "
           "ms of device time (profiler): the floor of any launch")
@@ -559,13 +603,20 @@ def phase_kernels(device) -> dict:
             print(f"kernel {name} {label}: equal to groupby_fused; "
                   f"one-hot {ms:.4f} / {again_ms:.4f} ms, fused "
                   f"{fused_ms:.4f} ms on the same inputs")
+        case_ms[label] = ms
         records.setdefault(name, {
             "name": name, "route": "cuda", "source": SRC[name],
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
-    topn_loop(flat_rows, a)
+    grouped = next(c[1] for c in cases if c[0] == "masked_popcount")
+    stacked_rows = f"({R}, {S}, {W}) & ({S}, {W})"
+    print(f"kernel masked_popcount {grouped}: {case_ms[grouped]:.4f} ms of "
+          f"kernel beside rows_filter_counts {stacked_rows} "
+          f"{case_ms[stacked_rows]:.4f} ms, the same bytes from one "
+          "contiguous stack")
+    topn_loop(flat_rows, a, view1, filters, device)
     compare_arms(device, codes, planes)
     return records
 
@@ -577,11 +628,14 @@ def empty_launch_ms() -> float:
     return device_ms(lambda: torch.cuda._sleep(0), "spin_kernel", reps=50)
 
 
-def topn_loop(flat_rows, filt) -> None:
-    """The per-shard TopN's loop at full width: one masked_popcount a
-    shard of its 8 rows against the shard's filter words, timed whole
-    with CUDA events (the wrapper's host work included) and as the sum
-    of its kernels' device times from the profiler."""
+def topn_loop(flat_rows, filt, tiles, filters, device) -> None:
+    """The per-shard TopN's scan at full width, before and after: the
+    former loop of one masked_popcount a shard (its 8 rows against the
+    shard's filter words), timed whole with CUDA events (the wrapper's
+    host work included) and as the sum of its kernels' device times
+    from the profiler; and the one masked_popcount_shards call over the
+    same shards' row tiles that replaced it, timed the same ways, with
+    its address table's host time on a line of its own."""
     from pilosa_tpu_torch.ops import kernels as K
 
     def loop():
@@ -591,9 +645,27 @@ def topn_loop(flat_rows, filt) -> None:
     whole = cuda_ms(loop, reps=3, warmup=1)
     kernels = S * device_ms(loop, "masked_popcount_kernel", reps=3)
     print(f"kernel masked_popcount per-shard TopN loop, {S} calls of "
-          f"({R}, {W}) & ({W},): {whole:.4f} ms a loop through the wrapper "
-          f"(CUDA events), {kernels:.4f} ms of kernel summed over its "
-          f"{S} launches (profiler)")
+          f"({R}, {W}) & ({W},) (before): {whole:.4f} ms a loop through the "
+          f"wrapper (CUDA events), {kernels:.4f} ms of kernel summed over "
+          f"its {S} launches (profiler)")
+
+    def one():
+        K.masked_popcount_shards(tiles, filters, R, W, device)
+
+    whole = cuda_ms(one, reps=5, warmup=1)
+    kernel = device_ms(one, "masked_popcount_kernel", reps=5)
+    print(f"kernel masked_popcount per-shard TopN scan, one "
+          f"masked_popcount_shards call over {S} shards x {R} row tiles "
+          f"(after): {whole:.4f} ms a call through the wrapper (CUDA "
+          f"events), {kernel:.4f} ms of kernel in its 1 launch (profiler)")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        K.shard_table(tiles, filters, R, W, device)
+    host = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"host: masked_popcount_shards' address table of {S * R} row "
+          f"tiles (the tile cache's RowTiles) and {S} filters, views and "
+          "filters checked, "
+          f"built: {host:.4f} ms a call (host clock)")
 
 
 def compare_arms(device, codes, planes) -> None:
@@ -1032,11 +1104,22 @@ def phase_main_path(device, reps: int = 5) -> dict:
     lp.use_stacked = False
     topn = {q: e for q, e in loop_full.items() if q.startswith("Top")}
     rest = {q: e for q, e in loop_full.items() if q not in topn}
-    launches, loop_p50 = launches_of(
-        lambda: run_queries(lp, "per-shard", topn, 3))
-    if launches["masked_popcount"] == 0:
-        raise AssertionError("the per-shard TopN/TopK never launched "
-                             "masked_popcount")
+    # each TopN/TopK scans (t has no rank caches): one masked_popcount
+    # launch over its S shards a run, none of popcount_rows
+    launches = dict.fromkeys(STACKED_LAUNCHES, 0)
+    loop_p50 = {}
+    for q, e in topn.items():
+        got, p50 = launches_of(lambda: run_queries(lp, "per-shard", {q: e}, 3))
+        runs = 1 + 3
+        print(f"per-shard: {q}: masked_popcount launched {got['masked_popcount']}"
+              f" times over {runs} runs of {S} shards, popcount_rows "
+              f"{got['popcount_rows']}")
+        if got["masked_popcount"] != runs or got["popcount_rows"]:
+            raise AssertionError(f"per-shard {q}: launches {got}, expected "
+                                 f"one masked_popcount a run")
+        loop_p50.update(p50)
+        for k, n in got.items():
+            launches[k] += n
     more, rest_p50 = launches_of(lambda: run_queries(lp, "per-shard", rest, 3))
     loop_p50.update(rest_p50)
     for q, (sub, expect) in loop_subset.items():

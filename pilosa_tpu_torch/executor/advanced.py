@@ -6,8 +6,8 @@ straight off the per-fragment rank caches (the reference's
 fragment.top path).  Everything else counts candidate rows exactly on
 the device: on the stacked engine as (R, S, W) candidate blocks
 against an optional filter tree (``StackedEngine.row_counts``); on the
-per-shard engine shard by shard, chunks of at most 256 rows through
-``masked_popcount`` under a filter and ``popcount_rows`` without one.
+per-shard engine in one ``masked_popcount_shards`` launch over every
+shard's row tiles, against each shard's filter words or without one.
 
 GroupBy enumerates its combos on the host and hands them to
 ``StackedEngine.groupby`` (one-pass histogram or per-combo kernel).
@@ -34,9 +34,9 @@ from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql import ast as past
 from pilosa_tpu_torch.pql.ast import Call
 
-# rows (TopN) or combos (GroupBy) per device batch of the per-shard
-# engine; its kernels never materialise a (C, planes, W) product, so
-# GroupBy aggregates take the same chunk as counts
+# combos per device batch of the per-shard GroupBy; its kernels never
+# materialise a (C, planes, W) product, so aggregates take the same
+# chunk as counts
 _ROW_CHUNK = 256
 
 _HAVING_OPS = {"==": operator.eq, "!=": operator.ne, "<": operator.lt,
@@ -130,25 +130,54 @@ class AdvancedOps:
         return self._finish_topn(pairs, n)
 
     def _topnk_loop(self, idx, f, row_ids, views, filter_call, shards, ids):
-        """The per-shard candidate scan: per shard, the filter tree's
-        words, then chunks of at most _ROW_CHUNK rows through
-        masked_popcount (popcount_rows unfiltered), summed on the device
-        and fetched once."""
-        got = torch.zeros(len(row_ids), dtype=torch.int64, device=self.device)
-        for shard in self._shard_list(idx, shards):
-            filt = (self._bitmap_call_shard(idx, filter_call, shard)
-                    if filter_call is not None else None)
-            for i in range(0, len(row_ids), _ROW_CHUNK):
-                chunk = row_ids[i:i + _ROW_CHUNK]
-                tiles = self._row_tiles(f, shard, chunk, views)
-                got[i:i + len(chunk)] += (
-                    kernels.popcount_rows(tiles) if filt is None
-                    else kernels.masked_popcount(tiles, filt))
+        """The per-shard candidate scan in two passes: on the host, per
+        shard, the filter tree's words and each view's candidate row
+        tiles (TileCache hits when warm); then one masked_popcount_shards
+        launch counts every shard's rows against its filter (the rows'
+        own popcount without one), summed in int64 on the device and
+        fetched once.  What a launch holds (each shard's row tiles of
+        every view and its filter words) stays within _ROWS_STACK_BUDGET:
+        past it, one launch a batch of shards, and when one shard's rows
+        alone pass it, a chunk of rows at a time (the filter evaluated
+        again for each chunk)."""
+        words = idx.width // 32
+        vs = [f.views.get(vn) for vn in views]
+        row_bytes = max(1, len(vs)) * words * 4     # a row of every view
+        per_chunk = max(1, self._ROWS_STACK_BUDGET // row_bytes - 1)
+        shard_list = self._shard_list(idx, shards)
+        got = []
+        for lo in range(0, len(row_ids), per_chunk):
+            rows = row_ids[lo:lo + per_chunk]
+            batch = max(1, self._ROWS_STACK_BUDGET
+                        // (len(rows) * row_bytes + words * 4))
+            part = None
+            for i in range(0, len(shard_list), batch):
+                tiles, masks = [], []
+                for shard in shard_list[i:i + batch]:
+                    if filter_call is not None:
+                        masks.append(
+                            self._bitmap_call_shard(idx, filter_call, shard))
+                    tiles.append([self._shard_rows(v, shard, rows)
+                                  for v in vs])
+                n = kernels.masked_popcount_shards(
+                    tiles, masks if filter_call is not None else None,
+                    len(rows), words, self.device)
+                part = n if part is None else part + n
+            if part is not None:
+                got.extend(part.cpu().tolist())
         counts = {r: 0 for r in row_ids}
-        for r, c in zip(row_ids, got.cpu().tolist()):
+        for r, c in zip(row_ids, got):
             counts[r] += c
         return [Pair(id=r, count=c) for r, c in counts.items()
                 if c > 0 or ids is not None]
+
+    def _shard_rows(self, view, shard: int, row_ids):
+        """A view's row tiles on one shard (TileCache), or None when the
+        shard has no fragment there."""
+        frag = view.fragment(shard) if view else None
+        if frag is None:
+            return None
+        return self.tiles.rows(frag, row_ids)
 
     def _topnk_stacked(self, idx, f, row_ids, views, filter_call, shards,
                        ids):

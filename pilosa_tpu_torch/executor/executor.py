@@ -81,15 +81,16 @@ _ROW_CHUNK = 256
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card, which must exist; anything else
-    is taken as given."""
+    """``None`` means the current CUDA card, which must exist; anything
+    else is taken as given.  A card is named with its index, as its
+    tensors name it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pilosa_tpu_torch runs on the card; pass "
                 "device='cpu' to run the kernels' plain versions instead")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    return kernels.device_of(device)
 
 
 class TileCache:
@@ -106,9 +107,19 @@ class TileCache:
         self._cache = StackCache(max_bytes)
 
     def row(self, frag, row: int) -> torch.Tensor:
-        return self._cache.get(
-            (frag.gen, row), frag.version,
-            lambda: bm.to_tensor(frag.row_words(row), self.device))
+        return self._cache.get((frag.gen, row), frag.version,
+                               lambda: self._upload_row(frag, row))
+
+    def _upload_row(self, frag, row: int) -> torch.Tensor:
+        t = bm.to_tensor(frag.row_words(row), self.device)
+        kernels.check_tile(t, frag.width // 32, self.device)
+        return t
+
+    def rows(self, frag, row_ids) -> kernels.RowTiles:
+        """The (W,) tiles of row_ids for masked_popcount_shards, each
+        checked where this cache uploaded it."""
+        return kernels.RowTiles([self.row(frag, r) for r in row_ids],
+                                frag.width // 32, self.device, checked=True)
 
     def planes(self, frag, depth: int) -> torch.Tensor:
         return self._cache.get(

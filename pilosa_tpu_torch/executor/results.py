@@ -64,8 +64,10 @@ class ValCount:
 
 @dataclass
 class Pair:
-    """TopN/TopK entry: row id + count."""
+    """TopN/TopK entry: row id, row key (None on an unkeyed field) and
+    count, in the JAX package's field order."""
     id: int = 0
+    key: str | None = None
     count: int = 0
 
 

@@ -127,52 +127,161 @@ __global__ void rows_filter_counts_kernel(const uint32_t* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
-// masked_popcount: x (N, W) & mask (W,) -> out (N,), zeroed by the caller.
-// Replaces pilosa_tpu/ops/kernels.py masked_popcount (Pallas), the per-shard
-// TopN/TopK candidate count under a filter.
-// Bound: (N+1)*W*4 + N*4 bytes over 3.35 TB/s (0.35 us at N = 8, 10.1 us at
-// N = 256, W = 32768).  The per-shard shape is small, so one block per row
-// would leave most SMs idle: the grid splits W into 1024-word chunks and N
-// into pairs of rows (128 blocks for (8, 32768)).  A block keeps its mask
-// chunk in registers (one 16-byte word group a thread), counts each of its
-// rows against it, and adds the block's count to out[row] with one atomic.
+// masked_popcount, over a table of shards:
+//   out[r] = sum over shards s of popcount((OR over views v of tile[s][v][r]) & mask[s])
+// Replaces pilosa_tpu/ops/kernels.py masked_popcount (Pallas), which the JAX
+// per-shard TopN/TopK calls once a shard (one (R, W) & (W,) call each); here
+// one launch counts every shard's candidate rows against that shard's filter.
+// The tiles are read where the per-shard engine's tile cache holds them:
+// tiles is an (S, V, R) table of row addresses, masks an (S,) table of filter
+// addresses; an address of 0 is an absent tile (it reads the zero tile the
+// caller passes) or no filter (every word counts).  TABLE = false is the
+// single (N, W) & (W,) call, row r at x + r*w, as one table-free shard.
+// Bound: bytes, (S*V*R + S)*W*4 (+ the tables, + R*8 out) over 3.35 TB/s
+// (0.336 ms at S = 954, V = 1, R = 8, W = 32768, filtered).  One launch of a
+// shard's 8 rows moves 1.2 MB, less than the launch floor can stream, so the
+// design is one launch over all shards: a block takes (shard, slab of row
+// groups, chunk of 1024*J words); each thread holds its J 16-byte mask words
+// in registers for every row of the block and keeps 8 rows' counts in
+// registers between reductions.  The loads carry the time, so nothing stands
+// between them: a group's 8 addresses are read first, an absent tile or a
+// row past R reads the zero tile rather than branching, alignment is decided
+// once a table (VEC: every address 16-byte aligned and W % 4 == 0, else 4-byte
+// loads), and with one view (ONE_VIEW) a group is straight-line code whose
+// 8*J loads the compiler may keep in flight at once (2 blocks an SM of
+// registers).  More views are ORed in registers by a loop over them.  A
+// group of 8 rows is reduced with __reduce_add_sync in each warp and across
+// the warps in shared memory, then one atomicAdd a (block, row) adds it to
+// out[r] (int64 totals for the table form).  Rows past a group loop in the
+// block; the launcher spreads row groups over blocks (slabs) only when the
+// shards and chunks alone give too few blocks.
 // ---------------------------------------------------------------------------
-constexpr int kMaskChunk = kThreads * 4;  // words per block
-constexpr int kMaskRows = 2;              // rows per block
+constexpr int kMpGroup = 8;                // rows counted between reductions
+constexpr int64_t kMpTargetBlocks = 2048;  // ~8 waves of 2 blocks on 132 SMs
 
-__global__ void masked_popcount_kernel(const uint32_t* __restrict__ x,
-                                       const uint32_t* __restrict__ mask,
-                                       int* __restrict__ out, int64_t n, int64_t w) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * kMaskChunk + 4 * threadIdx.x;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kMaskRows;
-  // with W % 4 == 0 every row starts 16-byte aligned and k < w covers k..k+3
-  const bool vec = (w & 3) == 0 && aligned16(x) && aligned16(mask);
-  uint4 m = make_uint4(0u, 0u, 0u, 0u);
-  if (vec) {
-    if (k < w) m = __ldg(reinterpret_cast<const uint4*>(mask + k));
+// words k..k+3 of p, zero past w; VEC: p 16-byte aligned and w % 4 == 0
+template <bool VEC>
+__device__ __forceinline__ uint4 mp_load4(const uint32_t* p, int64_t k, int64_t w) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (VEC) {
+    if (k < w) v = __ldg(reinterpret_cast<const uint4*>(p + k));
   } else {
-    if (k < w) m.x = __ldg(mask + k);
-    if (k + 1 < w) m.y = __ldg(mask + k + 1);
-    if (k + 2 < w) m.z = __ldg(mask + k + 2);
-    if (k + 3 < w) m.w = __ldg(mask + k + 3);
+    if (k < w) v.x = __ldg(p + k);
+    if (k + 1 < w) v.y = __ldg(p + k + 1);
+    if (k + 2 < w) v.z = __ldg(p + k + 2);
+    if (k + 3 < w) v.w = __ldg(p + k + 3);
   }
-  for (int r = 0; r < kMaskRows; ++r) {
-    const int64_t row = r0 + r;
-    if (row >= n) break;  // uniform across the block
-    const uint32_t* xr = x + row * w;
-    int acc = 0;
-    if (vec) {
-      if (k < w) acc = popc4_and(__ldg(reinterpret_cast<const uint4*>(xr + k)), m);
-    } else {
-      if (k < w) acc += __popc(__ldg(xr + k) & m.x);
-      if (k + 1 < w) acc += __popc(__ldg(xr + k + 1) & m.y);
-      if (k + 2 < w) acc += __popc(__ldg(xr + k + 2) & m.z);
-      if (k + 3 < w) acc += __popc(__ldg(xr + k + 3) & m.w);
+  return v;
+}
+
+__device__ __forceinline__ uint4 or4(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+
+// the tile at table entry e of row `row` (the zero tile when absent or past r)
+__device__ __forceinline__ const uint32_t* tile_at(const unsigned long long* e, int64_t row,
+                                                   int64_t r, const uint32_t* zero) {
+  const unsigned long long a = row < r ? __ldg(e + row) : 0ull;
+  return a ? reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(a)) : zero;
+}
+
+template <bool TABLE, bool ONE_VIEW, bool VEC, int J, typename OutT>
+__global__ void __launch_bounds__(kThreads, 2)
+    masked_popcount_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ mask,
+                           const unsigned long long* __restrict__ tiles,
+                           const unsigned long long* __restrict__ masks,
+                           const uint32_t* __restrict__ zero, OutT* __restrict__ out, int64_t v,
+                           int64_t r, int64_t w, int64_t chunks, int64_t slabs, int64_t gpb) {
+  const int64_t b = blockIdx.x;
+  const int64_t chunk = b % chunks;
+  const int64_t slab = (b / chunks) % slabs;
+  const int64_t shard = b / (chunks * slabs);
+  const int64_t k0 = chunk * (kThreads * 4 * J) + 4 * threadIdx.x;  // + 4*kThreads*j
+  const uint32_t* mp =
+      TABLE ? reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(__ldg(masks + shard)))
+            : mask;
+  uint4 m[J];
+  if (mp) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) m[j] = mp_load4<VEC>(mp, k0 + 4 * kThreads * j, w);
+  } else {
+#pragma unroll
+    for (int j = 0; j < J; ++j) m[j] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  }
+  // this shard's row addresses, view 0 (the table's (S, V, R) layout)
+  const unsigned long long* trow = TABLE ? tiles + shard * v * r : nullptr;
+  __shared__ int red[kWarps][kMpGroup];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t groups = (r + kMpGroup - 1) / kMpGroup;
+  const int64_t g_end = (slab + 1) * gpb < groups ? (slab + 1) * gpb : groups;
+  for (int64_t g = slab * gpb; g < g_end; ++g) {
+    const int64_t row0 = g * kMpGroup;
+    const uint32_t* p0[kMpGroup];
+#pragma unroll
+    for (int i = 0; i < kMpGroup; ++i)
+      p0[i] = TABLE ? tile_at(trow, row0 + i, r, zero) : x + (row0 + i < r ? row0 + i : 0) * w;
+    int cnt[kMpGroup];
+#pragma unroll
+    for (int i = 0; i < kMpGroup; ++i) {
+      uint4 acc[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[j] = mp_load4<VEC>(p0[i], k0 + 4 * kThreads * j, w);
+      if (!ONE_VIEW) {
+        for (int64_t vi = 1; vi < v; ++vi) {
+          const uint32_t* p = tile_at(trow + vi * r, row0 + i, r, zero);
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            acc[j] = or4(acc[j], mp_load4<VEC>(p, k0 + 4 * kThreads * j, w));
+        }
+      }
+      cnt[i] = 0;
+#pragma unroll
+      for (int j = 0; j < J; ++j) cnt[i] += popc4_and(acc[j], m[j]);
     }
-    acc = block_sum(acc);
-    if (threadIdx.x == 0 && acc) atomicAdd(out + row, acc);
-    __syncthreads();  // block_sum's shared partials are reused by the next row
+#pragma unroll
+    for (int i = 0; i < kMpGroup; ++i) {
+      const int s = static_cast<int>(__reduce_add_sync(0xffffffffu, static_cast<unsigned>(cnt[i])));
+      if (lane == 0) red[warp][i] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < kMpGroup && row0 + threadIdx.x < r) {
+      int s = 0;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) s += red[q][threadIdx.x];
+      if (s) atomicAdd(out + row0 + threadIdx.x, static_cast<OutT>(s));
+    }
+    __syncthreads();  // red is reused by the next group
   }
+}
+
+// Grid of masked_popcount: J (16-byte words a thread a row) and the row
+// slabs.  J = 4 (4096-word chunks) when the loads are 16-byte and the
+// shards, chunks and row groups give kMpTargetBlocks or more; else J = 1
+// (the 4-byte path at J = 4 spilled registers).  Slabs spread the row groups
+// over blocks only as far as the shards and chunks leave the grid short of
+// kMpTargetBlocks, so the grid never passes S * ceil(W / 1024) +
+// kMpTargetBlocks blocks.
+template <bool TABLE, bool ONE_VIEW, bool VEC, typename OutT>
+cudaError_t launch_masked_popcount(const uint32_t* x, const uint32_t* mask,
+                                   const unsigned long long* tiles,
+                                   const unsigned long long* masks, const uint32_t* zero,
+                                   OutT* out, int64_t s, int64_t v, int64_t r, int64_t w,
+                                   cudaStream_t st) {
+  const int64_t groups = (r + kMpGroup - 1) / kMpGroup;
+  const int64_t wide = (w + 4 * kThreads * 4 - 1) / (4 * kThreads * 4);
+  const bool big = VEC && s * wide * groups >= kMpTargetBlocks;
+  const int64_t span = 4 * kThreads * (big ? 4 : 1);
+  const int64_t chunks = (w + span - 1) / span;
+  int64_t slabs = (kMpTargetBlocks + s * chunks - 1) / (s * chunks);
+  slabs = slabs < 1 ? 1 : slabs > groups ? groups : slabs;
+  const int64_t gpb = (groups + slabs - 1) / slabs;
+  slabs = (groups + gpb - 1) / gpb;
+  const unsigned grid = static_cast<unsigned>(s * chunks * slabs);
+  auto kern = big ? masked_popcount_kernel<TABLE, ONE_VIEW, VEC, VEC ? 4 : 1, OutT>
+                  : masked_popcount_kernel<TABLE, ONE_VIEW, VEC, 1, OutT>;
+  kern<<<grid, kThreads, 0, st>>>(x, mask, tiles, masks, zero, out, v, r, w, chunks, slabs, gpb);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -561,12 +670,43 @@ int pt_rows_filter_counts(const void* rows, const void* filt, void* out, int64_t
 
 int pt_masked_popcount(const void* x, const void* mask, void* out, int64_t n, int64_t w,
                        void* stream) {
-  const dim3 grid(static_cast<unsigned>((w + kMaskChunk - 1) / kMaskChunk),
-                  static_cast<unsigned>((n + kMaskRows - 1) / kMaskRows));
-  masked_popcount_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(mask), static_cast<int*>(out),
-      n, w);
-  return static_cast<int>(cudaGetLastError());
+  const uint32_t* xp = static_cast<const uint32_t*>(x);
+  const uint32_t* mp = static_cast<const uint32_t*>(mask);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* o = static_cast<int*>(out);
+  // with W % 4 == 0 every row of an aligned x is aligned
+  const bool vec = (w & 3) == 0 && aligned16(xp) && aligned16(mp);
+  return static_cast<int>(
+      vec ? launch_masked_popcount<false, true, true>(xp, mp, nullptr, nullptr, nullptr, o, 1, 1,
+                                                      n, w, st)
+          : launch_masked_popcount<false, true, false>(xp, mp, nullptr, nullptr, nullptr, o, 1,
+                                                       1, n, w, st));
+}
+
+// vec: the caller found every address of both tables 16-byte aligned and
+// W % 4 == 0; zero: W zero words, read for an absent tile
+int pt_masked_popcount_shards(const void* tiles, const void* masks, const void* zero, void* out,
+                              int64_t s, int64_t v, int64_t r, int64_t w, int64_t vec,
+                              void* stream) {
+  const unsigned long long* t = static_cast<const unsigned long long*>(tiles);
+  const unsigned long long* m = static_cast<const unsigned long long*>(masks);
+  const uint32_t* z = static_cast<const uint32_t*>(zero);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the kernel reads view 0 of every shard: no shard, view, row or word
+  // leaves nothing to count, and the caller must not launch
+  if (s < 1 || v < 1 || r < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (v == 1)
+    e = vec ? launch_masked_popcount<true, true, true>(nullptr, nullptr, t, m, z, o, s, v, r, w, st)
+            : launch_masked_popcount<true, true, false>(nullptr, nullptr, t, m, z, o, s, v, r, w,
+                                                        st);
+  else
+    e = vec ? launch_masked_popcount<true, false, true>(nullptr, nullptr, t, m, z, o, s, v, r, w,
+                                                        st)
+            : launch_masked_popcount<true, false, false>(nullptr, nullptr, t, m, z, o, s, v, r, w,
+                                                         st);
+  return static_cast<int>(e);
 }
 
 int pt_bsi_sum_counts(const void* planes, int64_t pl_ss, const void* filt, void* cnt, void* pos,

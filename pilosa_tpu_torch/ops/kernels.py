@@ -4,11 +4,13 @@ Eight hand-written CUDA kernels replace the eight Pallas kernels of
 ``pilosa_tpu/ops/kernels.py``, and a ninth the BSI comparator that the
 JAX package fuses under its plan's jit.  In ``csrc/bitmap_kernels.cu``:
 
-- ``popcount_rows``       — Count of a leaf or a per-shard tree, unfiltered
-  TopN row counts, the per-shard GroupBy's combo counts
+- ``popcount_rows``       — Count of a leaf or a per-shard tree, the
+  stacked unfiltered TopN row counts, the per-shard GroupBy's combo counts
 - ``pair_popcount``       — Count(Intersect(leaf, leaf)), MinRow/MaxRow and
   set-field Distinct under a filter
-- ``masked_popcount``     — the per-shard TopN/TopK loop under a filter
+- ``masked_popcount``     — the per-shard TopN/TopK candidate scan: one
+  launch over every shard's row tiles against that shard's filter
+  (``masked_popcount_shards``), or one (N, W) & (W,) call
 - ``rows_filter_counts``  — filtered TopN candidate counts (stacked)
 - ``bsi_sum_counts``      — BSI Sum's filtered sign-split plane counts, and
   the per-shard GroupBy's Sum partials
@@ -51,6 +53,7 @@ _ARGTYPES = {
     "pt_popcount_rows": [_P, _P, _I, _I, _P],
     "pt_pair_popcount": [_P, _P, _P, _I, _I, _P],
     "pt_masked_popcount": [_P, _P, _P, _I, _I, _P],
+    "pt_masked_popcount_shards": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pt_rows_filter_counts": [_P, _P, _P, _I, _I, _I, _P],
     "pt_bsi_sum_counts": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "pt_bsi_range": [_P, _I, _P, _I, _I, _I, _I, ctypes.c_uint64,
@@ -78,8 +81,10 @@ GB_MAX_FIELDS = 8
 # the grid) and 2 + 2*16 payload rows (three 16-row tensor-core tiles)
 ONEHOT_MAX_CODES = 4096
 ONEHOT_MAX_DEPTH = 16
-# masked_popcount's grid takes pairs of rows on gridDim.y
-_MASKED_MAX_ROWS = 2 * 65535
+# masked_popcount's grid: at most S x ceil(W / 1024) blocks plus
+# kMpTargetBlocks (csrc/bitmap_kernels.cu launch_masked_popcount)
+_MASKED_CHUNK = 1024
+_MASKED_EXTRA_BLOCKS = 2048
 # words of one bsi_range block (csrc/bitmap_kernels.cu kRangeChunk)
 _RANGE_CHUNK = 1024
 
@@ -153,6 +158,36 @@ def _check_int32_totals(name: str, s: int, w: int) -> None:
                          "int32 totals; chunk the shards")
 
 
+def check_tile(t: torch.Tensor, words: int, device) -> None:
+    """A row tile as masked_popcount_shards reads it: a contiguous (W,)
+    int32 tensor on ``device``."""
+    if t.dtype is not torch.int32:
+        raise TypeError(f"row tile: expected int32 words, got {t.dtype}")
+    if t.shape != (words,) or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"row tile: expected contiguous ({words},) words "
+                         f"on {device}, got {tuple(t.shape)} on {t.device}")
+
+
+class RowTiles:
+    """One view's R row tiles on one shard, each a contiguous (W,) int32
+    tensor on ``device``, with their addresses, which are derived here
+    from the tiles and nowhere else.  Every tile is checked here, unless
+    ``checked`` says its maker checked it: the per-shard engine's
+    TileCache checks each tile where it uploads it (checking 7632 tiles
+    a query cost more host time than the launch saved)."""
+    __slots__ = ("tiles", "addrs", "words", "device")
+
+    def __init__(self, tiles, words: int, device, checked: bool = False):
+        if not checked:
+            device = device_of(device)
+            for t in tiles:
+                check_tile(t, words, device)
+        self.tiles = list(tiles)
+        self.addrs = [t.data_ptr() for t in self.tiles]
+        self.words = words
+        self.device = device
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and the reference the card is held to)
 # ---------------------------------------------------------------------------
@@ -167,6 +202,26 @@ def pair_popcount_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def masked_popcount_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return bm.count(x & mask)
+
+
+def masked_popcount_shards_plain(tiles, masks, n_rows: int, words: int,
+                                 device) -> torch.Tensor:
+    """Plain version of masked_popcount_shards: per shard, its views'
+    rows ORed, counted against its mask (masked_popcount_plain; without
+    a mask the rows' own popcount), summed over the shards in int64."""
+    out = torch.zeros(n_rows, dtype=torch.int64, device=device)
+    for s, views in enumerate(tiles):
+        acc = None
+        for t in views:
+            if t is not None and n_rows:
+                rows = torch.stack(t.tiles)
+                acc = rows if acc is None else acc | rows
+        if acc is None:
+            continue
+        m = None if masks is None else masks[s]
+        out += (bm.count(acc) if m is None
+                else masked_popcount_plain(acc, m)).to(torch.int64)
+    return out
 
 
 def rows_filter_counts_plain(rows: torch.Tensor,
@@ -353,9 +408,17 @@ def pair_popcount(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _masked_grid(s: int, w: int) -> None:
+    if s * ((w + _MASKED_CHUNK - 1) // _MASKED_CHUNK) \
+            > _GRID_MAX - _MASKED_EXTRA_BLOCKS:
+        raise ValueError("masked_popcount: too many shards x words for one "
+                         "launch")
+
+
 def masked_popcount(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """popcount(x[i] & mask) per row, one filter for every row:
-    (N, W) & (W,) → (N,) int32 (the per-shard TopN/TopK count)."""
+    (N, W) & (W,) → (N,) int32 (the TPU kernel's signature; one shard of
+    masked_popcount_shards)."""
     _check("masked_popcount", x, 2, x.device)
     _check("masked_popcount", mask, 1, x.device)
     if mask.shape[0] != x.shape[1]:
@@ -364,12 +427,116 @@ def masked_popcount(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return masked_popcount_plain(x, mask)
     n, w = x.shape
-    if n > _MASKED_MAX_ROWS:
-        raise ValueError("masked_popcount: too many rows for one launch")
+    _masked_grid(1, w)
     out = torch.zeros(n, dtype=torch.int32, device=x.device)
     if n * w:
         _launch("masked_popcount", "pt_masked_popcount", x.data_ptr(),
                 mask.data_ptr(), out.data_ptr(), n, w)
+    return out
+
+
+def device_of(device) -> torch.device:
+    """``device`` as its tensors name it: a card with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _tile_addrs(t, n_rows: int, words: int, device) -> list[int]:
+    """Row addresses of one view's RowTiles (its tiles were checked
+    where it was made), after checking that it holds R tiles of W words
+    on ``device``."""
+    name = "masked_popcount_shards"
+    if not isinstance(t, RowTiles):
+        raise TypeError(f"{name}: a view is RowTiles or None, got "
+                        f"{type(t).__name__}")
+    if len(t.addrs) != n_rows or t.words != words or t.device != device:
+        raise ValueError(f"{name}: RowTiles of {len(t.addrs)} x "
+                         f"{t.words} words on {t.device}, expected "
+                         f"{n_rows} x {words} on {device}")
+    return t.addrs
+
+
+def _mask_addr(m: torch.Tensor, words: int, device) -> int:
+    """The address of a (W,) filter, checked in one test (the common
+    case costs one pass over 954 filters a query)."""
+    name = "masked_popcount_shards"
+    if (m.dtype is not torch.int32 or m.shape != (words,)
+            or m.get_device() != (-1 if device.index is None else device.index)
+            or not m.is_contiguous()):
+        if m.dtype is not torch.int32:
+            raise TypeError(f"{name}: expected int32 words, got {m.dtype}")
+        raise ValueError(f"{name}: expected contiguous ({words},) filter "
+                         f"words on {device}, got {tuple(m.shape)} on "
+                         f"{m.device}")
+    return m.data_ptr()
+
+
+def shard_table(tiles, masks, n_rows: int, words: int,
+                device) -> np.ndarray:
+    """masked_popcount_shards' address table, (S*V*R + S,) int64: the
+    tiles' row addresses in (S, V, R) order, then the S filter
+    addresses; 0 is an absent tile or no filter.  Checks every view and
+    mask on the way."""
+    name = "masked_popcount_shards"
+    device = device_of(device)
+    s = len(tiles)
+    v = len(tiles[0]) if s else 0
+    if masks is not None and len(masks) != s:
+        raise ValueError(f"{name}: {len(masks)} masks for {s} shards")
+    addrs: list[int] = []
+    for views in tiles:
+        if len(views) != v:
+            raise ValueError(f"{name}: every shard needs {v} views")
+        for t in views:
+            if t is None:
+                addrs.extend([0] * n_rows)
+            else:
+                addrs.extend(_tile_addrs(t, n_rows, words, device))
+    if masks is None:
+        addrs.extend([0] * s)
+    else:
+        addrs.extend(0 if m is None else _mask_addr(m, words, device)
+                     for m in masks)
+    return np.array(addrs, dtype=np.int64)
+
+
+def masked_popcount_shards(tiles, masks, n_rows: int, words: int,
+                           device) -> torch.Tensor:
+    """out[r] = Σ over shards s of popcount((OR over views v of
+    tiles[s][v][r]) & masks[s]) → (n_rows,) int64, in one launch.
+
+    ``tiles`` is a list over shards of lists over views (the same number
+    for every shard, possibly none: a time range that covers no view);
+    a view is None (no fragment: zeros) or a RowTiles (the tile cache's
+    R row tiles).  ``masks`` is a list over shards of (W,) filter words
+    (None: no filter for that shard), or None for no filter at all.
+    The kernel reads every tile where it lies, through an address table
+    built here and copied once; R, W and the device are given, since no
+    shard (S = 0) or only absent tiles name none."""
+    device = device_of(device)
+    table = shard_table(tiles, masks, n_rows, words, device)
+    if device.type == "cpu":
+        return masked_popcount_shards_plain(tiles, masks, n_rows, words,
+                                            device)
+    out = torch.zeros(n_rows, dtype=torch.int64, device=device)
+    s = len(tiles)
+    v = len(tiles[0]) if s else 0
+    if not (s and v and n_rows and words):
+        return out
+    _masked_grid(s, words)
+    vec = words % 4 == 0 and not (table & 15).any()
+    zero = torch.zeros(words, dtype=torch.int32, device=device)
+    # pinned, so the copy is asynchronous; the caching host allocator
+    # keeps the buffer from reuse until the copy has run, and every
+    # tile and mask is referenced by the caller until the launch is
+    # enqueued (the device allocator is stream-ordered after that)
+    dev = torch.from_numpy(table).pin_memory().to(device, non_blocking=True)
+    base = dev.data_ptr()
+    _launch("masked_popcount", "pt_masked_popcount_shards", base,
+            base + s * v * n_rows * 8, zero.data_ptr(), out.data_ptr(), s, v,
+            n_rows, words, int(vec))
     return out
 
 

@@ -10,6 +10,7 @@ one-pass arm and its forced per-combo kernel.  All answers are
 integers, decimals of integers or column sets: the comparison is
 exact."""
 
+import dataclasses
 import datetime as dt
 
 import numpy as np
@@ -18,11 +19,13 @@ import torch
 
 import __graft_entry__ as ge
 from pilosa_tpu.executor.executor import Executor as JaxExecutor
+from pilosa_tpu.executor.results import Pair as JaxPair
 from pilosa_tpu.models.holder import Holder as JaxHolder
 from pilosa_tpu.models.schema import FieldOptions as JaxFieldOptions
 from pilosa_tpu.models.schema import FieldType as JaxFieldType
 from pilosa_tpu.models.schema import TimeQuantum as JaxTimeQuantum
 from pilosa_tpu_torch.executor.executor import ExecError, Executor
+from pilosa_tpu_torch.executor.results import Pair
 from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType, TimeQuantum
 from pilosa_tpu_torch.models.state import holder_from_state, holder_state
@@ -233,6 +236,34 @@ def test_execute_matches_jax(holders, monkeypatch, pallas, index, query):
     want = _norm(JaxExecutor(jh).execute(index, query))
     got = _norm(Executor(ph, device="cpu").execute(index, query))
     assert got == want
+
+
+def test_pair_has_the_jax_fields():
+    """Pair(id, key, count), in the JAX package's order, so a positional
+    Pair(5, None, 12) means the same in both packages."""
+    names = [f.name for f in dataclasses.fields(Pair)]
+    assert names == [f.name for f in dataclasses.fields(JaxPair)]
+    assert names == ["id", "key", "count"]
+    assert dataclasses.asdict(Pair(5, None, 12)) == \
+        dataclasses.asdict(JaxPair(5, None, 12))
+
+
+_TOPN_CASES = [(i, q) for i, q in _CASES if q.startswith("Top")]
+
+
+@pytest.mark.parametrize("engine", ["stacked", "per_shard"])
+@pytest.mark.parametrize("index,query", _TOPN_CASES)
+def test_topn_pairs_asdict_match_jax(holders, engine, index, query):
+    """TopN/TopK answers as dicts, key included (None: unkeyed), equal
+    to the JAX executor's on the same engine."""
+    jh, ph = holders[index]
+    jex = JaxExecutor(jh)
+    jex.use_stacked = engine == "stacked"
+    ex = Executor(ph, device="cpu")
+    ex.use_stacked = engine == "stacked"
+    got = [dataclasses.asdict(p) for p in ex.execute(index, query)[0]]
+    assert got == [dataclasses.asdict(p) for p in jex.execute(index, query)[0]]
+    assert got and all(p["key"] is None for p in got)
 
 
 # Range rows: every comparison and sign regime (signed v and dec, the

@@ -387,6 +387,96 @@ def test_masked_popcount_refuses_strided(cuda):
         K.masked_popcount(x[:, :32], x[0, :32].contiguous())
 
 
+# masked_popcount_shards: the per-shard TopN/TopK scan in one launch.  S =
+# 0, 1, 3 and 954; V = 0 (a time range that covers no view: nothing
+# launches), 1 and 3 with absent views (None); R = 1, 8 and 300; odd W;
+# the tile cache's RowTiles, also at one word's offset (row by row some
+# tiles and masks not 16-byte aligned)
+def _shard_case(s, v, r, w, cuda, masked, layout):
+    base = _words((s, v, r, w + 1), cuda, 31)
+    mbase = _words((s, w + 1), cuda, 32)
+    off = 1 if layout == "offset" else 0
+    tiles = []
+    for si in range(s):
+        views = []
+        for vi in range(v):
+            if si % 5 == 4 or (si % 3 == 1 and vi == 0 and v > 1):
+                views.append(None)
+            else:
+                views.append(K.RowTiles(list(base[si, vi, :, off:off + w]),
+                                        w, cuda))
+        tiles.append(views)
+    masks = None
+    if masked:
+        masks = [None if si % 4 == 2 else mbase[si, off:off + w]
+                 for si in range(s)]
+    return tiles, masks
+
+
+@pytest.mark.parametrize("s,v,r,w", [
+    (0, 1, 8, 64), (1, 1, 8, 32768), (1, 3, 300, 4099), (3, 1, 8, 201),
+    (3, 3, 300, 1025), (3, 1, 1, 7), (954, 1, 8, 32768), (954, 3, 8, 1030),
+    (3, 0, 8, 64), (1, 0, 300, 1025)])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_filter", "filter"])
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_masked_popcount_shards(cuda, s, v, r, w, masked, layout):
+    tiles, masks = _shard_case(s, v, r, w, cuda, masked, layout)
+    before = K.LAUNCHES["masked_popcount"]
+    got = K.masked_popcount_shards(tiles, masks, r, w, cuda)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["masked_popcount"] == before + (1 if s and v else 0)
+    assert got.dtype == torch.int64 and got.shape == (r,)
+    _same(got, K.masked_popcount_shards_plain(tiles, masks, r, w, cuda))
+    if not v:
+        assert not got.any()
+
+
+def test_masked_popcount_shards_main_path_shape(cuda):
+    """(954 shards, 8 rows, 32768 words) of row tiles, as the per-shard
+    TopN hands them over, with and without filters and with two views,
+    equal to one masked_popcount a shard summed."""
+    rows = _words((954, 2, 8, 32768), cuda, 33)
+    filt = _words((954, 32768), cuda, 34)
+    for v in (1, 2):
+        tiles = [[K.RowTiles(list(rows[si, vi]), 32768, cuda)
+                  for vi in range(v)] for si in range(954)]
+        for masks in (None, list(filt)):
+            got = K.masked_popcount_shards(tiles, masks, 8, 32768, cuda)
+            want = torch.zeros(8, dtype=torch.int64, device=cuda)
+            for si in range(954):
+                acc = rows[si, 0] if v == 1 else rows[si, 0] | rows[si, 1]
+                want += (K.popcount_rows(acc) if masks is None
+                         else K.masked_popcount(acc, filt[si])).to(torch.int64)
+            _same(got, want)
+
+
+def test_masked_popcount_shards_launches_or_raises(cuda, monkeypatch):
+    """A CUDA call launches the kernel (never the plain version) and
+    raises on what the kernel does not take."""
+    def plain(*_a, **_k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+    monkeypatch.setattr(K, "masked_popcount_shards_plain", plain)
+    x = _words((2, 4, 64), cuda, 35)
+    t0, t1 = (K.RowTiles(list(x[i]), 64, cuda) for i in (0, 1))
+    got = K.masked_popcount_shards([[t0], [t1]], [x[0, 0], None], 4, 64,
+                                   cuda)
+    torch.cuda.synchronize()
+    want = (K.masked_popcount(x[0], x[0, 0]).to(torch.int64)
+            + K.popcount_rows(x[1]).to(torch.int64))
+    _same(got, want)
+    with pytest.raises(TypeError):
+        K.masked_popcount_shards([[x[0]]], None, 4, 64, cuda)
+    with pytest.raises(ValueError):
+        K.RowTiles(list(x[0].cpu()), 64, cuda)
+    with pytest.raises(ValueError):
+        K.masked_popcount_shards([[K.RowTiles(list(x[0].cpu()), 64, "cpu")]],
+                                 None, 4, 64, cuda)
+    with pytest.raises(ValueError):
+        K.masked_popcount_shards([[t0]], None, 4, 65, cuda)
+    with pytest.raises(ValueError):
+        K.masked_popcount_shards([[t0]], [x[0, 0].cpu()], 4, 64, cuda)
+
+
 def test_bad_cuda_shape_raises_before_the_plain_version(cuda, monkeypatch):
     """A CUDA tensor the kernel does not take raises; it never reaches
     the plain version."""

@@ -217,3 +217,139 @@ def test_bsi_range_checks_its_inputs(rng):
     with pytest.raises(TypeError):
         K.bsi_range(planes.to(torch.int64), "eq", 0)
     assert K.LAUNCHES["bsi_range"] == 0
+
+
+# -- masked_popcount_shards: the per-shard TopN/TopK scan in one call ---------
+
+SHARD_W = 64        # words: 2048 columns a shard
+
+
+def _shard_tiles(rng, n_shards, n_views, n_rows):
+    """Per shard and view the (R, W) uint32 rows, None for a view with
+    no fragment: shard 1 lacks its first view, the last shard every
+    view."""
+    out = []
+    for s in range(n_shards):
+        views = []
+        for v in range(n_views):
+            missing = s == n_shards - 1 or (s == 1 and v == 0 and n_views > 1)
+            views.append(None if missing else _words(rng, (n_rows, SHARD_W)))
+        out.append(views)
+    return out
+
+
+def _row_tiles(rows, form="aligned"):
+    """RowTiles of the (R, W) uint32 rows, the tile cache's form: R (W,)
+    tiles, each its own tensor ("aligned"), or rows of a wider tensor
+    one word in ("offset": tiles that are not 16-byte aligned)."""
+    if form == "offset":
+        wide = np.zeros((rows.shape[0], rows.shape[1] + 1), dtype=np.uint32)
+        wide[:, 1:] = rows
+        tiles = list(_t(wide)[:, 1:])
+    else:
+        tiles = [_t(row) for row in rows]
+    return K.RowTiles(tiles, rows.shape[1], "cpu")
+
+
+def _as_port(views_np, form):
+    """The port's form of one shard's views: RowTiles, or None."""
+    return [None if v is None else _row_tiles(v, form) for v in views_np]
+
+
+def _jax_shards(views_np, masks_np, n_rows):
+    """The JAX loop's sum: per shard the present views ORed, then one
+    Pallas masked_popcount (popcount_rows without a filter) a shard,
+    summed in int64."""
+    total = np.zeros(n_rows, dtype=np.int64)
+    for s, views in enumerate(views_np):
+        acc = None
+        for v in views:
+            if v is not None:
+                acc = v if acc is None else acc | v
+        if acc is None:
+            continue
+        got = (jk.popcount_rows(acc) if masks_np is None
+               else jk.masked_popcount(acc, masks_np[s]))
+        total += np.asarray(got, dtype=np.int64)
+    return total
+
+
+@pytest.mark.parametrize("n_rows", [1, 8, 300])
+@pytest.mark.parametrize("n_views", [0, 1, 3])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_filter", "filter"])
+@pytest.mark.parametrize("form", ["aligned", "offset"])
+def test_masked_popcount_shards_plain_matches_pallas(rng, n_rows, n_views,
+                                                     masked, form):
+    """Three shards (one missing a view, one missing every view) counted
+    in one call, against the JAX Pallas kernels run once a shard; no
+    view at all (a time range that covers none) counts zeros."""
+    views_np = _shard_tiles(rng, 3, n_views, n_rows)
+    masks_np = _words(rng, (3, SHARD_W)) if masked else None
+    tiles = [_as_port(v, form) for v in views_np]
+    masks = None if masks_np is None else [_t(m) for m in masks_np]
+    K.reset_launches()
+    got = K.masked_popcount_shards(tiles, masks, n_rows, SHARD_W, "cpu")
+    assert got.dtype == torch.int64 and got.shape == (n_rows,)
+    _eq(got, _jax_shards(views_np, masks_np, n_rows))
+    assert K.LAUNCHES["masked_popcount"] == 0
+
+
+@pytest.mark.parametrize("n_rows", [0, 8])
+def test_masked_popcount_shards_no_shards(n_rows):
+    got = K.masked_popcount_shards([], None, n_rows, SHARD_W, "cpu")
+    assert got.dtype == torch.int64 and got.shape == (n_rows,)
+    assert not got.any()
+    got = K.masked_popcount_shards([[None, None]], [None], n_rows, SHARD_W,
+                                   "cpu")
+    assert got.shape == (n_rows,) and not got.any()
+
+
+def test_masked_popcount_shards_mixes_filtered_shards(rng):
+    """A None mask among masks counts that shard's rows whole."""
+    rows = _words(rng, (2, 4, SHARD_W))
+    mask = _words(rng, (SHARD_W,))
+    got = K.masked_popcount_shards([[_row_tiles(rows[0])],
+                                    [_row_tiles(rows[1])]],
+                                   [_t(mask), None], 4, SHARD_W, "cpu")
+    want = (np.asarray(jk.masked_popcount(rows[0], mask), dtype=np.int64)
+            + np.asarray(jk.popcount_rows(rows[1]), dtype=np.int64))
+    _eq(got, want)
+
+
+def test_masked_popcount_shards_checks_its_inputs(rng):
+    x = _t(_words(rng, (4, SHARD_W)))
+    wide = _t(_words(rng, (4, 2 * SHARD_W)))
+    m = x[0].contiguous()
+    rows = list(x)
+    tiles = K.RowTiles(rows, SHARD_W, "cpu")
+    assert tiles.addrs == [r.data_ptr() for r in rows]
+
+    def call(views, masks=None, n_rows=4):
+        return K.masked_popcount_shards(views, masks, n_rows, SHARD_W, "cpu")
+
+    K.reset_launches()
+    with pytest.raises(TypeError):
+        call([[x]])                                   # a tensor, not RowTiles
+    with pytest.raises(ValueError):
+        K.RowTiles(list(x[:, :32]), SHARD_W, "cpu")   # tiles of 32 words
+    with pytest.raises(ValueError):
+        K.RowTiles(list(wide[:, ::2]), SHARD_W, "cpu")  # words not contiguous
+    with pytest.raises(TypeError):
+        K.RowTiles(list(x.to(torch.int64)), SHARD_W, "cpu")
+    with pytest.raises(ValueError):
+        K.RowTiles(rows, SHARD_W, "meta")             # tiles elsewhere
+    with pytest.raises(ValueError):
+        call([[K.RowTiles(rows[:3], SHARD_W, "cpu")]])    # 3 rows for R = 4
+    with pytest.raises(ValueError):
+        call([[K.RowTiles(list(wide), 2 * SHARD_W, "cpu")]])   # other width
+    with pytest.raises(ValueError):
+        call([[tiles], [tiles, tiles]])               # views differ
+    with pytest.raises(ValueError):
+        call([[tiles]], [m, m])                       # 2 masks, 1 shard
+    with pytest.raises(ValueError):
+        call([[tiles]], [m[:32]])                     # short mask
+    with pytest.raises(ValueError):
+        call([[tiles]], [wide[0, ::2]])               # strided mask
+    with pytest.raises(TypeError):
+        call([[tiles]], [m.to(torch.int64)])
+    assert K.LAUNCHES["masked_popcount"] == 0

@@ -14,6 +14,8 @@ in interpret mode, and the port's ``onepass_arm = "onehot"`` to the JAX
 executor's forced one-hot arm.  Every answer is an integer, a decimal
 of integers or a set: the comparison is exact."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -121,6 +123,95 @@ def test_per_shard_engine_matches_jax_loop(holders, monkeypatch, pallas,
     assert got == _jax_loop(jh, index, query)
     # (an unfiltered TopN reads the rank caches and takes neither engine)
     assert all(route in ("asked", "only_route") for _call, route in ex.paths)
+
+
+# the per-shard TopN/TopK scan (one masked_popcount_shards call a query):
+# ids= with rows absent everywhere (their count 0 kept), from/to over
+# the YMD time field tq (several views a shard, or none), shards= subsets with
+# an absent shard, filter trees that build temporaries (Intersect(Row,
+# Range)), and the unfiltered scan of a field without rank caches (u)
+TOPN_SCAN_QUERIES = [
+    ("d", "TopN(s, ids=[0, 2, 5, 7], n=6)", None),
+    ("d", "TopK(s, Row(m=1), ids=[1, 3, 9], k=3)", None),
+    ("d", "TopN(tq, from='2024-02-01', to='2024-05-01', n=2)", None),
+    ("d", "TopK(tq, Row(s=1), from='2024-01-01', to='2024-04-01', k=3)",
+     None),
+    # a time range that covers no view: every count 0
+    ("d", "TopK(tq, Row(s=1), ids=[0, 1, 7], from='2030-01-01', "
+     "to='2030-02-01', k=3)", None),
+    ("d", "TopN(tq, ids=[2, 3], from='2030-01-01', to='2030-02-01', n=2)",
+     [0, 2]),
+    ("d", "TopN(tq, from='2030-01-01', to='2030-02-01', n=2)", None),
+    ("d", "TopN(s, Row(s=2), n=4)", [0, 2, 9]),
+    ("d", "TopN(u, n=3)", [1, 7]),
+    ("d", "TopK(u, Intersect(Row(s=3), Row(-50 < v < 400)), k=4)", None),
+    ("d", "TopN(u, Intersect(Row(s=1), Row(v > 0)), n=3)", [0, 1]),
+    ("i", "TopK(f, Row(g=2), k=5)", [3, 1]),
+]
+
+
+def _pairs(results):
+    return [dataclasses.asdict(p) for p in results[0]]
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["stacked", "per_shard"])
+@pytest.mark.parametrize("index,query,shards", TOPN_SCAN_QUERIES)
+def test_topn_scan_matches_jax(holders, monkeypatch, pallas, engine, index,
+                               query, shards):
+    """Both engines equal the JAX executor's same engine, Pair for Pair;
+    the per-shard engine counts every shard's candidates in one
+    masked_popcount_shards call a query, the stacked engine in none."""
+    if pallas:
+        monkeypatch.setenv("PILOSA_TPU_PALLAS", "1")
+    calls = []
+    real = K.masked_popcount_shards
+
+    def counted(tiles, *args, **kwargs):
+        calls.append(len(tiles))
+        return real(tiles, *args, **kwargs)
+
+    monkeypatch.setattr(K, "masked_popcount_shards", counted)
+    jh, ph = holders[index]
+    jex = JaxExecutor(jh)
+    jex.use_stacked = engine == "stacked"
+    ex = Executor(ph, device="cpu")
+    ex.use_stacked = engine == "stacked"
+    got = _pairs(ex.execute(index, query, shards=shards))
+    assert got == _pairs(jex.execute(index, query, shards=shards))
+    n_shards = len(ex._shard_list(ph.index(index), shards))
+    assert calls == ([] if engine == "stacked" else [n_shards])
+
+
+@pytest.mark.parametrize("budget_tiles", [4, 9, 100])
+@pytest.mark.parametrize("query", [
+    "TopN(s, Row(s=2), n=4)", "TopN(u, n=3)",
+    "TopK(tq, Row(s=1), from='2024-01-01', to='2024-04-01', k=3)",
+    "TopK(s, Row(m=1), ids=[%s], k=5)" % ", ".join(map(str, range(40)))])
+def test_topn_scan_batches_shards_past_the_budget(holders, monkeypatch,
+                                                  query, budget_tiles):
+    """What a launch holds, (rows x views + 1) tiles a shard, stays
+    within _ROWS_STACK_BUDGET: past it the scan launches once a batch of
+    shards, or once a chunk of rows, with the same answer."""
+    calls = []
+    real = K.masked_popcount_shards
+
+    def counted(tiles, masks, n_rows, *args):
+        calls.append((len(tiles), n_rows, len(tiles[0])))
+        return real(tiles, masks, n_rows, *args)
+
+    monkeypatch.setattr(K, "masked_popcount_shards", counted)
+    jh, ph = holders["d"]
+    jex = JaxExecutor(jh)
+    jex.use_stacked = False
+    ex = Executor(ph, device="cpu")
+    ex.use_stacked = False
+    ex._ROWS_STACK_BUDGET = budget_tiles * (ph.width // 32) * 4
+    assert _pairs(ex.execute("d", query)) == _pairs(jex.execute("d", query))
+    for n_shards, n_rows, n_views in calls:
+        assert n_shards * (n_rows * max(1, n_views) + 1) <= budget_tiles
+    if budget_tiles < 100:
+        assert len(calls) > 1
 
 
 # the shapes the JAX package answers on its host loops or its decode
