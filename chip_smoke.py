@@ -69,9 +69,17 @@ Phases, each printing its own lines; any failure exits non-zero:
        bsi_range;
    4c. the one-hot arm (onepass_arm = "onehot"): the disjoint GroupBy
        Sums and Min, Max and Distinct of age, timed beside the fused arm;
-       groupby_onehot must launch.
+       groupby_onehot must launch;
+   4d. the read surface (SURFACE_QUERIES: Percentile, Sort, Limit,
+       Extract, UnionRows, ConstRow, IncludesColumn, FieldValue, Rows,
+       Options) on the stacked engine at full width, and Percentile of
+       ts on its 64 shards, which must take the per-shard Min/Max walk;
+       each Percentile of age must launch bsi_range and groupby_fused,
+       each Limit popcount_rows; then the per-shard engine on the 16
+       leading shards (S_DECODE), where Percentile must launch bsi_range
+       and Limit popcount_rows.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-4c
+   launched over 4-4d
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -153,6 +161,33 @@ TS_RANGES = [(op, TS_BASE + 43200, None)
 # the Range counts of ts in phase 4b, on both engines
 TS_QUERIES = [f"Count(Row(ts >= {TS_BASE + 43200}))",
               f"Count(Row({TS_BASE + 1000} < ts < {TS_BASE + 80000}))"]
+# phase 4d's columns: ConstRow's in shards 0, 5 and 953; a column of
+# shard 3 (IncludesColumn, Rows(column=)) and one of shard 700
+CONST_COLS = [3, 77, 5 * W * 32 + 11, 5 * W * 32 + 12, 953 * W * 32 + 1023]
+COL_LOW = 3 * W * 32 + 4242
+COL_HIGH = 700 * W * 32 + 31337
+LIMIT_OFFSET = 400_000_000
+OPTION_SHARDS = [0, 5, 953]
+SURFACE_QUERIES = [
+    "Percentile(field=age, nth=50)", "Percentile(field=age, nth=99)",
+    "Percentile(field=age, nth=0)",
+    "Percentile(field=age, nth=50, filter=Row(a=1))",
+    "Sort(Row(a=1), field=age, limit=100, offset=1000)",
+    "Sort(Row(a=1), field=age, sort-desc=true, limit=100, offset=1000)",
+    "Options(Sort(Row(a=1), field=age), shards=[0])",
+    f"Limit(Row(a=1), limit=1000, offset={LIMIT_OFFSET})",
+    f"Count(Limit(Row(a=1), limit=1000, offset={LIMIT_OFFSET}))",
+    "Extract(Limit(Row(a=1), limit=1000), Rows(t), Rows(edu), Rows(age))",
+    "Count(UnionRows(Rows(t)))",
+    "Count(Intersect(Row(a=1), UnionRows(Rows(edu))))",
+    f"Count(Intersect(Row(a=1), ConstRow(columns={CONST_COLS})))",
+    f"IncludesColumn(Row(a=1), column={COL_LOW})",
+    f"IncludesColumn(Row(a=1), column={COL_HIGH})",
+    f"FieldValue(field=age, column={COL_HIGH})",
+    "Rows(t)", f"Rows(t, column={COL_LOW})",
+    f"Options(Count(Row(a=1)), shards={OPTION_SHARDS})",
+]
+TS_PERCENTILE = "Percentile(field=ts, nth=50)"
 
 
 def card_line() -> str:
@@ -177,23 +212,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device milliseconds of one kernel per call of fn(), from
+def device_ms(fn, kernel: str, reps: int = 20, launches: int = 1,
+              tries: int = 3) -> float:
+    """Mean device milliseconds of one launch of `kernel` in fn(), from
     torch.profiler's CUDA activity: the kernel alone, without the
-    wrapper's host work or the output's zero fill."""
+    wrapper's host work or the output's zero fill.  A trace now and
+    then comes back without the kernel's records; it is then taken
+    again, up to `tries` traces, and if none holds the kernel the time
+    is fn()'s over CUDA events divided by the `launches` it makes (the
+    wrapper's host work included), on a line that says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(1, tries + 1):
+        fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in events)
-    if not count:
-        raise AssertionError(f"the profiler saw no {kernel}")
-    return sum(e.device_time_total for e in events) / count / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(e.device_time_total for e in events) / count / 1e3
+        print(f"profiler: trace {attempt} of {tries} holds no {kernel}")
+    ms = cuda_ms(fn, reps=reps) / launches
+    print(f"profiler: {kernel} timed with CUDA events instead: {ms:.4f} ms "
+          "a launch, the wrapper's host work included")
+    return ms
 
 
 def popc_per_s() -> float:
@@ -643,7 +688,8 @@ def topn_loop(flat_rows, filt, tiles, filters, device) -> None:
             K.masked_popcount(flat_rows[R * s:R * (s + 1)], filt[s])
 
     whole = cuda_ms(loop, reps=3, warmup=1)
-    kernels = S * device_ms(loop, "masked_popcount_kernel", reps=3)
+    kernels = S * device_ms(loop, "masked_popcount_kernel", reps=3,
+                            launches=S)
     print(f"kernel masked_popcount per-shard TopN loop, {S} calls of "
           f"({R}, {W}) & ({W},) (before): {whole:.4f} ms a loop through the "
           f"wrapper (CUDA events), {kernels:.4f} ms of kernel summed over "
@@ -768,8 +814,10 @@ def build_index():
     return h, data
 
 
-def numpy_answers(data) -> dict:
-    """Independent reference answers from the generated words."""
+def numpy_answers(data):
+    """Independent reference answers from the generated words: the
+    headline and GroupBy queries' answers, and age's per-value column
+    counts over every column and under a."""
     import numpy as np
 
     def pc(x):
@@ -853,7 +901,7 @@ def numpy_answers(data) -> dict:
         "Count(Row(age >= 64))": ge64,
         "Count(Row(age < 64))": ncols - ge64,
         "Count(Row(10 < age < 100))": between,
-    }, groupby
+    }, groupby, (age_any, age_a)
 
 
 def joint_histogram(data):
@@ -888,8 +936,14 @@ def normalise(res):
     if isinstance(res, list) and res and hasattr(res[0], "group"):
         return [(tuple(g["row_id"] for g in gc.group), gc.count, gc.agg,
                  gc.agg_count) for gc in res]
+    if isinstance(res, list) and all(isinstance(x, int) for x in res):
+        return list(res)                                 # Rows: row ids
     if isinstance(res, list):
         return [(p.id, p.count) for p in res]
+    if type(res).__name__ == "SortedRow":
+        return (res.columns, res.values)
+    if type(res).__name__ == "ExtractedTable":
+        return (res.fields, [(e["column"], e["rows"]) for e in res.columns])
     if hasattr(res, "values") and not callable(res.values):
         return list(res.values)
     if hasattr(res, "columns"):
@@ -1023,6 +1077,161 @@ def ts_range_answers(secs) -> dict:
             TS_QUERIES[1]: int(((secs > 1000) & (secs < 80000)).sum())}
 
 
+def bit(words, col: int) -> bool:
+    """Whether an (S, W) word array holds an absolute column."""
+    shard, c = divmod(col, W * 32)
+    return bool((int(words[shard, c >> 5]) >> (c & 31)) & 1)
+
+
+def age_values(data, shard: int):
+    """Per-column age values of one shard, (W*32,) int64."""
+    import numpy as np
+    out = np.zeros(W * 32, np.int64)
+    for p in range(DEPTH):
+        out |= unpack(data["age"][p, shard]).astype(np.int64) << p
+    return out
+
+
+def percentile_ref(counts, nth: float, base: int = 0):
+    """The reference's Percentile search (executor.go:1310) over a
+    per-value histogram of non-negative values base + i: Min and Max
+    for nth 0 and 100, else the midpoint search on the histogram's
+    prefix sums.  Returns (value, count) as the port reports it."""
+    import numpy as np
+    total = int(counts.sum())
+    if total == 0:
+        return None
+    nz = np.nonzero(counts)[0]
+    lo, hi = int(nz[0]), int(nz[-1])
+    less, greater = int(total * nth / 100.0), int(total * (100.0 - nth) / 100.0)
+    if greater != 0 and less == 0:
+        return (base + lo, int(counts[lo]))
+    if greater == 0:
+        return (base + hi, int(counts[hi]))
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    while lo < hi:
+        mid = (lo + hi) // 2          # Go's midpoint of non-negatives
+        if cum[mid] > less:
+            hi = mid - 1
+        elif total - cum[mid + 1] > greater:
+            lo = mid + 1
+        else:
+            return (base + mid, 1)
+    return (base + lo, 1)
+
+
+def sort_ref(data, n: int, desc: bool, offset: int, limit):
+    """Sort(Row(a=1), field=age) over the n leading shards: age values
+    in sort order, each value's columns in shard order, stopping once
+    offset+limit columns are found.  Returns (columns, values)."""
+    import numpy as np
+    need = None if limit is None else offset + limit
+    decoded: dict = {}
+    cols, vals = [], []
+    for v in (range((1 << DEPTH) - 1, -1, -1) if desc else range(1 << DEPTH)):
+        for s in range(n):
+            if s not in decoded:
+                decoded[s] = (age_values(data, s),
+                              unpack(data["a"][s]).astype(bool))
+            age, a = decoded[s]
+            hit = np.nonzero(a & (age == v))[0]
+            cols.extend((hit + s * W * 32).tolist())
+            vals.extend([v] * hit.size)
+            if need is not None and len(cols) >= need:
+                return cols[offset:need], vals[offset:need]
+    return cols[offset:need], vals[offset:need]
+
+
+def limit_ref(data, n: int, limit: int, offset: int) -> list:
+    """Limit(Row(a=1)) over the n leading shards: a's columns from the
+    offset-th, at most limit, found by per-shard counts."""
+    import numpy as np
+    ends = np.cumsum(np.bitwise_count(data["a"][:n]).sum(
+        axis=1, dtype=np.int64))
+    out: list = []
+    for s in range(n):
+        if ends[s] <= offset:
+            continue
+        prev = int(ends[s - 1]) if s else 0
+        hit = np.nonzero(unpack(data["a"][s]))[0] + s * W * 32
+        out.extend(hit[max(0, offset - prev):].tolist())
+        if len(out) >= limit:
+            break
+    return out[:limit]
+
+
+def surface_answers(data, secs, n: int, age_hists=None):
+    """Phase 4d's reference over the n leading shards (ts over
+    min(n, S_DEEP)): SURFACE_QUERIES -> answer, and the ts Percentile's
+    answer.  age_hists, age's per-value counts (all, under a), serve
+    n = S; fewer shards are decoded here."""
+    import numpy as np
+    a, t, edu = data["a"], data["t"], data["edu"]
+
+    def pc(x):
+        return int(np.bitwise_count(x).sum(dtype=np.int64))
+
+    if age_hists is None:
+        vals = np.concatenate([age_values(data, s) for s in range(n)])
+        abits = unpack(a[:n]).reshape(-1).astype(bool)
+        age_hists = (np.bincount(vals, minlength=1 << DEPTH),
+                     np.bincount(vals[abits], minlength=1 << DEPTH))
+    by_age, age_a = age_hists
+    within = [c for c in CONST_COLS if c // (W * 32) < n]
+    first = limit_ref(data, n, 1000, 0)
+    first_shards = {c // (W * 32) for c in first}
+    edu_digits = {s: digits(edu[:, s]) for s in first_shards}
+    ages = {s: age_values(data, s) for s in first_shards}
+
+    def extract_row(col):
+        s, c = divmod(col, W * 32)
+        d = int(edu_digits[s][c])
+        return (col, [[r for r in range(R) if bit(t[r], col)],
+                      [d] if d < CATEGORIES["edu"] else [], int(ages[s][c])])
+
+    shallow = limit_ref(data, n, 1000, LIMIT_OFFSET)
+    high_shard, high_c = divmod(COL_HIGH, W * 32)
+    low_shard = COL_LOW // (W * 32)
+    want = {
+        "Percentile(field=age, nth=50)": percentile_ref(by_age, 50),
+        "Percentile(field=age, nth=99)": percentile_ref(by_age, 99),
+        "Percentile(field=age, nth=0)": percentile_ref(by_age, 0),
+        "Percentile(field=age, nth=50, filter=Row(a=1))":
+            percentile_ref(age_a, 50),
+        "Sort(Row(a=1), field=age, limit=100, offset=1000)":
+            sort_ref(data, n, False, 1000, 100),
+        "Sort(Row(a=1), field=age, sort-desc=true, limit=100, offset=1000)":
+            sort_ref(data, n, True, 1000, 100),
+        "Options(Sort(Row(a=1), field=age), shards=[0])":
+            sort_ref(data, 1, False, 0, None),
+        f"Limit(Row(a=1), limit=1000, offset={LIMIT_OFFSET})": shallow,
+        f"Count(Limit(Row(a=1), limit=1000, offset={LIMIT_OFFSET}))":
+            len(shallow),
+        "Extract(Limit(Row(a=1), limit=1000), Rows(t), Rows(edu), "
+        "Rows(age))": (["t", "edu", "age"], [extract_row(c) for c in first]),
+        "Count(UnionRows(Rows(t)))": pc(np.bitwise_or.reduce(t[:, :n])),
+        "Count(Intersect(Row(a=1), UnionRows(Rows(edu))))":
+            pc(a[:n] & ~(edu[2, :n] & edu[1, :n])),
+        f"Count(Intersect(Row(a=1), ConstRow(columns={CONST_COLS})))":
+            sum(bit(a, c) for c in within),
+        f"IncludesColumn(Row(a=1), column={COL_LOW})":
+            low_shard < n and bit(a, COL_LOW),
+        f"IncludesColumn(Row(a=1), column={COL_HIGH})":
+            high_shard < n and bit(a, COL_HIGH),
+        f"FieldValue(field=age, column={COL_HIGH})":
+            (int(age_values(data, high_shard)[high_c]), 1),
+        "Rows(t)": list(range(R)),
+        f"Rows(t, column={COL_LOW})": [r for r in range(R) if low_shard < n
+                                       and bit(t[r], COL_LOW)],
+        f"Options(Count(Row(a=1)), shards={OPTION_SHARDS})":
+            pc(a[OPTION_SHARDS]),
+    }
+    assert list(want) == SURFACE_QUERIES
+    ts_counts = np.bincount(secs[:min(n, S_DEEP)].reshape(-1),
+                            minlength=86400)
+    return want, percentile_ref(ts_counts, 50, TS_BASE)
+
+
 def run_queries(ex, label: str, want: dict, reps: int,
                 shards=None) -> dict:
     """Each query cold and then reps times warm through Executor.execute,
@@ -1070,12 +1279,14 @@ def phase_main_path(device, reps: int = 5) -> dict:
     h, data = build_index()
     print(f"main: index built on the host in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    headline, groupby = numpy_answers(data)
+    headline, groupby, age_hists = numpy_answers(data)
     want = {**headline, **groupby}
     loop_full, loop_subset = loop_answers(data, headline, groupby)
     secs = add_deep_field(h, np.random.default_rng(11))
     deep = deep_answers(data, secs)
     ts_ranges = ts_range_answers(secs)
+    surface = {n: surface_answers(data, secs, n, age_hists if n == S else None)
+               for n in (S, S_DECODE)}
     print(f"main: numpy reference and the deep field ts in "
           f"{time.perf_counter() - t0:.1f} s")
     del data, secs
@@ -1185,11 +1396,60 @@ def phase_main_path(device, reps: int = 5) -> dict:
         print(f"onehot vs fused: {q}: warm p50 {ms:.3f} ms one-hot arm, "
               f"{stacked_p50[q]:.3f} ms fused arm")
     print(f"onehot: {time.perf_counter() - t0:.1f} s")
+    del oh
+    phase_read_surface(h, surface, note)
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-4c {totals}")
+    print(f"main path: kernel launches over phases 4-4d {totals}")
     return totals
+
+
+def phase_read_surface(h, surface, note) -> None:
+    """4d: SURFACE_QUERIES through Executor.execute, each cold and then 3
+    times warm, on the stacked engine at full width and on the per-shard
+    engine over the S_DECODE leading shards, and Percentile of ts (depth
+    40) on the stacked engine's 64 shards and the per-shard engine's 16;
+    every answer exact, the launches of each query checked."""
+    from pilosa_tpu_torch.executor.executor import Executor
+    for label, use_stacked, n in (("surface", True, S),
+                                  ("surface per-shard", False, S_DECODE)):
+        t0 = time.perf_counter()
+        ex = Executor(h)
+        ex.use_stacked = use_stacked
+        shards = None if use_stacked else list(range(n))
+        want, ts_want = surface[n]
+        launches = {}
+        for q, expect in want.items():
+            got, _ = launches_of(lambda: run_queries(
+                ex, label if shards is None else f"{label} ({n} shards)",
+                {q: expect}, 3, shards=shards))
+            searches = q.startswith("Percentile") and "nth=0)" not in q
+            needs = (["bsi_range"] if searches else []) + (
+                ["groupby_fused"] if q.startswith("Percentile") and use_stacked
+                else []) + (["popcount_rows"] if "Limit(" in q else [])
+            print(f"{label}: {q}: launches over 4 runs "
+                  f"{ {k: c for k, c in got.items() if c} }")
+            if any(got[k] == 0 for k in needs):
+                raise AssertionError(f"{label} {q}: launches {got}, expected "
+                                     f"each of {needs}")
+            for k, c in got.items():
+                launches[k] = launches.get(k, 0) + c
+        ts_shards = list(range(S_DEEP if use_stacked else n))
+        ex.paths.clear()
+        got, _ = launches_of(lambda: run_queries(
+            ex, f"{label} ts ({len(ts_shards)} shards)",
+            {TS_PERCENTILE: ts_want}, 3, shards=ts_shards))
+        routes = ({("Min", "value_hist_depth"), ("Max", "value_hist_depth")}
+                  if use_stacked else {("Min", "asked"), ("Max", "asked")})
+        if not routes <= set(ex.paths) or got["bsi_range"] == 0:
+            raise AssertionError(f"{label} {TS_PERCENTILE}: routes "
+                                 f"{dict(ex.paths)}, launches {got}")
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        note(label, launches)
+        print(f"{label}: {time.perf_counter() - t0:.1f} s; ts routes "
+              f"{dict(ex.paths)}")
 
 
 def main() -> int:

@@ -1,5 +1,6 @@
-"""TopN/TopK (executor.go:2357-2777, fragment.go:1317-1497) and GroupBy
-(executor.go:3918, 8617), on both engines.
+"""TopN/TopK (executor.go:2357-2777, fragment.go:1317-1497), GroupBy
+(executor.go:3918, 8617), Percentile (executor.go:1310), Sort
+(executor.go:9321) and Extract (executor.go:4758), on both engines.
 
 Unfiltered TopN over the standard view of a cached field reads counts
 straight off the per-fragment rank caches (the reference's
@@ -16,23 +17,42 @@ False``; ``_groupby_minmax_loop`` serves GroupBy Min/Max that the
 stacked engine refuses (overlapping rows, depth past 16) and
 ``_groupby_count_distinct`` the aggregate Count(Distinct(...)); those
 two are host loops over fragment ``row_words``, as in the JAX package.
+
+Percentile is the reference's binary search over Counts of Range rows,
+bounded by Min and Max.  Sort decodes the field's values on the device
+(the stacked engine's decode stream, or one fragment's tile at a time
+on the per-shard engine) and sorts each chunk of shards there, keeping
+its first offset+limit; the host merges the chunks.  Extract reads the
+filter's columns: BSI values from the decode stream over the shards
+the filter touches, set, mutex, bool and time rows off the fragments on
+the host.
 """
 
 from __future__ import annotations
 
 import operator
+from fractions import Fraction
 
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.executor.results import GroupCount, Pair
-from pilosa_tpu_torch.executor.stacked import ExecError
+from pilosa_tpu_torch.executor.results import (
+    ExtractedTable,
+    GroupCount,
+    Pair,
+    RowResult,
+    SortedRow,
+    ValCount,
+)
+from pilosa_tpu_torch.executor.stacked import ExecError, Unstackable
+from pilosa_tpu_torch.models.field import FALSE_ROW, TRUE_ROW
+from pilosa_tpu_torch.models.schema import FieldType
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql import ast as past
-from pilosa_tpu_torch.pql.ast import Call
+from pilosa_tpu_torch.pql.ast import Call, Condition
 
 # combos per device batch of the per-shard GroupBy; its kernels never
 # materialise a (C, planes, W) product, so aggregates take the same
@@ -41,6 +61,33 @@ _ROW_CHUNK = 256
 
 _HAVING_OPS = {"==": operator.eq, "!=": operator.ne, "<": operator.lt,
                "<=": operator.le, ">": operator.gt, ">=": operator.ge}
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """Go-style truncating integer division (rounds toward zero)."""
+    q = a // b
+    if q < 0 and q * b != a:
+        q += 1
+    return q
+
+
+def _sorted_prefix(sel: torch.Tensor, vals: torch.Tensor, shard_ids,
+                   width: int, desc: bool, keep):
+    """One chunk of Sort on the device: the present columns of sel
+    (S_c, N) with their values vals (S_c, N) int64, in (value, column)
+    order (value descending under desc), the first ``keep`` of them
+    (all when keep is None).  Returns host (values, columns) int64."""
+    n = sel.shape[-1]
+    pos = torch.nonzero(sel.reshape(-1)).squeeze(1)  # column order
+    v = vals.reshape(-1)[pos]
+    if keep is not None and pos.numel() > keep:
+        # a stable sort keeps equal values in column order
+        order = torch.sort(-v if desc else v, stable=True).indices[:keep]
+        pos, v = pos[order], v[order]
+    base = torch.as_tensor(list(shard_ids), dtype=torch.int64,
+                           device=pos.device) * width
+    cols = base[pos // n] + pos % n
+    return v.cpu().numpy(), cols.cpu().numpy()
 
 
 class AdvancedOps:
@@ -116,20 +163,21 @@ class AdvancedOps:
             return ("done", [])
         return ("scan", f, views, row_ids, filter_call, n, ids)
 
-    def _execute_topnk(self, idx, call: Call, shards, n_key: str):
+    def _execute_topnk(self, idx, call: Call, shards, pre: dict, n_key: str):
         prep = self._topnk_prepare(idx, call, shards, n_key)
         if prep[0] == "done":
             return prep[1]
         _, f, views, row_ids, filter_call, n, ids = prep
         done, pairs = self._try_stacked(
             call.name, lambda: self._topnk_stacked(
-                idx, f, row_ids, views, filter_call, shards, ids))
+                idx, f, row_ids, views, filter_call, shards, pre, ids))
         if not done:
             pairs = self._topnk_loop(idx, f, row_ids, views, filter_call,
-                                     shards, ids)
+                                     shards, pre, ids)
         return self._finish_topn(pairs, n)
 
-    def _topnk_loop(self, idx, f, row_ids, views, filter_call, shards, ids):
+    def _topnk_loop(self, idx, f, row_ids, views, filter_call, shards, pre,
+                    ids):
         """The per-shard candidate scan in two passes: on the host, per
         shard, the filter tree's words and each view's candidate row
         tiles (TileCache hits when warm); then one masked_popcount_shards
@@ -155,8 +203,8 @@ class AdvancedOps:
                 tiles, masks = [], []
                 for shard in shard_list[i:i + batch]:
                     if filter_call is not None:
-                        masks.append(
-                            self._bitmap_call_shard(idx, filter_call, shard))
+                        masks.append(self._bitmap_call_shard(
+                            idx, filter_call, shard, pre))
                     tiles.append([self._shard_rows(v, shard, rows)
                                   for v in vs])
                 n = kernels.masked_popcount_shards(
@@ -179,7 +227,7 @@ class AdvancedOps:
             return None
         return self.tiles.rows(frag, row_ids)
 
-    def _topnk_stacked(self, idx, f, row_ids, views, filter_call, shards,
+    def _topnk_stacked(self, idx, f, row_ids, views, filter_call, shards, pre,
                        ids):
         """Candidate scan: per chunk of rows, one (R, S, W) device pass
         with the filter tree inlined."""
@@ -191,7 +239,7 @@ class AdvancedOps:
         for i in range(0, len(row_ids), chunk):
             rows = row_ids[i:i + chunk]
             stack = eng.rows_stack_for(idx, f, tuple(views), rows, skey)
-            got = eng.row_counts(idx, stack, filter_call, list(skey))
+            got = eng.row_counts(idx, stack, filter_call, list(skey), pre)
             for r, c in zip(rows, got.tolist()):
                 counts[r] = int(c)
         return [Pair(id=r, count=c) for r, c in counts.items()
@@ -239,7 +287,8 @@ class AdvancedOps:
 
     # -- GroupBy ---------------------------------------------------------
 
-    def _execute_groupby(self, idx, call: Call, shards) -> list[GroupCount]:
+    def _execute_groupby(self, idx, call: Call, shards,
+                         pre: dict) -> list[GroupCount]:
         """GroupBy(Rows(...), ..., filter=, aggregate=Sum|Min|Max(field=)
         or Count(Distinct(field=)), having=, limit=, previous=) over the
         cartesian product of the Rows' row ids, in product order.  Keyed
@@ -312,7 +361,7 @@ class AdvancedOps:
         if distinct_field is None:
             done, out = self._try_stacked("GroupBy", lambda: self.stacked.groupby(
                 idx, list(zip(fields, row_lists)), filter_call, agg_field,
-                shard_list, combos, agg_op=agg_op))
+                shard_list, combos, pre, agg_op=agg_op))
         else:
             # the JAX package counts these groups on its loop too
             self.paths[("GroupBy", "count_distinct")] += 1
@@ -321,22 +370,22 @@ class AdvancedOps:
         elif agg_op in ("min", "max"):
             counts, agg = self._groupby_minmax_loop(
                 idx, fields, row_lists, combos, filter_call, agg_field,
-                shard_list, agg_op)
+                shard_list, pre, agg_op)
         else:
             counts, agg = self._groupby_loop(
                 idx, fields, row_lists, combos, filter_call, agg_field,
-                shard_list)
+                shard_list, pre)
         distinct_counts = None
         if distinct_field is not None:
             distinct_counts = self._groupby_count_distinct(
                 idx, fields, row_lists, combos, counts, filter_call,
-                distinct_inner, distinct_field, shard_list)
+                distinct_inner, distinct_field, shard_list, pre)
         return self._assemble_groupby(
             fields, row_lists, combos, counts, agg_field, agg_op, agg,
             distinct_counts, call.arg("having"), call.arg("limit"))
 
     def _groupby_loop(self, idx, fields, row_lists, combos, filter_call,
-                      agg_field, shard_list):
+                      agg_field, shard_list, pre):
         """GroupBy counts and Sum partials on the per-shard engine: per
         shard, each chunk of combos ANDs its rows' tiles (and the filter)
         into masks, counted by popcount_rows, and the Sum partials come
@@ -355,7 +404,7 @@ class AdvancedOps:
         combo_idx = torch.as_tensor(np.asarray(combos, dtype=np.int64)
                                     .reshape(n, len(fields)), device=dev)
         for shard in shard_list:
-            filt = (self._bitmap_call_shard(idx, filter_call, shard)
+            filt = (self._bitmap_call_shard(idx, filter_call, shard, pre)
                     if filter_call is not None else None)
             tiles = [self._row_tiles(f, shard, rl, [VIEW_STANDARD])
                      for f, rl in zip(fields, row_lists)]
@@ -381,7 +430,8 @@ class AdvancedOps:
                 None if agg is None else tuple(a.cpu().numpy() for a in agg))
 
     def _groupby_minmax_loop(self, idx, fields, row_lists, combos,
-                             filter_call, agg_field, shard_list, agg_op: str):
+                             filter_call, agg_field, shard_list, pre,
+                             agg_op: str):
         """GroupBy Min/Max in full generality (overlapping rows, any
         depth, any filter): a host loop, as in the JAX package, that per
         shard reads the rows' and the planes' row_words, decodes the
@@ -402,7 +452,7 @@ class AdvancedOps:
             filt_bits = None
             if filter_call is not None:
                 filt_bits = bsi_ops.unpack_bits_np(bm.to_numpy(
-                    self._bitmap_call_shard(idx, filter_call, shard)))
+                    self._bitmap_call_shard(idx, filter_call, shard, pre)))
             tile_bits = [bsi_ops.unpack_bits_np(self._row_words(f, shard, rl))
                          for f, rl in zip(fields, row_lists)]
             frag = self._bsi_frag(agg_field, shard)
@@ -441,7 +491,7 @@ class AdvancedOps:
 
     def _groupby_count_distinct(self, idx, fields, row_lists, combos,
                                 counts, filter_call, inner_filter, dfield,
-                                shard_list):
+                                shard_list, pre):
         """Count(Distinct(field=D)) per group: the distinct BSI values, or
         the distinct set rows, of D among the group's columns under the
         GroupBy filter and the Distinct's own filter.  A host loop over
@@ -466,7 +516,7 @@ class AdvancedOps:
                     yield s, ex[i], vals[i]
 
         def host_words(call, shard):
-            return bm.to_numpy(self._bitmap_call_shard(idx, call, shard))
+            return bm.to_numpy(self._bitmap_call_shard(idx, call, shard, pre))
 
         for shard, ex, vals in shard_groups():
             filt = None
@@ -560,3 +610,279 @@ class AdvancedOps:
             lo, hi = past.between_bounds_inclusive(cond)
             return lo <= val <= hi
         return _HAVING_OPS[cond.op](val, cond.value)
+
+    # -- Percentile ------------------------------------------------------
+
+    def _execute_percentile(self, idx, call: Call, shards, pre):
+        """Percentile(field=f, nth=p, filter=...): the value with
+        desired_less values below it and desired_greater above, by the
+        reference's binary search over stored values, each step a Count
+        of Row(f < x) and one of Row(f > x) under the filter; Min and
+        Max bound it and answer nth 0 and 100.  None where no column
+        holds a value.  Where the search converges with neither count
+        condition met, the converged bound is the answer (the JAX
+        package's one divergence from the reference's stale midpoint)."""
+        nth = call.arg("nth")
+        if nth is None:
+            raise ExecError("Percentile(): nth required")
+        nth = float(nth)
+        if not 0 <= nth <= 100:
+            raise ExecError("Percentile(): nth must be in [0, 100]")
+        fname = call.arg("_field")
+        f = self._bsi_field(idx, fname) if fname else None
+        if f is None:
+            raise ExecError("Percentile(): field required")
+        filter_call = call.arg("filter")
+        scale = 10 ** (f.options.scale
+                       if f.options.type == FieldType.DECIMAL else 0)
+
+        def count_cond(op, stored: int) -> int:
+            row = Call("Row", args={f.name: Condition(
+                op, Fraction(stored, scale))})
+            tree = (Call("Intersect", children=[row, filter_call])
+                    if filter_call is not None else row)
+            return self._reduce_count(idx, tree, shards, pre)
+
+        def extreme(name: str):
+            mm = Call(name, args={"_field": f.name},
+                      children=[filter_call] if filter_call else [])
+            vc = self._execute_minmax(idx, mm, shards, name == "Min", pre)
+            return vc, (vc.value if isinstance(vc.value, int)
+                        else f.value_to_int(vc.value))
+
+        nn_row = Call("Row", args={f.name: Condition(past.OP_NEQ, None)})
+        total = self._reduce_count(
+            idx, Call("Intersect", children=[filter_call, nn_row])
+            if filter_call is not None else nn_row, shards, pre)
+        if total == 0:
+            return None
+        desired_less = int(total * nth / 100.0)
+        desired_greater = int(total * (100.0 - nth) / 100.0)
+        lo_vc, lo = extreme("Min")
+        if desired_greater != 0 and desired_less == 0:
+            return lo_vc
+        hi_vc, hi = extreme("Max")
+        if desired_greater == 0:
+            return hi_vc
+        while lo < hi:
+            # Go's overflow-free midpoint: min/2 + max/2 + (min%2 +
+            # max%2)/2, truncated division and remainder
+            lo_rem = lo - _trunc_div(lo, 2) * 2
+            hi_rem = hi - _trunc_div(hi, 2) * 2
+            possible = (_trunc_div(lo, 2) + _trunc_div(hi, 2)
+                        + _trunc_div(lo_rem + hi_rem, 2))
+            if count_cond(past.OP_LT, possible) > desired_less:
+                hi = possible - 1
+            elif count_cond(past.OP_GT, possible) > desired_greater:
+                lo = possible + 1
+            else:
+                return ValCount(value=f.int_to_value(possible), count=1)
+        return ValCount(value=f.int_to_value(lo), count=1)
+
+    # -- Sort --------------------------------------------------------------
+
+    def _execute_sort(self, idx, call: Call, shards, pre) -> SortedRow:
+        """Sort(filter, field=f, sort-desc=, offset=, limit=): the
+        filter's columns that hold a value, ordered by value (descending
+        under sort-desc), equal values in column order.  Each chunk of
+        shards is sorted on the device and keeps its first offset+limit
+        (_sorted_prefix); the host merges the chunks with a stable
+        sort."""
+        fname = call.arg("_field") or call.arg("field")
+        f = self._bsi_field(idx, fname) if fname else None
+        if f is None:
+            raise ExecError("Sort requires a BSI field")
+        if f.bit_depth > 63:
+            raise ExecError(f"Sort unsupported for depth {f.bit_depth} > 63")
+        desc = bool(call.arg("sort-desc", False))
+        filter_call = call.children[0] if call.children else None
+        offset = int(call.arg("offset", 0))
+        limit = call.arg("limit")
+        keep = None if limit is None else offset + int(limit)
+        shard_list = self._shard_list(idx, shards)
+
+        def stacked():
+            if f.bit_depth > 62:
+                raise Unstackable("decode_depth", f"Sort of {f.name}: "
+                                  f"depth {f.bit_depth} > 62")
+            return self._sort_stacked(idx, f, filter_call, shard_list, pre,
+                                      desc, keep)
+
+        done, runs = self._try_stacked("Sort", stacked)
+        if not done:
+            runs = self._sort_loop(idx, f, filter_call, shard_list, pre,
+                                   desc, keep)
+        if not runs:
+            return SortedRow(columns=[], values=[])
+        vals = np.concatenate([v for v, _ in runs])
+        cols = np.concatenate([c for _, c in runs])
+        order = np.lexsort((cols, -vals if desc else vals))[offset:keep]
+        return SortedRow(columns=cols[order].tolist(),
+                         values=[f.int_to_value(int(x)) for x in vals[order]])
+
+    def _sort_stacked(self, idx, f, filter_call, shard_list, pre, desc,
+                      keep) -> list:
+        """Sort's chunks on the stacked engine: the decode stream, the
+        filter tree evaluated per chunk of shards."""
+        runs = []
+        for chunk, ex, vals in self.stacked.decode_stream(
+                idx, f, tuple(shard_list)):
+            sel = ex
+            if filter_call is not None:
+                filt = self.stacked.filter_stack(idx, filter_call,
+                                                 tuple(chunk), pre)
+                if filt is None:
+                    return []
+                sel = sel & (bm.unpack_bits(filt) == 1)
+            runs.append(_sorted_prefix(sel, vals, chunk, idx.width, desc,
+                                       keep))
+        return runs
+
+    def _sort_loop(self, idx, f, filter_call, shard_list, pre, desc,
+                   keep) -> list:
+        """Sort's chunks on the per-shard engine: one fragment's plane
+        tile at a time (TileCache), decoded on the device."""
+        runs = []
+        for shard in shard_list:
+            frag = self._bsi_frag(f, shard)
+            if frag is None:
+                continue
+            ex, vals = bsi_ops.decode_device(
+                self.tiles.planes(frag, f.bit_depth).unsqueeze(0))
+            if filter_call is not None:
+                filt = self._bitmap_call_shard(idx, filter_call, shard, pre)
+                ex = ex & (bm.unpack_bits(filt) == 1)
+            runs.append(_sorted_prefix(ex, vals, [shard], idx.width, desc,
+                                       keep))
+        return runs
+
+    # -- Extract -----------------------------------------------------------
+
+    def _execute_extract(self, idx, call: Call, shards,
+                         pre) -> ExtractedTable:
+        """Extract(filter, Rows(f), ...): per column of the filter (a
+        Sort keeps its order), each field's entry: a BSI value or None,
+        a bool field's True/False/None, a mutex field's row id or None,
+        a set or time field's row ids."""
+        if not call.children:
+            raise ExecError("Extract requires a filter call")
+        filter_call = call.children[0]
+        bad = [c.name for c in call.children[1:] if c.name != "Rows"]
+        if bad:
+            raise ExecError("Extract children after the filter must be "
+                            f"Rows(), got {bad}")
+        fields = []
+        for rc in call.children[1:]:
+            fname = rc.arg("_field")
+            f = idx.field(fname) if fname is not None else None
+            if f is None:
+                raise ExecError("Extract Rows() requires a valid field")
+            if f.options.keys:
+                raise ExecError("Extract of row keys is not ported yet")
+            fields.append(f)
+        if filter_call.name == "Sort":
+            columns = self._execute_sort(idx, filter_call, shards,
+                                         pre).columns
+        else:
+            row = self._execute_call(idx, filter_call, shards, pre)
+            if not isinstance(row, RowResult):
+                raise ExecError("Extract filter must produce a row, got "
+                                f"{filter_call.name}")
+            columns = row.columns().tolist()
+        by_shard: dict[int, list[int]] = {}
+        for c in columns:
+            by_shard.setdefault(c // idx.width, []).append(c)
+        bsi_fields = [f for f in fields if f.options.type.is_bsi]
+        values = {}
+        if bsi_fields:
+            def stacked():
+                if any(f.bit_depth > 62 for f in bsi_fields):
+                    raise Unstackable("decode_depth", "Extract past depth 62")
+                return {f.name: self._extract_decoded(idx, f, by_shard)
+                        for f in bsi_fields}
+
+            done, values = self._try_stacked("Extract", stacked)
+            if not done:
+                values = {f.name: self._extract_host(f, by_shard, idx.width)
+                          for f in bsi_fields}
+        else:
+            self.paths[("Extract", "only_route")] += 1
+        table = {c: [] for c in columns}
+        for f in fields:
+            if f.options.type.is_bsi:
+                got = values[f.name]
+                for c in columns:
+                    table[c].append(got.get(c))
+                continue
+            member = self._extract_members(f, by_shard, idx.width)
+            t = f.options.type
+            for c in columns:
+                rows = member.get(c, [])
+                if t == FieldType.BOOL:
+                    table[c].append(True if TRUE_ROW in rows else
+                                    False if FALSE_ROW in rows else None)
+                elif t == FieldType.MUTEX:
+                    table[c].append(rows[0] if rows else None)
+                else:
+                    table[c].append(rows)
+        return ExtractedTable(
+            fields=[f.name for f in fields],
+            columns=[{"column": c, "rows": table[c]} for c in columns])
+
+    def _extract_decoded(self, idx, f, by_shard) -> dict:
+        """{column: value or None} of a BSI field at the filter's columns,
+        from the decode stream over the shards they lie in."""
+        out = {}
+        for chunk, ex, vals in self.stacked.decode_stream(
+                idx, f, tuple(sorted(by_shard))):
+            for i, s in enumerate(chunk):
+                cs = by_shard[s]
+                local = torch.as_tensor([c % idx.width for c in cs],
+                                        device=ex.device)
+                present = ex[i][local].cpu().tolist()
+                got = vals[i][local].cpu().tolist()
+                out.update((c, f.int_to_value(x) if p else None)
+                           for c, p, x in zip(cs, present, got))
+        return out
+
+    def _extract_host(self, f, by_shard, width: int) -> dict:
+        """{column: value or None} read off the fragments' plane words on
+        the host, in exact ints at any depth."""
+        out = {}
+        for shard, cs in by_shard.items():
+            frag = self._bsi_frag(f, shard)
+            if frag is None:
+                continue
+            local = np.asarray(cs, dtype=np.int64) % width
+            w_i, b_i = local >> 5, (local & 31).astype(np.uint32)
+
+            def bits(row):
+                return (frag.row_words(row)[w_i] >> b_i) & 1
+
+            mags = np.zeros(len(cs), dtype=object)
+            for i in range(f.bit_depth):
+                mags += bits(2 + i).astype(object) << i
+            for c, e, neg, m in zip(cs, bits(0), bits(1), mags):
+                if e:
+                    out[c] = f.int_to_value(-int(m) if neg else int(m))
+        return out
+
+    @staticmethod
+    def _extract_members(f, by_shard, width: int) -> dict:
+        """{column: [row ids holding it, ascending]} of a set-like field's
+        standard view at the filter's columns, off the fragments on the
+        host."""
+        member: dict[int, list[int]] = {}
+        v = f.views.get(VIEW_STANDARD)
+        for shard, cs in by_shard.items():
+            frag = v.fragment(shard) if v else None
+            if frag is None:
+                continue
+            local = np.asarray(cs, dtype=np.int64) % width
+            w_i, b_i = local >> 5, (local & 31).astype(np.uint32)
+            for r in frag.row_ids:
+                hits = (frag.row_words(r)[w_i] >> b_i) & 1
+                for c, h in zip(cs, hits):
+                    if h:
+                        member.setdefault(c, []).append(r)
+        return member

@@ -22,9 +22,17 @@ set-field Distinct without a filter and the GroupBy aggregate
 Count(Distinct(...)) run on it always, as in the JAX package; BSI
 Distinct past the value histogram's depth takes the stacked engine's
 decode stream.  Every route is counted in ``Executor.paths[(call,
-route)]`` (route "stacked", "asked", or the refusal's reason).  Nothing
-else falls back: a failed build or launch raises.  On the card every
-popcount of either engine goes through a kernel.
+route)]`` (route "stacked", "asked", the refusal's reason, or
+"only_route" for calls answered on the host, Rows and FieldValue).
+Nothing else falls back: a failed build or launch raises.  On the card
+every popcount of either engine goes through a kernel.
+
+A query's cross-shard operands (Distinct, UnionRows and Limit nested
+in a bitmap tree, and ConstRow's columns) are evaluated once, before
+the call runs, into ``pre`` (``_precompute_nested``), and enter either
+engine's tree as leaves; a tree walks the shards a nested result sets
+bits in as well (``_tree_shards``).  Keyed indexes, string keys,
+``Rows(like=)`` and the write calls raise "not ported yet".
 
 The executor runs on the CUDA card by default and raises when there
 is none; ``device="cpu"`` runs the kernels' plain versions on the CPU
@@ -50,6 +58,7 @@ from pilosa_tpu_torch.executor.results import (
     ValCount,
 )
 from pilosa_tpu_torch.executor.stacked import (
+    NESTED_CALLS,
     ExecError,
     StackCache,
     StackedEngine,
@@ -71,7 +80,10 @@ from pilosa_tpu_torch.pql.ast import Call, Condition, Query
 __all__ = ["Executor", "ExecError", "resolve_device"]
 
 _BITMAP_CALLS = {"Row", "Range", "Union", "Intersect", "Difference", "Xor",
-                 "Not", "All", "Shift"}
+                 "Not", "All", "Shift", "ConstRow"}
+
+# the write calls (pql.Call.IsWrite), not ported yet
+_WRITE_CALLS = {"Set", "Clear", "Store", "ClearRow", "Delete"}
 
 # per-shard tile cache bound; least recently used tiles go first
 _TILE_CACHE_MAX_BYTES = 16 << 30
@@ -153,28 +165,56 @@ class Executor(AdvancedOps):
         q = parse(query) if isinstance(query, str) else query
         return [self._execute_call(idx, c, shards) for c in q.calls]
 
-    def _execute_call(self, idx: Index, call: Call, shards):
+    def _execute_call(self, idx: Index, call: Call, shards, pre=None):
+        """One call.  ``pre`` holds the query's nested cross-shard results
+        (``_precompute_nested``); a top-level call computes its own."""
         name = call.name
+        if pre is None:
+            pre = self._precompute_nested(idx, call, shards)
+        if name == "Options":
+            return self._execute_options(idx, call, shards)
+        if name in _WRITE_CALLS:
+            raise ExecError(f"the write call {name} is not ported yet")
         if name == "Count":
-            return self._reduce_count(idx, self._only_child(call), shards)
+            return self._reduce_count(idx, self._only_child(call), shards,
+                                      pre)
         if name == "Sum":
-            return self._execute_sum(idx, call, shards)
+            return self._execute_sum(idx, call, shards, pre)
         if name == "TopN":
-            return self._execute_topnk(idx, call, shards, "n")
+            return self._execute_topnk(idx, call, shards, pre, "n")
         if name == "TopK":
-            return self._execute_topnk(idx, call, shards, "k")
+            return self._execute_topnk(idx, call, shards, pre, "k")
         if name in ("Min", "Max"):
-            return self._execute_minmax(idx, call, shards, name == "Min")
+            return self._execute_minmax(idx, call, shards, name == "Min", pre)
         if name in ("MinRow", "MaxRow"):
             return self._execute_minmax_row(idx, call, shards,
-                                            name == "MinRow")
+                                            name == "MinRow", pre)
+        if name == "FieldValue":
+            return self._execute_field_value(idx, call)
         if name == "Distinct":
-            return self._execute_distinct(idx, call, shards)
+            return self._execute_distinct(idx, call, shards, pre)
+        if name == "Rows":
+            return self._execute_rows(idx, call, shards)
+        if name == "UnionRows":
+            return self._execute_union_rows(idx, call, shards)
+        if name == "IncludesColumn":
+            return self._execute_includes_column(idx, call, shards, pre)
+        if name == "Limit":
+            # an Extract filter's Limit was evaluated as a nested call
+            if id(call) in pre:
+                return pre[id(call)]
+            return self._execute_limit(idx, call, shards, pre)
         if name == "GroupBy":
-            return self._execute_groupby(idx, call, shards)
+            return self._execute_groupby(idx, call, shards, pre)
+        if name == "Percentile":
+            return self._execute_percentile(idx, call, shards, pre)
+        if name == "Sort":
+            return self._execute_sort(idx, call, shards, pre)
+        if name == "Extract":
+            return self._execute_extract(idx, call, shards, pre)
         if name in _BITMAP_CALLS:
-            return self._bitmap_result(idx, call, shards)
-        raise ExecError(f"{name} is not ported yet")
+            return self._bitmap_result(idx, call, shards, pre)
+        raise ExecError(f"unknown or non-bitmap call: {name}")
 
     def _only_child(self, call: Call) -> Call:
         if len(call.children) != 1:
@@ -185,6 +225,84 @@ class Executor(AdvancedOps):
         if shards is not None:
             return sorted(shards)
         return sorted(idx.available_shards) or [0]
+
+    def _tree_shards(self, idx: Index, shards, pre: dict) -> list[int]:
+        """The shards a bitmap tree walks: the query's, plus, when the
+        query names none, every shard a nested result or a ConstRow sets
+        a bit in (a nested Distinct's row ids can lie past the data)."""
+        out = set(self._shard_list(idx, shards))
+        if shards is None:
+            for key, res in pre.items():
+                if isinstance(key, tuple):          # ("constrow", id)
+                    out.update(c // idx.width for c in res)
+                else:
+                    out.update(res.segments)
+        return sorted(out)
+
+    def _precompute_nested(self, idx: Index, call: Call, shards) -> dict:
+        """The query's cross-shard operands, evaluated once: each
+        Distinct, UnionRows and Limit nested below the root as a
+        RowResult keyed by ``id(call)``, and each ConstRow's columns
+        under ("constrow", id(call)).  A nested Distinct with ``index=``
+        is the cross-index join: the other index's unkeyed INT values
+        that are >= 0 become column ids.  A GroupBy's
+        aggregate=Count(Distinct(...)) is no operand; only its filter
+        is walked.  The JAX package nests Distinct and UnionRows; a
+        nested Limit is this port's own (the JAX executor raises)."""
+        pre: dict = {}
+
+        def walk(c: Call, is_root: bool):
+            for ch in c.children:
+                walk(ch, False)
+            for k, v in c.args.items():
+                if not isinstance(v, Call):
+                    continue
+                if (c.name == "GroupBy" and k == "aggregate"
+                        and v.name == "Count" and v.children
+                        and v.children[0].name == "Distinct"):
+                    for ch in v.children[0].children:
+                        walk(ch, False)
+                    continue
+                walk(v, False)
+            if not is_root and c.name == "Distinct":
+                pre[id(c)] = self._nested_distinct(idx, c, shards, pre)
+            elif not is_root and c.name == "UnionRows":
+                pre[id(c)] = self._execute_union_rows(idx, c, shards)
+            elif not is_root and c.name == "Limit":
+                pre[id(c)] = self._execute_limit(idx, c, shards, pre)
+            elif c.name == "ConstRow":
+                pre[("constrow", id(c))] = self._constrow_cols(idx, c, {})
+
+        walk(call, True)
+        return pre
+
+    def _nested_distinct(self, idx: Index, call: Call, shards,
+                         pre: dict) -> RowResult:
+        """A Distinct as a bitmap operand: a set field's row ids as
+        columns, or, with index=, the cross-index join."""
+        didx, dshards, dpre = idx, shards, pre
+        iname = call.arg("index")
+        if iname and iname != idx.name:
+            didx = self.holder.index(iname)
+            if didx is None:
+                raise ExecError(f"index not found: {iname}")
+            if didx.keys:
+                raise ExecError("keyed indexes are not ported yet")
+            df = didx.field(call.arg("_field") or "")
+            if (df is None or df.options.type != FieldType.INT
+                    or df.options.keys):
+                raise ExecError(
+                    "cross-index Distinct requires an unkeyed int field")
+            dshards, dpre = None, {}
+        res = self._execute_distinct(didx, call, dshards, dpre, raw=True)
+        if isinstance(res, DistinctValues):
+            if didx is idx:
+                raise ExecError("BSI Distinct cannot be nested as a bitmap "
+                                "call")
+            res = RowResult.from_columns(
+                [v for v in res.values if isinstance(v, int) and v >= 0],
+                idx.width)
+        return res
 
     def _try_stacked(self, name: str, run):
         """(True, run()) when the stacked engine answers; (False, None)
@@ -204,14 +322,14 @@ class Executor(AdvancedOps):
 
     # -- bitmap calls --------------------------------------------------------
 
-    def _bitmap_result(self, idx: Index, call: Call, shards) -> RowResult:
+    def _bitmap_result(self, idx: Index, call: Call, shards,
+                       pre: dict) -> RowResult:
         out = RowResult(idx.width)
-        shard_list = self._shard_list(idx, shards)
+        shard_list = self._tree_shards(idx, shards, pre)
         done, words = self._try_stacked(
-            call.name, lambda: self.stacked.words(idx, call, shard_list))
+            call.name, lambda: self.stacked.words(idx, call, shard_list, pre))
         if not done:
-            words = bm.to_numpy(torch.stack(
-                [self._bitmap_call_shard(idx, call, s) for s in shard_list]))
+            words = bm.to_numpy(self._tree_stack(idx, call, shard_list, pre))
         if words is not None:
             for i, shard in enumerate(shard_list):
                 if words[i].any():
@@ -224,38 +342,56 @@ class Executor(AdvancedOps):
         return torch.zeros(idx.width // 32, dtype=torch.int32,
                            device=self.device)
 
-    def _bitmap_call_shard(self, idx: Index, call: Call, shard: int):
+    def _tree_stack(self, idx: Index, call: Call, shard_list,
+                    pre: dict) -> torch.Tensor:
+        """(S, W) device words of a bitmap tree, one shard at a time."""
+        return torch.stack([self._bitmap_call_shard(idx, call, s, pre)
+                            for s in shard_list])
+
+    def _bitmap_call_shard(self, idx: Index, call: Call, shard: int,
+                           pre: dict):
         """A bitmap call on one shard → (W,) device words
         (executeBitmapCallShard)."""
         name = call.name
         if name in ("Row", "Range"):
             return self._row_shard(idx, call, shard)
         if name in ("Union", "Xor"):
-            return self._nary(idx, call, shard,
+            return self._nary(idx, call, shard, pre,
                               bm.union if name == "Union" else bm.xor)
         if name in ("Intersect", "Difference"):
             if not call.children:
                 raise ExecError(f"{name} requires at least one subquery")
-            return self._nary(idx, call, shard, bm.intersect
+            return self._nary(idx, call, shard, pre, bm.intersect
                               if name == "Intersect" else bm.difference)
         if name == "Not":
             return bm.difference(
                 self._existence_shard(idx, shard),
-                self._bitmap_call_shard(idx, self._only_child(call), shard))
+                self._bitmap_call_shard(idx, self._only_child(call), shard,
+                                        pre))
         if name == "All":
             return self._existence_shard(idx, shard)
         if name == "Shift":
             n = int(call.arg("n", 1))
-            return bm.shift(
-                self._bitmap_call_shard(idx, self._only_child(call), shard), n)
-        raise ExecError(f"{name} is not ported yet")
+            return bm.shift(self._bitmap_call_shard(
+                idx, self._only_child(call), shard, pre), n)
+        if name == "ConstRow":
+            cols = self._constrow_cols(idx, call, pre)
+            return bm.to_tensor(bm.from_columns(
+                [c % idx.width for c in cols if c // idx.width == shard],
+                idx.width), self.device)
+        if name in NESTED_CALLS:
+            res = pre.get(id(call))
+            if res is None:
+                raise ExecError(f"{name} has no precomputed result")
+            return bm.to_tensor(res.shard_words(shard), self.device)
+        raise ExecError(f"unknown or non-bitmap call: {name}")
 
-    def _nary(self, idx, call: Call, shard: int, op):
+    def _nary(self, idx, call: Call, shard: int, pre: dict, op):
         if not call.children:
             return self._zeros(idx)  # Union() and Xor() of nothing
-        acc = self._bitmap_call_shard(idx, call.children[0], shard)
+        acc = self._bitmap_call_shard(idx, call.children[0], shard, pre)
         for c in call.children[1:]:
-            acc = op(acc, self._bitmap_call_shard(idx, c, shard))
+            acc = op(acc, self._bitmap_call_shard(idx, c, shard, pre))
         return acc
 
     def _existence_shard(self, idx: Index, shard: int):
@@ -294,10 +430,10 @@ class Executor(AdvancedOps):
                 acc = bm.union(acc, self.tiles.row(frag, row_id))
         return acc
 
-    def _filter_words(self, idx: Index, call: Call, shard: int):
+    def _filter_words(self, idx: Index, call: Call, shard: int, pre: dict):
         """The optional filter child of Sum/Min/Max/Distinct on a shard."""
         if call.children:
-            return self._bitmap_call_shard(idx, call.children[0], shard)
+            return self._bitmap_call_shard(idx, call.children[0], shard, pre)
         return None
 
     def _bsi_frag(self, f: Field, shard: int):
@@ -432,17 +568,17 @@ class Executor(AdvancedOps):
 
     # -- aggregates ----------------------------------------------------------
 
-    def _reduce_count(self, idx: Index, call: Call, shards) -> int:
-        shard_list = self._shard_list(idx, shards)
+    def _reduce_count(self, idx: Index, call: Call, shards, pre: dict) -> int:
+        shard_list = self._tree_shards(idx, shards, pre)
         done, n = self._try_stacked(
-            "Count", lambda: self.stacked.count(idx, call, shard_list))
+            "Count", lambda: self.stacked.count(idx, call, shard_list, pre))
         if done:
             return n
-        words = torch.stack([self._bitmap_call_shard(idx, call, s)
-                             for s in shard_list])
+        words = self._tree_stack(idx, call, shard_list, pre)
         return int(kernels.popcount_rows(words).sum(dtype=torch.int64))
 
-    def _execute_sum(self, idx: Index, call: Call, shards) -> ValCount:
+    def _execute_sum(self, idx: Index, call: Call, shards,
+                     pre: dict) -> ValCount:
         fname = call.arg("_field")
         if fname is None:
             raise ExecError("Sum requires field=")
@@ -450,7 +586,7 @@ class Executor(AdvancedOps):
         filter_call = call.children[0] if call.children else None
         shard_list = self._shard_list(idx, shards)
         done, out = self._try_stacked("Sum", lambda: self.stacked.bsi_sum(
-            idx, f, filter_call, shard_list))
+            idx, f, filter_call, shard_list, pre))
         if done:
             total, count = out
             return ValCount(value=f.int_to_value(total), count=count)
@@ -460,7 +596,7 @@ class Executor(AdvancedOps):
             frag = self._bsi_frag(f, shard)
             if frag is None:
                 continue
-            filt = self._filter_words(idx, call, shard)
+            filt = self._filter_words(idx, call, shard, pre)
             parts.append(kernels.bsi_sum_counts(
                 self.tiles.planes(frag, f.bit_depth).unsqueeze(0),
                 None if filt is None else filt.unsqueeze(0)))
@@ -475,7 +611,7 @@ class Executor(AdvancedOps):
         return ValCount(value=f.int_to_value(total), count=count)
 
     def _execute_minmax(self, idx: Index, call: Call, shards,
-                        is_min: bool) -> ValCount:
+                        is_min: bool, pre: dict) -> ValCount:
         """Min/Max and the count of columns holding it: on the stacked
         engine read off the value histogram (one pass over the planes);
         on the per-shard engine each shard's branch-free plane walk
@@ -488,7 +624,7 @@ class Executor(AdvancedOps):
         shard_list = self._shard_list(idx, shards)
         done, hist = self._try_stacked(
             call.name, lambda: self.stacked.bsi_value_hist(
-                idx, f, filter_call, shard_list))
+                idx, f, filter_call, shard_list, pre))
         if done:
             return self._minmax_from_hist(f, *hist, is_min)
         op = bsi_ops.min_op if is_min else bsi_ops.max_op
@@ -498,7 +634,7 @@ class Executor(AdvancedOps):
             if frag is None:
                 continue
             outs.append(op(self.tiles.planes(frag, f.bit_depth),
-                           self._filter_words(idx, call, shard)))
+                           self._filter_words(idx, call, shard, pre)))
         best, count = None, 0
         if not outs:
             return ValCount(value=None, count=0)
@@ -544,7 +680,7 @@ class Executor(AdvancedOps):
         return ValCount(value=None, count=0)
 
     def _execute_minmax_row(self, idx: Index, call: Call, shards,
-                            is_min: bool) -> Pair:
+                            is_min: bool, pre: dict) -> Pair:
         """MinRow/MaxRow (fragment.minRow/maxRow), on the per-shard engine
         only, as in the JAX package: per shard the lowest (highest) row
         with a bit, under the filter its count there (pair_popcount,
@@ -569,7 +705,7 @@ class Executor(AdvancedOps):
             if filter_call is None:
                 cand = Pair(id=rows[0], count=1)
             else:
-                filt = self._bitmap_call_shard(idx, filter_call, shard)
+                filt = self._bitmap_call_shard(idx, filter_call, shard, pre)
                 cand = None
                 for i in range(0, len(rows), _ROW_CHUNK):
                     chunk = rows[i:i + _ROW_CHUNK]
@@ -594,9 +730,12 @@ class Executor(AdvancedOps):
 
     # -- Distinct / Rows -----------------------------------------------------
 
-    def _execute_distinct(self, idx: Index, call: Call, shards):
+    def _execute_distinct(self, idx: Index, call: Call, shards, pre: dict,
+                          raw: bool = False):
         """Distinct over a BSI field (DistinctValues) or a set field (a
-        RowResult of the row ids with a bit under the filter)."""
+        RowResult of the row ids with a bit under the filter).  A keyed
+        set field's row keys are not ported yet; ``raw`` (a nested
+        Distinct) takes its row ids as they are."""
         fname = call.arg("_field")
         if fname is None:
             raise ExecError("Distinct requires field=")
@@ -604,33 +743,35 @@ class Executor(AdvancedOps):
         if f is None:
             raise ExecError(f"field not found: {fname}")
         if f.options.type.is_bsi:
-            return self._distinct_bsi(idx, f, call, shards)
-        return self._distinct_set(idx, f, call, shards)
+            return self._distinct_bsi(idx, f, call, shards, pre)
+        if f.options.keys and not raw:
+            raise ExecError("Distinct of row keys is not ported yet")
+        return self._distinct_set(idx, f, call, shards, pre)
 
-    def _distinct_bsi(self, idx: Index, f: Field, call: Call,
-                      shards) -> DistinctValues:
+    def _distinct_bsi(self, idx: Index, f: Field, call: Call, shards,
+                      pre: dict) -> DistinctValues:
         """The nonzero codes of the value histogram; past its depth the
         stacked engine's decode stream; on the per-shard engine (or past
         depth 62) the host loop."""
         if self.use_stacked and f.bit_depth > 62:
             self.paths[("Distinct", "decode_depth")] += 1
-            return self._distinct_bsi_loop(idx, f, call, shards)
+            return self._distinct_bsi_loop(idx, f, call, shards, pre)
         filter_call = call.children[0] if call.children else None
         shard_list = self._shard_list(idx, shards)
         done, hist = self._try_stacked(
             "Distinct", lambda: self.stacked.bsi_value_hist(
-                idx, f, filter_call, shard_list))
+                idx, f, filter_call, shard_list, pre))
         if done:
             vals = kernels.distinct_from_hist(*hist)
         elif not self.use_stacked:
-            return self._distinct_bsi_loop(idx, f, call, shards)
+            return self._distinct_bsi_loop(idx, f, call, shards, pre)
         else:
             vals = self._distinct_decode_stream(idx, f, filter_call,
-                                                shard_list)
+                                                shard_list, pre)
         return DistinctValues(values=sorted(f.int_to_value(v) for v in vals))
 
     def _distinct_decode_stream(self, idx: Index, f: Field, filter_call,
-                                shard_list) -> list[int]:
+                                shard_list, pre: dict) -> list[int]:
         """BSI Distinct past the value histogram's depth: the stacked
         engine's decode stream, the filter tree evaluated per chunk of
         shards, unique values taken on the device."""
@@ -640,7 +781,7 @@ class Executor(AdvancedOps):
             sel = ex
             if filter_call is not None:
                 filt = self.stacked.filter_stack(idx, filter_call,
-                                                 tuple(chunk))
+                                                 tuple(chunk), pre)
                 if filt is None:
                     return []
                 sel = sel & (bm.unpack_bits(filt) == 1)
@@ -649,8 +790,8 @@ class Executor(AdvancedOps):
             return []
         return torch.unique(torch.cat(uniq)).cpu().tolist()
 
-    def _distinct_bsi_loop(self, idx: Index, f: Field, call: Call,
-                           shards) -> DistinctValues:
+    def _distinct_bsi_loop(self, idx: Index, f: Field, call: Call, shards,
+                           pre: dict) -> DistinctValues:
         """BSI Distinct on the per-shard engine: a host loop that decodes
         each fragment's row_words in exact ints (bsi.decode), as the JAX
         package's loop does."""
@@ -659,7 +800,7 @@ class Executor(AdvancedOps):
             frag = self._bsi_frag(f, shard)
             if frag is None:
                 continue
-            filt = self._filter_words(idx, call, shard)
+            filt = self._filter_words(idx, call, shard, pre)
             cols, values = bsi_ops.decode(np.stack(
                 [frag.row_words(r) for r in range(2 + f.bit_depth)]))
             if filt is not None:
@@ -668,8 +809,8 @@ class Executor(AdvancedOps):
             vals.update(values)
         return DistinctValues(values=sorted(f.int_to_value(v) for v in vals))
 
-    def _distinct_set(self, idx: Index, f: Field, call: Call,
-                      shards) -> RowResult:
+    def _distinct_set(self, idx: Index, f: Field, call: Call, shards,
+                      pre: dict) -> RowResult:
         """Set-field Distinct: the row ids with a bit in the filter.  With
         a filter on the stacked engine, the TopN candidate scan; without
         one a walk over the fragments' row ids (no device work), on the
@@ -682,7 +823,7 @@ class Executor(AdvancedOps):
                 row_ids = self._all_row_ids(idx, f, shards)
                 return [p.id for p in self._topnk_stacked(
                     idx, f, row_ids, [VIEW_STANDARD], filter_call, shards,
-                    None)] if row_ids else []
+                    pre, None)] if row_ids else []
             done, got = self._try_stacked("Distinct", run)
             if done:
                 present = set(got)
@@ -700,7 +841,7 @@ class Executor(AdvancedOps):
                 if filter_call is None:
                     present.update(rows)
                     continue
-                filt = self._bitmap_call_shard(idx, filter_call, shard)
+                filt = self._bitmap_call_shard(idx, filter_call, shard, pre)
                 for i in range(0, len(rows), _ROW_CHUNK):
                     chunk = rows[i:i + _ROW_CHUNK]
                     found.append((chunk,
@@ -711,9 +852,8 @@ class Executor(AdvancedOps):
                 present.update(r for r, c in zip(ids, counts) if c > 0)
         return RowResult.from_columns(present, idx.width)
 
-    def _rows_ids(self, idx: Index, call: Call, shards) -> list[int]:
-        """Row ids of Rows(field) (executeRowsShard basics): column=,
-        previous=, limit=, and from=/to= on time fields."""
+    def _rows_field(self, idx: Index, call: Call) -> Field:
+        """The unkeyed field of a Rows() call."""
         fname = call.arg("_field")
         f = idx.field(fname) if fname else None
         if f is None:
@@ -721,15 +861,16 @@ class Executor(AdvancedOps):
         if f.options.keys or call.arg("like") is not None:
             raise ExecError("keyed Rows(like=...) and row keys are not "
                             "ported yet")
+        return f
+
+    def _rows_ids(self, idx: Index, call: Call, shards) -> list[int]:
+        """Row ids of Rows(field) (executeRowsShard basics): column=,
+        previous=, limit=, and from=/to= on time fields."""
+        f = self._rows_field(idx, call)
         column = call.arg("column")
         if column is not None:
-            if isinstance(column, str):
-                raise ExecError("column keys are not ported yet")
-            column = int(column)
-        try:
-            views = f.views_for_range(call.arg("from"), call.arg("to"))
-        except ValueError as e:
-            raise ExecError(str(e)) from None
+            column = self._col_id(column)
+        views = self._field_views(f, call.arg("from"), call.arg("to"))
         ids: set[int] = set()
         for shard in self._shard_list(idx, shards):
             if column is not None and column // idx.width != shard:
@@ -755,3 +896,173 @@ class Executor(AdvancedOps):
         if limit is not None:
             out = out[:int(limit)]
         return out
+
+    def _execute_rows(self, idx: Index, call: Call, shards) -> list[int]:
+        """Rows(field): the row ids, read off the fragments on the host."""
+        self.paths[("Rows", "only_route")] += 1
+        return self._rows_ids(idx, call, shards)
+
+    def _execute_union_rows(self, idx: Index, call: Call,
+                            shards) -> RowResult:
+        """UnionRows(Rows(...), ...): the union of the rows each Rows()
+        names, over its from=/to= views.  On the stacked engine an OR
+        over the rows' (R, S, W) stack on the device (the stack the
+        TopN scan builds); on the per-shard engine an OR of each shard's
+        row tiles."""
+        specs = []
+        for child in call.children:
+            if child.name != "Rows":
+                raise ExecError("UnionRows expects Rows() arguments")
+            f = self._rows_field(idx, child)
+            row_ids = self._rows_ids(idx, child, shards)
+            views = self._field_views(f, child.arg("from"), child.arg("to"))
+            if row_ids and views:
+                specs.append((f, views, row_ids))
+        shard_list = self._shard_list(idx, shards)
+        done, words = self._try_stacked(
+            "UnionRows", lambda: self._union_rows_stacked(idx, specs,
+                                                          shard_list))
+        if not done:
+            acc = torch.zeros((len(shard_list), idx.width // 32),
+                              dtype=torch.int32, device=self.device)
+            for i, shard in enumerate(shard_list):
+                for f, views, row_ids in specs:
+                    acc[i] |= bm.union_rows(
+                        self._row_tiles(f, shard, row_ids, views))
+            words = acc
+        out = RowResult(idx.width)
+        if words is not None:
+            host = np.array(bm.to_numpy(words))
+            for i, shard in enumerate(shard_list):
+                if host[i].any():
+                    out.segments[shard] = host[i]
+        return out
+
+    def _union_rows_stacked(self, idx: Index, specs, shard_list):
+        """(S, W) device union of the specs' rows, or None for none."""
+        eng = self.stacked
+        skey = tuple(shard_list)
+        chunk = max(1, self._ROWS_STACK_BUDGET
+                    // (len(skey) * (idx.width // 32) * 4))
+        acc = None
+        for f, views, row_ids in specs:
+            for i in range(0, len(row_ids), chunk):
+                rows = eng.rows_stack_for(idx, f, tuple(views),
+                                          row_ids[i:i + chunk], skey)
+                part = bm.union_rows(rows)
+                acc = part if acc is None else acc | part
+        return acc
+
+    def _execute_limit(self, idx: Index, call: Call, shards,
+                       pre: dict) -> RowResult:
+        """Limit(child, limit=, offset=): the child's columns from the
+        offset-th on, at most limit of them, in column order.  The
+        child's (S, W) words are counted per shard (popcount_rows); a
+        prefix sum on the host finds the shards that hold [offset,
+        offset + limit), and only those come back to the host."""
+        child = self._only_child(call)
+        limit = call.arg("limit")
+        offset = int(call.arg("offset", 0))
+        if offset < 0 or (limit is not None and int(limit) < 0):
+            raise ExecError("Limit: limit and offset must be >= 0")
+        shard_list = self._tree_shards(idx, shards, pre)
+        done, words = self._try_stacked(
+            "Limit", lambda: self.stacked.filter_stack(
+                idx, child, tuple(shard_list), pre))
+        if not done:
+            words = self._tree_stack(idx, child, shard_list, pre)
+        if words is None:
+            return RowResult(idx.width)
+        ends = np.cumsum(kernels.popcount_rows(words).cpu().numpy(),
+                         dtype=np.int64)
+        stop = int(ends[-1])
+        if limit is not None:
+            stop = min(stop, offset + int(limit))
+        if offset >= stop:
+            return RowResult(idx.width)
+        lo = int(np.searchsorted(ends, offset, side="right"))
+        hi = int(np.searchsorted(ends, stop, side="left"))
+        # in the pulled shards' words, a prefix sum of word popcounts
+        # finds the words that hold the wanted bits: only those unpack
+        host = bm.to_numpy(words[lo:hi + 1]).reshape(-1)
+        wends = np.cumsum(np.bitwise_count(host), dtype=np.int64)
+        first = offset - (int(ends[lo - 1]) if lo else 0)
+        last = first + stop - offset
+        w0 = int(np.searchsorted(wends, first, side="right"))
+        w1 = int(np.searchsorted(wends, last, side="left"))
+        bits = bm.to_columns(host[w0:w1 + 1]).astype(np.int64) + w0 * 32
+        skip = first - (int(wends[w0 - 1]) if w0 else 0)
+        bits = bits[skip:skip + stop - offset]
+        shard_of = np.asarray(shard_list[lo:hi + 1], dtype=np.int64)
+        return RowResult.from_columns(
+            shard_of[bits // idx.width] * idx.width + bits % idx.width,
+            idx.width)
+
+    def _execute_includes_column(self, idx: Index, call: Call, shards,
+                                 pre: dict) -> bool:
+        """Whether the child's row holds column=: the child's tree on the
+        column's shard alone."""
+        col = call.arg("column")
+        if col is None:
+            raise ExecError("IncludesColumn requires column=")
+        shard, c = divmod(self._col_id(col), idx.width)
+        if shards is not None and shard not in set(shards):
+            return False
+        child = self._only_child(call)
+        done, words = self._try_stacked(
+            "IncludesColumn", lambda: self.stacked.words(idx, child, [shard],
+                                                         pre))
+        if not done:
+            words = bm.to_numpy(
+                self._bitmap_call_shard(idx, child, shard, pre))[None]
+        return words is not None and bool((int(words[0][c >> 5])
+                                           >> (c & 31)) & 1)
+
+    def _execute_options(self, idx: Index, call: Call, shards):
+        """Options(child, shards=[...]): the child on that shard list."""
+        child = self._only_child(call)
+        opt = call.arg("shards")
+        if opt is not None:
+            shards = [int(s) for s in opt]
+        return self._execute_call(idx, child, shards)
+
+    def _execute_field_value(self, idx: Index, call: Call) -> ValCount:
+        """FieldValue(field=f, column=c): the column's BSI value, read
+        off the fragment's planes on the host, with count 1; (None, 0)
+        when the column holds none."""
+        fname = call.arg("_field") or call.arg("field")
+        f = idx.field(fname) if fname else None
+        if f is None:
+            raise ExecError("FieldValue requires a field")
+        if not f.options.type.is_bsi:
+            raise ExecError(
+                "FieldValue requires an int/decimal/timestamp field")
+        col = call.arg("column")
+        if col is None:
+            raise ExecError("FieldValue requires a column")
+        self.paths[("FieldValue", "only_route")] += 1
+        shard, c = divmod(self._col_id(col), idx.width)
+        frag = self._bsi_frag(f, shard)
+
+        def bit(row: int) -> int:
+            return (int(frag.row_words(row)[c >> 5]) >> (c & 31)) & 1
+
+        if frag is None or not bit(0):
+            return ValCount(value=None, count=0)
+        mag = sum(1 << i for i in range(f.bit_depth) if bit(2 + i))
+        return ValCount(value=f.int_to_value(-mag if bit(1) else mag),
+                        count=1)
+
+    def _constrow_cols(self, idx: Index, call: Call, pre: dict) -> list[int]:
+        """ConstRow(columns=[...])'s column ids (computed once a query
+        into ``pre``)."""
+        cols = pre.get(("constrow", id(call)))
+        if cols is None:
+            cols = [self._col_id(c) for c in call.arg("columns", []) or []]
+        return cols
+
+    @staticmethod
+    def _col_id(col) -> int:
+        if isinstance(col, str):
+            raise ExecError("column keys are not ported yet")
+        return int(col)

@@ -1,6 +1,8 @@
 """Query result types: RowResult (row.go:15, per-shard segments),
 ValCount (executor.go:8345), DistinctValues, Pair (cache.go:374, TopN
-entries) and GroupCount (GroupBy groups)."""
+entries), GroupCount (GroupBy groups), SortedRow (Sort) and
+ExtractedTable (Extract).  The dataclasses keep the JAX package's field
+names and order, so ``dataclasses.asdict`` of a result equals its."""
 
 from __future__ import annotations
 
@@ -42,6 +44,11 @@ class RowResult:
     def count(self) -> int:
         return int(sum(np.bitwise_count(w).sum()
                        for w in self.segments.values()))
+
+    def shard_words(self, shard: int) -> np.ndarray:
+        """One shard's packed words (zeros where it holds no column)."""
+        w = self.segments.get(shard)
+        return w if w is not None else bm.empty(self.width)
 
     def __eq__(self, other):
         if not isinstance(other, RowResult):
@@ -86,3 +93,19 @@ class GroupCount:
     count: int = 0
     agg: Any = None
     agg_count: Any = None
+
+
+@dataclass
+class SortedRow:
+    """Sort result: columns ordered by a BSI field's value, with the
+    values alongside."""
+    columns: list = field(default_factory=list)
+    values: list = field(default_factory=list)
+
+
+@dataclass
+class ExtractedTable:
+    """Extract result: the field names and, per column,
+    {"column": id, "rows": [one entry per field]}."""
+    fields: list = field(default_factory=list)
+    columns: list = field(default_factory=list)

@@ -10,7 +10,8 @@ stamps.  The IR is evaluated eagerly with torch bitwise ops
 ``ops/kernels.py``, so on the card the plan kinds below run on CUDA
 kernels end to end:
 
-- ``words``      — the (S, W) result of a bitmap tree
+- ``words``      — the (S, W) result of a bitmap tree (ConstRow and the
+  nested Distinct, UnionRows and Limit enter it as uploaded leaves)
 - ``count``      — per-shard popcounts of a tree: ``popcount_rows`` on a
   leaf or an evaluated tree, ``pair_popcount`` on Intersect(leaf, leaf)
 - ``bsi_sum``    — ``bsi_sum_counts`` over a plane stack and an optional
@@ -70,6 +71,10 @@ class Unstackable(ExecError):
         super().__init__(message)
         self.reason = reason
 
+
+# cross-shard calls that enter a bitmap tree as operands, evaluated
+# once a query (Executor._precompute_nested)
+NESTED_CALLS = ("Distinct", "UnionRows", "Limit")
 
 _NARY_OPS = {
     "union": bm.union,
@@ -238,16 +243,22 @@ def _plan_run(plan):
 class PlanBuilder:
     """Walks a bitmap Call tree → IR + leaf tensors + host params.
 
-    The dispatch set of executeBitmapCallShard (executor.go:1782) as far
-    as this port goes: Row/Range (set rows, time ranges, BSI
-    conditions), Union/Intersect/Difference/Xor, Not, All and Shift.
-    Any other call raises ExecError."""
+    The dispatch set of executeBitmapCallShard (executor.go:1782):
+    Row/Range (set rows, time ranges, BSI conditions),
+    Union/Intersect/Difference/Xor, Not, All, Shift and ConstRow, and
+    the cross-shard calls (Distinct, UnionRows, Limit) nested as
+    operands, which the executor evaluates once a query into ``pre``
+    (``Executor._precompute_nested``, keyed by ``id(call)``) and which
+    enter the tree as uploaded (S, W) leaves.  Any other call raises
+    ExecError, as in the JAX package."""
 
-    def __init__(self, engine: "StackedEngine", idx, shards: list[int]):
+    def __init__(self, engine: "StackedEngine", idx, shards: list[int],
+                 pre: dict):
         self.engine = engine
         self.ex = engine.executor
         self.idx = idx
         self.skey = tuple(shards)
+        self.pre = pre
         self.leaves: list[torch.Tensor] = []
         self.params: list = []
         self._leaf_keys: dict = {}
@@ -286,10 +297,47 @@ class PlanBuilder:
             ("exists",),
             lambda: self.engine.existence_stack(self.idx, self.skey))
 
+    def _segments_leaf(self, key, segments: dict) -> int:
+        """An (S, W) leaf built per query from host words of some shards
+        ({shard: (W,) uint32}): zeros on the device, the shards that
+        hold words uploaded in one copy."""
+        def build():
+            pos = {s: i for i, s in enumerate(self.skey)}
+            rows = [s for s in segments if s in pos]
+            out = torch.zeros((len(self.skey), self.idx.width // 32),
+                              dtype=torch.int32, device=self.engine.device)
+            if rows:
+                at = torch.as_tensor([pos[s] for s in rows],
+                                     device=self.engine.device)
+                out[at] = bm.to_tensor(np.stack([segments[s] for s in rows]),
+                                       self.engine.device)
+            return out
+        return self._cached_leaf(key, build)
+
+    def _pre_leaf(self, call: Call) -> int:
+        res = self.pre.get(id(call))
+        if res is None:
+            raise ExecError(f"{call.name} has no precomputed result")
+        return self._segments_leaf(("pre", id(call)), res.segments)
+
+    def _constrow_leaf(self, call: Call) -> int:
+        cols = self.ex._constrow_cols(self.idx, call, self.pre)
+        width = self.idx.width
+        per_shard: dict[int, list[int]] = {}
+        for c in cols:
+            per_shard.setdefault(c // width, []).append(c % width)
+        return self._segments_leaf(
+            ("constrow", id(call)),
+            {s: bm.from_columns(cs, width) for s, cs in per_shard.items()})
+
     def build(self, call: Call):
         name = call.name
         if name in ("Row", "Range"):
             return self._build_row(call)
+        if name == "ConstRow":
+            return ("leaf", self._constrow_leaf(call))
+        if name in NESTED_CALLS:
+            return ("leaf", self._pre_leaf(call))
         if name in ("Union", "Intersect", "Difference", "Xor"):
             op = name.lower()
             if not call.children:
@@ -328,7 +376,7 @@ class PlanBuilder:
             n = int(call.arg("n", 1))
             sub = self.build(self.ex._only_child(call))
             return sub if sub == ("zeros",) else ("shift", n, sub)
-        raise ExecError(f"{name} is not ported yet")
+        raise ExecError(f"unknown or non-bitmap call: {name}")
 
     def _build_row(self, call: Call):
         fname, cond = call.condition_field()
@@ -491,27 +539,24 @@ class StackedEngine:
     def _run(plan, b: PlanBuilder):
         return _plan_run(plan)(b.leaves, b.params)
 
-    def count(self, idx, call: Call, shards: list[int]) -> int:
+    def count(self, idx, call: Call, shards: list[int], pre: dict) -> int:
         """Exact Count of a bitmap tree."""
-        b = PlanBuilder(self, idx, shards)
+        b = PlanBuilder(self, idx, shards, pre)
         tree = b.build(call)
         if tree == ("zeros",):
             return 0
         return int(self._run(("count", tree), b).sum(dtype=torch.int64))
 
-    def words(self, idx, call: Call, shards: list[int]):
+    def words(self, idx, call: Call, shards: list[int], pre: dict):
         """(S, W) host uint32 result of a bitmap tree, or None for a
         statically empty tree."""
-        b = PlanBuilder(self, idx, shards)
-        tree = b.build(call)
-        if tree == ("zeros",):
-            return None
-        return np.array(bm.to_numpy(self._run(("words", tree), b)))
+        out = self.filter_stack(idx, call, tuple(shards), pre)
+        return None if out is None else np.array(bm.to_numpy(out))
 
-    def bsi_sum(self, idx, field, filter_call, shards: list[int]):
+    def bsi_sum(self, idx, field, filter_call, shards: list[int], pre: dict):
         """(sum, count) over a BSI field under an optional filter tree;
         the plane-weighted total is combined in exact Python ints."""
-        b = PlanBuilder(self, idx, shards)
+        b = PlanBuilder(self, idx, shards, pre)
         planes_i = b._planes_leaf(field)
         tree = None
         if filter_call is not None:
@@ -524,11 +569,11 @@ class StackedEngine:
             pos.sum(dim=0, dtype=torch.int64).cpu(),
             neg.sum(dim=0, dtype=torch.int64).cpu())
 
-    def row_counts(self, idx, rows_stack, filter_call,
-                   shards: list[int]) -> np.ndarray:
+    def row_counts(self, idx, rows_stack, filter_call, shards: list[int],
+                   pre: dict) -> np.ndarray:
         """(R,) exact counts of candidate rows under an optional filter
         tree — the TopN/TopK scan (executor.go:2750 topKFilter)."""
-        b = PlanBuilder(self, idx, shards)
+        b = PlanBuilder(self, idx, shards, pre)
         rows_i = b._add_leaf(rows_stack)
         tree = b.build(filter_call) if filter_call is not None else None
         if tree == ("zeros",):
@@ -538,16 +583,17 @@ class StackedEngine:
 
     # -- value histogram -----------------------------------------------------
 
-    def filter_stack(self, idx, filter_call, skey: tuple):
-        """(S, W) device words of a filter tree, or None when the tree is
+    def filter_stack(self, idx, filter_call, skey: tuple, pre: dict):
+        """(S, W) device words of a bitmap tree, or None when the tree is
         statically empty."""
-        b = PlanBuilder(self, idx, list(skey))
+        b = PlanBuilder(self, idx, list(skey), pre)
         tree = b.build(filter_call)
         if tree == ("zeros",):
             return None
         return self._run(("words", tree), b)
 
-    def bsi_value_hist(self, idx, field, filter_call, shards: list[int]):
+    def bsi_value_hist(self, idx, field, filter_call, shards: list[int],
+                       pre: dict):
         """Per-value histogram of a BSI field under an optional filter
         tree (kernels.bsi_value_hist, one groupby_fused pass per chunk of
         at most _REDUCE_MAX_SHARDS shards): returns (pos (2^d,), neg
@@ -564,7 +610,7 @@ class StackedEngine:
             sc = skey[lo:lo + _REDUCE_MAX_SHARDS]
             filt = None
             if filter_call is not None:
-                filt = self.filter_stack(idx, filter_call, sc)
+                filt = self.filter_stack(idx, filter_call, sc, pre)
                 if filt is None:
                     continue
             pos, neg = kernels.bsi_value_hist(
@@ -690,7 +736,7 @@ class StackedEngine:
 
     def _groupby_onepass_path(self, idx, fields_rows, agg_field, skey: tuple,
                               combos, depth: int, signed: bool, filter_call,
-                              agg_op: str = "sum"):
+                              pre: dict, agg_op: str = "sum"):
         """The one-pass histogram (_onepass_kernel) over the dense code
         space, gathered at the requested combos.  Returns (counts, None |
         (nn, pos, neg)) int64, or (counts, (nn, values)) for agg_op
@@ -702,7 +748,7 @@ class StackedEngine:
         cg = self.groupcode_stack(idx, fields_rows, skey)
         valid = cg[:, -1]
         if filter_call is not None:
-            filt = self.filter_stack(idx, filter_call, skey)
+            filt = self.filter_stack(idx, filter_call, skey, pre)
             if filt is None:
                 return _zero_groupby_result(len(combos), depth, agg_field,
                                             agg_op)
@@ -767,7 +813,7 @@ class StackedEngine:
         return counts, agg
 
     def groupby(self, idx, fields_rows, filter_call, agg_field,
-                shards: list[int], combos, agg_op: str = "sum"):
+                shards: list[int], combos, pre: dict, agg_op: str = "sum"):
         """GroupBy of the given combos (index tuples into each field's row
         list, in product order): (counts (C,) int64, None | (nn (C,),
         pos (C, d), neg (C, d)) int64) for a Sum aggregate, or (counts,
@@ -793,14 +839,14 @@ class StackedEngine:
                     "the one-pass bounds")
             return self._groupby_onepass_path(
                 idx, fields_rows, agg_field, skey, combos, depth, signed,
-                filter_call, agg_op)
+                filter_call, pre, agg_op)
         if n_combos and self._groupby_onepass_fits(idx, fields_rows, skey):
             return self._groupby_onepass_path(
                 idx, fields_rows, agg_field, skey, combos, depth, signed,
-                filter_call)
+                filter_call, pre)
         filt = None
         if filter_call is not None:
-            filt = self.filter_stack(idx, filter_call, skey)
+            filt = self.filter_stack(idx, filter_call, skey, pre)
             if filt is None:
                 return _zero_groupby_result(n_combos, depth, agg_field)
         return self._groupby_kernel_path(idx, fields_rows, agg_field, skey,

@@ -35,7 +35,7 @@ from pilosa_tpu_torch.ops import kernels as K
 # the suite's workers, several of which time their own work
 torch.set_num_threads(1)
 
-QUERIES = ge._DRYRUN_QUERIES[0:8] + [
+QUERIES = ge._DRYRUN_QUERIES + [
     "Count(Row(f=1))",
     "Sum(field=b)",
     "Intersect(Row(f=1), Row(g=2))",
@@ -199,10 +199,14 @@ def _norm(results):
         if isinstance(r, list) and r and hasattr(r[0], "group"):
             out.append([(tuple((g["field"], g["row_id"]) for g in gc.group),
                          gc.count, gc.agg, gc.agg_count) for gc in r])
+        elif type(r).__name__ in ("SortedRow", "ExtractedTable"):
+            out.append(dataclasses.asdict(r))
         elif hasattr(r, "values") and not callable(r.values):
             out.append(list(r.values))
         elif hasattr(r, "columns"):
             out.append(r.columns().tolist())
+        elif isinstance(r, list) and all(isinstance(x, int) for x in r):
+            out.append(list(r))                     # Rows: row ids
         elif isinstance(r, list):
             out.append([(p.id, p.count) for p in r])
         elif hasattr(r, "value"):
@@ -428,12 +432,34 @@ def test_state_round_trip(holders):
 
 
 @pytest.mark.parametrize("query", [
-    "Sort(Row(f=1), field=b)",
-    "Percentile(field=b, nth=50)", "Extract(All(), Rows(f))",
-    "Row(f='key')", "Rows(f)"])
+    "Row(f='key')", "Set(1, f=1)", "Clear(1, f=1)", "ClearRow(f=1)",
+    "Delete(Row(f=1))", "Store(Row(f=1), g=9)", "Rows(f, like='k%')",
+    "Rows(f, previous='k')", "Rows(f, column='c')",
+    "Extract(ConstRow(columns=['c']), Rows(f))"])
 def test_calls_not_ported_yet_raise(holders, query):
-    with pytest.raises(ExecError):
+    """String row and column keys, Rows(like=) and the write calls."""
+    with pytest.raises(ExecError, match="not ported yet"):
         Executor(holders["i"][1], device="cpu").execute("i", query)
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["stacked", "per_shard"])
+@pytest.mark.parametrize("query", [
+    "Sort(Row(f=1), field=b)", "Sort(All(), field=b, limit=9, offset=2)",
+    "Percentile(field=b, nth=50)", "Extract(All(), Rows(f))",
+    "Extract(Sort(All(), field=b, sort-desc=true, limit=6), Rows(b), "
+    "Rows(tq))", "Rows(f)"])
+def test_formerly_unported_calls_match_jax(holders, monkeypatch, pallas,
+                                           engine, query):
+    """The calls that raised "not ported yet" before the read surface
+    was ported, on both engines, equal to the JAX executor."""
+    if pallas:
+        monkeypatch.setenv("PILOSA_TPU_PALLAS", "1")
+    jh, ph = holders["i"]
+    ex = Executor(ph, device="cpu")
+    ex.use_stacked = engine == "stacked"
+    assert _norm(ex.execute("i", query)) == \
+        _norm(JaxExecutor(jh).execute("i", query))
 
 
 @pytest.mark.parametrize("query", [

@@ -699,3 +699,98 @@ def test_fallback_shapes_on_the_card_match_the_cpu(cuda):
     for q in queries:
         assert repr(on_card.execute("t", q)) == repr(on_cpu.execute("t", q)), q
     assert on_card.paths == on_cpu.paths
+
+
+def _read_surface_holder(width: int, n_shards: int, seed: int):
+    """A set field f, an INT v of heavy ties and negatives (-3..3) on
+    about 70% of the columns, over n_shards shards."""
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+
+    rng = np.random.default_rng(seed)
+    h = Holder(width=width)
+    idx = h.create_index("s")
+    cols = np.arange(width * n_shards)
+    idx.create_field("f").import_bits(
+        rng.integers(0, 3, size=cols.size), cols)
+    vcols = cols[rng.random(cols.size) < 0.7]
+    vals = rng.integers(-3, 4, size=vcols.size)
+    idx.create_field("v", FieldOptions(type=FieldType.INT, min=-3, max=3)) \
+        .import_values(vcols, vals)
+    return h, vcols, vals
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_limit_bounded_sort_equals_a_full_stable_sort(cuda, monkeypatch,
+                                                      stacked):
+    """Sort on the card, each chunk of shards sorted on the device and
+    cut to offset+limit, equals numpy's stable sort of every column,
+    ties in column order, both directions (chunks of 3 shards)."""
+    from pilosa_tpu_torch.executor import stacked as st
+    from pilosa_tpu_torch.executor.executor import Executor
+
+    h, vcols, vals = _read_surface_holder(1 << 16, 10, 8)
+    monkeypatch.setattr(st, "_DECODE_CHUNK", 3)
+    ex = Executor(h)
+    ex.use_stacked = stacked
+    for desc in (False, True):
+        order = np.lexsort((vcols, -vals if desc else vals))
+        for offset, limit in ((0, 10), (1000, 500), (250000, 70000),
+                              (0, None), (400000, 5)):
+            args = f", offset={offset}" + (
+                "" if limit is None else f", limit={limit}")
+            got = ex.execute("s", f"Sort(field=v, sort-desc="
+                                  f"{str(desc).lower()}{args})")[0]
+            end = None if limit is None else offset + limit
+            assert got.columns == vcols[order][offset:end].tolist()
+            assert got.values == vals[order][offset:end].tolist()
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_limit_selects_the_shards_of_full_materialisation(cuda, stacked):
+    """Limit on the card (popcount_rows over the child's stack, only the
+    covering shards brought back) equals slicing every column of the
+    child's row."""
+    from pilosa_tpu_torch.executor.executor import Executor
+
+    h, _vcols, _vals = _read_surface_holder(1 << 16, 10, 9)
+    ex = Executor(h)
+    ex.use_stacked = stacked
+    full = ex.execute("s", "Union(Row(f=1), Row(v == -3))")[0].columns()
+    for offset, limit in ((0, 1), (5, 70000), (21000, 30000),
+                          (len(full) - 3, 10), (len(full), 4), (7, None)):
+        args = f"offset={offset}" + ("" if limit is None
+                                     else f", limit={limit}")
+        before = K.LAUNCHES["popcount_rows"]
+        got = ex.execute("s", f"Limit(Union(Row(f=1), Row(v == -3)), "
+                              f"{args})")[0]
+        end = None if limit is None else offset + limit
+        assert got.columns().tolist() == full[offset:end].tolist()
+        assert K.LAUNCHES["popcount_rows"] == before + 1
+
+
+def test_percentile_launches_kernels_and_never_a_plain_version(cuda,
+                                                               monkeypatch):
+    """Percentile on the card launches bsi_range for its search and
+    (stacked) groupby_fused for its Min/Max, on both engines, and no
+    plain version of a kernel runs; the answers equal the CPU's."""
+    from pilosa_tpu_torch.executor.executor import Executor
+
+    h, _vcols, _vals = _read_surface_holder(1 << 14, 6, 10)
+    queries = ["Percentile(field=v, nth=50)", "Percentile(field=v, nth=97)",
+               "Percentile(field=v, nth=30, filter=Row(f=2))"]
+    wants = [repr(Executor(h, device="cpu").execute("s", q)) for q in queries]
+
+    def plain(*_a, **_k):
+        raise AssertionError("a plain version ran on the card")
+    for name in dir(K):
+        if name.endswith("_plain"):
+            monkeypatch.setattr(K, name, plain)
+    for stacked in (True, False):
+        ex = Executor(h)
+        ex.use_stacked = stacked
+        K.reset_launches()
+        for q, want in zip(queries, wants):
+            assert repr(ex.execute("s", q)) == want, q
+        assert K.LAUNCHES["bsi_range"] > 0, K.LAUNCHES
+        assert (K.LAUNCHES["groupby_fused"] > 0) == stacked, K.LAUNCHES
