@@ -78,8 +78,26 @@ Phases, each printing its own lines; any failure exits non-zero:
        each Limit popcount_rows; then the per-shard engine on the 16
        leading shards (S_DECODE), where Percentile must launch bsi_range
        and Limit popcount_rows.
+5. writes and keys:
+   5a. a seeded batch of 1003 PQL writes on the headline index through
+       Executor.execute (400 Set/Clear of a, 200 of b, 200 Set of t, 150
+       Set and 50 Clear of age, ClearRow(t=7), a Store into a new field
+       s, a Delete of 100 columns over 10 shards), mirrored into the
+       numpy arrays; then phase 4's stacked query set and the per-shard
+       TopN/Count set on the executors of phases 4 and 4a, every answer
+       exact, each first call printed beside phase 4's; the stacks and
+       tiles the batch made stale must be patched (only stacks under new
+       keys, and per-shard (W,) tiles a write dirtied whole, may be
+       built);
+   5b. a keyed index of 2^20 column keys (about 256 shards) with a keyed
+       set field of 64 row keys, an unkeyed set field and a depth-20 INT,
+       loaded through the translators and the import API; Count, Row
+       (column keys), TopN with and without a filter (row keys), GroupBy
+       (row_key), Rows(like=), Extract of ConstRow keys, FieldValue, and
+       a Set creating a key of each kind, on both engines, each exact
+       against numpy and the key lists.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-4d
+   launched over 4-5
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -811,43 +829,48 @@ def build_index():
         for p in range(DEPTH):
             frag.import_row_words(2 + p, planes[p, shard])
     data["age"] = planes
+    data["age_exists"] = np.full((S, W), 0xFFFFFFFF, dtype=np.uint32)
     return h, data
 
 
-def numpy_answers(data):
+def numpy_answers(data, hist=None):
     """Independent reference answers from the generated words: the
     headline and GroupBy queries' answers, and age's per-value column
-    counts over every column and under a."""
+    counts over every column and under a.  hist, the joint histogram
+    (joint_histogram's layout), is computed here when not given."""
     import numpy as np
 
     def pc(x):
         return int(np.bitwise_count(x).sum(dtype=np.int64))
 
     a, b, t, planes = data["a"], data["b"], data["t"], data["age"]
-    ncols = S * W * 32
+    exists = data["age_exists"]
 
     def top(counts):
         pairs = sorted(((-c, r) for r, c in enumerate(counts) if c > 0))
         return [(r, -c) for c, r in pairs][:8]
 
-    # one joint histogram over (edu, gen, dom, reg digits, a bit, age),
-    # decoded in shard batches, answers every GroupBy/Min/Max/Distinct
-    hist = joint_histogram(data)              # (8, 2, 8, 4, 2, 128)
+    # one joint histogram over (edu, gen, dom, reg digits, a bit, age)
+    # answers every GroupBy/Min/Max/Distinct
+    if hist is None:
+        hist = joint_histogram(data)
     vals = np.arange(1 << DEPTH, dtype=np.int64)
-    by_age = hist.sum(axis=(0, 1, 2, 3, 4))
+    by_age = hist.sum(axis=(0, 1, 2, 3, 4))[:NO_VALUE]
     between = int(by_age[11:100].sum())
     ge64 = pc(planes[6])
     assert ge64 == int(by_age[64:].sum())
 
     def groups(h, sizes):
         """GroupCounts in product order over the leading axes of h
-        (digit axes, then the value axis), zero counts dropped."""
+        (digit axes, then the value axis, its last bin no value), zero
+        counts dropped."""
         out = []
         for combo in itertools.product(*(range(n) for n in sizes)):
             cell = h[combo]
             n = int(cell.sum())
             if n:
-                out.append((combo, n, int((cell * vals).sum()), n))
+                out.append((combo, n, int((cell[:NO_VALUE] * vals).sum()),
+                            int(cell[:NO_VALUE].sum())))
         return out
 
     def max_groups(h, sizes):
@@ -855,8 +878,10 @@ def numpy_answers(data):
         for combo in itertools.product(*(range(n) for n in sizes)):
             cell = h[combo]
             n = int(cell.sum())
+            nz = np.nonzero(cell[:NO_VALUE])[0]
             if n:
-                out.append((combo, n, int(np.nonzero(cell)[0][-1]), n))
+                out.append((combo, n, int(nz[-1]) if nz.size else None,
+                            int(cell[:NO_VALUE].sum())))
         return out
 
     tsum = []
@@ -865,29 +890,32 @@ def numpy_answers(data):
         n = pc(ta)
         if n:
             tsum.append(((r, 1), n, sum(pc(ta & planes[p]) << p
-                                        for p in range(DEPTH)), n))
-    age_any = hist.sum(axis=(0, 1, 2, 3, 4))
-    age_a = hist[:, :, :, :, 1].sum(axis=(0, 1, 2, 3))
+                                        for p in range(DEPTH)),
+                         pc(ta & exists)))
+    age_any = by_age
+    age_a = hist[:, :, :, :, 1].sum(axis=(0, 1, 2, 3))[:NO_VALUE]
     lo_v = int(np.nonzero(age_any)[0][0])
     hi_a = int(np.nonzero(age_a)[0][-1])
+    ne, ng, nd, nr = (CATEGORIES[f] for f in ("edu", "gen", "dom", "reg"))
     groupby = {
         "GroupBy(Rows(edu), Rows(gen), Rows(dom), aggregate=Sum(field=age))":
-            groups(hist[:6, :, :5].sum(axis=(3, 4)), (6, 2, 5)),
+            groups(hist[:ne, :ng, :nd].sum(axis=(3, 4)), (ne, ng, nd)),
         "GroupBy(Rows(gen), Rows(dom), aggregate=Sum(field=age))":
-            groups(hist[:, :, :5].sum(axis=(0, 3, 4)), (2, 5)),
+            groups(hist[:, :ng, :nd].sum(axis=(0, 3, 4)), (ng, nd)),
         "GroupBy(Rows(edu), Rows(gen), Rows(dom), Rows(reg), "
         "aggregate=Sum(field=age))":
-            groups(hist[:6, :, :5].sum(axis=4), (6, 2, 5, 4)),
+            groups(hist[:ne, :ng, :nd, :nr].sum(axis=4), (ne, ng, nd, nr)),
         "GroupBy(Rows(edu), Rows(gen), filter=Row(a=1), "
         "aggregate=Sum(field=age))":
-            groups(hist[:6, :, :, :, 1].sum(axis=(2, 3)), (6, 2)),
+            groups(hist[:ne, :ng, :, :, 1].sum(axis=(2, 3)), (ne, ng)),
         "GroupBy(Rows(edu), Rows(gen), aggregate=Max(field=age))":
-            max_groups(hist[:6].sum(axis=(2, 3, 4)), (6, 2)),
+            max_groups(hist[:ne, :ng].sum(axis=(2, 3, 4)), (ne, ng)),
         "GroupBy(Rows(t), Rows(a), aggregate=Sum(field=age))": tsum,
         "Min(field=age)": (lo_v, int(age_any[lo_v])),
         "Max(Row(a=1), field=age)": (hi_a, int(age_a[hi_a])),
         "Distinct(field=age)": [int(v) for v in np.nonzero(age_any)[0]],
     }
+    n_values = pc(exists)
     return {
         "Count(Intersect(Row(a=1), Row(b=1)))": pc(a & b),
         "Count(Row(a=1))": pc(a),
@@ -895,19 +923,29 @@ def numpy_answers(data):
         "TopN(t, n=8)": top([pc(t[r]) for r in range(R)]),
         "TopN(t, Row(a=1), n=8)": top([pc(t[r] & a) for r in range(R)]),
         "Sum(field=age)": (sum(pc(planes[p]) << p for p in range(DEPTH)),
-                           ncols),
+                           n_values),
         "Sum(Row(a=1), field=age)": (
-            sum(pc(planes[p] & a) << p for p in range(DEPTH)), pc(a)),
+            sum(pc(planes[p] & a) << p for p in range(DEPTH)), pc(a & exists)),
         "Count(Row(age >= 64))": ge64,
-        "Count(Row(age < 64))": ncols - ge64,
+        "Count(Row(age < 64))": n_values - ge64,
         "Count(Row(10 < age < 100))": between,
     }, groupby, (age_any, age_a)
+
+
+# the joint histogram's axes: each categorical field's digits (edu and
+# dom 3 bits, gen 1, reg 2) and a slot past them for a column whose row
+# was deleted, the a bit, and the age value with a last bin for a
+# column holding no value
+HIST_SHAPE = (8, 3, 8, 5, 2, (1 << DEPTH) + 1)
+ABSENT = {"edu": 7, "gen": 2, "dom": 7, "reg": 4}
+NO_VALUE = 1 << DEPTH
 
 
 def joint_histogram(data):
     """Counts of columns per (edu digit, gen digit, dom digit, reg
     digit, a bit, age value), decoded from the generated words in
-    batches of 32 shards: shape (8, 2, 8, 4, 2, 128), int64."""
+    batches of 32 shards, where every column holds its digits and a
+    value: HIST_SHAPE, int64."""
     import numpy as np
 
     def bits(words):
@@ -929,7 +967,34 @@ def joint_histogram(data):
             high = (high << np.uint16(1)) | bits(plane[sl])
         code = (high.astype(np.uint32) << np.uint32(DEPTH + 1)) | low
         total += np.bincount(code.reshape(-1), minlength=n_bins)
-    return total.reshape(8, 2, 8, 4, 2, 1 << DEPTH)
+    out = np.zeros(HIST_SHAPE, dtype=np.int64)
+    out[:, :2, :, :4, :, :NO_VALUE] = total.reshape(8, 2, 8, 4, 2,
+                                                    1 << DEPTH)
+    return out
+
+
+def column_codes(data, cols, deleted):
+    """The joint histogram's flat bin of each absolute column, read off
+    the words as they stand (a deleted column's digits absent, a column
+    without an age value in the last bin)."""
+    import numpy as np
+    cols = np.asarray(cols, dtype=np.int64)
+    shard, c = cols // (W * 32), cols % (W * 32)
+    wi, bi = c >> 5, (c & 31).astype(np.uint32)
+
+    def bit(words):
+        return ((words[shard, wi] >> bi) & 1).astype(np.int64)
+
+    gone = np.isin(cols, np.fromiter(deleted, dtype=np.int64,
+                                     count=len(deleted)))
+    code = np.zeros(cols.size, dtype=np.int64)
+    for f, size in zip(("edu", "gen", "dom", "reg"), HIST_SHAPE[:4]):
+        d = sum(bit(pl) << b for b, pl in enumerate(data[f]))
+        code = code * size + np.where(gone, ABSENT[f], d)
+    code = code * 2 + bit(data["a"])
+    age = sum(bit(data["age"][p]) << p for p in range(DEPTH))
+    return code * HIST_SHAPE[-1] + np.where(bit(data["age_exists"]) == 1,
+                                            age, NO_VALUE)
 
 
 def normalise(res):
@@ -1233,23 +1298,29 @@ def surface_answers(data, secs, n: int, age_hists=None):
 
 
 def run_queries(ex, label: str, want: dict, reps: int,
-                shards=None) -> dict:
+                shards=None, index: str = "bench", norm=None,
+                firsts=None) -> dict:
     """Each query cold and then reps times warm through Executor.execute,
-    held exactly to its answer; returns query -> warm p50 (ms)."""
+    held exactly to its answer (after norm, by default normalise);
+    returns query -> warm p50 (ms), and fills firsts, when given, with
+    query -> the first call's ms."""
     import torch
+    norm = norm or normalise
     p50 = {}
     for q, expect in want.items():
         t0 = time.perf_counter()
-        got = normalise(ex.execute("bench", q, shards=shards)[0])
+        got = norm(ex.execute(index, q, shards=shards)[0])
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
+        if firsts is not None:
+            firsts[q] = cold * 1e3
         if got != expect:
             raise AssertionError(f"{label} {q}: port {str(got)[:200]} != "
                                  f"numpy {str(expect)[:200]}")
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            again = normalise(ex.execute("bench", q, shards=shards)[0])
+            again = norm(ex.execute(index, q, shards=shards)[0])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             if again != expect:
@@ -1279,7 +1350,8 @@ def phase_main_path(device, reps: int = 5) -> dict:
     h, data = build_index()
     print(f"main: index built on the host in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    headline, groupby, age_hists = numpy_answers(data)
+    hist = joint_histogram(data)
+    headline, groupby, age_hists = numpy_answers(data, hist)
     want = {**headline, **groupby}
     loop_full, loop_subset = loop_answers(data, headline, groupby)
     secs = add_deep_field(h, np.random.default_rng(11))
@@ -1289,7 +1361,7 @@ def phase_main_path(device, reps: int = 5) -> dict:
                for n in (S, S_DECODE)}
     print(f"main: numpy reference and the deep field ts in "
           f"{time.perf_counter() - t0:.1f} s")
-    del data, secs
+    del secs
     totals: dict = {}
 
     def note(label, launches):
@@ -1300,8 +1372,9 @@ def phase_main_path(device, reps: int = 5) -> dict:
     # 4: the stacked engine (the default executor)
     t0 = time.perf_counter()
     ex = Executor(h)
+    firsts: dict = {}
     launches, stacked_p50 = launches_of(
-        lambda: run_queries(ex, "main", want, reps))
+        lambda: run_queries(ex, "main", want, reps, firsts=firsts))
     note("main", launches)
     if launches != STACKED_LAUNCHES:
         raise AssertionError(f"the stacked engine's launches {launches} "
@@ -1318,9 +1391,10 @@ def phase_main_path(device, reps: int = 5) -> dict:
     # each TopN/TopK scans (t has no rank caches): one masked_popcount
     # launch over its S shards a run, none of popcount_rows
     launches = dict.fromkeys(STACKED_LAUNCHES, 0)
-    loop_p50 = {}
+    loop_p50, loop_firsts = {}, {}
     for q, e in topn.items():
-        got, p50 = launches_of(lambda: run_queries(lp, "per-shard", {q: e}, 3))
+        got, p50 = launches_of(lambda: run_queries(lp, "per-shard", {q: e}, 3,
+                                                   firsts=loop_firsts))
         runs = 1 + 3
         print(f"per-shard: {q}: masked_popcount launched {got['masked_popcount']}"
               f" times over {runs} runs of {S} shards, popcount_rows "
@@ -1331,7 +1405,8 @@ def phase_main_path(device, reps: int = 5) -> dict:
         loop_p50.update(p50)
         for k, n in got.items():
             launches[k] += n
-    more, rest_p50 = launches_of(lambda: run_queries(lp, "per-shard", rest, 3))
+    more, rest_p50 = launches_of(lambda: run_queries(lp, "per-shard", rest, 3,
+                                                     firsts=loop_firsts))
     loop_p50.update(rest_p50)
     for q, (sub, expect) in loop_subset.items():
         got, _ = launches_of(lambda: run_queries(
@@ -1346,8 +1421,6 @@ def phase_main_path(device, reps: int = 5) -> dict:
         raise AssertionError(f"per-shard routes {dict(lp.paths)}")
     print(f"per-shard: {time.perf_counter() - t0:.1f} s; routes "
           f"{dict(lp.paths)}")
-    del lp
-    torch.cuda.empty_cache()
 
     # 4b: the fallbacks on the default executor
     t0 = time.perf_counter()
@@ -1398,10 +1471,20 @@ def phase_main_path(device, reps: int = 5) -> dict:
     print(f"onehot: {time.perf_counter() - t0:.1f} s")
     del oh
     phase_read_surface(h, surface, note)
+    t0 = time.perf_counter()
+    phase_writes(ex, lp, data, hist, {"stacked": (firsts, stacked_p50),
+                                      "per-shard": (loop_firsts, loop_p50)},
+                 note)
+    print(f"writes: {time.perf_counter() - t0:.1f} s")
+    del lp, data, hist
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_keys(h, note)
+    print(f"keys: {time.perf_counter() - t0:.1f} s")
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-4d {totals}")
+    print(f"main path: kernel launches over phases 4-5 {totals}")
     return totals
 
 
@@ -1450,6 +1533,283 @@ def phase_read_surface(h, surface, note) -> None:
         note(label, launches)
         print(f"{label}: {time.perf_counter() - t0:.1f} s; ts routes "
               f"{dict(ex.paths)}")
+
+
+# phase 5a: the seeded batch of PQL writes on the headline index
+WRITE_SEED = 2026
+DELETE_SHARDS, DELETE_PER_SHARD = 10, 10
+# the per-shard engine's queries rerun after the batch
+LOOP_AFTER_WRITES = ["TopN(t, n=8)", "TopN(t, Row(a=1), n=8)",
+                     "TopK(t, Row(a=1), k=8)",
+                     "Count(Intersect(Row(a=1), Row(b=1)))",
+                     "Count(Row(a=1))"]
+STORE_COUNT = "Count(Row(s=1))"
+
+
+def write_batch(rng) -> list:
+    """Phase 5a's writes in a seeded order, each (pql, verb, field,
+    column or columns, row or value): 400 Set/Clear of a, 200 of b, 200
+    Set of t rows 0-7, 150 Set of age values (within its depth), 50
+    Clear of age, ClearRow(t=7), a Store of Intersect(a, b) into a new
+    field s, and a Delete of 100 columns over 10 shards."""
+    ncols = S * W * 32
+    ops = []
+    for field, n in (("a", 400), ("b", 200)):
+        for col in rng.integers(0, ncols, n).tolist():
+            verb = "Set" if rng.random() < 0.5 else "Clear"
+            ops.append((f"{verb}({col}, {field}=1)", verb, field, col, 1))
+    for col, r in zip(rng.integers(0, ncols, 200).tolist(),
+                      rng.integers(0, R, 200).tolist()):
+        ops.append((f"Set({col}, t={r})", "Set", "t", col, r))
+    for col, v in zip(rng.integers(0, ncols, 150).tolist(),
+                      rng.integers(0, 1 << DEPTH, 150).tolist()):
+        ops.append((f"Set({col}, age={v})", "Set", "age", col, v))
+    for col in rng.integers(0, ncols, 50).tolist():
+        ops.append((f"Clear({col}, age=0)", "Clear", "age", col, None))
+    ops.append(("ClearRow(t=7)", "ClearRow", "t", None, 7))
+    ops.append(("Store(Intersect(Row(a=1), Row(b=1)), s=1)", "Store", "s",
+                None, 1))
+    gone = sorted(int(sh) * W * 32 + int(c)
+                  for sh in rng.choice(S, DELETE_SHARDS, replace=False)
+                  for c in rng.choice(W * 32, DELETE_PER_SHARD, replace=False))
+    ops.append((f"Delete(ConstRow(columns={gone}))", "Delete", None, gone,
+                None))
+    return [ops[i] for i in rng.permutation(len(ops))]
+
+
+def put(words, col: int, on: bool) -> None:
+    """Set or clear an absolute column's bit in (S, W) words."""
+    shard, c = divmod(col, W * 32)
+    b = 1 << (c & 31)
+    if on:
+        words[shard, c >> 5] |= b
+    else:
+        words[shard, c >> 5] &= ~b & 0xFFFFFFFF
+
+
+def mirror(data, op, deleted: set) -> None:
+    """Apply one write of the batch to the numpy arrays."""
+    import numpy as np
+    _pql, verb, field, col, val = op
+    if field in ("a", "b"):
+        put(data[field], col, verb == "Set")
+    elif verb == "Set" and field == "t":
+        put(data["t"][val], col, True)
+    elif field == "age":
+        for p in range(DEPTH):
+            put(data["age"][p], col, verb == "Set" and (val >> p) & 1)
+        put(data["age_exists"], col, verb == "Set")
+    elif verb == "ClearRow":
+        data["t"][val][:] = 0
+    elif verb == "Store":
+        data["s"] = data["a"] & data["b"]
+    elif verb == "Delete":
+        mask = np.zeros((S, W), np.uint32)
+        for c in col:
+            put(mask, c, True)
+        for name in ("a", "b", "t", "s", "age", "age_exists"):
+            if name in data:
+                data[name] &= ~mask
+        deleted.update(col)
+
+
+def phase_writes(ex, lp, data, hist, before: dict, note) -> None:
+    """5a: the write batch through Executor.execute on the headline index,
+    mirrored into the numpy arrays (the joint histogram updated at the
+    columns the batch touched); then phase 4's stacked query set (plus a
+    Count of the stored row) on phase 4's executor and the per-shard
+    TopN/Count set on phase 4a's, each exact against numpy recomputed
+    from the mirrored arrays, each query's first call and warm p50
+    printed beside its engine's in phase 4 (before: engine -> (firsts,
+    p50s)).  Every stack and tile the batch made stale must be patched: the caches may build only stacks under new keys
+    (the new field s, a row set that changed), plus, for the per-shard
+    tiles, a (W,) tile all of whose words a write dirtied (its one
+    re-upload)."""
+    import numpy as np
+    ops = write_batch(np.random.default_rng(WRITE_SEED))
+    cols = sorted({c for op in ops if op[2] in ("a", "age")
+                   for c in [op[3]]} | {c for op in ops if op[1] == "Delete"
+                                        for c in op[3]})
+    old = column_codes(data, cols, set())
+    deleted: set = set()
+    times: dict = {}
+    for op in ops:
+        t0 = time.perf_counter()
+        ex.execute("bench", op[0])
+        times.setdefault(op[1], []).append(time.perf_counter() - t0)
+        mirror(data, op, deleted)
+    for verb, ts in times.items():
+        print(f"writes: {len(ts)} x {verb}: p50 {statistics.median(ts) * 1e3:.4f}"
+              f" ms, total {sum(ts) * 1e3:.1f} ms through execute (host)")
+    t0 = time.perf_counter()
+    flat = hist.reshape(-1).copy()
+    np.subtract.at(flat, old, 1)
+    np.add.at(flat, column_codes(data, cols, deleted), 1)
+    headline, groupby, _ages = numpy_answers(data, flat.reshape(HIST_SHAPE))
+    want = {**headline, **groupby,
+            STORE_COUNT: int(np.bitwise_count(data["s"]).sum(dtype=np.int64))}
+    print(f"writes: {len(ops)} writes, {len(cols)} columns in the joint "
+          f"histogram; numpy reference again in {time.perf_counter() - t0:.1f} s")
+
+    def rebuilt(now, was):
+        return {k: n - was["rebuilds"].get(k, 0)
+                for k, n in now["rebuilds"].items()
+                if n != was["rebuilds"].get(k, 0)}
+
+    loop_want = {q: want[q.replace("TopK", "TopN").replace("k=8", "n=8")]
+                 for q in LOOP_AFTER_WRITES}
+    for engine, e, queries, cache in (
+            ("stacked", ex, want, ex.stacked.cache),
+            ("per-shard", lp, loop_want, lp.tiles.cache)):
+        label = f"writes {engine}"
+        firsts4, p50_4 = before[engine]
+        keys_before = set(cache.keys())
+        was = cache.counters()
+        firsts: dict = {}
+        launches, p50 = launches_of(lambda: run_queries(
+            e, label, queries, 3, firsts=firsts))
+        note(label, launches)
+        now = cache.counters()
+        for q in queries:
+            print(f"{label}: {q}: first call after the writes "
+                  f"{firsts[q]:.3f} ms (phase 4's first {firsts4.get(q, float('nan')):.3f}"
+                  f" ms), warm p50 {p50[q]:.3f} ms (phase 4's "
+                  f"{p50_4.get(q, float('nan')):.3f} ms)")
+        new = [k for k in cache.keys() if k not in keys_before]
+        builds = rebuilt(now, was)
+        print(f"{label}: cache {now}; this run: patches "
+              f"{now['patches'] - was['patches']}, patched bytes "
+              f"{now['patched_bytes'] - was['patched_bytes']}, rebuilds "
+              f"{builds}, rebuilt bytes "
+              f"{now['rebuilt_bytes'] - was['rebuilt_bytes']}; new keys "
+              f"{[str(k)[:70] for k in new]}")
+        allowed = {"cold"} | ({"dirty_frac"} if e is lp else set())
+        if now["patches"] == was["patches"] or set(builds) - allowed or \
+                builds.get("cold", 0) > len(new):
+            raise AssertionError(f"{label}: the batch's stale stacks were not "
+                                 f"all patched: rebuilds {builds}")
+        if e is ex and any("s" not in k and "t" not in k for k in new):
+            raise AssertionError(f"{label}: unexpected new stacks {new}")
+
+
+# phase 5b: a keyed index through the translators and the import API
+KEYS_N = 1 << 20
+KEY_ROWS = 64
+
+
+def keyed_norm(res):
+    """A keyed answer in comparable form: a row result's columns and
+    keys, groups with their row keys, pairs with their keys."""
+    if hasattr(res, "segments"):
+        return (res.columns().tolist(), res.keys)
+    if isinstance(res, list) and res and hasattr(res[0], "group"):
+        return [(tuple((g["row_id"], g.get("row_key")) for g in gc.group),
+                 gc.count, gc.agg, gc.agg_count) for gc in res]
+    if isinstance(res, list) and res and hasattr(res[0], "key"):
+        return [(p.id, p.key, p.count) for p in res]
+    if type(res).__name__ == "ExtractedTable":
+        return (res.fields, [(e["column"], e["rows"], e.get("column_key"))
+                             for e in res.columns])
+    if hasattr(res, "value"):
+        return (res.value, res.count)
+    return res
+
+
+def phase_keys(h, note) -> None:
+    """5b: the keyed index kidx: 2^20 column keys through the
+    PartitionedTranslator (256 partitions), a keyed set field kf of 64
+    row keys (each column in one row), an unkeyed set field ks of 8
+    rows, and an INT kv of depth 20; its queries on both engines, each
+    exact against numpy and the key lists, then a Set that creates a
+    column key and a row key, and its Count."""
+    import numpy as np
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.schema import (
+        CACHE_TYPE_NONE, FieldOptions, FieldType)
+
+    rng = np.random.default_rng(17)
+    idx = h.create_index("kidx", keys=True)
+    keys = np.array([f"c{i:07d}" for i in range(KEYS_N)])
+    t0 = time.perf_counter()
+    ids = idx.column_translator.create_keys(*keys.tolist())
+    made = time.perf_counter() - t0
+    cols = np.fromiter((ids[k] for k in keys.tolist()), np.int64, KEYS_N)
+    print(f"keys: create_keys of {KEYS_N} column keys: {made * 1e3:.1f} ms "
+          f"(host), over {np.unique(cols // (W * 32)).size} shards")
+    t0 = time.perf_counter()
+    kf = idx.create_field("kf", FieldOptions(keys=True))
+    rkeys = [f"k{i:02d}" for i in range(KEY_ROWS)]
+    rmap = kf.row_translator.create_keys(*rkeys)
+    rid = np.array([rmap[k] for k in rkeys], np.int64)
+    rk = rng.integers(0, KEY_ROWS, KEYS_N)
+    kf.import_bits(rid[rk], cols)
+    ks = idx.create_field("ks", FieldOptions(cache_type=CACHE_TYPE_NONE))
+    kr = rng.integers(0, 8, KEYS_N)
+    ks.import_bits(kr, cols)
+    kv = idx.create_field("kv", FieldOptions(type=FieldType.INT,
+                                             min=-(1 << 20) + 1,
+                                             max=(1 << 20) - 1))
+    vals = rng.integers(-(1 << 20) + 1, 1 << 20, KEYS_N)
+    has = rng.random(KEYS_N) < 0.9
+    kv.import_values(cols[has], vals[has])
+    print(f"keys: kf, ks and kv ({kv.bit_depth} planes) imported in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+
+    def top(counts, n=10):
+        order = sorted(range(KEY_ROWS), key=lambda r: (-counts[r], rid[r]))
+        return [(int(rid[r]), rkeys[r], int(counts[r])) for r in order[:n]
+                if counts[r]]
+
+    sel = rk == 17
+    order17 = np.argsort(cols[sel])
+    code = rk * 8 + kr
+    n_c = np.bincount(code, minlength=KEY_ROWS * 8)
+    nn_c = np.bincount(code[has], minlength=KEY_ROWS * 8)
+    sum_c = np.zeros(KEY_ROWS * 8, np.int64)
+    np.add.at(sum_c, code[has], vals[has])
+    groups = [(((int(rid[i]), rkeys[i]), (j, None)), int(n_c[i * 8 + j]),
+               int(sum_c[i * 8 + j]), int(nn_c[i * 8 + j]))
+              for i in np.argsort(rid) for j in range(8) if n_c[i * 8 + j]]
+    two = sorted(["c0000001", "c0000002"], key=lambda k: ids[k])
+    want = {
+        'Count(Row(kf="k17"))': int(sel.sum()),
+        'Row(kf="k17")': (cols[sel][order17].tolist(),
+                          keys[sel][order17].tolist()),
+        "TopN(kf, n=10)": top(np.bincount(rk, minlength=KEY_ROWS)),
+        "TopN(kf, Row(ks=3), n=10)": top(np.bincount(rk[kr == 3],
+                                                     minlength=KEY_ROWS)),
+        "GroupBy(Rows(kf), Rows(ks), aggregate=Sum(field=kv))": groups,
+        'Rows(kf, like="k1%")': [k for k in rkeys if k.startswith("k1")],
+        'Extract(ConstRow(columns=["c0000001", "c0000002"]), Rows(kf), '
+        'Rows(kv))': (["kf", "kv"], [
+            (ids[k], [[rkeys[rk[int(k[1:])]]],
+                      int(vals[int(k[1:])]) if has[int(k[1:])] else None], k)
+            for k in two]),
+        'FieldValue(field=kv, column="c0000009")':
+            (int(vals[9]), 1) if has[9] else (None, 0),
+    }
+    for label, use_stacked in (("keys stacked", True),
+                               ("keys per-shard", False)):
+        kex = Executor(h)
+        kex.use_stacked = use_stacked
+        launches, _ = launches_of(lambda: run_queries(
+            kex, label, want, 3, index="kidx", norm=keyed_norm))
+        note(label, launches)
+        needs = ["popcount_rows", "groupby_fused" if use_stacked
+                 else "bsi_sum_counts",
+                 "rows_filter_counts" if use_stacked else "masked_popcount"]
+        if any(launches[k] == 0 for k in needs):
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"each of {needs}")
+        if use_stacked:
+            t0 = time.perf_counter()
+            kex.execute("kidx", 'Set("c9999999", kf="k65")')
+            print(f'{label}: Set("c9999999", kf="k65") creating a column '
+                  f"key and a row key: {(time.perf_counter() - t0) * 1e3:.3f}"
+                  " ms (host)")
+        got, _ = launches_of(lambda: run_queries(
+            kex, label, {'Count(Row(kf="k65"))': 1}, 3, index="kidx"))
+        note(label, got)
 
 
 def main() -> int:

@@ -26,6 +26,12 @@ its first offset+limit; the host merges the chunks.  Extract reads the
 filter's columns: BSI values from the decode stream over the shards
 the filter touches, set, mutex, bool and time rows off the fragments on
 the host.
+
+On a keyed field TopN/TopK pairs carry their row keys, GroupBy groups
+a "row_key" beside each row id (previous= takes keys), and Extract
+gives a keyed set field's row keys and a keyed mutex's key; on a keyed
+index Extract gives each column's "column_key".  Delete clears the
+columns of its child, evaluated once, from every field and view.
 """
 
 from __future__ import annotations
@@ -150,7 +156,7 @@ class AdvancedOps:
         if plain_topn and filter_call is None:
             pairs = self._topn_from_caches(idx, f, shards)
             if pairs is not None:
-                return ("done", self._finish_topn(pairs, n))
+                return ("done", self._finish_topn(f, pairs, n))
         row_ids = ([int(r) for r in ids] if ids is not None
                    else self._all_row_ids(idx, f, shards))
         if plain_topn:
@@ -174,7 +180,7 @@ class AdvancedOps:
         if not done:
             pairs = self._topnk_loop(idx, f, row_ids, views, filter_call,
                                      shards, pre, ids)
-        return self._finish_topn(pairs, n)
+        return self._finish_topn(f, pairs, n)
 
     def _topnk_loop(self, idx, f, row_ids, views, filter_call, shards, pre,
                     ids):
@@ -281,9 +287,17 @@ class AdvancedOps:
         return sorted(out)
 
     @staticmethod
-    def _finish_topn(pairs, n):
+    def _finish_topn(f, pairs, n):
+        """The pairs by count (ties by id), the first n, and on a keyed
+        field each pair's row key."""
         pairs.sort(key=lambda p: (-p.count, p.id))
-        return pairs if n is None else pairs[:int(n)]
+        if n is not None:
+            pairs = pairs[:int(n)]
+        if f.options.keys:
+            keys = f.row_translator.translate_ids([p.id for p in pairs])
+            for p, k in zip(pairs, keys):
+                p.key = k
+        return pairs
 
     # -- GroupBy ---------------------------------------------------------
 
@@ -291,8 +305,9 @@ class AdvancedOps:
                          pre: dict) -> list[GroupCount]:
         """GroupBy(Rows(...), ..., filter=, aggregate=Sum|Min|Max(field=)
         or Count(Distinct(field=)), having=, limit=, previous=) over the
-        cartesian product of the Rows' row ids, in product order.  Keyed
-        fields are not ported yet."""
+        cartesian product of the Rows' row ids, in product order; a
+        keyed field's groups carry their row keys, and its previous=
+        entry may be a key."""
         rows_calls = [c for c in call.children if c.name == "Rows"]
         if not rows_calls:
             raise ExecError("GroupBy requires at least one Rows() child")
@@ -302,8 +317,6 @@ class AdvancedOps:
             f = idx.field(fname) if fname else None
             if f is None:
                 raise ExecError("Rows requires a valid field")
-            if f.options.keys:
-                raise ExecError("GroupBy over keyed fields is not ported yet")
             fields.append(f)
             row_lists.append(self._rows_ids(idx, rc, shards))
         if any(not rl for rl in row_lists):
@@ -344,8 +357,11 @@ class AdvancedOps:
             if len(previous) != len(fields):
                 raise ExecError(
                     "previous= must have one entry per Rows() child")
-            if any(isinstance(p, str) for p in previous):
-                raise ExecError("row keys are not ported yet")
+            previous = [
+                self._row_key_id(f, pv,
+                                 "string previous= entry on unkeyed field")
+                if isinstance(pv, str) else pv
+                for f, pv in zip(fields, previous)]
             gt = np.zeros(len(combos), dtype=bool)
             eq = np.ones(len(combos), dtype=bool)
             for fi, (rl, pv) in enumerate(zip(row_lists, previous)):
@@ -570,8 +586,12 @@ class AdvancedOps:
             cnt = int(counts[ci])
             if cnt == 0:
                 continue
-            group = [{"field": f.name, "row_id": rl[gi]}
-                     for f, rl, gi in zip(fields, row_lists, combo)]
+            group = []
+            for f, rl, gi in zip(fields, row_lists, combo):
+                entry = {"field": f.name, "row_id": rl[gi]}
+                if f.options.keys:
+                    entry["row_key"] = f.row_translator.translate_id(rl[gi])
+                group.append(entry)
             value = agg_count = None
             if agg_field is not None and agg_op in ("min", "max"):
                 nn, vals = agg
@@ -777,8 +797,6 @@ class AdvancedOps:
             f = idx.field(fname) if fname is not None else None
             if f is None:
                 raise ExecError("Extract Rows() requires a valid field")
-            if f.options.keys:
-                raise ExecError("Extract of row keys is not ported yet")
             fields.append(f)
         if filter_call.name == "Sort":
             columns = self._execute_sort(idx, filter_call, shards,
@@ -816,18 +834,25 @@ class AdvancedOps:
                 continue
             member = self._extract_members(f, by_shard, idx.width)
             t = f.options.type
+            tr = f.row_translator
             for c in columns:
                 rows = member.get(c, [])
                 if t == FieldType.BOOL:
                     table[c].append(True if TRUE_ROW in rows else
                                     False if FALSE_ROW in rows else None)
                 elif t == FieldType.MUTEX:
-                    table[c].append(rows[0] if rows else None)
+                    r = rows[0] if rows else None
+                    table[c].append(r if tr is None or r is None
+                                    else tr.translate_id(r))
                 else:
-                    table[c].append(rows)
-        return ExtractedTable(
-            fields=[f.name for f in fields],
-            columns=[{"column": c, "rows": table[c]} for c in columns])
+                    table[c].append(rows if tr is None
+                                    else tr.translate_ids(rows))
+        out = [{"column": c, "rows": table[c]} for c in columns]
+        if idx.keys:
+            for entry, key in zip(out, idx.column_translator.translate_ids(
+                    columns)):
+                entry["column_key"] = key
+        return ExtractedTable(fields=[f.name for f in fields], columns=out)
 
     def _extract_decoded(self, idx, f, by_shard) -> dict:
         """{column: value or None} of a BSI field at the filter's columns,
@@ -886,3 +911,27 @@ class AdvancedOps:
                     if h:
                         member.setdefault(c, []).append(r)
         return member
+
+    # -- Delete ------------------------------------------------------------
+
+    def _execute_delete(self, idx, call: Call, pre) -> bool:
+        """Delete(child): the child's columns cleared from every field
+        and view of each shard they lie in (executor.go:9050
+        delete-records).  The child is evaluated once, over the index's
+        shards, on the engine that would count it."""
+        child = self._only_child(call)
+        shard_list = self._shard_list(idx, None)
+        done, words = self._try_stacked(
+            "Delete", lambda: self.stacked.words(idx, child, shard_list, pre))
+        if not done:
+            words = bm.to_numpy(self._tree_stack(idx, child, shard_list, pre))
+        changed = False
+        for i, shard in enumerate(shard_list):
+            if words is None or not words[i].any():
+                continue
+            for f in idx.fields.values():
+                for v in f.views.values():
+                    frag = v.fragment(shard)
+                    if frag is not None:
+                        changed |= frag.clear_columns(words[i])
+        return changed

@@ -31,8 +31,17 @@ A query's cross-shard operands (Distinct, UnionRows and Limit nested
 in a bitmap tree, and ConstRow's columns) are evaluated once, before
 the call runs, into ``pre`` (``_precompute_nested``), and enter either
 engine's tree as leaves; a tree walks the shards a nested result sets
-bits in as well (``_tree_shards``).  Keyed indexes, string keys,
-``Rows(like=)`` and the write calls raise "not ported yet".
+bits in as well (``_tree_shards``).
+
+String keys translate as in the JAX package: a column key through the
+index's ``column_translator``, a row key through the field's
+``row_translator``; a read finds a key (an unknown key matches
+nothing), a write creates it.  A row result of a keyed index carries
+its column keys (``RowResult.keys``).  The write calls Set, Clear,
+Store, ClearRow and Delete change the host fragments; the next query
+patches the device stacks and tiles those writes touched
+(``StackCache``).  Store and Delete evaluate their child once, on the
+engine that would count it.
 
 The executor runs on the CUDA card by default and raises when there
 is none; ``device="cpu"`` runs the kernels' plain versions on the CPU
@@ -63,6 +72,7 @@ from pilosa_tpu_torch.executor.stacked import (
     StackCache,
     StackedEngine,
     Unstackable,
+    FragRowsLayout,
 )
 from pilosa_tpu_torch.models import timeq
 from pilosa_tpu_torch.models.field import FALSE_ROW, TRUE_ROW, Field
@@ -76,13 +86,14 @@ from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql import ast as past
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.pql.ast import Call, Condition, Query
+from pilosa_tpu_torch.pql.like import like_regex, sql_like_regex
 
 __all__ = ["Executor", "ExecError", "resolve_device"]
 
 _BITMAP_CALLS = {"Row", "Range", "Union", "Intersect", "Difference", "Xor",
                  "Not", "All", "Shift", "ConstRow"}
 
-# the write calls (pql.Call.IsWrite), not ported yet
+# the write calls (pql.Call.IsWrite)
 _WRITE_CALLS = {"Set", "Clear", "Store", "ClearRow", "Delete"}
 
 # per-shard tile cache bound; least recently used tiles go first
@@ -109,21 +120,29 @@ class TileCache:
     """The per-shard engine's device tiles: a fragment row as a (W,)
     tensor, a BSI fragment's planes as a (2+d, W) tensor, keyed by the
     fragment's gen and the row (or the plane depth) and tagged with its
-    version, so a write re-uploads.  Least recently used tiles go first
-    past max_bytes.  Its own cache, apart from the stacked engine's
-    stacks: the two engines share no device state."""
+    stamp.  After a write a tile is patched in place (``StackCache``):
+    a tile whose row no logged write touched adopts the new version, a
+    touched row takes only its dirty words, a planes tile only its
+    dirty planes' words.  Least recently used tiles go first past
+    max_bytes.  Its own cache, apart from the stacked engine's stacks:
+    the two engines share no device state."""
 
     def __init__(self, device: torch.device,
                  max_bytes: int = _TILE_CACHE_MAX_BYTES):
         self.device = device
-        self._cache = StackCache(max_bytes)
+        self.cache = StackCache(max_bytes)
 
     def row(self, frag, row: int) -> torch.Tensor:
-        return self._cache.get((frag.gen, row), frag.version,
-                               lambda: self._upload_row(frag, row))
+        return self.cache.get((frag.gen, row), [frag],
+                              lambda: self._upload_row(frag, row),
+                              lambda: FragRowsLayout(frag, [row]))
 
     def _upload_row(self, frag, row: int) -> torch.Tensor:
         t = bm.to_tensor(frag.row_words(row), self.device)
+        if t.device.type == "cpu":
+            # to_tensor shared the host row's memory: the tile must not
+            # follow a write, nor a patch land in the row
+            t = t.clone()
         kernels.check_tile(t, frag.width // 32, self.device)
         return t
 
@@ -134,10 +153,11 @@ class TileCache:
                                 frag.width // 32, self.device, checked=True)
 
     def planes(self, frag, depth: int) -> torch.Tensor:
-        return self._cache.get(
-            (frag.gen, "planes", depth), frag.version,
+        return self.cache.get(
+            (frag.gen, "planes", depth), [frag],
             lambda: bm.to_tensor(np.stack(
-                [frag.row_words(r) for r in range(2 + depth)]), self.device))
+                [frag.row_words(r) for r in range(2 + depth)]), self.device),
+            lambda: FragRowsLayout(frag, range(2 + depth)))
 
 
 class Executor(AdvancedOps):
@@ -160,10 +180,16 @@ class Executor(AdvancedOps):
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecError(f"index not found: {index_name}")
-        if idx.keys:
-            raise ExecError("keyed indexes are not ported yet")
         q = parse(query) if isinstance(query, str) else query
-        return [self._execute_call(idx, c, shards) for c in q.calls]
+        out = []
+        for c in q.calls:
+            res = self._execute_call(idx, c, shards)
+            # translateResults (executor.go:7519): a row result of a
+            # keyed index carries its column keys
+            if isinstance(res, RowResult) and idx.keys and not res.is_row_ids:
+                res.keys = idx.column_translator.translate_ids(res.columns())
+            out.append(res)
+        return out
 
     def _execute_call(self, idx: Index, call: Call, shards, pre=None):
         """One call.  ``pre`` holds the query's nested cross-shard results
@@ -174,7 +200,7 @@ class Executor(AdvancedOps):
         if name == "Options":
             return self._execute_options(idx, call, shards)
         if name in _WRITE_CALLS:
-            raise ExecError(f"the write call {name} is not ported yet")
+            return self._execute_write(idx, call, pre)
         if name == "Count":
             return self._reduce_count(idx, self._only_child(call), shards,
                                       pre)
@@ -286,8 +312,6 @@ class Executor(AdvancedOps):
             didx = self.holder.index(iname)
             if didx is None:
                 raise ExecError(f"index not found: {iname}")
-            if didx.keys:
-                raise ExecError("keyed indexes are not ported yet")
             df = didx.field(call.arg("_field") or "")
             if (df is None or df.options.type != FieldType.INT
                     or df.options.keys):
@@ -418,6 +442,8 @@ class Executor(AdvancedOps):
             return self._bsi_condition_shard(
                 idx, fname, Condition(past.OP_EQ, row_val), shard)
         row_id = self._row_id_for_value(f, row_val)
+        if row_id is None:                  # an unknown row key
+            return self._zeros(idx)
         try:
             views = f.views_for_range(call.arg("from"), call.arg("to"))
         except ValueError as e:
@@ -440,15 +466,25 @@ class Executor(AdvancedOps):
         v = f.views.get(f.bsi_view)
         return v.fragment(shard) if v else None
 
-    def _row_id_for_value(self, f: Field, val) -> int:
+    def _row_id_for_value(self, f: Field, val, create: bool = False):
+        """A row value as a row id: a string key through the field's
+        row translator, found on a read (None for an unknown key: the
+        row is empty) and created on a write."""
         if isinstance(val, bool):
             if f.options.type != FieldType.BOOL:
                 raise ExecError(f"bool row value on non-bool field {f.name}")
             return TRUE_ROW if val else FALSE_ROW
-        if isinstance(val, str) or f.options.keys:
-            raise ExecError("string row keys are not ported yet")
+        if isinstance(val, str):
+            tr = f.row_translator
+            if tr is None:
+                raise ExecError(f"field {f.name} does not use string keys")
+            if create:
+                return tr.create_keys(val)[val]
+            return tr.find_keys(val).get(val)
         if val is None:
             raise ExecError("null row value")
+        if f.options.keys:
+            raise ExecError(f"field {f.name} uses row keys; got id {val!r}")
         return int(val)
 
     # -- BSI predicates ------------------------------------------------------
@@ -733,9 +769,9 @@ class Executor(AdvancedOps):
     def _execute_distinct(self, idx: Index, call: Call, shards, pre: dict,
                           raw: bool = False):
         """Distinct over a BSI field (DistinctValues) or a set field (a
-        RowResult of the row ids with a bit under the filter).  A keyed
-        set field's row keys are not ported yet; ``raw`` (a nested
-        Distinct) takes its row ids as they are."""
+        RowResult of the row ids with a bit under the filter; on a keyed
+        field the row keys, sorted, as DistinctValues).  ``raw`` (a
+        nested Distinct) takes the row ids as they are."""
         fname = call.arg("_field")
         if fname is None:
             raise ExecError("Distinct requires field=")
@@ -744,9 +780,12 @@ class Executor(AdvancedOps):
             raise ExecError(f"field not found: {fname}")
         if f.options.type.is_bsi:
             return self._distinct_bsi(idx, f, call, shards, pre)
+        res = self._distinct_set(idx, f, call, shards, pre)
         if f.options.keys and not raw:
-            raise ExecError("Distinct of row keys is not ported yet")
-        return self._distinct_set(idx, f, call, shards, pre)
+            return DistinctValues(values=sorted(
+                k for k in f.row_translator.translate_ids(res.columns())
+                if k is not None))
+        return res
 
     def _distinct_bsi(self, idx: Index, f: Field, call: Call, shards,
                       pre: dict) -> DistinctValues:
@@ -850,26 +889,29 @@ class Executor(AdvancedOps):
                 counts = torch.cat([c for _, c in found]).cpu().tolist()
                 ids = [r for chunk, _ in found for r in chunk]
                 present.update(r for r, c in zip(ids, counts) if c > 0)
-        return RowResult.from_columns(present, idx.width)
+        res = RowResult.from_columns(present, idx.width)
+        res.is_row_ids = True
+        return res
 
     def _rows_field(self, idx: Index, call: Call) -> Field:
-        """The unkeyed field of a Rows() call."""
+        """The field of a Rows() call."""
         fname = call.arg("_field")
         f = idx.field(fname) if fname else None
         if f is None:
             raise ExecError("Rows requires a field")
-        if f.options.keys or call.arg("like") is not None:
-            raise ExecError("keyed Rows(like=...) and row keys are not "
-                            "ported yet")
         return f
 
     def _rows_ids(self, idx: Index, call: Call, shards) -> list[int]:
-        """Row ids of Rows(field) (executeRowsShard basics): column=,
-        previous=, limit=, and from=/to= on time fields."""
+        """Row ids of Rows(field) (executeRowsShard basics): column= (an
+        id or a column key), like= on a keyed field, previous= (a row id
+        or, on a keyed field, a key), limit=, and from=/to= on time
+        fields."""
         f = self._rows_field(idx, call)
         column = call.arg("column")
         if column is not None:
-            column = self._col_id(column)
+            column = self._col_id(idx, column)
+            if column is None:
+                return []             # an unknown column key matches none
         views = self._field_views(f, call.arg("from"), call.arg("to"))
         ids: set[int] = set()
         for shard in self._shard_list(idx, shards):
@@ -886,21 +928,50 @@ class Executor(AdvancedOps):
                 c = column % idx.width
                 ids.update(r for r in frag.row_ids
                            if (int(frag.row_words(r)[c >> 5]) >> (c & 31)) & 1)
+        like = call.arg("like")
+        if like is not None:
+            tr = f.row_translator
+            if tr is None:
+                raise ExecError("Rows(like=) requires a keyed field")
+            # PQL's key-filter matcher (like.go); _like_sql asks for the
+            # SQL scalar operator's
+            pat = (sql_like_regex(like) if call.arg("_like_sql")
+                   else like_regex(like))
+            ids &= set(tr.match(lambda k: pat.match(k) is not None))
         out = sorted(ids)
         previous = call.arg("previous")
         if previous is not None:
             if isinstance(previous, str):
-                raise ExecError("row keys are not ported yet")
+                previous = self._row_key_id(f, previous)
             out = [r for r in out if r > int(previous)]
         limit = call.arg("limit")
         if limit is not None:
             out = out[:int(limit)]
         return out
 
-    def _execute_rows(self, idx: Index, call: Call, shards) -> list[int]:
-        """Rows(field): the row ids, read off the fragments on the host."""
+    def _row_key_id(self, f: Field, key: str,
+                    unkeyed: str = "string previous= requires a keyed "
+                                   "field") -> int:
+        """The id of an existing row key named by previous= (``unkeyed``,
+        the error on an unkeyed field)."""
+        tr = f.row_translator
+        if tr is None:
+            raise ExecError(unkeyed)
+        found = tr.find_keys(key)
+        if key not in found:
+            raise ExecError(f"previous= key not found: {key!r}")
+        return found[key]
+
+    def _execute_rows(self, idx: Index, call: Call, shards) -> list:
+        """Rows(field): the row ids, read off the fragments on the host;
+        on a keyed field their keys (an id with no key stays an id)."""
         self.paths[("Rows", "only_route")] += 1
-        return self._rows_ids(idx, call, shards)
+        out = self._rows_ids(idx, call, shards)
+        f = self._rows_field(idx, call)
+        if f.options.keys:
+            keys = f.row_translator.translate_ids(out)
+            return [k if k is not None else r for k, r in zip(keys, out)]
+        return out
 
     def _execute_union_rows(self, idx: Index, call: Call,
                             shards) -> RowResult:
@@ -1005,7 +1076,10 @@ class Executor(AdvancedOps):
         col = call.arg("column")
         if col is None:
             raise ExecError("IncludesColumn requires column=")
-        shard, c = divmod(self._col_id(col), idx.width)
+        col = self._col_id(idx, col)
+        if col is None:
+            return False
+        shard, c = divmod(col, idx.width)
         if shards is not None and shard not in set(shards):
             return False
         child = self._only_child(call)
@@ -1041,7 +1115,10 @@ class Executor(AdvancedOps):
         if col is None:
             raise ExecError("FieldValue requires a column")
         self.paths[("FieldValue", "only_route")] += 1
-        shard, c = divmod(self._col_id(col), idx.width)
+        col = self._col_id(idx, col)
+        if col is None:
+            return ValCount(value=None, count=0)
+        shard, c = divmod(col, idx.width)
         frag = self._bsi_frag(f, shard)
 
         def bit(row: int) -> int:
@@ -1054,15 +1131,123 @@ class Executor(AdvancedOps):
                         count=1)
 
     def _constrow_cols(self, idx: Index, call: Call, pre: dict) -> list[int]:
-        """ConstRow(columns=[...])'s column ids (computed once a query
-        into ``pre``)."""
+        """ConstRow(columns=[...])'s column ids, keys translated (computed
+        once a query into ``pre``, the preTranslate of executor.go:6814);
+        an unknown key matches nothing."""
         cols = pre.get(("constrow", id(call)))
         if cols is None:
-            cols = [self._col_id(c) for c in call.arg("columns", []) or []]
+            cols = [c for c in (self._col_id(idx, c)
+                                for c in call.arg("columns", []) or [])
+                    if c is not None]
         return cols
 
-    @staticmethod
-    def _col_id(col) -> int:
+    def _col_id(self, idx: Index, col, create: bool = False):
+        """A column value as a column id: a string key through the index's
+        column translator, found on a read (None for an unknown key) and
+        created on a write.  A keyed index takes keys only."""
         if isinstance(col, str):
-            raise ExecError("column keys are not ported yet")
+            tr = idx.column_translator
+            if tr is None:
+                raise ExecError(f"index {idx.name} does not use column keys")
+            if create:
+                return tr.create_keys(col)[col]
+            return tr.find_keys(col).get(col)
+        if idx.keys:
+            raise ExecError(f"index {idx.name} uses column keys; got id "
+                            f"{col!r}")
         return int(col)
+
+    # -- writes (executeSet, executeClear, ... analogs) ----------------------
+
+    def _execute_write(self, idx: Index, call: Call, pre: dict):
+        name = call.name
+        if name == "Store":
+            return self._execute_store(idx, call, pre)
+        if name == "Delete":
+            return self._execute_delete(idx, call, pre)
+        self.paths[(name, "only_route")] += 1
+        if name == "Set":
+            return self._execute_set(idx, call)
+        if name == "Clear":
+            return self._execute_clear(idx, call)
+        return self._execute_clear_row(idx, call)
+
+    def _write_field(self, idx: Index, call: Call, what: str = "value"):
+        fname, val = call.field_arg()
+        if fname is None:
+            raise ExecError(f"{call.name} requires field={what}")
+        f = idx.field(fname)
+        if f is None:
+            raise ExecError(f"field not found: {fname}")
+        return f, val
+
+    def _write_col(self, idx: Index, call: Call, create: bool):
+        col = call.arg("_col")
+        if col is None:
+            raise ExecError(f"{call.name} requires a column")
+        return self._col_id(idx, col, create)
+
+    def _execute_set(self, idx: Index, call: Call) -> bool:
+        """Set(col, f=row) or Set(col, f=value): the bit (in the time
+        views too, given a timestamp) or the BSI value; keys are created;
+        the column is marked as existing."""
+        col = self._write_col(idx, call, create=True)
+        f, val = self._write_field(idx, call)
+        if f.options.type.is_bsi:
+            changed = f.set_value(col, val)
+        else:
+            ts = call.arg("_timestamp")
+            changed = f.set_bit(
+                self._row_id_for_value(f, val, create=True), col,
+                timestamp=timeq.parse_time(ts) if ts else None)
+        idx.mark_columns_exist([col])
+        return changed
+
+    def _execute_clear(self, idx: Index, call: Call) -> bool:
+        """Clear(col, f=row): the bit in every view; on a BSI field the
+        column's value.  An unknown key clears nothing."""
+        col = self._write_col(idx, call, create=False)
+        if col is None:
+            return False
+        f, val = self._write_field(idx, call)
+        if f.options.type.is_bsi:
+            return f.clear_value(col)
+        row_id = self._row_id_for_value(f, val)
+        return False if row_id is None else f.clear_bit(row_id, col)
+
+    def _execute_store(self, idx: Index, call: Call, pre: dict) -> bool:
+        """Store(child, f=row): the child's columns become the row, shard
+        by shard over the index's shards (a missing field is created as
+        a set field).  The child is evaluated once."""
+        child = self._only_child(call)
+        fname, val = call.field_arg()
+        if fname is None:
+            raise ExecError("Store requires field=row")
+        f = idx.field(fname)
+        if f is None:
+            f = idx.create_field(fname)
+        row_id = self._row_id_for_value(f, val, create=True)
+        shard_list = self._shard_list(idx, None)
+        done, words = self._try_stacked(
+            "Store", lambda: self.stacked.words(idx, child, shard_list, pre))
+        if not done:
+            words = bm.to_numpy(self._tree_stack(idx, child, shard_list, pre))
+        view = f.view(VIEW_STANDARD, create=True)
+        for i, shard in enumerate(shard_list):
+            view.fragment(shard, create=True).set_row_words(
+                row_id, 0 if words is None else words[i])
+        return True
+
+    def _execute_clear_row(self, idx: Index, call: Call) -> bool:
+        """ClearRow(f=row): the row emptied in every view and shard."""
+        f, val = self._write_field(idx, call, "row")
+        row_id = self._row_id_for_value(f, val)
+        if row_id is None:
+            return False
+        changed = False
+        for v in f.views.values():
+            for frag in v.fragments.values():
+                if frag.row_count(row_id):
+                    frag.set_row_words(row_id, 0)
+                    changed = True
+        return changed

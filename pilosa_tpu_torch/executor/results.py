@@ -16,11 +16,16 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
 class RowResult:
-    """A set of columns, held as per-shard packed uint32 segments."""
+    """A set of columns, held as per-shard packed uint32 segments.  On a
+    keyed index the executor sets ``keys``, the column keys in column
+    order (None for a column with no key); a set-field Distinct's row
+    ids are no columns (``is_row_ids``) and get none."""
 
     def __init__(self, width: int = SHARD_WIDTH):
         self.width = width
         self.segments: dict[int, np.ndarray] = {}
+        self.keys: list[str | None] | None = None
+        self.is_row_ids = False
 
     @classmethod
     def from_columns(cls, cols, width: int = SHARD_WIDTH) -> "RowResult":
@@ -86,9 +91,9 @@ class DistinctValues:
 
 @dataclass
 class GroupCount:
-    """One GroupBy group: [{"field": ..., "row_id": ...}, ...], its
-    column count, and the aggregate with the count of columns feeding
-    it (non-null values)."""
+    """One GroupBy group: [{"field": ..., "row_id": ...}, ...] (with
+    "row_key" on a keyed field), its column count, and the aggregate
+    with the count of columns feeding it (non-null values)."""
     group: list[dict]
     count: int = 0
     agg: Any = None
@@ -106,6 +111,7 @@ class SortedRow:
 @dataclass
 class ExtractedTable:
     """Extract result: the field names and, per column,
-    {"column": id, "rows": [one entry per field]}."""
+    {"column": id, "rows": [one entry per field]} (with "column_key" on
+    a keyed index)."""
     fields: list = field(default_factory=list)
     columns: list = field(default_factory=list)

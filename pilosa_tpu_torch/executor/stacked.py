@@ -43,7 +43,7 @@ totals are summed as int64 on the host.
 
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
@@ -85,6 +85,11 @@ _NARY_OPS = {
 
 # device-stack cache bound; least recently used stacks go first
 _CACHE_MAX_BYTES = 32 << 30
+
+# a patch dirtying more than this share of a stack's words rebuilds it
+# instead (the JAX package's default; its environment knob and
+# stats-calibrated break-even are not carried over)
+_PATCH_MAX_FRAC = 0.5
 
 # int32 device totals over S shards of 2^20 columns stay exact while
 # S * 2^20 < 2^31
@@ -391,6 +396,8 @@ class PlanBuilder:
         if f.options.type.is_bsi:
             return self._build_bsi(fname, Condition(past.OP_EQ, row_val))
         row_id = self.ex._row_id_for_value(f, row_val)
+        if row_id is None:                  # an unknown row key
+            return ("zeros",)
         try:
             views = tuple(f.views_for_range(call.arg("from"),
                                             call.arg("to")))
@@ -427,30 +434,312 @@ class PlanBuilder:
 # engine
 # ---------------------------------------------------------------------------
 
+def stamps(frags) -> tuple:
+    """Per-slot (gen, version) stamps, -1 where a slot has no fragment.
+    The version detects writes; the gen detects a retired fragment."""
+    return tuple(-1 if fr is None else (fr.gen, fr.version) for fr in frags)
+
+
+def _coalesce_runs(ranges, w: int) -> list[list[int]]:
+    """Sorted, merged (lo, hi) word runs, clamped to [0, w)."""
+    runs: list[list[int]] = []
+    for lo, hi in sorted(ranges):
+        lo, hi = max(0, lo), min(hi, w)
+        if hi <= lo:
+            continue
+        if runs and lo <= runs[-1][1]:
+            runs[-1][1] = max(runs[-1][1], hi)
+        else:
+            runs.append([lo, hi])
+    return runs
+
+
+class _Layout:
+    """How a cached stack's lanes (its (..., W) rows, flattened over the
+    leading axes) derive from its fragment slots: ``lanes(slot, row)``,
+    the lanes a fragment row feeds; ``all_lanes(slot)``, every lane the
+    slot feeds; ``words(lane)``, a lane's current host words."""
+
+    def __init__(self, words_per_lane: int):
+        self.w = words_per_lane
+
+    def _zeros(self) -> np.ndarray:
+        return np.zeros(self.w, dtype=np.uint32)
+
+
+class FragRowsLayout(_Layout):
+    """One fragment's rows, lane i = rows[i]: the per-shard engine's
+    (W,) row tiles and (2+d, W) plane tiles."""
+
+    def __init__(self, frag, rows):
+        super().__init__(frag.width // 32)
+        self.frag, self.rows = frag, rows
+
+    def lanes(self, slot: int, row: int):
+        return [i for i, r in enumerate(self.rows) if r == row]
+
+    def all_lanes(self, slot: int):
+        return range(len(self.rows))
+
+    def words(self, lane: int) -> np.ndarray:
+        return self.frag.row_words(self.rows[lane])
+
+
+class _RowsLayout(_Layout):
+    """The (R, S, W) rows stack: slot vi*S + si is view vi's fragment
+    of shard si; lane ri*S + si, row row_key[ri] of shard si unioned
+    over the views."""
+
+    def __init__(self, per_view, row_key, n_shards: int, w: int):
+        super().__init__(w)
+        self.per_view, self.row_key, self.n = per_view, row_key, n_shards
+        self._pos: dict | None = None
+
+    def lanes(self, slot: int, row: int):
+        if self._pos is None:
+            self._pos = {}
+            for ri, r in enumerate(self.row_key):
+                self._pos.setdefault(r, []).append(ri)
+        si = slot % self.n
+        return [ri * self.n + si for ri in self._pos.get(row, ())]
+
+    def all_lanes(self, slot: int):
+        si = slot % self.n
+        return [ri * self.n + si for ri in range(len(self.row_key))]
+
+    def words(self, lane: int) -> np.ndarray:
+        ri, si = divmod(lane, self.n)
+        have = [frags[si] for frags in self.per_view if frags[si] is not None]
+        if len(have) == 1:                  # read-only: the caller copies
+            return have[0].row_words(self.row_key[ri])
+        out = self._zeros()
+        for fr in have:
+            out |= fr.row_words(self.row_key[ri])
+        return out
+
+
+class _PlanesLayout(_Layout):
+    """The (S, 2+d, W) plane stack: slot si, lane si*(2+d) + r."""
+
+    def __init__(self, frags, depth: int, w: int):
+        super().__init__(w)
+        self.frags, self.p = frags, 2 + depth
+
+    def lanes(self, slot: int, row: int):
+        return [slot * self.p + row] if row < self.p else []
+
+    def all_lanes(self, slot: int):
+        return range(slot * self.p, (slot + 1) * self.p)
+
+    def words(self, lane: int) -> np.ndarray:
+        si, r = divmod(lane, self.p)
+        fr = self.frags[si]
+        return self._zeros() if fr is None else fr.row_words(r)
+
+
+class _GroupcodeLayout(_Layout):
+    """The (S, CB+1, W) group-code stack: slot fi*S + si is field fi's
+    fragment of shard si; a row at digit di feeds the code planes of
+    di's set bits at the field's shift, and the valid plane (lane CB of
+    the shard), the AND of the fields' row unions."""
+
+    def __init__(self, fields_rows, per_field, shifts, cb: int,
+                 n_shards: int, w: int):
+        super().__init__(w)
+        self.rls = [[int(r) for r in rl] for _f, rl in fields_rows]
+        self.per_field, self.shifts = per_field, shifts
+        self.cb, self.n = cb, n_shards
+
+    def lanes(self, slot: int, row: int):
+        fi, si = divmod(slot, self.n)
+        base = si * (self.cb + 1)
+        out = []
+        for di, r in enumerate(self.rls[fi]):
+            if r == row:
+                out += [base + self.shifts[fi] + b
+                        for b in range(di.bit_length()) if (di >> b) & 1]
+                out.append(base + self.cb)
+        return out
+
+    def all_lanes(self, slot: int):
+        fi, si = divmod(slot, self.n)
+        base = si * (self.cb + 1)
+        bits = bm.digit_bits(len(self.rls[fi]))
+        return [base + self.shifts[fi] + b for b in range(bits)] + [
+            base + self.cb]
+
+    def words(self, lane: int) -> np.ndarray:
+        si, p = divmod(lane, self.cb + 1)
+        if p == self.cb:
+            out = np.full(self.w, 0xFFFFFFFF, dtype=np.uint32)
+            for rl, frags in zip(self.rls, self.per_field):
+                union = self._zeros()
+                if frags[si] is not None:
+                    for r in rl:
+                        union |= frags[si].row_words(r)
+                out &= union
+            return out
+        fi = max(i for i, sh in enumerate(self.shifts) if sh <= p)
+        b = p - self.shifts[fi]
+        out = self._zeros()
+        fr = self.per_field[fi][si]
+        if fr is not None:
+            for di, r in enumerate(self.rls[fi]):
+                if (di >> b) & 1:
+                    out |= fr.row_words(r)
+        return out
+
+
 class StackCache:
-    """Device stacks keyed by what they were built from, each tagged
-    with its fragments' (gen, version) stamps: a stamp mismatch
-    rebuilds.  Least recently used stacks are dropped past max_bytes."""
+    """Device stacks keyed by what they were built from, each tagged with
+    its fragment slots' (gen, version) stamps.  A stale entry is
+    patched in place: the slots' delta logs name the dirty (lane, word
+    run) spans, each run is read from the live host rows and scattered
+    with ``bm.patch_rows``, and the entry adopts the new stamps.  A
+    slot that gained or lost its fragment patches its whole lanes.  The
+    cache rebuilds only where a patch cannot serve, each case counted
+    in ``rebuilds`` by its reason:
+
+    - "cold": no entry under the key; the key names the shard list, the
+      rows and the bit depth, so a new shard, row set, depth or field
+      is a new key;
+    - "coverage": a delta log no longer reaches back to the entry's
+      version;
+    - "gen": a fragment's gen moved (a retired fragment);
+    - "dirty_frac": the patch would write more than _PATCH_MAX_FRAC of
+      the stack's words.
+
+    A patch that raises propagates, the entry out of the cache: nothing
+    falls back to a rebuild.  Counters: ``hits``, ``adopts`` (a stale
+    entry no logged write touched, which takes the new stamps as it
+    is), ``patches``, ``patched_bytes`` (the padded runs' words),
+    ``full_rebuilds`` and ``rebuilt_bytes`` (every build, cold ones
+    included, as the JAX package's TileStackCache counts them).  Least
+    recently used stacks are dropped past max_bytes."""
 
     def __init__(self, max_bytes: int = _CACHE_MAX_BYTES):
         self.max_bytes = max_bytes
         self._entries: OrderedDict = OrderedDict()
         self._bytes = 0
+        self.hits = self.adopts = self.patches = self.patched_bytes = 0
+        self.full_rebuilds = self.rebuilt_bytes = 0
+        self.rebuilds: Counter = Counter()
 
-    def get(self, key, versions: tuple, build) -> torch.Tensor:
+    def keys(self) -> list:
+        """The keys of the resident stacks, least recently used first."""
+        return list(self._entries)
+
+    def counters(self) -> dict:
+        return {"hits": self.hits, "adopts": self.adopts,
+                "patches": self.patches,
+                "patched_bytes": self.patched_bytes,
+                "full_rebuilds": self.full_rebuilds,
+                "rebuilt_bytes": self.rebuilt_bytes,
+                "rebuilds": dict(self.rebuilds)}
+
+    def get(self, key, frags, build, make_layout) -> torch.Tensor:
+        """The stack under key, fresh for the fragment slots `frags`:
+        a hit, a patch through the _Layout that make_layout() gives
+        (called only for a stale entry), or build()."""
+        versions = stamps(frags)
         ent = self._entries.get(key)
         if ent is not None and ent[0] == versions:
             self._entries.move_to_end(key)
+            self.hits += 1
             return ent[1]
-        if ent is not None:
+        if ent is None:
+            reason = "cold"
+        else:
             self._drop(key)
+            layout = make_layout()
+            dirty = self._dirty_lanes(frags, layout, ent[0], versions)
+            if isinstance(dirty, str):
+                reason = dirty
+            else:
+                moved = self._apply_patch(ent[1], dirty, layout)
+                if moved is not None:
+                    if dirty:
+                        self.patches += 1
+                        self.patched_bytes += moved
+                    else:
+                        self.adopts += 1
+                    self._insert(key, versions, ent[1])
+                    return ent[1]
+                reason = "dirty_frac"
         t = build()
+        nbytes = t.numel() * t.element_size()
+        self.full_rebuilds += 1
+        self.rebuilt_bytes += nbytes
+        self.rebuilds[reason] += 1
+        self._insert(key, versions, t)
+        return t
+
+    @staticmethod
+    def _dirty_lanes(frags, layout: _Layout, old: tuple, new: tuple):
+        """{lane: [(lo, hi) runs] or None for the whole lane} written
+        between the stamps (one a slot, in slot order: the key fixes the
+        slots), or the reason a patch cannot serve."""
+        dirty: dict = {}
+        for slot, (fr, ov, nv) in enumerate(zip(frags, old, new)):
+            if ov == nv:
+                continue
+            if ov == -1 or nv == -1:
+                for ln in layout.all_lanes(slot):
+                    dirty[ln] = None
+                continue
+            if ov[0] != nv[0]:
+                return "gen"
+            spans = fr.deltas_since(ov[1])
+            if spans is None:
+                return "coverage"
+            for row, lo, hi in spans:
+                for ln in layout.lanes(slot, row):
+                    cur = dirty.get(ln, False)
+                    if cur is None:
+                        continue
+                    if cur is False:
+                        dirty[ln] = cur = []
+                    cur.append((lo, hi))
+        return dirty
+
+    @staticmethod
+    def _apply_patch(t: torch.Tensor, dirty: dict, layout: _Layout):
+        """Scatter the dirty runs into t in place; the bytes written, or
+        None when they pass _PATCH_MAX_FRAC of t.  Runs pad to
+        power-of-two widths (the content comes from the live rows, so
+        widening is exact) and land in one patch_rows call a width."""
+        w = t.shape[-1]
+        segs = []
+        for lane in sorted(dirty):
+            runs = dirty[lane]
+            runs = [(0, w)] if runs is None else _coalesce_runs(runs, w)
+            for lo, hi in runs:
+                plen = min(1 << (hi - lo - 1).bit_length(), w)
+                segs.append((min(lo, w - plen), plen, lane))
+        words = sum(plen for _s, plen, _l in segs)
+        if words > _PATCH_MAX_FRAC * t.numel():
+            return None
+        cur: dict[int, np.ndarray] = {}
+        by_len: dict[int, list] = {}
+        for start, plen, lane in segs:
+            by_len.setdefault(plen, []).append((lane, start))
+        flat = t.view(-1, w)
+        for plen, group in sorted(by_len.items()):
+            data = np.empty((len(group), plen), dtype=np.uint32)
+            for k, (lane, start) in enumerate(group):
+                if lane not in cur:
+                    cur[lane] = layout.words(lane)
+                data[k] = cur[lane][start:start + plen]
+            bm.patch_rows(flat, [ln for ln, _s in group],
+                          [s_ for _l, s_ in group], data)
+        return words * 4
+
+    def _insert(self, key, versions: tuple, t: torch.Tensor) -> None:
         nbytes = t.numel() * t.element_size()
         while self._entries and self._bytes + nbytes > self.max_bytes:
             self._drop(next(iter(self._entries)))
         self._entries[key] = (versions, t)
         self._bytes += nbytes
-        return t
 
     def _drop(self, key) -> None:
         _v, t = self._entries.pop(key)
@@ -470,17 +759,12 @@ class StackedEngine:
         # "onehot" where its bounds hold (_onepass_kernel)
         self.onepass_arm = "fused"
 
-    # -- stack builders (cached) -------------------------------------------
+    # -- stack builders (cached, patched on write) --------------------------
 
-    @staticmethod
-    def _versions(frags) -> tuple:
-        return tuple(-1 if fr is None else (fr.gen, fr.version)
-                     for fr in frags)
-
-    def _stack(self, key, frags, build_host) -> torch.Tensor:
+    def _stack(self, key, frags, build_host, make_layout) -> torch.Tensor:
         return self.cache.get(
-            key, self._versions(frags),
-            lambda: bm.to_tensor(build_host(), self.device))
+            key, frags, lambda: bm.to_tensor(build_host(), self.device),
+            make_layout)
 
     def _frags(self, field, view: str, shards):
         v = field.views.get(view)
@@ -504,7 +788,9 @@ class StackedEngine:
 
         return self._stack(("rows", idx.name, field.name, views, row_key,
                             skey), [fr for fs in per_view for fr in fs],
-                           build_host)
+                           build_host,
+                           lambda: _RowsLayout(per_view, row_key, len(skey),
+                                               idx.width // 32))
 
     def row_stack(self, idx, field, views: tuple[str, ...], row_id: int,
                   skey: tuple) -> torch.Tensor:
@@ -526,7 +812,9 @@ class StackedEngine:
             return out
 
         return self._stack(("planes", idx.name, field.name, depth, skey),
-                           frags, build_host)
+                           frags, build_host,
+                           lambda: _PlanesLayout(frags, depth,
+                                                 idx.width // 32))
 
     def existence_stack(self, idx, skey: tuple) -> torch.Tensor:
         from pilosa_tpu_torch.models.index import EXISTENCE_FIELD
@@ -642,7 +930,9 @@ class StackedEngine:
     def _rows_disjoint(self, idx, f, row_ids, skey: tuple) -> bool:
         """True iff no column is set in two of `row_ids` of f: per
         fragment, the sum of the rows' popcounts equals the popcount of
-        their union.  Cached by the fragments' version stamps."""
+        their union.  Cached per fragment under its stamp, so after a
+        write only the written fragments are checked again, and none
+        where an unwritten one already overlaps (None: not known)."""
         if f.options.type in (FieldType.MUTEX, FieldType.BOOL):
             return True
         row_key = tuple(int(r) for r in row_ids)
@@ -650,28 +940,35 @@ class StackedEngine:
             return False  # a duplicated row belongs to two combos
         key = (idx.name, f.name, row_key, skey)
         frags = self._frags(f, VIEW_STANDARD, skey)
-        versions = self._versions(frags)
+        versions = stamps(frags)
         ent = self._disjoint_cache.get(key)
+        # an entry holds None (not known) only beside a False
         if ent is not None and ent[0] == versions:
             self._disjoint_cache.move_to_end(key)
-            return ent[1]
-        ok = True
-        for fr in frags:
-            if fr is None:
-                continue
-            acc = None
-            total = 0
-            for r in row_key:
-                wds = fr.row_words(r)
-                total += int(np.bitwise_count(wds).sum())
-                acc = wds.copy() if acc is None else acc | wds
-            if acc is not None and total != int(np.bitwise_count(acc).sum()):
-                ok = False
+            return False not in ent[1]
+        old = ent if ent is not None and len(ent[0]) == len(versions) \
+            else (versions, [None] * len(frags))
+        oks = [was if ov == nv else None
+               for ov, nv, was in zip(old[0], versions, old[1])]
+        for i, fr in enumerate(frags):
+            if False in oks:
                 break
-        self._disjoint_cache[key] = (versions, ok)
+            if oks[i] is None:
+                oks[i] = fr is None or self._frag_disjoint(fr, row_key)
+        self._disjoint_cache[key] = (versions, oks)
+        self._disjoint_cache.move_to_end(key)
         while len(self._disjoint_cache) > 4096:
             self._disjoint_cache.popitem(last=False)
-        return ok
+        return False not in oks
+
+    @staticmethod
+    def _frag_disjoint(fr, row_key) -> bool:
+        acc, total = None, 0
+        for r in row_key:
+            wds = fr.row_words(r)
+            total += int(np.bitwise_count(wds).sum())
+            acc = wds.copy() if acc is None else acc | wds
+        return total == int(np.bitwise_count(acc).sum())
 
     def groupcode_stack(self, idx, fields_rows, skey: tuple) -> torch.Tensor:
         """(S, CB+1, W) group-code stack: CB packed code bit-planes (each
@@ -707,7 +1004,10 @@ class StackedEngine:
             return out
 
         return self._stack(("groupcodes", idx.name, fkey, skey),
-                           [fr for fs in per_field for fr in fs], build_host)
+                           [fr for fs in per_field for fr in fs], build_host,
+                           lambda: _GroupcodeLayout(
+                               fields_rows, per_field, shifts, cb, len(skey),
+                               idx.width // 32))
 
     def _groupby_onepass_fits(self, idx, fields_rows, skey: tuple) -> bool:
         """The one-pass histogram's correctness bounds: a dense code space

@@ -6,7 +6,8 @@ views for time fields); BSI types (int, decimal, timestamp) write
 sign-magnitude bit-planes into a ``bsig_<field>`` view.  Mutex keeps one
 row per column; bool is a two-row mutex (false=0, true=1).
 
-String row keys (``keys=True``) are not ported yet.
+A ``keys=True`` field translates string row keys to row ids through its
+own sequential ``TranslateStore`` (``row_translator``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from pilosa_tpu_torch.models.view import (
 )
 from pilosa_tpu_torch.ops.bsi import depth_for_range
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.storage.translate import TranslateStore
 
 FALSE_ROW, TRUE_ROW = 0, 1  # bool field rows (field.go falseRowID/trueRowID)
 
@@ -49,6 +51,7 @@ class Field:
         self.options = options or FieldOptions()
         self.width = width
         self.views: dict[str, View] = {}
+        self._row_translator: TranslateStore | None = None
         # BSI depth grows with observed magnitudes (bsiGroup, field.go:2394)
         if self.options.type.is_bsi:
             lo, hi = self.options.min, self.options.max
@@ -76,6 +79,22 @@ class Field:
     @property
     def bsi_view(self) -> str:
         return bsi_view_name(self.name)
+
+    @property
+    def row_translator(self) -> TranslateStore | None:
+        """The row-key store of a keys=True field (field.go's per-field
+        TranslateStore), made at first use; None on an unkeyed field."""
+        if not self.options.keys:
+            return None
+        if self._row_translator is None:
+            self._row_translator = TranslateStore(index=self.index_name,
+                                                  partition_id=-1)
+        return self._row_translator
+
+    def close(self) -> None:
+        if self._row_translator is not None:
+            self._row_translator.close()
+            self._row_translator = None
 
     @property
     def available_shards(self) -> set[int]:
@@ -161,9 +180,31 @@ class Field:
             shard, create=True)
         return frag.set_value(shard_col, self.bit_depth, iv)
 
-    def import_values(self, cols, values) -> None:
-        """Bulk BSI import, grouped by shard."""
+    def clear_value(self, col: int) -> bool:
+        """Drop a column's BSI value (every plane); True if it held one
+        bit or more."""
+        shard, shard_col = divmod(col, self.width)
+        v = self.view(self.bsi_view)
+        frag = v.fragment(shard) if v else None
+        return frag.clear_value(shard_col, self.bit_depth) if frag else False
+
+    def import_values(self, cols, values, clear: bool = False) -> None:
+        """Bulk BSI import, grouped by shard.  ``clear`` drops the values
+        at the given columns instead (the bulk clear_value; values are
+        ignored)."""
         cols = np.asarray(cols, dtype=np.int64)
+        if clear:
+            v = self.view(self.bsi_view)
+            if v is None or cols.size == 0:
+                return
+            order, groups = _shard_groups(cols // self.width)
+            cols_s = cols[order]
+            for shard, lo, hi in groups:
+                frag = v.fragment(int(shard))
+                if frag is not None:
+                    frag.import_values(cols_s[lo:hi] % self.width, None,
+                                       self.bit_depth, clear=True)
+            return
         va = np.asarray(values)
         if va.dtype.kind in "iu" and self.options.type == FieldType.INT:
             ivs = va.astype(np.int64)
@@ -181,10 +222,24 @@ class Field:
             view.fragment(int(shard), create=True).import_values(
                 cols_s[lo:hi] % self.width, ivs_s[lo:hi], self.bit_depth)
 
-    def import_bits(self, rows, cols, timestamps=None) -> None:
-        """Bulk set-bit import, grouped by shard (plus time views)."""
+    def import_bits(self, rows, cols, timestamps=None,
+                    clear: bool = False) -> None:
+        """Bulk set-bit import, grouped by shard (plus time views).
+        ``clear`` clears the (row, col) pairs in every view instead (the
+        bulk clear_bit)."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
+        if clear:
+            order, groups = _shard_groups(cols // self.width)
+            rows_s, cols_s = rows[order], cols[order]
+            for shard, lo, hi in groups:
+                for v in self.views.values():
+                    frag = v.fragment(int(shard))
+                    if frag is not None:
+                        frag.import_bits(rows_s[lo:hi],
+                                         cols_s[lo:hi] % self.width,
+                                         clear=True)
+            return
         mutexish = self.options.type in (FieldType.MUTEX, FieldType.BOOL)
         order, groups = _shard_groups(cols // self.width)
         rows_s, cols_s = rows[order], cols[order]

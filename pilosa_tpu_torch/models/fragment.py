@@ -16,13 +16,22 @@ Device copies do not live here: the stacked engine
 (``executor/stacked.py``) assembles (S, W) shard stacks from
 ``row_words``, and the per-shard engine (``executor.TileCache``)
 uploads (W,) rows and (2+d, W) planes; each keeps them on its device
-in its own cache keyed by the fragment's ``(gen, version)`` stamp,
-which every mutation bumps.
+in its own cache, tagged with the fragment's ``(gen, version)`` stamp.
+
+Every mutation ends in ``touch(row, lo, hi)`` once its bytes have
+landed: the version moves and the delta log records the (row, word
+span) it dirtied.  The log is a window of the last ``DELTA_LOG_MAX``
+entries; ``deltas_since(v)`` lists the spans written after version v,
+or None when the window no longer reaches back to v, and the device
+caches patch those spans instead of uploading the stack again.
+``bump_gen`` retires the fragment's identity: every stamp taken before
+compares unequal, and a cache rebuilds.
 """
 
 from __future__ import annotations
 
 import itertools
+from collections import deque
 
 import numpy as np
 
@@ -39,6 +48,10 @@ from pilosa_tpu_torch.shardwidth import (
 # a device stack built from a dropped fragment can never be mistaken
 # for one built from its successor
 _FRAG_GEN = itertools.count(1)
+
+# delta-log window a fragment keeps (the JAX package's
+# PILOSA_TPU_DELTA_LOG_MAX default); read at each append
+DELTA_LOG_MAX = 256
 
 
 class Fragment:
@@ -57,7 +70,14 @@ class Fragment:
         # bumped by every host mutation; device stacks compare it
         self.version = 0
         self.gen = next(_FRAG_GEN)
-        self._row_ids_cache: tuple[int, list[int]] | None = None
+        # (version after the mutation, row, word_lo, word_hi) of the
+        # mutations after version _delta_floor
+        self._delta_log: deque = deque()
+        self._delta_floor = 0
+        # the non-empty row ids, sorted (None until first read), and the
+        # rows written since: only those are checked again
+        self._row_ids_cache: list[int] | None = None
+        self._rows_touched: set[int] = set()
         # TopN rank cache (fragment.openCache, fragment.go:201): counts
         # refresh lazily for rows written since the last read, in write
         # order (LRU recency survives the batching)
@@ -76,15 +96,42 @@ class Fragment:
         if arr.size > SPARSE_MAX:
             self._densify(row)
 
-    def _touch(self, row: int) -> None:
+    def touch(self, row: int, lo: int | None = None,
+              hi: int | None = None) -> None:
+        """After a mutation's bytes land: the version moves and the delta
+        log records the row's dirtied words [lo, hi) (the whole row when
+        lo is None), one entry a mutation.  Entries past DELTA_LOG_MAX
+        drop off the front, the floor rising to the dropped version."""
         self.version += 1
+        if lo is None:
+            lo, hi = 0, self.width // 32
+        self._rows_touched.add(row)
+        log = self._delta_log
+        log.append((self.version, row, lo, hi))
+        while len(log) > DELTA_LOG_MAX:
+            self._delta_floor = log.popleft()[0]
         if self._cache is not None:
             self._cache_stale.pop(row, None)
             self._cache_stale[row] = None
 
+    def deltas_since(self, version: int):
+        """The (row, word_lo, word_hi) spans of every mutation after
+        `version`, or None when the log cannot prove coverage: the
+        version predates the window, or this fragment never reached
+        it."""
+        if version < self._delta_floor or version > self.version:
+            return None
+        return [(r, lo, hi) for (v, r, lo, hi) in self._delta_log
+                if v > version]
+
+    def bump_gen(self) -> None:
+        """Retire the fragment's cache identity: every (gen, version)
+        stamp taken before compares unequal afterwards."""
+        self.gen = next(_FRAG_GEN)
+
     def _row_mut(self, row: int) -> np.ndarray:
         """Mutable dense words of a row (densifying if needed); the
-        caller calls _touch(row) after writing."""
+        caller calls touch() after writing."""
         w = self._rows.get(row)
         if w is None:
             w = (self._densify(row) if row in self._sparse
@@ -99,15 +146,18 @@ class Fragment:
     # -- host mutation -----------------------------------------------------
 
     def set_row_words(self, row: int, words) -> None:
-        """Replace a whole row; it re-compresses under the threshold."""
-        w = np.array(words, dtype=np.uint32).reshape(self.width // 32)
+        """Replace a whole row (the Store and ClearRow write path; a
+        scalar fills every word); it re-compresses under the
+        threshold."""
+        w = bm.empty(self.width)
+        w[:] = np.asarray(words, dtype=np.uint32)
         self._rows.pop(row, None)
         self._sparse.pop(row, None)
         if int(np.bitwise_count(w).sum()) <= SPARSE_MAX:
             self._sparse[row] = bm.to_columns(w).astype(np.int64)
         else:
             self._rows[row] = w
-        self._touch(row)
+        self.touch(row)
 
     def set_bit(self, row: int, col: int) -> bool:
         """Set one bit; True if it changed (fragment.setBit)."""
@@ -120,13 +170,13 @@ class Fragment:
             if i < arr.size and arr[i] == col:
                 return False
             self._store_cols(row, np.insert(arr, i, col))
-            self._touch(row)
+            self.touch(row, col >> 5, (col >> 5) + 1)
             return True
         b = np.uint32(1) << np.uint32(col & 31)
         if words[col >> 5] & b:
             return False
         words[col >> 5] |= b
-        self._touch(row)
+        self.touch(row, col >> 5, (col >> 5) + 1)
         return True
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -139,13 +189,13 @@ class Fragment:
             if i >= arr.size or arr[i] != col:
                 return False
             self._sparse[row] = np.delete(arr, i)
-            self._touch(row)
+            self.touch(row, col >> 5, (col >> 5) + 1)
             return True
         b = np.uint32(1) << np.uint32(col & 31)
         if not words[col >> 5] & b:
             return False
         words[col >> 5] &= ~b
-        self._touch(row)
+        self.touch(row, col >> 5, (col >> 5) + 1)
         return True
 
     def import_bits(self, rows, cols, clear: bool = False) -> None:
@@ -164,6 +214,8 @@ class Fragment:
         for r, lo, hi in zip(rows_s[starts].tolist(), starts.tolist(),
                              bounds.tolist()):
             sel = cols_s[lo:hi]
+            # the words this row's columns dirty
+            wlo, whi = int(sel.min()) >> 5, (int(sel.max()) >> 5) + 1
             if r not in self._rows:
                 arr = self._sparse.get(r)
                 if clear:
@@ -175,7 +227,7 @@ class Fragment:
                 else:
                     self._store_cols(r, np.unique(sel) if arr is None
                                      else np.union1d(arr, sel))
-                self._touch(r)
+                self.touch(r, wlo, whi)
                 continue
             mask = bm.from_columns(sel, self.width)
             words = self._rows[r]
@@ -183,30 +235,34 @@ class Fragment:
                 words &= ~mask
             else:
                 words |= mask
-            self._touch(r)
+            self.touch(r, wlo, whi)
 
     def import_row_words(self, row: int, words) -> None:
         """Bulk dense-row import: OR pre-packed words into a row (the
         dense analog of fragment.importRoaring, fragment.go:2038)."""
         w = self._row_mut(row)
         np.bitwise_or(w, np.asarray(words, dtype=np.uint32), out=w)
-        self._touch(row)
+        self.touch(row)
 
     def clear_columns(self, mask_words: np.ndarray) -> bool:
         """Clear the masked columns in every row; True if any changed."""
         mask = np.asarray(mask_words, dtype=np.uint32)
+        nz = np.flatnonzero(mask)
+        if not nz.size:
+            return False
+        wlo, whi = int(nz[0]), int(nz[-1]) + 1
         changed = False
         for r, row in list(self._rows.items()):
             if (row & mask).any():
                 row &= ~mask
-                self._touch(r)
+                self.touch(r, wlo, whi)
                 changed = True
         for r, arr in list(self._sparse.items()):
             hit = ((mask[arr >> 5] >> (arr & 31).astype(np.uint32))
                    & 1).astype(bool)
             if hit.any():
                 self._sparse[r] = arr[~hit]
-                self._touch(r)
+                self.touch(r, wlo, whi)
                 changed = True
         return changed
 
@@ -241,10 +297,29 @@ class Fragment:
             changed |= self.clear_bit(BSI_SIGN_BIT, col)
         return changed
 
-    def import_values(self, cols, values, depth: int) -> None:
+    def clear_value(self, col: int, depth: int) -> bool:
+        """Drop a column's value: its bit in every plane, exists first."""
+        changed = False
+        for r in range(2 + depth):
+            changed |= self.clear_bit(r, col)
+        return changed
+
+    def import_values(self, cols, values, depth: int,
+                      clear: bool = False) -> None:
         """Bulk BSI write (fragment.importValue): last write per column
-        wins; the written columns are replaced in every plane."""
+        wins; the written columns are replaced in every plane.  ``clear``
+        drops the columns' values instead (values are ignored)."""
         cols = np.asarray(cols, dtype=np.int64)
+        if clear:
+            if cols.size == 0:
+                return
+            self._check_cols(cols)
+            wlo, whi = int(cols.min()) >> 5, (int(cols.max()) >> 5) + 1
+            touched = bm.from_columns(cols, self.width)
+            for r in range(2 + depth):
+                self._row_mut(r)[:] &= ~touched
+                self.touch(r, wlo, whi)
+            return
         vals = np.asarray(values, dtype=np.int64).reshape(-1)
         if cols.shape != vals.shape:
             raise ValueError("cols and values differ in length")
@@ -262,6 +337,7 @@ class Fragment:
             raise ValueError(
                 f"value magnitude needs {int(mags.max()).bit_length()} "
                 f"bits, fragment depth is {depth}")
+        wlo, whi = int(cols.min()) >> 5, (int(cols.max()) >> 5) + 1
         touched = bm.from_columns(cols, self.width)
         planes = [touched, bm.from_columns(cols[neg], self.width)]
         planes += [bm.from_columns(
@@ -271,20 +347,36 @@ class Fragment:
             w = self._row_mut(r)
             w &= ~touched
             w |= new
-            self._touch(r)
+            self.touch(r, wlo, whi)
 
     # -- reads -------------------------------------------------------------
 
+    def _has_bits(self, row: int) -> bool:
+        w = self._rows.get(row)
+        if w is not None:
+            return bool(w.any())
+        arr = self._sparse.get(row)
+        return arr is not None and arr.size > 0
+
     @property
     def row_ids(self) -> list[int]:
-        cached = self._row_ids_cache
-        if cached is not None and cached[0] == self.version:
-            return list(cached[1])
-        ids = [r for r, w in self._rows.items() if w.any()]
-        ids += [r for r, a in self._sparse.items() if a.size]
-        ids.sort()
-        self._row_ids_cache = (self.version, ids)
-        return list(ids)
+        """The ids of the rows holding a bit, ascending.  After writes
+        only the written rows are checked again."""
+        if self._row_ids_cache is None:
+            self._row_ids_cache = sorted(
+                r for r in set(self._rows) | set(self._sparse)
+                if self._has_bits(r))
+            self._rows_touched.clear()
+        elif self._rows_touched:
+            ids = set(self._row_ids_cache)
+            for r in self._rows_touched:
+                if self._has_bits(r):
+                    ids.add(r)
+                else:
+                    ids.discard(r)
+            self._row_ids_cache = sorted(ids)
+            self._rows_touched.clear()
+        return list(self._row_ids_cache)
 
     def row_words(self, row: int) -> np.ndarray:
         """Packed host words of a row (zeros if absent); read-only."""

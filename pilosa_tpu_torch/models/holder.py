@@ -1,6 +1,8 @@
 """Holder — root of all data (holder.go:58): the index map.
 
-Host rows only; schema and bitmap persistence are not ported yet.
+Host rows only: an index is made keyed (string column keys) with
+``create_index(name, keys=True)``.  Schema and bitmap persistence are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -25,3 +27,7 @@ class Holder:
 
     def index(self, name: str) -> Index | None:
         return self.indexes.get(name)
+
+    def close(self) -> None:
+        for idx in self.indexes.values():
+            idx.close()

@@ -2,7 +2,8 @@
 
 Column existence is tracked in a hidden ``_exists`` field when
 track_existence is on (index.go existenceFieldName); it backs Not() and
-All().  Keyed indexes (string column keys) are not ported yet.
+All().  A keyed index (``keys=True``) translates string column keys to
+column ids through a ``PartitionedTranslator`` (``column_translator``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 from pilosa_tpu_torch.models.field import Field
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.storage.translate import PartitionedTranslator
 
 EXISTENCE_FIELD = "_exists"
 
@@ -24,8 +26,28 @@ class Index:
         self.track_existence = track_existence
         self.width = width
         self.fields: dict[str, Field] = {}
+        self._column_translator: PartitionedTranslator | None = None
         if track_existence:
             self._ensure_existence()
+
+    @property
+    def column_translator(self) -> PartitionedTranslator | None:
+        """The partitioned column-key translator of a keys=True index,
+        made at first use; None on an unkeyed index."""
+        if not self.keys:
+            return None
+        if self._column_translator is None:
+            self._column_translator = PartitionedTranslator(
+                self.name, shard_width=self.width)
+        return self._column_translator
+
+    def close(self) -> None:
+        """Close the index's key translators (its own and its fields')."""
+        if self._column_translator is not None:
+            self._column_translator.close()
+            self._column_translator = None
+        for f in self.fields.values():
+            f.close()
 
     def _ensure_existence(self) -> Field:
         f = self.fields.get(EXISTENCE_FIELD)

@@ -56,12 +56,17 @@ def from_columns(cols, width: int = SHARD_WIDTH) -> np.ndarray:
 
 
 def to_columns(words) -> np.ndarray:
-    """Unpack a packed row into its sorted set column ids."""
+    """Unpack a packed row into its sorted set column ids.  Only the
+    nonzero words unpack, so a sparse row costs its words' scan, not a
+    byte per column."""
     words = np.asarray(words, dtype=np.uint32)
-    # little-endian bytes + little bit order: bit i of word w lands at
-    # flat index w*32 + i, the LSB-first layout
-    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
-    return np.nonzero(bits)[0].astype(np.uint64)
+    nz = np.flatnonzero(words)
+    # little-endian bytes + little bit order: bit i of a word lands at
+    # index i of its 32, the LSB-first layout
+    bits = np.unpackbits(words[nz].view(np.uint8),
+                         bitorder="little").reshape(nz.size, BITS_PER_WORD)
+    w, b = np.nonzero(bits)
+    return (nz[w].astype(np.uint64) << np.uint64(5)) | b.astype(np.uint64)
 
 
 def range_mask(start: int, end: int, width: int = SHARD_WIDTH) -> np.ndarray:
@@ -202,6 +207,70 @@ def intersect_rows(rows: torch.Tensor) -> torch.Tensor:
     for i in range(1, rows.shape[0]):
         acc &= rows[i]
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Stack patching (resident stacks patched on write)
+# ---------------------------------------------------------------------------
+#
+# A write's delta log names the dirty (lane, word-run) spans of a
+# resident stack; these scatter the runs' current words into it, so a
+# point write uploads a few words instead of the stack.
+
+def _run_bounds(shape, idxs, starts, p: int):
+    """Host int64 (idxs, starts), checked: every run of p words lies
+    within one lane of an (L, W) stack."""
+    idxs = np.asarray(idxs, dtype=np.int64).reshape(-1)
+    starts = np.asarray(starts, dtype=np.int64).reshape(-1)
+    n_lanes, w = shape
+    if idxs.shape != starts.shape:
+        raise ValueError("idxs and starts differ in length")
+    if idxs.size and (idxs.min() < 0 or idxs.max() >= n_lanes
+                      or starts.min() < 0 or starts.max() + p > w):
+        raise ValueError(f"a run of {p} words lies outside the "
+                         f"({n_lanes}, {w}) stack")
+    return idxs, starts
+
+
+def patch_rows(stack2d: torch.Tensor, idxs, starts, data) -> torch.Tensor:
+    """Scatter word runs into an (L, W) int32 stack in place: run k
+    replaces ``stack2d[idxs[k], starts[k]:starts[k]+P]`` with
+    ``data[k]`` (data (N, P), host uint32 or a device int32 tensor;
+    each run within one lane).  The runs' flat word indices are formed
+    on the stack's device and the words land in one ``index_copy_``
+    over the flattened stack, which must be contiguous.  Runs that
+    overlap must carry the same words (the cache's runs are read from
+    the live rows), since the order they land in is not fixed.  Returns
+    stack2d."""
+    if stack2d.ndim != 2 or not stack2d.is_contiguous():
+        raise ValueError("patch_rows needs a contiguous (L, W) stack")
+    dev = stack2d.device
+    if not isinstance(data, torch.Tensor):
+        data = to_tensor(np.asarray(data, dtype=np.uint32), dev)
+    n, p = data.shape
+    idxs, starts = _run_bounds(stack2d.shape, idxs, starts, p)
+    if idxs.size != n:
+        raise ValueError("data and idxs differ in length")
+    if n == 0:
+        return stack2d
+    base = torch.from_numpy(idxs * stack2d.shape[1] + starts).to(dev)
+    flat = (base.unsqueeze(1) + torch.arange(p, device=dev)).reshape(-1)
+    stack2d.view(-1).index_copy_(0, flat, data.to(dev).reshape(-1))
+    return stack2d
+
+
+def patch_rows_np(stack2d: np.ndarray, idxs, starts, data: np.ndarray,
+                  out=None) -> np.ndarray:
+    """Host twin of patch_rows on uint32 words.  Copies by default; pass
+    ``out`` (stack2d itself, or a copy) to write in place."""
+    data = np.asarray(data, dtype=np.uint32)
+    idxs, starts = _run_bounds(stack2d.shape, idxs, starts, data.shape[1])
+    if out is None:
+        out = stack2d.copy()
+    p = data.shape[1]
+    for k in range(idxs.size):
+        out[idxs[k], starts[k]:starts[k] + p] = data[k]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -794,3 +794,93 @@ def test_percentile_launches_kernels_and_never_a_plain_version(cuda,
             assert repr(ex.execute("s", q)) == want, q
         assert K.LAUNCHES["bsi_range"] > 0, K.LAUNCHES
         assert (K.LAUNCHES["groupby_fused"] > 0) == stacked, K.LAUNCHES
+
+
+@pytest.mark.parametrize("plen", [1, 3, 64, 32768])
+def test_patch_rows_on_the_card(cuda, plen):
+    """patch_rows scatters word runs into a CUDA stack in place, equal to
+    patch_rows_np on the host words."""
+    from pilosa_tpu_torch.ops import bitmap as bm
+
+    rng = np.random.default_rng(plen)
+    w = max(plen, 4096)
+    host = rng.integers(0, 1 << 32, size=(40, w), dtype=np.uint32)
+    n = 17
+    idxs = rng.choice(40, size=n, replace=False)
+    starts = rng.integers(0, w - plen + 1, size=n)
+    data = rng.integers(0, 1 << 32, size=(n, plen), dtype=np.uint32)
+    t = bm.to_tensor(host, cuda)
+    ptr = t.data_ptr()
+    out = bm.patch_rows(t, idxs, starts, data)
+    torch.cuda.synchronize()
+    assert out is t and t.data_ptr() == ptr and t.device.type == "cuda"
+    assert np.array_equal(bm.to_numpy(t),
+                          bm.patch_rows_np(host, idxs, starts, data))
+
+
+def test_patched_stacks_on_the_card_equal_rebuilds(cuda):
+    """Writes through execute patch the card's resident stacks and tiles
+    in place (counted as patches, no rebuild); each patched stack and
+    tile equals a fresh executor's build bit for bit, and the answers
+    equal the CPU's."""
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+    from pilosa_tpu_torch.models.view import VIEW_STANDARD
+    from pilosa_tpu_torch.ops import bitmap as bm
+
+    rng = np.random.default_rng(8)
+    width, n_shards = 1 << 16, 6
+    h = Holder(width=width)
+    idx = h.create_index("p")
+    f = idx.create_field("f", FieldOptions(cache_type="none"))
+    v = idx.create_field("v", FieldOptions(type=FieldType.INT, min=-500,
+                                           max=500))
+    cols = rng.integers(0, width * n_shards, size=200000)
+    f.import_bits(rng.integers(0, 4, size=cols.size), cols)
+    v.import_values(np.unique(cols), rng.integers(
+        -500, 501, size=np.unique(cols).size))
+    reads = ["Count(Intersect(Row(f=1), Row(f=2)))", "TopN(f, Row(f=0), n=4)",
+             "Sum(Row(f=3), field=v)", "Count(Row(v > 100))"]
+    ex, lp = Executor(h), Executor(h)
+    lp.use_stacked = False
+    for e in (ex, lp):
+        for q in reads:
+            e.execute("p", q)
+    before = [c.counters() for c in (ex.stacked.cache, lp.tiles.cache)]
+    for i in range(20):
+        c = int(rng.integers(0, width * n_shards - 3))
+        ex.execute("p", f"Set({c}, f={i % 4})Set({c + 1}, v={i * 7 - 70})")
+        ex.execute("p", f"Clear({c + 2}, f={i % 4})")
+        answers = [[repr(e.execute("p", q)) for q in reads] for e in (ex, lp)]
+        want = [repr(Executor(h, device="cpu").execute("p", q)) for q in reads]
+        assert answers == [want, want]
+    for cache, was in zip((ex.stacked.cache, lp.tiles.cache), before):
+        now = cache.counters()
+        assert now["patches"] > was["patches"]
+        assert now["full_rebuilds"] == was["full_rebuilds"], now
+    skey = tuple(range(n_shards))
+    fresh = Executor(h).stacked
+    for got, want in (
+            (ex.stacked.rows_stack_for(idx, f, (VIEW_STANDARD,), [0, 1, 2, 3],
+                                       skey),
+             fresh.rows_stack_for(idx, f, (VIEW_STANDARD,), [0, 1, 2, 3],
+                                  skey)),
+            (ex.stacked.plane_stack(idx, v, skey),
+             fresh.plane_stack(idx, v, skey))):
+        assert got.device.type == "cuda"
+        assert np.array_equal(bm.to_numpy(got), bm.to_numpy(want))
+    # the per-shard engine's patched (W,) row tiles and plane tiles
+    # equal fresh uploads, and reading them built nothing
+    built = lp.tiles.cache.full_rebuilds
+    uploads = Executor(h).tiles
+    for s_ in skey:
+        fr = f.views[VIEW_STANDARD].fragment(s_)
+        pairs = [(lp.tiles.row(fr, r), uploads.row(fr, r)) for r in range(4)]
+        vf = v.views[v.bsi_view].fragment(s_)
+        pairs.append((lp.tiles.planes(vf, v.bit_depth),
+                      uploads.planes(vf, v.bit_depth)))
+        for got, want in pairs:
+            assert got.device.type == "cuda"
+            assert np.array_equal(bm.to_numpy(got), bm.to_numpy(want))
+    assert lp.tiles.cache.full_rebuilds == built
