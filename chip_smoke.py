@@ -96,8 +96,29 @@ Phases, each printing its own lines; any failure exits non-zero:
        (row_key), Rows(like=), Extract of ConstRow keys, FieldValue, and
        a Set creating a key of each kind, on both engines, each exact
        against numpy and the key lists.
+6. restart and ingest (the holders persist under a fresh directory of
+   tempfile.gettempdir(), removed at the end; its free bytes printed
+   first, and the run stops there if fewer than DISK_NEEDED):
+   6a. the headline holder (every phase-4 field and 5b's keyed index)
+       synced to its RBF files, timed, with the bytes and shard files on
+       disk; the holder and every executor dropped; a reopen with
+       load_schema, timed; every fragment's row words of a, b, s, t, the
+       categories and the age planes held to the numpy mirror after 5a;
+       then phase 4's stacked set and 4a's per-shard TopN/Count set on
+       new APIs through API.query, exact against the answers after 5a,
+       each first call (stacks built from rows that came off disk) and
+       warm p50 printed beside phase 4's; the keyed index's Count, Row
+       keys and TopN equal to 5b's, and a Set of a new column key gets
+       the partition's next id;
+   6b. a fresh holder through the API: a Pipeline of 2^21 datagen
+       records on 4 workers (records/s), import_columns of 2^26 seeded
+       columns over 64 shards in calls of 2^22 (columns/s), the
+       INGEST_QUERIES exact on both indexes against numpy from the same
+       generators; 2^20 columns imported again over every shard, the
+       first query after it exact with the stack cache's patches and
+       rebuilds by reason printed; sync, reopen, the same answers again.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-5
+   launched over 4-6
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -108,9 +129,11 @@ from __future__ import annotations
 
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 S, W, R, DEPTH = 954, 32768, 8, 7
@@ -786,9 +809,10 @@ def disjoint_category_rows(rng, n_rows: int):
     return planes[:bits], rows
 
 
-def build_index():
+def build_index(path: str):
     """The headline index (bench/common.py build_index shape) through
-    the port's model API; returns the holder and the generated words."""
+    the port's model API, in a holder persisted under path; returns the
+    holder and the generated words."""
     import numpy as np
     from pilosa_tpu_torch.models.holder import Holder
     from pilosa_tpu_torch.models.schema import (
@@ -796,7 +820,7 @@ def build_index():
     from pilosa_tpu_torch.models.view import VIEW_STANDARD
 
     rng = np.random.default_rng(7)
-    h = Holder(width=W * 32)
+    h = Holder(path=path, width=W * 32)
     idx = h.create_index("bench", track_existence=False)
     data = {}
     for fname, nrows in (("a", 1), ("b", 1), ("t", R)):
@@ -1340,14 +1364,23 @@ def launches_of(run) -> tuple[dict, object]:
     return dict(K.LAUNCHES), out
 
 
-def phase_main_path(device, reps: int = 5) -> dict:
-    """Phases 4 to 4c; returns each kernel's launches summed over them."""
+def phase_main_path(device, root: str, reps: int = 5) -> dict:
+    """Phases 4 to 6, the holders persisted under root; returns each
+    kernel's launches summed over them."""
+    import gc
+    import os
+
     import numpy as np
     import torch
     from pilosa_tpu_torch.executor.executor import Executor
 
+    free = shutil.disk_usage(root).free
+    print(f"main: {root} on a disk with {free} bytes free ({card_line()})")
+    if free < DISK_NEEDED:
+        raise RuntimeError(f"phase 6 persists about {DISK_NEEDED} bytes; "
+                           f"{root} has {free} free")
     t0 = time.perf_counter()
-    h, data = build_index()
+    h, data = build_index(os.path.join(root, "headline"))
     print(f"main: index built on the host in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     hist = joint_histogram(data)
@@ -1472,19 +1505,36 @@ def phase_main_path(device, reps: int = 5) -> dict:
     del oh
     phase_read_surface(h, surface, note)
     t0 = time.perf_counter()
-    phase_writes(ex, lp, data, hist, {"stacked": (firsts, stacked_p50),
-                                      "per-shard": (loop_firsts, loop_p50)},
-                 note)
+    before = {"stacked": (firsts, stacked_p50),
+              "per-shard": (loop_firsts, loop_p50)}
+    post = phase_writes(ex, lp, data, hist, before, note)
     print(f"writes: {time.perf_counter() - t0:.1f} s")
-    del lp, data, hist
+    del lp, hist
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_keys(h, note)
+    keyed = phase_keys(h, note)
     print(f"keys: {time.perf_counter() - t0:.1f} s")
+    # 6a: sync, drop the holder and every executor, reopen from disk
+    t0 = time.perf_counter()
+    sync_and_close(h, "restart")
+    del h, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"restart: holder and executors dropped; device memory allocated "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+    phase_restart(os.path.join(root, "headline"), data, post, keyed, before,
+                  note)
+    print(f"restart: {time.perf_counter() - t0:.1f} s")
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_ingest(os.path.join(root, "ingest"), note)
+    print(f"ingest: {time.perf_counter() - t0:.1f} s")
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-5 {totals}")
+    print(f"main path: kernel launches over phases 4-6 {totals}")
     return totals
 
 
@@ -1613,7 +1663,7 @@ def mirror(data, op, deleted: set) -> None:
         deleted.update(col)
 
 
-def phase_writes(ex, lp, data, hist, before: dict, note) -> None:
+def phase_writes(ex, lp, data, hist, before: dict, note) -> dict:
     """5a: the write batch through Executor.execute on the headline index,
     mirrored into the numpy arrays (the joint histogram updated at the
     columns the batch touched); then phase 4's stacked query set (plus a
@@ -1624,7 +1674,8 @@ def phase_writes(ex, lp, data, hist, before: dict, note) -> None:
     p50s)).  Every stack and tile the batch made stale must be patched: the caches may build only stacks under new keys
     (the new field s, a row set that changed), plus, for the per-shard
     tiles, a (W,) tile all of whose words a write dirtied (its one
-    re-upload)."""
+    re-upload).  Returns the answers after the batch (want, the stacked
+    set; loop_want, the per-shard set) and the deleted columns."""
     import numpy as np
     ops = write_batch(np.random.default_rng(WRITE_SEED))
     cols = sorted({c for op in ops if op[2] in ("a", "age")
@@ -1690,6 +1741,7 @@ def phase_writes(ex, lp, data, hist, before: dict, note) -> None:
                                  f"all patched: rebuilds {builds}")
         if e is ex and any("s" not in k and "t" not in k for k in new):
             raise AssertionError(f"{label}: unexpected new stacks {new}")
+    return {"want": want, "loop_want": loop_want, "deleted": deleted}
 
 
 # phase 5b: a keyed index through the translators and the import API
@@ -1715,17 +1767,20 @@ def keyed_norm(res):
     return res
 
 
-def phase_keys(h, note) -> None:
+def phase_keys(h, note) -> dict:
     """5b: the keyed index kidx: 2^20 column keys through the
     PartitionedTranslator (256 partitions), a keyed set field kf of 64
     row keys (each column in one row), an unkeyed set field ks of 8
     rows, and an INT kv of depth 20; its queries on both engines, each
     exact against numpy and the key lists, then a Set that creates a
-    column key and a row key, and its Count."""
+    column key and a row key, and its Count.  Returns the answers that
+    phase 6a holds the reopened index to, and the id the next column key
+    NEW_KEY must get."""
     import numpy as np
     from pilosa_tpu_torch.executor.executor import Executor
     from pilosa_tpu_torch.models.schema import (
         CACHE_TYPE_NONE, FieldOptions, FieldType)
+    from pilosa_tpu_torch.storage import translate
 
     rng = np.random.default_rng(17)
     idx = h.create_index("kidx", keys=True)
@@ -1810,6 +1865,324 @@ def phase_keys(h, note) -> None:
         got, _ = launches_of(lambda: run_queries(
             kex, label, {'Count(Row(kf="k65"))': 1}, 3, index="kidx"))
         note(label, got)
+    # NEW_KEY's partition allocates the next id past its highest, and a
+    # partition's ids are those whose shard hashes to it
+    taken = np.append(cols, list(idx.column_translator.find_keys(
+        "c9999999").values()))
+    part = translate.key_to_key_partition("kidx", NEW_KEY)
+    shards = np.unique(taken // (W * 32))
+    mine = shards[[translate.shard_to_shard_partition("kidx", int(sh)) == part
+                   for sh in shards.tolist()]]
+    in_part = taken[np.isin(taken // (W * 32), mine)]
+    next_id = translate.next_partitioned_id(
+        "kidx", int(in_part.max()) if in_part.size else 0, part, W * 32)
+    return {"want": {q: want[q] for q in RESTART_KEYED}, "next_id": next_id,
+            "taken": set(taken.tolist())}
+
+
+# phase 6: restart onto disk (6a) and ingest through the API (6b)
+DISK_NEEDED = 12 << 30      # the headline index's ~4.7 GB of WAL, twice
+NEW_KEY = "c9999998"        # the column key 6a creates after the reopen
+RESTART_KEYED = ['Count(Row(kf="k17"))', 'Row(kf="k17")', "TopN(kf, n=10)"]
+INGEST_SEED = 2027
+INGEST_RECORDS = 1 << 21    # the Pipeline's datagen records (2 shards)
+INGEST_COLS = 1 << 26       # import_columns' columns (64 shards)
+INGEST_CHUNK = 1 << 22      # columns a call
+REIMPORT = 1 << 20          # columns imported again into resident stacks
+INGEST_QUERIES = ["Count(Row(segment=3))", "TopN(segment, n=16)",
+                  "Sum(field=amount)", "Count(Row(amount > 500))",
+                  "GroupBy(Rows(segment), aggregate=Sum(field=amount))",
+                  "Min(field=amount)", "Max(field=amount)",
+                  "Count(Row(active=true))"]
+
+
+class ViaAPI:
+    """run_queries' executor that answers through API.query: each
+    result in its JSON form."""
+
+    def __init__(self, api):
+        self.api = api
+
+    def execute(self, index, query, shards=None):
+        return self.api.query(index, query, shards)["results"]
+
+
+def api_norm(r):
+    """An API.query JSON result in normalise's form (a keyed row as
+    (columns, keys), keyed pairs as (id, key, count))."""
+    if isinstance(r, dict):
+        if "keys" in r:
+            return (r["columns"], r["keys"])
+        if "fields" in r:
+            return (r["fields"], [(e["column"], e["rows"])
+                                  for e in r["columns"]])
+        if "values" in r and "columns" in r:
+            return (r["columns"], r["values"])
+        if "values" in r:
+            return list(r["values"])
+        if "value" in r:
+            return (r["value"], r["count"])
+        return r["columns"]
+    if isinstance(r, list) and r and isinstance(r[0], dict):
+        if "group" in r[0]:
+            return [(tuple(g["row_id"] for g in gc["group"]), gc["count"],
+                     gc.get("agg"), gc.get("agg_count")) for gc in r]
+        if "key" in r[0]:
+            return [(p["id"], p["key"], p["count"]) for p in r]
+        return [(p["id"], p["count"]) for p in r]
+    return r
+
+
+def sync_and_close(h, label: str) -> None:
+    """Holder.sync timed, the bytes and shard files on disk printed, then
+    close."""
+    t0 = time.perf_counter()
+    h.sync()
+    took = time.perf_counter() - t0
+    nbytes = sum(idx.storage.disk_bytes() for idx in h.indexes.values())
+    files = sum(len(idx.storage.shards_on_disk())
+                for idx in h.indexes.values())
+    print(f"{label}: sync of {len(h.indexes)} indexes in {took * 1e3:.1f} ms "
+          f"(host; WAL fsync per shard commit): {nbytes} bytes in {files} "
+          f"shard files ({card_line()})")
+    h.close()
+
+
+def reopen(path: str, label: str):
+    from pilosa_tpu_torch.models.holder import Holder
+    t0 = time.perf_counter()
+    h = Holder(path=path, width=W * 32)
+    h.load_schema()
+    frags = sum(len(v.fragments) for idx in h.indexes.values()
+                for f in idx.fields.values() for v in f.views.values())
+    print(f"{label}: reopened with load_schema in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host): "
+          f"{len(h.indexes)} indexes, {frags} fragments ({card_line()})")
+    return h
+
+
+def check_rows(h, data, deleted) -> None:
+    """Every fragment's row words of a, b, s, t, the categories and the
+    age planes, off disk, equal the numpy mirror after phase 5a."""
+    import numpy as np
+    from pilosa_tpu_torch.models.view import VIEW_STANDARD
+    t0 = time.perf_counter()
+    idx = h.index("bench")
+    gone = np.zeros((S, W), np.uint32)
+    for c in deleted:
+        put(gone, c, True)
+    zeros = np.zeros(W, np.uint32)
+
+    def rows():
+        for name in ("a", "b", "s"):
+            yield name, VIEW_STANDARD, 1, data[name]
+        for r in range(R):
+            yield "t", VIEW_STANDARD, r, data["t"][r]
+        for name, n in CATEGORIES.items():
+            planes = data[name]
+            for r in range(n):
+                acc = ~gone
+                for b in range(planes.shape[0]):
+                    acc = acc & (planes[b] if (r >> b) & 1 else ~planes[b])
+                yield name, VIEW_STANDARD, r, acc
+        yield "age", "bsig_age", 0, data["age_exists"]
+        yield "age", "bsig_age", 1, None
+        for p in range(DEPTH):
+            yield "age", "bsig_age", 2 + p, data["age"][p]
+
+    n = 0
+    for fname, vname, row, words in rows():
+        view = idx.field(fname).views[vname]
+        for shard in range(S):
+            frag = view.fragment(shard)
+            got = frag.row_words(row) if frag is not None else zeros
+            want = zeros if words is None else words[shard]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"restart: {fname}/{vname} shard {shard}"
+                                     f" row {row} differs from the mirror")
+        n += 1
+    print(f"restart: {n} rows x {S} shards off disk equal the numpy mirror "
+          f"({(time.perf_counter() - t0):.1f} s, host)")
+
+
+def phase_restart(path, data, post, keyed, before, note) -> None:
+    """6a: reopen the synced headline holder, check its rows against the
+    mirror, then phase 4's stacked set and phase 4a's per-shard
+    TopN/Count set on new APIs through API.query, exact against the
+    answers after phase 5a, each first call (stacks built from rows that
+    came off disk) and warm p50 printed beside phase 4's; the keyed
+    index's answers equal those before the restart, and a new column key
+    gets the next id."""
+    from pilosa_tpu_torch.api import API
+    h = reopen(path, "restart")
+    check_rows(h, data, post["deleted"])
+    for engine, want, use_stacked in (("stacked", post["want"], True),
+                                      ("per-shard", post["loop_want"], False)):
+        label = f"restart {engine}"
+        api = API(h)
+        api.executor.use_stacked = use_stacked
+        firsts: dict = {}
+        launches, p50 = launches_of(lambda: run_queries(
+            ViaAPI(api), label, want, 3, norm=api_norm, firsts=firsts))
+        note(label, launches)
+        firsts4, p50_4 = before[engine]
+        for q in want:
+            print(f"{label}: {q}: first call from disk {firsts[q]:.3f} ms "
+                  f"(phase 4's first {firsts4.get(q, float('nan')):.3f} ms), "
+                  f"warm p50 {p50[q]:.3f} ms (phase 4's "
+                  f"{p50_4.get(q, float('nan')):.3f} ms) ({card_line()})")
+        print(f"{label}: cache {api.executor.stacked.cache.counters() if use_stacked else api.executor.tiles.cache.counters()}")
+        del api
+    api = API(h)
+    launches, _ = launches_of(lambda: run_queries(
+        ViaAPI(api), "restart keys", keyed["want"], 3, index="kidx",
+        norm=api_norm))
+    note("restart keys", launches)
+    api.query("kidx", f'Set("{NEW_KEY}", kf="k03")')
+    got = api.translate_keys("kidx", None, [NEW_KEY])[0]
+    if got != keyed["next_id"] or got in keyed["taken"]:
+        raise AssertionError(f"restart: the new key {NEW_KEY} got id {got}, "
+                             f"expected {keyed['next_id']}")
+    cnt = api.query("kidx", f'Count(Intersect(Row(kf="k03"), '
+                            f'ConstRow(columns=["{NEW_KEY}"])))')["results"]
+    if cnt != [1]:
+        raise AssertionError(f"restart: Set of {NEW_KEY} reads back {cnt}")
+    print(f"restart keys: Set of the new column key {NEW_KEY} after the "
+          f"reopen got id {got}, the partition's next (not 0)")
+    h.close()
+
+
+def ingest_answers(seg, amount, active) -> dict:
+    """INGEST_QUERIES' answers from per-column numpy state: seg a bit
+    mask of segment rows, amount and active the values (every column
+    holds one of each)."""
+    import numpy as np
+    counts, sums = [], []
+    for r in range(16):
+        sel = (seg >> np.uint16(r)) & 1 == 1
+        counts.append(int(sel.sum()))
+        sums.append(int(amount[sel].sum(dtype=np.int64)))
+    lo, hi = int(amount.min()), int(amount.max())
+    top = sorted(((-c, r) for r, c in enumerate(counts) if c))
+    return {
+        "Count(Row(segment=3))": counts[3],
+        "TopN(segment, n=16)": [(r, -c) for c, r in top],
+        "Sum(field=amount)": (int(amount.sum(dtype=np.int64)), amount.size),
+        "Count(Row(amount > 500))": int((amount > 500).sum()),
+        "GroupBy(Rows(segment), aggregate=Sum(field=amount))": [
+            ((r,), counts[r], sums[r], counts[r]) for r in range(16)
+            if counts[r]],
+        "Min(field=amount)": (lo, int((amount == lo).sum())),
+        "Max(field=amount)": (hi, int((amount == hi).sum())),
+        "Count(Row(active=true))": int(active.sum(dtype=np.int64)),
+    }
+
+
+def phase_ingest(path, note) -> None:
+    """6b: a fresh path-backed holder through the API: the Pipeline of
+    INGEST_RECORDS datagen records on 4 workers (index dg), and
+    import_columns of INGEST_COLS seeded columns over 64 shards in
+    chunks of INGEST_CHUNK (index cols); INGEST_QUERIES on both, exact
+    against numpy from the same generators; REIMPORT columns imported
+    again into the resident stacks and the first query after it exact,
+    the cache's patches and rebuilds by reason printed; then sync,
+    reopen and the same answers again."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.ingest import APIImporter, DatagenSource, Pipeline
+    from pilosa_tpu_torch.models.holder import Holder
+
+    api = API(Holder(path=path, width=W * 32))
+    t0 = time.perf_counter()
+    n = Pipeline(DatagenSource(INGEST_RECORDS, seed=INGEST_SEED),
+                 APIImporter(api), "dg", concurrency=4).run()
+    took = time.perf_counter() - t0
+    print(f"ingest: Pipeline of {n} datagen records, 4 workers, batches of "
+          f"65536 synced after each: {took:.1f} s, {n / took:.0f} records/s "
+          f"(host) ({card_line()})")
+    seg = np.zeros(INGEST_RECORDS, np.uint16)
+    amount = np.zeros(INGEST_RECORDS, np.int64)
+    active = np.zeros(INGEST_RECORDS, np.int64)
+    for i, rec in enumerate(DatagenSource(INGEST_RECORDS, seed=INGEST_SEED)):
+        v = rec.values
+        seg[i], amount[i], active[i] = 1 << v["segment"], v["amount"], \
+            v["active"]
+    wants = {"dg": ingest_answers(seg, amount, active)}
+
+    api.apply_schema({"indexes": [{"name": "cols", "fields": [
+        {"name": "segment", "options": {"type": "set"}},
+        {"name": "amount", "options": {"type": "int", "min": 0, "max": 999}},
+        {"name": "active", "options": {"type": "bool"}}]}]})
+    rng = np.random.default_rng(INGEST_SEED)
+    seg = np.zeros(INGEST_COLS, np.uint16)
+    amount = np.zeros(INGEST_COLS, np.int64)
+    active = np.zeros(INGEST_COLS, np.int64)
+    took = 0.0
+    for lo in range(0, INGEST_COLS, INGEST_CHUNK):
+        hi = lo + INGEST_CHUNK
+        sg = rng.integers(0, 16, INGEST_CHUNK)
+        am = rng.integers(0, 1000, INGEST_CHUNK)
+        ac = rng.integers(0, 2, INGEST_CHUNK)
+        cols = np.arange(lo, hi, dtype=np.int64)
+        t0 = time.perf_counter()
+        api.import_columns("cols", cols, bits={"segment": sg, "active": ac},
+                           values={"amount": am})
+        took += time.perf_counter() - t0
+        seg[lo:hi], amount[lo:hi], active[lo:hi] = 1 << sg, am, ac
+    print(f"ingest: import_columns of {INGEST_COLS} columns x 3 fields in "
+          f"{INGEST_COLS // INGEST_CHUNK} calls: {took:.1f} s, "
+          f"{INGEST_COLS / took:.0f} columns/s (host) ({card_line()})")
+    wants["cols"] = ingest_answers(seg, amount, active)
+
+    def query_all(api, label, reps=3):
+        for index, want in wants.items():
+            launches, _ = launches_of(lambda: run_queries(
+                ViaAPI(api), f"{label} {index}", want, reps, index=index,
+                norm=api_norm))
+            note(f"{label} {index}", launches)
+
+    query_all(api, "ingest")
+    # again into the resident stacks: a seeded spread over all 64 shards
+    cache = api.executor.stacked.cache
+    was = cache.counters()
+    cols = np.sort(rng.choice(INGEST_COLS, REIMPORT, replace=False))
+    sg = rng.integers(0, 16, REIMPORT)
+    am = rng.integers(0, 1000, REIMPORT)
+    ac = rng.integers(0, 2, REIMPORT)
+    t0 = time.perf_counter()
+    api.import_columns("cols", cols, bits={"segment": sg, "active": ac},
+                       values={"amount": am})
+    print(f"ingest: {REIMPORT} columns imported again over 64 shards in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host)")
+    seg[cols] |= (1 << sg).astype(np.uint16)
+    amount[cols], active[cols] = am, ac
+    wants["cols"] = ingest_answers(seg, amount, active)
+    del seg, amount, active
+    firsts: dict = {}
+    launches, _ = launches_of(lambda: run_queries(
+        ViaAPI(api), "ingest after import", wants["cols"], 3, index="cols",
+        norm=api_norm, firsts=firsts))
+    note("ingest after import", launches)
+    now = cache.counters()
+    rebuilds = {k: v - was["rebuilds"].get(k, 0)
+                for k, v in now["rebuilds"].items()
+                if v != was["rebuilds"].get(k, 0)}
+    print(f"ingest after import: first query {INGEST_QUERIES[0]} "
+          f"{firsts[INGEST_QUERIES[0]]:.3f} ms; patches "
+          f"{now['patches'] - was['patches']} ({now['patched_bytes'] - was['patched_bytes']}"
+          f" bytes), adopts {now['adopts'] - was['adopts']}, rebuilds by "
+          f"reason {rebuilds} ({now['rebuilt_bytes'] - was['rebuilt_bytes']}"
+          f" bytes)")
+    if now["patches"] == was["patches"] and not rebuilds:
+        raise AssertionError("ingest: the import left every stack as it was")
+    h = api.holder
+    sync_and_close(h, "ingest")
+    del api, h, cache
+    torch.cuda.empty_cache()
+    h = reopen(path, "ingest")
+    query_all(API(h), "ingest reopened")
+    h.close()
 
 
 def main() -> int:
@@ -1834,7 +2207,11 @@ def main() -> int:
 
     records = phase_kernels(device)
     torch.cuda.empty_cache()
-    launches = phase_main_path(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches = phase_main_path(device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for k, rec in records.items():
         rec["launches"] = launches[k]
     print(json.dumps({"kernels": list(records.values())}))

@@ -6,6 +6,10 @@ words of the reference.  The query path is PQL → ``Executor.execute``
 → the stacked engine (``executor/stacked.py``) → hand-written CUDA
 kernels (``ops/kernels.py``, ``ops/csrc/``).
 
+``api.API`` is the facade a server calls (queries, schema, imports,
+key translation); ``ingest`` batches records into it; a holder given
+a path persists in RBF files (``storage``) and reopens from them.
+
 The package imports ``torch`` and ``numpy`` only: nothing of JAX and
 nothing of ``pilosa_tpu``.  Its entry points run on the card unless
 the caller passes ``device="cpu"``.
@@ -13,4 +17,6 @@ the caller passes ``device="cpu"``.
 
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_SHARD
 
-__all__ = ["SHARD_WIDTH", "WORDS_PER_SHARD"]
+__version__ = "0.1.0"
+
+__all__ = ["SHARD_WIDTH", "WORDS_PER_SHARD", "__version__"]

@@ -1,0 +1,496 @@
+"""API facade — every externally visible operation as one method.
+
+The reference's ``API`` struct (api.go:45), the one entry point the
+HTTP and gRPC handlers call: Query (api.go:209), schema CRUD
+(api.go:254-477), the imports (api.go:618, 1438, 1771), status and
+info, and key translation, over a Holder and an Executor, with the JSON
+form of every result (``serialize_result``, the handler-side marshaling
+of http_handler.go).  The statuses and messages of ``ApiError`` are the
+JAX package's.
+
+``API(holder)`` runs its queries on the CUDA card and raises without
+one; ``device="cpu"`` runs the kernels' plain versions.  Imports go
+through the models' numpy scatter and end in ``Fragment.touch``, so an
+executor with resident stacks patches them, or rebuilds them by reason,
+on its next query.  Imports into one index take turns (the reference's
+one writer a shard); key translation runs outside that lock.
+"""
+
+from __future__ import annotations
+
+import base64
+import datetime as dt
+import struct
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from decimal import Decimal
+
+import numpy as np
+
+from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.executor.executor import ExecError, Executor
+from pilosa_tpu_torch.executor.results import (
+    DistinctValues,
+    ExtractedTable,
+    GroupCount,
+    Pair,
+    RowResult,
+    SortedRow,
+    ValCount,
+)
+from pilosa_tpu_torch.models.holder import Holder
+from pilosa_tpu_torch.models.schema import FieldOptions
+from pilosa_tpu_torch.models.timeq import ns_of
+from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.pql import ParseError
+from pilosa_tpu_torch.storage import roaring
+
+
+class ApiError(Exception):
+    def __init__(self, msg: str, status: int = 400):
+        super().__init__(msg)
+        self.status = status
+
+
+class QueryHistoryEntry:
+    __slots__ = ("index", "query", "start", "duration")
+
+    def __init__(self, index, query, start, duration):
+        self.index = index
+        self.query = query
+        self.start = start
+        self.duration = duration
+
+    def to_dict(self):
+        return {"index": self.index, "query": self.query,
+                "start": self.start, "runtime_ns": int(self.duration * 1e9)}
+
+
+class API:
+    """Facade over a Holder and its Executor (api.go:45)."""
+
+    def __init__(self, holder: Holder, device=None, name: str = "node0"):
+        self.holder = holder
+        self.name = name
+        self.executor = Executor(holder, device)
+        self.start_time = time.time()
+        self._history: list[QueryHistoryEntry] = []
+        self._hist_lock = threading.Lock()
+        self.history_keep = 100
+        self._import_locks: dict[str, threading.Lock] = {}
+        self._import_locks_mu = threading.Lock()
+
+    # -- queries -----------------------------------------------------------
+
+    def query(self, index: str, pql: str,
+              shards: list[int] | None = None) -> dict:
+        """A PQL query (api.go:209 API.Query): {"results": [...]}, one
+        serialized result a call."""
+        t0 = time.time()
+        try:
+            results = self.executor.execute(index, pql, shards)
+        except (ExecError, ParseError, ValueError, KeyError) as e:
+            raise ApiError(str(e), 400) from e
+        resp = {"results": [serialize_result(r) for r in results]}
+        self._record_history(index, pql, t0)
+        return resp
+
+    def _record_history(self, index, query, t0):
+        e = QueryHistoryEntry(index, query, t0, time.time() - t0)
+        with self._hist_lock:
+            self._history.append(e)
+            if len(self._history) > self.history_keep:
+                self._history.pop(0)
+
+    def query_history(self) -> list[dict]:
+        """Recent queries, newest first (http_handler.go /query-history)."""
+        with self._hist_lock:
+            return [e.to_dict() for e in reversed(self._history)]
+
+    # -- schema (api.go:254-477) -------------------------------------------
+
+    def schema(self) -> dict:
+        return {"indexes": self.holder.schema()}
+
+    def create_index(self, name: str, keys: bool = False,
+                     track_existence: bool = True) -> dict:
+        _validate_name(name)
+        try:
+            idx = self.holder.create_index(
+                name, keys=keys, track_existence=track_existence)
+        except ValueError as e:
+            raise ApiError(str(e), 409) from e
+        self.holder.save_schema()
+        return idx.to_dict()
+
+    def delete_index(self, name: str) -> None:
+        if self.holder.index(name) is None:
+            raise ApiError(f"index not found: {name}", 404)
+        self.holder.delete_index(name)
+
+    def create_field(self, index: str, field: str,
+                     options: dict | None = None) -> dict:
+        _validate_name(field)
+        idx = self._index(index)
+        try:
+            f = idx.create_field(field, FieldOptions.from_dict(options or {}))
+        except ValueError as e:
+            raise ApiError(str(e), 409) from e
+        self.holder.save_schema()
+        return f.to_dict()
+
+    def delete_field(self, index: str, field: str) -> None:
+        idx = self._index(index)
+        if idx.field(field) is None:
+            raise ApiError(f"field not found: {field}", 404)
+        idx.delete_field(field)
+        self.holder.save_schema()
+
+    def apply_schema(self, schema: dict) -> None:
+        """POST /schema (api.go ApplySchema): create what is missing.
+        Every entry is checked first, so a bad one leaves no index half
+        made."""
+        indexes = schema.get("indexes", [])
+        try:
+            for ix in indexes:
+                _validate_name(ix["name"])
+                for fd in ix.get("fields", []):
+                    _validate_name(fd["name"])
+                    FieldOptions.from_dict(fd.get("options", {}))
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            raise ApiError(f"invalid schema: {e!r}", 400) from e
+        for ix in indexes:
+            idx = self.holder.create_index(
+                ix["name"], keys=ix.get("keys", False),
+                track_existence=ix.get("track_existence", True),
+                ok_if_exists=True)
+            for fd in ix.get("fields", []):
+                idx.create_field(fd["name"],
+                                 FieldOptions.from_dict(fd.get("options", {})),
+                                 ok_if_exists=True)
+        self.holder.save_schema()
+
+    # -- imports (api.go:618 Import, api.go:1438 ImportValue) --------------
+
+    def _import_lock(self, index: str) -> threading.Lock:
+        with self._import_locks_mu:
+            lk = self._import_locks.get(index)
+            if lk is None:
+                lk = self._import_locks[index] = threading.Lock()
+            return lk
+
+    def _field(self, idx, field: str):
+        f = idx.field(field)
+        if f is None:
+            raise ApiError(f"field not found: {field}", 404)
+        return f
+
+    def import_bits(self, index: str, field: str, rows=None, cols=None,
+                    row_keys=None, col_keys=None, timestamps=None,
+                    clear: bool = False, mark_exists: bool = True) -> int:
+        """Set (or with ``clear``, clear) the (row, column) pairs; keys
+        are created as needed.  Returns the pairs set, or the bits a
+        clear changed."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        rows = self._translate_rows(f, rows, row_keys)
+        cols = self._translate_cols(idx, cols, col_keys)
+        if len(rows) != len(cols):
+            raise ApiError("rows and columns length mismatch", 400)
+        with self._import_lock(index):
+            if clear:
+                return sum(bool(f.clear_bit(int(r), int(c)))
+                           for r, c in zip(rows, cols))
+            f.import_bits(rows, cols, timestamps)
+            if mark_exists:
+                idx.mark_columns_exist(cols)
+        return len(cols)
+
+    def import_roaring(self, index: str, field: str, shard: int,
+                       rows: dict, clear: bool = False) -> int:
+        """A roaring fragment import (api.go:1771 ImportRoaring): one
+        official-format blob (bytes or base64) a row id, of
+        shard-relative columns.  Returns the bits set or cleared."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        n = 0
+        touched = []
+        with self._import_lock(index):
+            for row_s, blob in rows.items():
+                row = int(row_s)
+                data = base64.b64decode(blob) if isinstance(blob, str) \
+                    else blob
+                try:
+                    cols = roaring.decode(data)
+                except (ValueError, struct.error) as e:
+                    # a truncated buffer fails inside the codec: client
+                    # input, a 400
+                    raise ApiError(
+                        f"bad roaring data for row {row}: {e}", 400) from e
+                if cols.size and int(cols.max()) >= idx.width:
+                    raise ApiError(
+                        f"column {int(cols.max())} exceeds shard width", 400)
+                abs_cols = cols.astype(np.int64) + shard * idx.width
+                if clear:
+                    for c in abs_cols.tolist():
+                        f.clear_bit(row, c)
+                else:
+                    f.import_bits(np.full(abs_cols.size, row, np.int64),
+                                  abs_cols)
+                    touched.append(abs_cols)
+                n += int(cols.size)
+            if touched:
+                idx.mark_columns_exist(np.concatenate(touched))
+        return n
+
+    def export_roaring(self, index: str, field: str, shard: int,
+                       row: int) -> bytes:
+        """One row's columns in one shard as official roaring bytes."""
+        f = self._field(self._index(index), field)
+        v = f.views.get(VIEW_STANDARD)
+        frag = v.fragment(shard) if v else None
+        if frag is None:
+            return roaring.encode([])
+        return roaring.encode(roaring.from_words(frag.row_words(row)))
+
+    def import_values(self, index: str, field: str, cols=None, values=None,
+                      col_keys=None, clear: bool = False,
+                      mark_exists: bool = True) -> int:
+        """Store (or with ``clear``, drop) BSI values at the columns."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        cols = self._translate_cols(idx, cols, col_keys)
+        if values is None:
+            raise ApiError("values required", 400)
+        if len(values) != len(cols):
+            raise ApiError("columns and values length mismatch", 400)
+        with self._import_lock(index):
+            if clear:
+                return sum(bool(f.clear_value(int(c))) for c in cols)
+            f.import_values(cols, values)
+            if mark_exists:
+                idx.mark_columns_exist(cols)
+        return len(cols)
+
+    def mark_columns_exist(self, index: str, cols) -> None:
+        """Mark a columnar batch's records once (the per-field imports
+        of the batch pass mark_exists=False)."""
+        idx = self._index(index)
+        with self._import_lock(index):
+            idx.mark_columns_exist(cols)
+
+    def clear_field_columns(self, index: str, field: str, cols,
+                            mark_exists: bool = True) -> int:
+        """Drop every bit the field holds at the columns, in every view
+        (a record's field set to NULL); the records still exist."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        by_shard: dict[int, list[int]] = {}
+        for c in cols:
+            by_shard.setdefault(int(c) // idx.width, []).append(
+                int(c) % idx.width)
+        with self._import_lock(index):
+            for shard, local in by_shard.items():
+                mask = bm.from_columns(local, idx.width)
+                for v in f.views.values():
+                    frag = v.fragment(shard)
+                    if frag is not None:
+                        frag.clear_columns(mask)
+            if mark_exists:
+                idx.mark_columns_exist(cols)
+        return len(cols)
+
+    def import_columns(self, index: str, cols, bits: dict | None = None,
+                       values: dict | None = None, workers: int = 4) -> int:
+        """A columnar import of several fields over one column array:
+        ``bits`` maps a set, mutex or bool field to its row ids,
+        ``values`` a BSI field to its values.  The fields import on
+        ``workers`` threads (each writes only its own fragments, and
+        numpy releases the interpreter lock); the records are marked
+        once.  Returns columns x fields."""
+        idx = self._index(index)
+        jobs = []
+        for fname, rows in (bits or {}).items():
+            jobs.append((self._field(idx, fname).import_bits,
+                         (rows, cols, None)))
+        for fname, vals in (values or {}).items():
+            jobs.append((self._field(idx, fname).import_values, (cols, vals)))
+        with self._import_lock(index):
+            if workers > 1 and len(jobs) > 1:
+                with ThreadPoolExecutor(max_workers=workers) as pool:
+                    for fut in [pool.submit(fn, *args) for fn, args in jobs]:
+                        fut.result()
+            else:
+                for fn, args in jobs:
+                    fn(*args)
+            idx.mark_columns_exist(cols)
+        return len(cols) * len(jobs)
+
+    def sync(self, index: str) -> None:
+        """Write the index's dirty rows to its RBF files, between
+        imports: a sync beside an import could miss the rows that
+        import dirties while it writes."""
+        idx = self._index(index)
+        with self._import_lock(index):
+            idx.sync()
+
+    def _translate_rows(self, f, rows, row_keys):
+        if row_keys is not None:
+            if not f.options.keys:
+                raise ApiError("field does not use row keys", 400)
+            m = f.row_translator.create_keys(*row_keys)
+            return [m[k] for k in row_keys]
+        return rows if rows is not None else []
+
+    def _translate_cols(self, idx, cols, col_keys):
+        if col_keys is not None:
+            if not idx.keys:
+                raise ApiError("index does not use column keys", 400)
+            m = idx.column_translator.create_keys(*col_keys)
+            return [m[k] for k in col_keys]
+        return cols if cols is not None else []
+
+    # -- introspection -----------------------------------------------------
+
+    def info(self) -> dict:
+        return {"shard_width": self.holder.width, "memory": None,
+                "cpu_arch": self.executor.device.type,
+                "version": __version__,
+                "uptime_seconds": int(time.time() - self.start_time)}
+
+    def version(self) -> dict:
+        return {"version": __version__}
+
+    def status(self) -> dict:
+        return {"state": "NORMAL",
+                "node": {"id": self.name, "is_primary": True},
+                "local_id": self.name, "cluster_name": "pilosa-tpu",
+                "indexes": sorted(self.holder.indexes)}
+
+    def shard_max(self) -> dict:
+        return {ix.name: (max(ix.available_shards)
+                          if ix.available_shards else 0)
+                for ix in self.holder.indexes.values()}
+
+    def available_shards(self, index: str) -> list[int]:
+        return sorted(self._index(index).available_shards)
+
+    # -- key translation (api.go:929-1038) ---------------------------------
+
+    def _translator(self, index: str, field: str | None):
+        idx = self._index(index)
+        if field:
+            f = idx.field(field)
+            if f is None or not f.options.keys:
+                raise ApiError("field not found or not keyed", 400)
+            return f.row_translator
+        if not idx.keys:
+            raise ApiError("index does not use keys", 400)
+        return idx.column_translator
+
+    def translate_keys(self, index: str, field: str | None, keys: list,
+                       create: bool = False) -> list:
+        """Each key's id (None for a missing key unless ``create``)."""
+        tr = self._translator(index, field)
+        m = tr.create_keys(*keys) if create else tr.find_keys(*keys)
+        return [int(m[k]) if k in m else None for k in keys]
+
+    def translate_ids(self, index: str, field: str | None,
+                      ids: list) -> list:
+        return self._translator(index, field).translate_ids(ids)
+
+    def _index(self, name: str):
+        idx = self.holder.index(name)
+        if idx is None:
+            raise ApiError(f"index not found: {name}", 404)
+        return idx
+
+
+_NAME_OK = set("abcdefghijklmnopqrstuvwxyz0123456789-_")
+
+
+def _validate_name(name: str):
+    if not name or name[0] not in "abcdefghijklmnopqrstuvwxyz" or \
+            not all(c in _NAME_OK for c in name) or len(name) > 230:
+        raise ApiError(f"invalid name: {name!r}", 400)
+
+
+# -- result serialization (handler-side marshaling) ------------------------
+
+def rfc3339(d: dt.datetime) -> str:
+    """RFC3339 with a Z suffix, the reference's timestamp form (naive
+    datetimes are UTC; a sub-microsecond value shows its 9-digit
+    fraction with the trailing zeros trimmed, as Go's RFC3339Nano)."""
+    ns = ns_of(d)
+    if d.tzinfo is not None:
+        d = d.astimezone(dt.timezone.utc).replace(tzinfo=None)
+    if ns % 1000:
+        base = d.replace(microsecond=0).isoformat()
+        return base + (".%09d" % ns).rstrip("0") + "Z"
+    return d.isoformat() + "Z"
+
+
+def _json_value(v):
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, Decimal):
+        return float(v)  # the reference's decimal wire form
+    if isinstance(v, dt.datetime):
+        return rfc3339(v)
+    if isinstance(v, np.ndarray):
+        return [_json_value(x) for x in v.tolist()]
+    if isinstance(v, (list, tuple)):
+        return [_json_value(x) for x in v]
+    return v
+
+
+def serialize_result(r) -> object:
+    """One PQL result as a JSON-able object, the reference's
+    QueryResponse form of each result type."""
+    if r is None or isinstance(r, (bool, int, float, str, np.integer,
+                                   np.floating)):
+        return _json_value(r)
+    if isinstance(r, RowResult):
+        d = {"columns": [int(c) for c in r.columns()]}
+        if r.keys is not None:
+            d["keys"] = list(r.keys)
+        return d
+    if isinstance(r, ValCount):
+        return {"value": _json_value(r.value), "count": int(r.count)}
+    if isinstance(r, DistinctValues):
+        return {"values": [_json_value(v) for v in r.values]}
+    if isinstance(r, Pair):
+        d = {"id": int(r.id), "count": int(r.count)}
+        if r.key is not None:
+            d["key"] = r.key
+        return d
+    if isinstance(r, GroupCount):
+        d = {"group": [_json_value(g) if not isinstance(g, dict) else
+                       {k: _json_value(v) for k, v in g.items()}
+                       for g in r.group],
+             "count": int(r.count)}
+        if r.agg is not None:
+            d["agg"] = _json_value(r.agg)
+        if r.agg_count is not None:
+            d["agg_count"] = _json_value(r.agg_count)
+        return d
+    if isinstance(r, SortedRow):
+        return {"columns": [int(c) for c in r.columns],
+                "values": [_json_value(v) for v in r.values]}
+    if isinstance(r, ExtractedTable):
+        return {"fields": [_json_value(f) if not isinstance(f, dict) else f
+                           for f in r.fields],
+                "columns": [{k: _json_value(v) for k, v in c.items()}
+                            if isinstance(c, dict) else _json_value(c)
+                            for c in r.columns]}
+    if isinstance(r, (list, tuple)):
+        return [serialize_result(x) for x in r]
+    if isinstance(r, dict):
+        return {k: serialize_result(v) for k, v in r.items()}
+    if isinstance(r, np.ndarray):
+        return [_json_value(x) for x in r.tolist()]
+    return _json_value(r)

@@ -1,0 +1,26 @@
+"""Ingest — the batcher, the importer and the IDK-style pipeline.
+
+- ``Batch`` (batch/batch.go:55 RecordBatch): records gathered on the
+  client, keys translated a batch at a time, one import a field a
+  flush.
+- ``Importer`` (importer.go:13): the bridge to the engine;
+  ``APIImporter`` is the in-process one, whose ``sync`` is the
+  durability barrier.
+- ``Pipeline`` (idk/ingest.go:59 Main): Source → schema → batches →
+  imports, with per-worker clones and offset commits.
+- Sources (idk/csv, idk/datagen, idk/kafka): CSV files with typed
+  headers, a seeded generator, and a Kafka gate.
+"""
+
+from pilosa_tpu_torch.ingest.batch import Batch, Record
+from pilosa_tpu_torch.ingest.importer import APIImporter, Importer
+from pilosa_tpu_torch.ingest.pipeline import Pipeline
+from pilosa_tpu_torch.ingest.sources import (
+    CSVSource,
+    DatagenSource,
+    KafkaSource,
+    Source,
+)
+
+__all__ = ["Batch", "Record", "Importer", "APIImporter", "Pipeline",
+           "Source", "CSVSource", "DatagenSource", "KafkaSource"]

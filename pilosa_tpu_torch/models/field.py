@@ -7,12 +7,16 @@ sign-magnitude bit-planes into a ``bsig_<field>`` view.  Mutex keeps one
 row per column; bool is a two-row mutex (false=0, true=1).
 
 A ``keys=True`` field translates string row keys to row ids through its
-own sequential ``TranslateStore`` (``row_translator``).
+own sequential ``TranslateStore`` (``row_translator``), whose log is
+``<path>/keys.jsonl`` when the field has a path.  Given the index's
+``storage``, the field's fragments load from and sync to its RBF files.
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import os
+import threading
 
 import numpy as np
 
@@ -45,13 +49,17 @@ def _shard_groups(shards: np.ndarray):
 class Field:
     def __init__(self, index: str, name: str,
                  options: FieldOptions | None = None,
-                 width: int = SHARD_WIDTH):
+                 width: int = SHARD_WIDTH, path: str | None = None,
+                 storage=None):
         self.index_name = index
         self.name = name
         self.options = options or FieldOptions()
         self.width = width
+        self.path = path
+        self.storage = storage
         self.views: dict[str, View] = {}
         self._row_translator: TranslateStore | None = None
+        self._lock = threading.RLock()
         # BSI depth grows with observed magnitudes (bsiGroup, field.go:2394)
         if self.options.type.is_bsi:
             lo, hi = self.options.min, self.options.max
@@ -63,18 +71,28 @@ class Field:
     # -- views -------------------------------------------------------------
 
     def view(self, name: str, create: bool = False) -> View | None:
-        v = self.views.get(name)
-        if v is None and create:
-            # TopN caches attach to row views of set-like fields only
-            cache_type = self.options.cache_type
-            if (name.startswith(VIEW_BSI_PREFIX)
-                    or self.options.type == FieldType.BOOL):
-                cache_type = "none"
-            v = View(self.index_name, self.name, name, self.width,
-                     cache_type=cache_type,
-                     cache_size=self.options.cache_size)
-            self.views[name] = v
-        return v
+        with self._lock:
+            v = self.views.get(name)
+            if v is None and create:
+                # TopN caches attach to row views of set-like fields only
+                cache_type = self.options.cache_type
+                if (name.startswith(VIEW_BSI_PREFIX)
+                        or self.options.type == FieldType.BOOL):
+                    cache_type = "none"
+                v = View(self.index_name, self.name, name, self.width,
+                         storage=self.storage, cache_type=cache_type,
+                         cache_size=self.options.cache_size)
+                self.views[name] = v
+            return v
+
+    def delete_view(self, name: str) -> bool:
+        """Drop a view and its bitmaps on disk; True if it existed."""
+        with self._lock:
+            if self.views.pop(name, None) is None:
+                return False
+            if self.storage is not None:
+                self.storage.delete_view_bitmaps(self.name, name)
+            return True
 
     @property
     def bsi_view(self) -> str:
@@ -86,15 +104,21 @@ class Field:
         TranslateStore), made at first use; None on an unkeyed field."""
         if not self.options.keys:
             return None
-        if self._row_translator is None:
-            self._row_translator = TranslateStore(index=self.index_name,
-                                                  partition_id=-1)
-        return self._row_translator
+        with self._lock:
+            if self._row_translator is None:
+                tpath = (os.path.join(self.path, "keys.jsonl")
+                         if self.path else None)
+                self._row_translator = TranslateStore(
+                    tpath, index=self.index_name, partition_id=-1)
+            return self._row_translator
 
     def close(self) -> None:
         if self._row_translator is not None:
             self._row_translator.close()
             self._row_translator = None
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "options": self.options.to_dict()}
 
     @property
     def available_shards(self) -> set[int]:

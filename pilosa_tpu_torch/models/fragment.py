@@ -26,6 +26,11 @@ or None when the window no longer reaches back to v, and the device
 caches patch those spans instead of uploading the stack again.
 ``bump_gen`` retires the fragment's identity: every stamp taken before
 compares unequal, and a cache rebuilds.
+
+Given ``storage`` (the index's ``storage.shards.IndexStorage``), a
+fragment loads its rows from the shard's RBF file when it is made, and
+``touch`` adds each written row to ``dirty_rows``, the rows the next
+``Index.sync`` persists.
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ class Fragment:
     """Host rows of one (index, field, view, shard)."""
 
     def __init__(self, index: str, field: str, view: str, shard: int,
-                 width: int = SHARD_WIDTH, cache_type: str = "none",
-                 cache_size: int = 50000):
+                 width: int = SHARD_WIDTH, storage=None,
+                 cache_type: str = "none", cache_size: int = 50000):
         self.index_name = index
         self.field_name = field
         self.view_name = view
@@ -83,6 +88,19 @@ class Fragment:
         # order (LRU recency survives the batching)
         self._cache = make_cache(cache_type, cache_size)
         self._cache_stale: dict[int, None] = {}
+        # rows written since the last sync (IndexStorage.write_fragments)
+        self.dirty_rows: set[int] = set()
+        if storage is not None:
+            # int64 arrays are sorted columns, uint32 arrays packed words
+            for r, w in storage.load_rows(field, view, shard,
+                                          width).items():
+                if w.dtype == np.int64:
+                    self._sparse[r] = w
+                else:
+                    self._rows[r] = w
+            if self._cache is not None:
+                self._cache_stale.update(dict.fromkeys(self._rows))
+                self._cache_stale.update(dict.fromkeys(self._sparse))
 
     # -- representation ----------------------------------------------------
 
@@ -106,6 +124,7 @@ class Fragment:
         if lo is None:
             lo, hi = 0, self.width // 32
         self._rows_touched.add(row)
+        self.dirty_rows.add(row)
         log = self._delta_log
         log.append((self.version, row, lo, hi))
         while len(log) > DELTA_LOG_MAX:
@@ -377,6 +396,10 @@ class Fragment:
             self._row_ids_cache = sorted(ids)
             self._rows_touched.clear()
         return list(self._row_ids_cache)
+
+    def max_row_id(self) -> int:
+        ids = self.row_ids
+        return ids[-1] if ids else 0
 
     def row_words(self, row: int) -> np.ndarray:
         """Packed host words of a row (zeros if absent); read-only."""

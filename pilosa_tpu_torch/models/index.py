@@ -4,15 +4,26 @@ Column existence is tracked in a hidden ``_exists`` field when
 track_existence is on (index.go existenceFieldName); it backs Not() and
 All().  A keyed index (``keys=True``) translates string column keys to
 column ids through a ``PartitionedTranslator`` (``column_translator``).
+
+Given a path, the index persists as the JAX package's does: its
+fragments in ``<path>/backends/shard.%04d.rbf`` (``IndexStorage``), its
+column keys in ``<path>/_keys/``, and each field's row keys in
+``<path>/fields/<field>/keys.jsonl``.  ``sync`` writes the dirty rows;
+``load_fragments`` makes every fragment found on disk.
 """
 
 from __future__ import annotations
+
+import os
+import shutil
+import threading
 
 import numpy as np
 
 from pilosa_tpu_torch.models.field import Field
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.shardwidth import BSI_OFFSET_BIT, SHARD_WIDTH
+from pilosa_tpu_torch.storage.shards import IndexStorage
 from pilosa_tpu_torch.storage.translate import PartitionedTranslator
 
 EXISTENCE_FIELD = "_exists"
@@ -20,13 +31,17 @@ EXISTENCE_FIELD = "_exists"
 
 class Index:
     def __init__(self, name: str, keys: bool = False,
-                 track_existence: bool = True, width: int = SHARD_WIDTH):
+                 track_existence: bool = True, width: int = SHARD_WIDTH,
+                 path: str | None = None):
         self.name = name
         self.keys = keys
         self.track_existence = track_existence
         self.width = width
+        self.path = path
         self.fields: dict[str, Field] = {}
+        self._lock = threading.RLock()
         self._column_translator: PartitionedTranslator | None = None
+        self.storage = IndexStorage(path) if path is not None else None
         if track_existence:
             self._ensure_existence()
 
@@ -36,39 +51,58 @@ class Index:
         made at first use; None on an unkeyed index."""
         if not self.keys:
             return None
-        if self._column_translator is None:
-            self._column_translator = PartitionedTranslator(
-                self.name, shard_width=self.width)
-        return self._column_translator
-
-    def close(self) -> None:
-        """Close the index's key translators (its own and its fields')."""
-        if self._column_translator is not None:
-            self._column_translator.close()
-            self._column_translator = None
-        for f in self.fields.values():
-            f.close()
+        with self._lock:
+            if self._column_translator is None:
+                tpath = os.path.join(self.path, "_keys") if self.path else None
+                self._column_translator = PartitionedTranslator(
+                    self.name, tpath, shard_width=self.width)
+            return self._column_translator
 
     def _ensure_existence(self) -> Field:
-        f = self.fields.get(EXISTENCE_FIELD)
-        if f is None:
-            f = Field(self.name, EXISTENCE_FIELD,
-                      FieldOptions(type=FieldType.SET), self.width)
-            self.fields[EXISTENCE_FIELD] = f
-        return f
+        with self._lock:
+            f = self.fields.get(EXISTENCE_FIELD)
+            if f is None:
+                f = Field(self.name, EXISTENCE_FIELD,
+                          FieldOptions(type=FieldType.SET), self.width,
+                          storage=self.storage)
+                self.fields[EXISTENCE_FIELD] = f
+            return f
 
-    def create_field(self, name: str,
-                     options: FieldOptions | None = None) -> Field:
-        if name in self.fields:
-            if name == EXISTENCE_FIELD:
-                return self.fields[name]
-            raise ValueError(f"field already exists: {name}")
-        f = Field(self.name, name, options, self.width)
-        self.fields[name] = f
-        return f
+    def _field_path(self, name: str) -> str | None:
+        return os.path.join(self.path, "fields", name) if self.path else None
+
+    def create_field(self, name: str, options: FieldOptions | None = None,
+                     ok_if_exists: bool = False) -> Field:
+        with self._lock:
+            if name in self.fields:
+                if ok_if_exists or name == EXISTENCE_FIELD:
+                    return self.fields[name]
+                raise ValueError(f"field already exists: {name}")
+            f = Field(self.name, name, options, self.width,
+                      path=self._field_path(name), storage=self.storage)
+            self.fields[name] = f
+            return f
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
+
+    def delete_field(self, name: str) -> None:
+        """Drop a field with its bitmaps and its row-key files, so a
+        field made again under the name starts empty."""
+        with self._lock:
+            f = self.fields.pop(name, None)
+            if f is None:
+                return
+            if self.storage is not None:
+                self.storage.delete_field_bitmaps(name)
+            f.close()
+            fp = self._field_path(name)
+            if fp and os.path.isdir(fp):
+                shutil.rmtree(fp)
+
+    def public_fields(self) -> list[Field]:
+        return [f for n, f in sorted(self.fields.items())
+                if n != EXISTENCE_FIELD]
 
     def mark_columns_exist(self, cols) -> None:
         if not self.track_existence:
@@ -83,3 +117,51 @@ class Index:
         for f in self.fields.values():
             s.update(f.available_shards)
         return s
+
+    # -- persistence -------------------------------------------------------
+
+    def sync(self) -> None:
+        """Persist every dirty fragment row, one write transaction a
+        shard file."""
+        if self.storage is None:
+            return
+        with self._lock:
+            by_shard: dict[int, list] = {}
+            for f in self.fields.values():
+                for v in f.views.values():
+                    for frag in v.fragments.values():
+                        if frag.dirty_rows:
+                            by_shard.setdefault(frag.shard, []).append(frag)
+            for shard in sorted(by_shard):
+                self.storage.write_fragments(by_shard[shard])
+
+    def load_fragments(self) -> None:
+        """Make every fragment found on disk (an open of the holder); a
+        BSI field's depth comes back from its highest stored plane."""
+        if self.storage is None:
+            return
+        with self._lock:
+            for fname, vname, shard in self.storage.discover():
+                f = self.fields.get(fname)
+                if f is None:
+                    continue  # a bitmap of a field no longer in the schema
+                frag = f.view(vname, create=True).fragment(shard, create=True)
+                if f.options.type.is_bsi:
+                    depth = frag.max_row_id() - BSI_OFFSET_BIT + 1
+                    f.bit_depth = max(f.bit_depth, depth)
+
+    def close(self) -> None:
+        """Close the shard files and the key translators."""
+        if self.storage is not None:
+            self.storage.close()
+        if self._column_translator is not None:
+            self._column_translator.close()
+            self._column_translator = None
+        for f in self.fields.values():
+            f.close()
+
+    def to_dict(self) -> dict:
+        return {"name": self.name,
+                "options": {"keys": self.keys,
+                            "trackExistence": self.track_existence},
+                "fields": [f.to_dict() for f in self.public_fields()]}

@@ -2,7 +2,8 @@
 
 View names: ``standard`` for the primary layout, ``bsig_<field>`` for
 BSI bit-planes, and time-quantum views ``standard_YYYY[MM[DD[HH]]]``.
-A view owns one Fragment per shard.
+A view owns one Fragment per shard; given the index's ``storage``, a
+fragment loads its rows from disk when the view makes it.
 """
 
 from __future__ import annotations
@@ -20,12 +21,13 @@ def bsi_view_name(field_name: str) -> str:
 
 class View:
     def __init__(self, index: str, field: str, name: str,
-                 width: int = SHARD_WIDTH, cache_type: str = "none",
-                 cache_size: int = 50000):
+                 width: int = SHARD_WIDTH, storage=None,
+                 cache_type: str = "none", cache_size: int = 50000):
         self.index_name = index
         self.field_name = field
         self.name = name
         self.width = width
+        self.storage = storage
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.fragments: dict[int, Fragment] = {}
@@ -34,7 +36,12 @@ class View:
         f = self.fragments.get(shard)
         if f is None and create:
             f = Fragment(self.index_name, self.field_name, self.name, shard,
-                         self.width, cache_type=self.cache_type,
+                         self.width, storage=self.storage,
+                         cache_type=self.cache_type,
                          cache_size=self.cache_size)
             self.fragments[shard] = f
         return f
+
+    @property
+    def shards(self) -> list[int]:
+        return sorted(self.fragments)

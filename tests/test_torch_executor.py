@@ -436,10 +436,9 @@ def test_state_round_trip(holders):
     "Delete(Row(f=1))", "Store(Row(f=1), g=9)", "Rows(f, like='k%')",
     "Rows(f, previous='k')", "Rows(f, column='c')",
     "Extract(ConstRow(columns=['c']), Rows(f))"])
-def test_calls_not_ported_yet_raise(query):
-    """String row and column keys, Rows(like=) and the write calls, which
-    raised "not ported yet" before they were ported: on this unkeyed
-    index each now answers as the JAX executor does, or raises the
+def test_keys_and_writes_on_an_unkeyed_index_match_jax(query):
+    """String row and column keys, Rows(like=) and the write calls on an
+    unkeyed index: each answers as the JAX executor does, or raises the
     ExecError it raises, with its message; after a write, both packages
     read the written fields alike.  Fresh holders a case, since some
     write."""

@@ -884,3 +884,56 @@ def test_patched_stacks_on_the_card_equal_rebuilds(cuda):
             assert got.device.type == "cuda"
             assert np.array_equal(bm.to_numpy(got), bm.to_numpy(want))
     assert lp.tiles.cache.full_rebuilds == built
+
+
+def test_api_import_sync_and_reopen_on_the_card(cuda, tmp_path, monkeypatch):
+    """The API on the card over a path-backed holder: a columnar import
+    into resident stacks is answered as the CPU answers (patched or
+    rebuilt by reason, never stale), and after sync and a reopen a new
+    API on the card answers the same from the rows that came off disk."""
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.models.holder import Holder
+
+    monkeypatch.setenv("RBF_NOSYNC", "1")
+    width, n_shards = 1 << 16, 4
+    rng = np.random.default_rng(12)
+    api = API(Holder(path=str(tmp_path), width=width))
+    api.apply_schema({"indexes": [{"name": "g", "fields": [
+        {"name": "segment", "options": {"type": "set",
+                                        "cache_type": "none"}},
+        {"name": "amount", "options": {"type": "int", "min": 0,
+                                       "max": 999}},
+        {"name": "active", "options": {"type": "bool"}}]}]})
+    queries = ["Count(Row(segment=3))", "TopN(segment, n=5)",
+               "Sum(field=amount)", "Count(Row(amount > 500))",
+               "GroupBy(Rows(segment), aggregate=Sum(field=amount))",
+               "Min(field=amount)", "Max(field=amount)",
+               "Count(Row(active=true))"]
+
+    def load(lo, n):
+        cols = np.arange(lo, lo + n, dtype=np.int64)
+        api.import_columns("g", cols, bits={
+            "segment": rng.integers(0, 16, size=n),
+            "active": rng.integers(0, 2, size=n)},
+            values={"amount": rng.integers(0, 1000, size=n)})
+
+    def on_cpu(h):
+        cpu = API(h, device="cpu")
+        return [cpu.query("g", q) for q in queries]
+
+    load(0, width * n_shards)
+    assert [api.query("g", q) for q in queries] == on_cpu(api.holder)
+    load(width, width // 2)            # into resident stacks
+    want = on_cpu(api.holder)
+    assert [api.query("g", q) for q in queries] == want
+    counters = api.executor.stacked.cache.counters()
+    assert counters["patches"] + sum(counters["rebuilds"].values()) > 0
+    api.holder.sync()
+    api.holder.close()
+    del api
+    torch.cuda.empty_cache()
+    h = Holder(path=str(tmp_path), width=width)
+    h.load_schema()
+    again = API(h)
+    assert [again.query("g", q) for q in queries] == want
+    h.close()

@@ -1,5 +1,7 @@
 """pilosa_tpu_torch imports nothing of JAX and nothing of pilosa_tpu,
-and runs on the card unless told otherwise.
+builds its storage library into build/torch_host/ and never into the
+JAX package's native/build/, and runs on the card unless told
+otherwise.
 
 The import check runs in a fresh interpreter: this test process has
 already imported jax and pilosa_tpu through tests/conftest.py."""
@@ -26,7 +28,10 @@ bad = sorted(m for m in sys.modules
              or m == "pilosa_tpu" or m.startswith("pilosa_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert "pilosa_tpu_torch.executor.executor" in names
+for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
+          "ingest.sources", "ingest.pipeline", "storage.rbf",
+          "storage.shards", "storage.roaring"):
+    assert "pilosa_tpu_torch." + n in names, n
 """
 
 
@@ -39,6 +44,40 @@ def test_port_imports_no_jax_and_no_pilosa_tpu():
     assert n_modules >= 20
 
 
+_RBF_BUILD = r"""
+import os, sys
+import numpy as np
+from pilosa_tpu_torch.storage import _build, rbf
+rbf.container_encode(np.zeros(rbf.TILE_WORDS, dtype=np.uint32))
+so = _build.build("rbf")
+print(so)
+assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+            or m == "pilosa_tpu" or m.startswith("pilosa_tpu.")]
+"""
+
+
+def _listing(d: Path) -> dict:
+    if not d.is_dir():
+        return {}
+    return {p.name: p.stat().st_mtime_ns for p in d.iterdir()}
+
+
+def test_rbf_builds_into_build_torch_host_only():
+    """The port's RBF library comes from its own copy of the sources,
+    built into build/torch_host/<hash>/; loading it (building it if it
+    is missing) leaves the JAX package's native/build/ as it was."""
+    native = ROOT / "native" / "build"
+    before = _listing(native)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _RBF_BUILD], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    so = Path(out.stdout.split()[-1])
+    assert so.parent.parent == ROOT / "build" / "torch_host"
+    assert so.name == "librbf.so" and so.exists()
+    assert _listing(native) == before
+
+
 def test_executor_needs_a_card_unless_told_cpu(monkeypatch):
     from pilosa_tpu_torch.executor.executor import Executor
     from pilosa_tpu_torch.models.holder import Holder
@@ -48,3 +87,7 @@ def test_executor_needs_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Executor(h)
     assert Executor(h, device="cpu").device.type == "cpu"
+    from pilosa_tpu_torch.api import API
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        API(h)
+    assert API(h, device="cpu").executor.device.type == "cpu"
