@@ -111,14 +111,55 @@ Phases, each printing its own lines; any failure exits non-zero:
        keys and TopN equal to 5b's, and a Set of a new column key gets
        the partition's next id;
    6b. a fresh holder through the API: a Pipeline of 2^21 datagen
-       records on 4 workers (records/s), import_columns of 2^26 seeded
-       columns over 64 shards in calls of 2^22 (columns/s), the
+       records on 4 workers (records/s), import_columns of 2^25 seeded
+       columns over 32 shards in calls of 2^22 (columns/s), the
        INGEST_QUERIES exact on both indexes against numpy from the same
        generators; 2^20 columns imported again over every shard, the
        first query after it exact with the stack cache's patches and
        rebuilds by reason printed; sync, reopen, the same answers again.
+7. a rolling time window: a fresh holder's index events (954 shards x
+   2^20 columns) with a TIME field ev (YMDH, 4 rows; 2^14 seeded columns
+   a row an hour over the 168 hours from 2022-06-01, about 11M bits,
+   imported with timestamps into 5 views each), ew (the same for one day
+   under timeq.configure(write_finest=True): the standard and hour views
+   only), a random-word set field a and the BSI age (depth 7); every
+   answer held exactly to numpy recomputed from the seeded (row, column,
+   hour) triples, first call and warm p50 printed with the card's name
+   and power limit:
+   7a. Count(Row(ev=1, from='2022-06-02T06:00', to='2022-06-05T18:00'))
+       on the stacked engine, a cover of 38 single-view leaves (the
+       leaves built, TIMEQ_QCOVER_TOTAL and the cover's bytes printed),
+       then under qcover off (one multi-view leaf), times beside; the
+       eager union's bytes beside a fused pass's; Count(Intersect(...,
+       Row(a=1))), Sum(..., field=age) and TopN(ev, n=4, from, to) on
+       the stacked engine, and all four on the per-shard engine over 64
+       shards;
+   7b. the window shifted by an hour builds exactly one leaf; under
+       qcover off its one leaf is built again, times beside;
+   7c. a Set in the window's newest hour: the next Count makes one patch
+       and no build;
+   7d. a one-day cover of ew reads 24 hour leaves; Holder.rollup_views
+       at 2022-06-02T00:00 (timed) folds the (index, field, child,
+       parent) tuples numpy expects, and the same query then reads one
+       day leaf;
+   7f. (run before 7e) API.query(..., profile=True) of 7a's Count, cold
+       and warm, its spans printed (executor.Execute > executor.executeCount
+       > stacked.plan_build with one stacked.stack a built leaf, and
+       stacked.dispatch); the long-query log holds a cold call with its
+       spans; the newest flight record's route is solo;
+       pilosa_stack_cache_total agrees with StackCache.counters(); with
+       device-patch armed, a Set and the next Count: the faulted patch
+       is answered by one rebuild under the reason "fault", exactly;
+   7e. ev's ttl set to 4 days, Holder.remove_expired_views at
+       2022-06-08T00:00 (timed) removes the views numpy expects; 7a's
+       window then counts what the 20 surviving views hold, with no
+       build, on both engines;
+   7g. 2^24 seeded rows of an int and a float column in the pathless
+       index's dataframe, each aggregate on the card against numpy under
+       the JAX package's 32-bit rule (ints exact, float sums and means
+       within a relative 1e-6).
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-6
+   launched over 4-7
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -135,6 +176,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 S, W, R, DEPTH = 954, 32768, 8, 7
 S_WIDE = 64                 # shards of the over-shared-memory histogram
@@ -1365,7 +1407,7 @@ def launches_of(run) -> tuple[dict, object]:
 
 
 def phase_main_path(device, root: str, reps: int = 5) -> dict:
-    """Phases 4 to 6, the holders persisted under root; returns each
+    """Phases 4 to 7, the holders persisted under root; returns each
     kernel's launches summed over them."""
     import gc
     import os
@@ -1531,10 +1573,15 @@ def phase_main_path(device, root: str, reps: int = 5) -> dict:
     t0 = time.perf_counter()
     phase_ingest(os.path.join(root, "ingest"), note)
     print(f"ingest: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_time_window(device, note)
+    print(f"time: {time.perf_counter() - t0:.1f} s")
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-6 {totals}")
+    print(f"main path: kernel launches over phases 4-7 {totals}")
     return totals
 
 
@@ -1886,7 +1933,7 @@ NEW_KEY = "c9999998"        # the column key 6a creates after the reopen
 RESTART_KEYED = ['Count(Row(kf="k17"))', 'Row(kf="k17")', "TopN(kf, n=10)"]
 INGEST_SEED = 2027
 INGEST_RECORDS = 1 << 21    # the Pipeline's datagen records (2 shards)
-INGEST_COLS = 1 << 26       # import_columns' columns (64 shards)
+INGEST_COLS = 1 << 25       # import_columns' columns (32 shards)
 INGEST_CHUNK = 1 << 22      # columns a call
 REIMPORT = 1 << 20          # columns imported again into resident stacks
 INGEST_QUERIES = ["Count(Row(segment=3))", "TopN(segment, n=16)",
@@ -2081,7 +2128,7 @@ def ingest_answers(seg, amount, active) -> dict:
 def phase_ingest(path, note) -> None:
     """6b: a fresh path-backed holder through the API: the Pipeline of
     INGEST_RECORDS datagen records on 4 workers (index dg), and
-    import_columns of INGEST_COLS seeded columns over 64 shards in
+    import_columns of INGEST_COLS seeded columns over 32 shards in
     chunks of INGEST_CHUNK (index cols); INGEST_QUERIES on both, exact
     against numpy from the same generators; REIMPORT columns imported
     again into the resident stacks and the first query after it exact,
@@ -2143,7 +2190,7 @@ def phase_ingest(path, note) -> None:
             note(f"{label} {index}", launches)
 
     query_all(api, "ingest")
-    # again into the resident stacks: a seeded spread over all 64 shards
+    # again into the resident stacks: a seeded spread over all 32 shards
     cache = api.executor.stacked.cache
     was = cache.counters()
     cols = np.sort(rng.choice(INGEST_COLS, REIMPORT, replace=False))
@@ -2153,7 +2200,8 @@ def phase_ingest(path, note) -> None:
     t0 = time.perf_counter()
     api.import_columns("cols", cols, bits={"segment": sg, "active": ac},
                        values={"amount": am})
-    print(f"ingest: {REIMPORT} columns imported again over 64 shards in "
+    print(f"ingest: {REIMPORT} columns imported again over "
+          f"{INGEST_COLS // (W * 32)} shards in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host)")
     seg[cols] |= (1 << sg).astype(np.uint16)
     amount[cols], active[cols] = am, ac
@@ -2183,6 +2231,487 @@ def phase_ingest(path, note) -> None:
     h = reopen(path, "ingest")
     query_all(API(h), "ingest reopened")
     h.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: a rolling time window over a TIME field at full width
+# ---------------------------------------------------------------------------
+
+EV_HOURS = 168              # 2022-06-01 to 2022-06-07, hour by hour
+EV_ROWS = 4
+EV_COLS = 1 << 14           # seeded columns a (hour, row)
+S_TOPN_LOOP = 64            # shards of the per-shard engine's 7a queries
+# hours after 2022-06-01T00:00: 7a's window, 2022-06-02T06:00 to
+# 2022-06-05T18:00, covers 18 hour + 2 day + 18 hour views
+WINDOW_A = (30, 114)
+WINDOW_B = (31, 115)        # 7b: rolled by one hour
+COVER_LEAVES = 38
+DF_ROWS = 1 << 24           # 7g: dataframe rows
+
+
+def ev_time(hours: float):
+    import datetime as dt
+    return dt.datetime(2022, 6, 1) + dt.timedelta(hours=hours)
+
+
+def ev_stamp(hours: float) -> str:
+    return ev_time(hours).strftime("%Y-%m-%dT%H:%M")
+
+
+def ev_row(field: str, lo: int, hi: int) -> str:
+    return f"Row({field}=1, from='{ev_stamp(lo)}', to='{ev_stamp(hi)}')"
+
+
+def window_queries(lo: int, hi: int) -> dict:
+    """7a's query set over the window [lo, hi): name -> PQL."""
+    row = ev_row("ev", lo, hi)
+    return {"count": f"Count({row})",
+            "intersect": f"Count(Intersect({row}, Row(a=1)))",
+            "sum": f"Sum({row}, field=age)",
+            "topn": f"TopN(ev, n={EV_ROWS}, from='{ev_stamp(lo)}', "
+                    f"to='{ev_stamp(hi)}')"}
+
+
+def window_answers(ev, a, planes, lo: int, hi: int, n_shards: int = S) -> dict:
+    """numpy answers of window_queries from the (row, column, hour)
+    triples, over the first n_shards shards."""
+    import numpy as np
+    rows, cols, hrs = ev
+    inside = (hrs >= lo) & (hrs < hi) & (cols < n_shards * W * 32)
+    one = np.unique(cols[inside & (rows == 1)])
+
+    def bit(words, c):
+        return (words.reshape(-1)[c >> 5] >> (c & 31).astype(np.uint32)) & 1
+
+    values = sum(bit(planes[p], one).astype(np.int64) << p
+                 for p in range(planes.shape[0]))
+    counts = [(r, int(np.unique(cols[inside & (rows == r)]).size))
+              for r in range(EV_ROWS)]
+    top = sorted([c for c in counts if c[1]], key=lambda x: (-x[1], x[0]))
+    return {"count": int(one.size), "intersect": int(bit(a, one).sum()),
+            "sum": (int(values.sum()), int(one.size)), "topn": top}
+
+
+def build_events():
+    """The events index through the port's model API: ev (TIME, YMDH, 4
+    rows) with EV_COLS seeded columns a row an hour over EV_HOURS hours,
+    imported with timestamps; ew, the same for one day under
+    write-finest; a set field a and the BSI age (depth 7) of random
+    words.  Returns the holder, the (rows, cols, hours) triples of ev
+    and of ew, a's words and age's planes."""
+    import numpy as np
+    from pilosa_tpu_torch.models import timeq
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import (
+        CACHE_TYPE_NONE, FieldOptions, FieldType, TimeQuantum)
+    from pilosa_tpu_torch.models.view import VIEW_STANDARD
+
+    rng = np.random.default_rng(23)
+    h = Holder(width=W * 32)
+    idx = h.create_index("events", track_existence=False)
+    times = [ev_time(i) for i in range(EV_HOURS)]
+
+    def load(name: str, hours: int):
+        f = idx.create_field(name, FieldOptions(
+            type=FieldType.TIME, time_quantum=TimeQuantum("YMDH"),
+            cache_type=CACHE_TYPE_NONE))
+        hrs = np.repeat(np.arange(hours), EV_ROWS * EV_COLS)
+        rows = np.tile(np.repeat(np.arange(EV_ROWS), EV_COLS), hours)
+        cols = rng.integers(0, S * W * 32, size=hrs.size)
+        f.import_bits(rows, cols, [times[i] for i in hrs.tolist()])
+        return rows, cols, hrs
+
+    ev = load("ev", EV_HOURS)
+    timeq.configure(write_finest=True)
+    try:
+        ew = load("ew", 24)
+    finally:
+        timeq.configure(write_finest=False)
+    views = sorted(idx.field("ew").views)
+    if len(views) != 25 or views[0] != VIEW_STANDARD:
+        raise AssertionError(f"ew under write-finest holds {views}")
+    a_words = rng.integers(0, 1 << 32, size=(S, W), dtype=np.uint32)
+    view = idx.create_field("a", FieldOptions(
+        cache_type=CACHE_TYPE_NONE)).view(VIEW_STANDARD, create=True)
+    for shard in range(S):
+        view.fragment(shard, create=True).import_row_words(1, a_words[shard])
+    age = idx.create_field("age", FieldOptions(type=FieldType.INT,
+                                               min=0, max=127))
+    aview = age.view(age.bsi_view, create=True)
+    planes = rng.integers(0, 1 << 32, size=(DEPTH, S, W), dtype=np.uint32)
+    full = np.full(W, 0xFFFFFFFF, dtype=np.uint32)
+    for shard in range(S):
+        frag = aview.fragment(shard, create=True)
+        frag.import_row_words(0, full)
+        for p in range(DEPTH):
+            frag.import_row_words(2 + p, planes[p, shard])
+    return h, ev, ew, a_words, planes
+
+
+def cache_delta(ex, before: dict) -> dict:
+    after = ex.stacked.cache.counters()
+    out = {k: after[k] - before[k] for k in after if k != "rebuilds"}
+    out["rebuilds"] = {k: v - before["rebuilds"].get(k, 0)
+                       for k, v in after["rebuilds"].items()
+                       if v != before["rebuilds"].get(k, 0)}
+    return out
+
+
+def timed_call(ex, q: str, want, label: str):
+    """One call of q through Executor.execute, exact; its ms."""
+    import torch
+    t0 = time.perf_counter()
+    got = normalise(ex.execute("events", q)[0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if got != want:
+        raise AssertionError(f"{label} {q}: port {got} != numpy {want}")
+    return ms
+
+
+def span_summary(spans: list, depth: int = 0) -> list:
+    """Profile span dicts as indented 'name duration' lines, the
+    stacked.stack spans of a parent folded into one line."""
+    out = []
+    stacks = [sp for sp in spans if sp["name"] == "stacked.stack"]
+    for sp in spans:
+        if sp["name"] == "stacked.stack":
+            continue
+        out.append(f"{'  ' * depth}{sp['name']} {sp['duration_us'] / 1e3:.3f} ms")
+        out += span_summary(sp.get("children", []), depth + 1)
+    if stacks:
+        outcomes = Counter(sp["tags"]["outcome"] for sp in stacks)
+        out.append(f"{'  ' * depth}stacked.stack x{len(stacks)} "
+                   f"{dict(outcomes)} "
+                   f"{sum(sp['duration_us'] for sp in stacks) / 1e3:.3f} ms")
+    return out
+
+
+def span_names(spans: list) -> Counter:
+    c = Counter()
+    for sp in spans:
+        c[sp["name"]] += 1
+        c.update(span_names(sp.get("children", [])))
+    return c
+
+
+def stack_metric() -> dict:
+    from pilosa_tpu_torch.obs import metrics
+    return {o: metrics.STACK_CACHE.value(outcome=o)
+            for o in ("hit", "miss", "patch", "rebuild")}
+
+
+def check_stack_metric(before: dict, counters: dict, label: str) -> None:
+    """pilosa_stack_cache_total's outcomes since `before` against one
+    StackCache's counters (made after `before`, the only cache touched)."""
+    got = {k: v - before[k] for k, v in stack_metric().items()}
+    want = {"hit": counters["hits"],
+            "miss": counters["adopts"] + counters["patches"]
+            + counters["full_rebuilds"],
+            "patch": counters["patches"] + counters["adopts"],
+            "rebuild": counters["full_rebuilds"]}
+    if got != want:
+        raise AssertionError(f"{label}: stack metric {got} != counters {want}")
+    print(f"{label}: pilosa_stack_cache_total {got} equals "
+          f"StackCache.counters()")
+
+
+def phase_time_window(device, note) -> None:
+    """Phase 7 (see the module docstring); run order 7a, 7b, 7c, 7d, 7f,
+    7e, 7g, so that 7f profiles 7a's query over all its 38 views before
+    the TTL sweep of 7e removes some of them."""
+    import gc
+
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch.api import API
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models import timeq
+    from pilosa_tpu_torch.obs import faults, flight, metrics
+
+    torch.cuda.reset_peak_memory_stats(device)
+    print(f"time: device memory allocated "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB before")
+    t0 = time.perf_counter()
+    h, ev, ew, a_words, planes = build_events()
+    f_ev = h.index("events").field("ev")
+    print(f"time: events built on the host in {time.perf_counter() - t0:.1f} s:"
+          f" ev {ev[0].size} bits in {len(f_ev.views)} views, ew "
+          f"{ew[0].size} bits under write-finest in "
+          f"{len(h.index('events').field('ew').views)} views")
+    card = card_line()
+    ex = Executor(h)
+    lp = Executor(h)
+    lp.use_stacked = False
+    run_launches: dict = {}
+
+    def run(fn):
+        got, out = launches_of(fn)
+        for k, n in got.items():
+            run_launches[k] = run_launches.get(k, 0) + n
+        return out
+
+    # 7a: the cover
+    qa = window_queries(*WINDOW_A)
+    wa = window_answers(ev, a_words, planes, *WINDOW_A)
+    c0, q0 = ex.stacked.cache.counters(), metrics.TIMEQ_QCOVER_TOTAL.value()
+    firsts: dict = {}
+    p50 = run(lambda: run_queries(ex, "7a qcover", {qa["count"]: wa["count"]},
+                                  5, index="events", firsts=firsts))
+    d = cache_delta(ex, c0)
+    qc = metrics.TIMEQ_QCOVER_TOTAL.value() - q0
+    if d["full_rebuilds"] != COVER_LEAVES or d["rebuilds"] != {
+            "cold": COVER_LEAVES} or qc != 6:
+        raise AssertionError(f"7a: cover built {d}, qcover ops {qc}")
+    cover_bytes = COVER_LEAVES * S * W * 4
+    print(f"7a: device memory allocated "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
+    print(f"7a: {COVER_LEAVES} single-view leaves built "
+          f"(StackCache {d}), TIMEQ_QCOVER_TOTAL +{qc:g} over 6 calls, "
+          f"cover {cover_bytes} bytes on the card; first "
+          f"{firsts[qa['count']]:.2f} ms, warm p50 {p50[qa['count']]:.3f} ms"
+          f" ({card})")
+    timeq.configure(qcover=False)
+    try:
+        c0, off_firsts = ex.stacked.cache.counters(), {}
+        off = run(lambda: run_queries(ex, "7a one leaf",
+                                      {qa["count"]: wa["count"]}, 5,
+                                      index="events", firsts=off_firsts))
+        d = cache_delta(ex, c0)
+        if d["full_rebuilds"] != 1:
+            raise AssertionError(f"7a qcover off: built {d}")
+    finally:
+        timeq.configure(qcover=True)
+    print(f"7a: qcover {firsts[qa['count']]:.2f} ms first, "
+          f"{p50[qa['count']]:.3f} ms warm p50; one multi-view leaf "
+          f"(qcover off) {off_firsts[qa['count']]:.2f} ms first, "
+          f"{off[qa['count']]:.3f} ms warm p50 ({card})")
+    # the eager union of 38 leaves: 37 ORs, each reading two stacks and
+    # writing one; a fused union-and-count reads each leaf once
+    eager = 3 * (COVER_LEAVES - 1) * S * W * 4
+    print(f"7a: eager union moves {eager} bytes; a fused pass would read "
+          f"{cover_bytes} bytes, {cover_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    rest = {qa[k]: (list(wa[k]) if k == "topn" else wa[k])
+            for k in ("intersect", "sum", "topn")}
+    run(lambda: run_queries(ex, "7a stacked", rest, 3, index="events"))
+    sub = list(range(S_TOPN_LOOP))
+    wsub = window_answers(ev, a_words, planes, *WINDOW_A,
+                          n_shards=S_TOPN_LOOP)
+    run(lambda: run_queries(lp, f"7a per-shard ({S_TOPN_LOOP} shards)",
+                            {qa[k]: wsub[k] for k in qa}, 1, shards=sub,
+                            index="events"))
+
+    # 7b: the window rolls by one hour
+    qb = window_queries(*WINDOW_B)["count"]
+    wb = window_answers(ev, a_words, planes, *WINDOW_B)["count"]
+    c0, bfirst = ex.stacked.cache.counters(), {}
+    bp50 = run(lambda: run_queries(ex, "7b qcover", {qb: wb}, 5,
+                                   index="events", firsts=bfirst))
+    d = cache_delta(ex, c0)
+    if d["full_rebuilds"] != 1:
+        raise AssertionError(f"7b: the rolled window built {d}")
+    timeq.configure(qcover=False)
+    try:
+        c0, bofirst = ex.stacked.cache.counters(), {}
+        bop50 = run(lambda: run_queries(ex, "7b one leaf", {qb: wb}, 5,
+                                        index="events", firsts=bofirst))
+        doff = cache_delta(ex, c0)
+    finally:
+        timeq.configure(qcover=True)
+    print(f"7b: the rolled window built {d['full_rebuilds']} leaf "
+          f"({d['rebuilt_bytes']} bytes) under qcover, first {bfirst[qb]:.2f} ms"
+          f", warm p50 {bp50[qb]:.3f} ms; qcover off restacked its one "
+          f"leaf ({doff['rebuilt_bytes']} bytes), first {bofirst[qb]:.2f} ms, "
+          f"warm p50 {bop50[qb]:.3f} ms ({card})")
+
+    # 7c: a write at the live edge
+    rows, cols, hrs = ev
+    have = set(cols[(rows == 1) & (hrs >= WINDOW_B[0])
+                    & (hrs < WINDOW_B[1])].tolist())
+    col = next(c for c in range(S * W * 32 // 3, S * W * 32) if c not in have)
+    ex.execute("events", f"Set({col}, ev=1, {ev_stamp(WINDOW_B[1] - 0.5)})")
+    ev = (np.append(rows, 1), np.append(cols, col),
+          np.append(hrs, WINDOW_B[1] - 1))
+    c0 = ex.stacked.cache.counters()
+    ms = run(lambda: timed_call(ex, qb, wb + 1, "7c"))
+    d = cache_delta(ex, c0)
+    if d["patches"] != 1 or d["full_rebuilds"] or d["adopts"]:
+        raise AssertionError(f"7c: the live-edge write gave {d}")
+    print(f"7c: Set at {ev_stamp(WINDOW_B[1] - 0.5)} then Count {wb + 1} "
+          f"exact in {ms:.2f} ms: {d['patches']} patch "
+          f"({d['patched_bytes']} bytes), no build ({card})")
+
+    # 7d: write-finest and rollup
+    qd = f"Count({ev_row('ew', 0, 24)})"
+    ew_rows, ew_cols, _ = ew
+    wd = int(np.unique(ew_cols[ew_rows == 1]).size)
+    c0 = ex.stacked.cache.counters()
+    ms = run(lambda: timed_call(ex, qd, wd, "7d"))
+    d = cache_delta(ex, c0)
+    if d["full_rebuilds"] != 24:
+        raise AssertionError(f"7d: the unrolled day built {d}")
+    print(f"7d: {qd} = {wd} exact from 24 hour leaves in {ms:.2f} ms")
+    t0 = time.perf_counter()
+    folded = h.rollup_views(now=ev_time(24))
+    roll_s = time.perf_counter() - t0
+    day, month = "standard_20220601", "standard_202206"
+    want_folds = [("events", f, f"standard_20220601{i:02d}", day)
+                  for f in ("ev", "ew") for i in range(24)]
+    want_folds = [t for f in ("ev", "ew") for t in
+                  [x for x in want_folds if x[1] == f]
+                  + [("events", f, day, month)]]
+    if folded != want_folds:
+        raise AssertionError(f"7d: rollup folded {folded[:4]}...")
+    c0, q0 = ex.stacked.cache.counters(), metrics.TIMEQ_QCOVER_TOTAL.value()
+    ms2 = run(lambda: timed_call(ex, qd, wd, "7d rolled"))
+    d = cache_delta(ex, c0)
+    if d["full_rebuilds"] != 1 or metrics.TIMEQ_QCOVER_TOTAL.value() != q0:
+        raise AssertionError(f"7d: after rollup built {d}")
+    print(f"7d: rollup_views folded {len(folded)} views in "
+          f"{roll_s * 1e3:.1f} ms (host); then {qd} = {wd} from one day "
+          f"leaf in {ms2:.2f} ms ({card})")
+
+    # 7f: obs on the card (before 7e, so 7a's cover is whole)
+    api = API(h)
+    prof = {}
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        resp = api.query("events", qa["count"], profile=True)
+        prof[label] = (time.perf_counter() - t0, resp)
+        if resp["results"] != [wa["count"]]:
+            raise AssertionError(f"7f {label}: {resp['results']}")
+        print(f"7f: profile, {label} ({prof[label][0] * 1e3:.2f} ms):")
+        for line in span_summary(resp["profile"]):
+            print(f"7f:   {line}")
+    names = span_names(prof["cold"][1]["profile"])
+    if (names["stacked.stack"] != COVER_LEAVES
+            or span_names(prof["warm"][1]["profile"])["stacked.stack"]
+            or any(names[n] != 1 for n in (
+                "executor.Execute", "executor.executeCount",
+                "stacked.plan_build", "stacked.dispatch"))):
+        raise AssertionError(f"7f: span names {dict(names)}")
+    rec = flight.recorder.recent(1)[0]
+    if rec["route"] != "solo" or rec["index"] != "events":
+        raise AssertionError(f"7f: flight record {rec}")
+    print(f"7f: newest flight record route {rec['route']}, stack "
+          f"{rec['stack']}, phases {rec['phases']}")
+    del api
+    before = stack_metric()
+    api = API(h)
+    api.long_query_time = prof["cold"][0] / 2
+    api.query("events", qa["count"])
+    logged = api.long_queries()
+    if not logged or logged[0]["query"] != qa["count"] or \
+            span_names(logged[0]["spans"])["stacked.stack"] != COVER_LEAVES:
+        raise AssertionError(f"7f: long-query log {str(logged)[:200]}")
+    print(f"7f: long-query log holds the cold call "
+          f"({logged[0]['runtime_ns'] / 1e6:.2f} ms > "
+          f"{api.long_query_time * 1e3:.2f} ms) with its spans")
+    check_stack_metric(before, api.executor.stacked.cache.counters(), "7f")
+    faults.inject("device-patch", times=1)
+    try:
+        have = set(ev[1][(ev[0] == 1) & (ev[2] >= WINDOW_A[0])
+                         & (ev[2] < WINDOW_A[1])].tolist())
+        col2 = next(c for c in range(2 * S * W * 32 // 3, S * W * 32)
+                    if c not in have)
+        api.query("events", f"Set({col2}, ev=1, "
+                            f"{ev_stamp(WINDOW_A[1] - 0.5)})")
+        ev = (np.append(ev[0], 1), np.append(ev[1], col2),
+              np.append(ev[2], WINDOW_A[1] - 1))
+        c0 = api.executor.stacked.cache.counters()
+        resp = api.query("events", qa["count"])
+        d = cache_delta(api.executor, c0)
+    finally:
+        faults.clear()
+    if resp["results"] != [wa["count"] + 1] or d["rebuilds"] != {"fault": 1} \
+            or d["patches"]:
+        raise AssertionError(f"7f: device-patch gave {resp} {d}")
+    check_stack_metric(before, api.executor.stacked.cache.counters(), "7f")
+    print(f"7f: device-patch armed: a Set then Count {wa['count'] + 1} exact,"
+          f" the faulted patch answered by {d['full_rebuilds']} rebuild "
+          f"(reason fault) ({card})")
+    print(f"7f: device memory allocated "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
+          f"(phase 7's peak so far "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB)")
+    del api
+    gc.collect()
+
+    # 7e: TTL
+    f_ev.options.ttl = 4 * 86400
+    t0 = time.perf_counter()
+    removed = h.remove_expired_views(now=ev_time(EV_HOURS))
+    ttl_s = time.perf_counter() - t0
+    want_removed = {f"standard_{ev_time(i).strftime('%Y%m%d%H')}"
+                    for i in range(71)} | {"standard_20220601",
+                                           "standard_20220602"}
+    if set(removed) != want_removed or len(removed) != len(want_removed):
+        raise AssertionError(f"7e: removed {sorted(removed)[:5]}...")
+    cover = f_ev.views_for_range(ev_stamp(WINDOW_A[0]), ev_stamp(WINDOW_A[1]))
+    if set(cover) & want_removed or len(cover) != 20:
+        raise AssertionError(f"7e: the cover after TTL is {cover}")
+    we = window_answers(ev, a_words, planes, 48, WINDOW_A[1])["count"]
+    c0 = ex.stacked.cache.counters()
+    ms = run(lambda: timed_call(ex, qa["count"], we, "7e"))
+    d = cache_delta(ex, c0)
+    if d["full_rebuilds"] or d["hits"] + d["patches"] + d["adopts"] != 20:
+        raise AssertionError(f"7e: after TTL {d}")
+    lsub = window_answers(ev, a_words, planes, 48, WINDOW_A[1],
+                          n_shards=S_TOPN_LOOP)["count"]
+    got = run(lambda: lp.execute("events", qa["count"], shards=sub)[0])
+    if got != lsub:
+        raise AssertionError(f"7e per-shard: {got} != {lsub}")
+    print(f"7e: remove_expired_views removed {len(removed)} views in "
+          f"{ttl_s * 1e3:.1f} ms (host); 7a's window then counts {we} exact "
+          f"from the 20 surviving views in {ms:.2f} ms, none built, "
+          f"StackCache {d}; per-shard on {S_TOPN_LOOP} shards {got} exact "
+          f"({card})")
+    del ex, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7g: the dataframe
+    rng = np.random.default_rng(29)
+    ints = rng.integers(0, (1 << 31) + (1 << 28), size=DF_ROWS)
+    floats = rng.random(DF_ROWS)
+    df = h.index("events").dataframe
+    t0 = time.perf_counter()
+    step = 1 << 20
+    for lo in range(0, DF_ROWS, step):
+        df.add_rows([{"_id": i, "i": a, "f": b} for i, a, b in zip(
+            range(lo, lo + step), ints[lo:lo + step].tolist(),
+            floats[lo:lo + step].tolist())])
+    print(f"7g: {DF_ROWS} rows added in {time.perf_counter() - t0:.1f} s "
+          "(host)")
+    i32, f32 = ints.astype(np.int32), floats.astype(np.float32)
+    exact = {("sum", "i"): (int(i32.astype(np.int64).sum()) + (1 << 31))
+             % (1 << 32) - (1 << 31),
+             ("min", "i"): int(i32.min()), ("max", "i"): int(i32.max()),
+             ("count", "i"): DF_ROWS, ("min", "f"): float(f32.min()),
+             ("max", "f"): float(f32.max()), ("count", "f"): float(DF_ROWS)}
+    close = {("sum", "f"): float(f32.astype(np.float64).sum()),
+             ("mean", "f"): float(f32.astype(np.float64).mean()),
+             ("mean", "i"): float(i32.astype(np.float64).mean())}
+    for (op, c), want in {**exact, **close}.items():
+        t0 = time.perf_counter()
+        got = df.aggregate(op, c)
+        ms = (time.perf_counter() - t0) * 1e3
+        ok = (got == want if (op, c) in exact
+              else abs(got - want) <= 1e-6 * abs(want))
+        if not ok or type(got) is not type(want):
+            raise AssertionError(f"7g: aggregate {op} {c} = {got!r}, "
+                                 f"numpy {want!r}")
+        print(f"7g: aggregate({op}, {c}) = {got!r} "
+              f"{'exact' if (op, c) in exact else 'within 1e-6'} in "
+              f"{ms:.1f} ms (the column's host conversion included; "
+              f"{card})")
+    note("time window", run_launches)
+    del h, df
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"time: device memory allocated "
+          f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB after")
 
 
 def main() -> int:

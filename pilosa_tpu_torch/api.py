@@ -14,6 +14,14 @@ through the models' numpy scatter and end in ``Fragment.touch``, so an
 executor with resident stacks patches them, or rebuilds them by reason,
 on its next query.  Imports into one index take turns (the reference's
 one writer a shard); key translation runs outside that lock.
+
+``query(..., profile=True)`` returns the query's span tree beside its
+results, and a query slower than ``long_query_time`` seconds (0, the
+default, turns the log off) is kept with its spans in
+``long_queries()`` and logged through ``logger`` (a stderr logger by
+default).  The imports count ``pilosa_import_total`` and
+``pilosa_imported_bits_total`` by index.  Queries run through
+``Executor.execute``, the solo path: a profile is that call's spans.
 """
 
 from __future__ import annotations
@@ -43,6 +51,10 @@ from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.schema import FieldOptions
 from pilosa_tpu_torch.models.timeq import ns_of
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.obs import metrics
+from pilosa_tpu_torch.obs import tracing as _tr
+from pilosa_tpu_torch.obs.logger import StderrLogger
+from pilosa_tpu_torch.obs.tracing import RecordingTracer
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.pql import ParseError
 from pilosa_tpu_torch.storage import roaring
@@ -79,30 +91,67 @@ class API:
         self._history: list[QueryHistoryEntry] = []
         self._hist_lock = threading.Lock()
         self.history_keep = 100
+        # the long-query log (server.go:201 OptServerLongQueryTime): a
+        # query slower than this many seconds is logged and kept with
+        # its spans; 0 turns it off
+        self.long_query_time: float = 0.0
+        self._long_queries: list[dict] = []
+        self.logger = StderrLogger()
         self._import_locks: dict[str, threading.Lock] = {}
         self._import_locks_mu = threading.Lock()
 
     # -- queries -----------------------------------------------------------
 
-    def query(self, index: str, pql: str,
-              shards: list[int] | None = None) -> dict:
+    def query(self, index: str, pql: str, shards: list[int] | None = None,
+              profile: bool = False) -> dict:
         """A PQL query (api.go:209 API.Query): {"results": [...]}, one
-        serialized result a call."""
+        serialized result a call, and with ``profile`` the span trees
+        of the call under "profile" (tracing/tracing.go:22-50)."""
         t0 = time.time()
+        tracer = None
+        # the long-query log records spans for every query, so a slow
+        # one can show where its time went
+        if profile or self.long_query_time > 0:
+            tracer = RecordingTracer()
+            prev = _tr.push_thread_tracer(tracer)
         try:
             results = self.executor.execute(index, pql, shards)
         except (ExecError, ParseError, ValueError, KeyError) as e:
             raise ApiError(str(e), 400) from e
+        finally:
+            if tracer is not None:
+                _tr.pop_thread_tracer(prev)
         resp = {"results": [serialize_result(r) for r in results]}
-        self._record_history(index, pql, t0)
+        if profile and tracer.roots:
+            resp["profile"] = [sp.to_dict() for sp in tracer.roots]
+        self._record_history(index, pql, t0, tracer)
         return resp
 
-    def _record_history(self, index, query, t0):
-        e = QueryHistoryEntry(index, query, t0, time.time() - t0)
+    def _record_history(self, index, query, t0, tracer=None):
+        dur = time.time() - t0
+        e = QueryHistoryEntry(index, query, t0, dur)
         with self._hist_lock:
             self._history.append(e)
             if len(self._history) > self.history_keep:
                 self._history.pop(0)
+        if 0 < self.long_query_time <= dur:
+            entry = e.to_dict()
+            if tracer is not None and tracer.roots:
+                entry["spans"] = [sp.to_dict() for sp in tracer.roots]
+            with self._hist_lock:
+                self._long_queries.append(entry)
+                if len(self._long_queries) > self.history_keep:
+                    self._long_queries.pop(0)
+            self.logger.warn(
+                "long query (%.1fms > %.0fms) index=%r: %s",
+                dur * 1e3, self.long_query_time * 1e3, index,
+                str(query)[:200])
+
+    def long_queries(self) -> list[dict]:
+        """The slow-query ring with span timings, newest first
+        (/debug/long-queries)."""
+        with self._hist_lock:
+            return list(reversed(self._long_queries))
 
     def query_history(self) -> list[dict]:
         """Recent queries, newest first (http_handler.go /query-history)."""
@@ -195,6 +244,7 @@ class API:
         clear changed."""
         idx = self._index(index)
         f = self._field(idx, field)
+        metrics.IMPORT_TOTAL.inc(index=index)
         rows = self._translate_rows(f, rows, row_keys)
         cols = self._translate_cols(idx, cols, col_keys)
         if len(rows) != len(cols):
@@ -206,6 +256,7 @@ class API:
             f.import_bits(rows, cols, timestamps)
             if mark_exists:
                 idx.mark_columns_exist(cols)
+        metrics.IMPORTED_BITS.inc(len(cols), index=index)
         return len(cols)
 
     def import_roaring(self, index: str, field: str, shard: int,
@@ -215,6 +266,7 @@ class API:
         shard-relative columns.  Returns the bits set or cleared."""
         idx = self._index(index)
         f = self._field(idx, field)
+        metrics.IMPORT_TOTAL.inc(index=index)
         n = 0
         touched = []
         with self._import_lock(index):
@@ -243,6 +295,7 @@ class API:
                 n += int(cols.size)
             if touched:
                 idx.mark_columns_exist(np.concatenate(touched))
+        metrics.IMPORTED_BITS.inc(n, index=index)
         return n
 
     def export_roaring(self, index: str, field: str, shard: int,
@@ -261,6 +314,7 @@ class API:
         """Store (or with ``clear``, drop) BSI values at the columns."""
         idx = self._index(index)
         f = self._field(idx, field)
+        metrics.IMPORT_TOTAL.inc(index=index)
         cols = self._translate_cols(idx, cols, col_keys)
         if values is None:
             raise ApiError("values required", 400)
@@ -272,6 +326,7 @@ class API:
             f.import_values(cols, values)
             if mark_exists:
                 idx.mark_columns_exist(cols)
+        metrics.IMPORTED_BITS.inc(len(cols), index=index)
         return len(cols)
 
     def mark_columns_exist(self, index: str, cols) -> None:
@@ -317,6 +372,7 @@ class API:
                          (rows, cols, None)))
         for fname, vals in (values or {}).items():
             jobs.append((self._field(idx, fname).import_values, (cols, vals)))
+        metrics.IMPORT_TOTAL.inc(index=index)
         with self._import_lock(index):
             if workers > 1 and len(jobs) > 1:
                 with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -326,6 +382,7 @@ class API:
                 for fn, args in jobs:
                     fn(*args)
             idx.mark_columns_exist(cols)
+        metrics.IMPORTED_BITS.inc(len(cols) * len(jobs), index=index)
         return len(cols) * len(jobs)
 
     def sync(self, index: str) -> None:

@@ -706,8 +706,9 @@ class AdvancedOps:
         filter's columns that hold a value, ordered by value (descending
         under sort-desc), equal values in column order.  Each chunk of
         shards is sorted on the device and keeps its first offset+limit
-        (_sorted_prefix); the host merges the chunks with a stable
-        sort."""
+        (_sorted_prefix) where both are >= 0; the host merges the chunks
+        with a stable sort and takes Python's slice [offset:offset+limit],
+        the JAX package's, whatever their signs."""
         fname = call.arg("_field") or call.arg("field")
         f = self._bsi_field(idx, fname) if fname else None
         if f is None:
@@ -719,6 +720,11 @@ class AdvancedOps:
         offset = int(call.arg("offset", 0))
         limit = call.arg("limit")
         keep = None if limit is None else offset + int(limit)
+        # a chunk may drop what follows its first `keep` only when the
+        # slice counts from the front: a negative bound counts from the
+        # end of the whole merged order
+        chunk_keep = keep if offset >= 0 and (keep is None or keep >= 0) \
+            else None
         shard_list = self._shard_list(idx, shards)
 
         def stacked():
@@ -726,12 +732,12 @@ class AdvancedOps:
                 raise Unstackable("decode_depth", f"Sort of {f.name}: "
                                   f"depth {f.bit_depth} > 62")
             return self._sort_stacked(idx, f, filter_call, shard_list, pre,
-                                      desc, keep)
+                                      desc, chunk_keep)
 
         done, runs = self._try_stacked("Sort", stacked)
         if not done:
             runs = self._sort_loop(idx, f, filter_call, shard_list, pre,
-                                   desc, keep)
+                                   desc, chunk_keep)
         if not runs:
             return SortedRow(columns=[], values=[])
         vals = np.concatenate([v for v, _ in runs])

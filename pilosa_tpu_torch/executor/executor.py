@@ -46,11 +46,19 @@ engine that would count it.
 The executor runs on the CUDA card by default and raises when there
 is none; ``device="cpu"`` runs the kernels' plain versions on the CPU
 (the tests do so).
+
+``execute`` carries the JAX package's solo-path seams: a flight record
+(route "solo"), the ``executor.Execute`` span with one
+``executor.execute<Call>`` span a call, ``pilosa_query_total`` by index
+and status, ``pilosa_query_duration_seconds``, and
+``pilosa_stacked_queries_total`` by path ("stacked", or "loop" where
+the stacked engine refused a shape).
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import time
 from collections import Counter
 from decimal import Decimal
 from fractions import Fraction
@@ -80,6 +88,8 @@ from pilosa_tpu_torch.models.holder import Holder
 from pilosa_tpu_torch.models.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.models.schema import FieldType
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.obs import flight, metrics
+from pilosa_tpu_torch.obs.tracing import start_span
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import kernels
@@ -177,19 +187,41 @@ class Executor(AdvancedOps):
 
     def execute(self, index_name: str, query: str | Query,
                 shards: list[int] | None = None) -> list:
+        t0 = time.perf_counter()
+        status = "error"
         idx = self.holder.index(index_name)
-        if idx is None:
-            raise ExecError(f"index not found: {index_name}")
-        q = parse(query) if isinstance(query, str) else query
-        out = []
-        for c in q.calls:
-            res = self._execute_call(idx, c, shards)
-            # translateResults (executor.go:7519): a row result of a
-            # keyed index carries its column keys
-            if isinstance(res, RowResult) and idx.keys and not res.is_row_ids:
-                res.keys = idx.column_translator.translate_ids(res.columns())
-            out.append(res)
-        return out
+        # only real index names label the metric: client strings would
+        # grow its label set without bound
+        known = idx is not None
+        # None when a record is already open on this thread
+        fl = flight.begin(index_name, query)
+        try:
+            if idx is None:
+                raise ExecError(f"index not found: {index_name}")
+            q = parse(query) if isinstance(query, str) else query
+            out = []
+            with start_span("executor.Execute", index=index_name) as sp:
+                if fl is not None:
+                    sp.set_tag("trace_id", fl["trace_id"])
+                for c in q.calls:
+                    with start_span(f"executor.execute{c.name}"):
+                        res = self._execute_call(idx, c, shards)
+                    # translateResults (executor.go:7519): a row result
+                    # of a keyed index carries its column keys
+                    if (isinstance(res, RowResult) and idx.keys
+                            and not res.is_row_ids):
+                        res.keys = idx.column_translator.translate_ids(
+                            res.columns())
+                    out.append(res)
+            status = "ok"
+            return out
+        finally:
+            metrics.QUERY_TOTAL.inc(
+                index=index_name if known else "(unknown)", status=status)
+            dur = time.perf_counter() - t0
+            metrics.QUERY_DURATION.observe(dur)
+            flight.commit(fl, dur, route="solo",
+                          error=None if status == "ok" else status)
 
     def _execute_call(self, idx: Index, call: Call, shards, pre=None):
         """One call.  ``pre`` holds the query's nested cross-shard results
@@ -340,8 +372,10 @@ class Executor(AdvancedOps):
             out = run()
         except Unstackable as e:
             self.paths[(name, e.reason)] += 1
+            metrics.STACKED_QUERIES.inc(path="loop")
             return False, None
         self.paths[(name, "stacked")] += 1
+        metrics.STACKED_QUERIES.inc(path="stacked")
         return True, out
 
     # -- bitmap calls --------------------------------------------------------
@@ -1030,12 +1064,12 @@ class Executor(AdvancedOps):
         offset-th on, at most limit of them, in column order.  The
         child's (S, W) words are counted per shard (popcount_rows); a
         prefix sum on the host finds the shards that hold [offset,
-        offset + limit), and only those come back to the host."""
+        offset + limit), and only those come back to the host.  A
+        negative limit or offset takes Python's slice of the child's
+        columns [offset:offset + limit], as the JAX package does."""
         child = self._only_child(call)
         limit = call.arg("limit")
         offset = int(call.arg("offset", 0))
-        if offset < 0 or (limit is not None and int(limit) < 0):
-            raise ExecError("Limit: limit and offset must be >= 0")
         shard_list = self._tree_shards(idx, shards, pre)
         done, words = self._try_stacked(
             "Limit", lambda: self.stacked.filter_stack(
@@ -1044,6 +1078,13 @@ class Executor(AdvancedOps):
             words = self._tree_stack(idx, child, shard_list, pre)
         if words is None:
             return RowResult(idx.width)
+        if offset < 0 or (limit is not None and int(limit) < 0):
+            host = bm.to_numpy(words)
+            row = RowResult(idx.width)
+            row.segments = {s: host[i] for i, s in enumerate(shard_list)}
+            end = None if limit is None else offset + int(limit)
+            return RowResult.from_columns(row.columns()[offset:end],
+                                          idx.width)
         ends = np.cumsum(kernels.popcount_rows(words).cpu().numpy(),
                          dtype=np.int64)
         stop = int(ends[-1])

@@ -34,6 +34,22 @@ Shapes the JAX package hands to its host loops raise ``Unstackable``
 with a reason; the executor routes them to its per-shard engine (or to
 ``decode_stream``) and counts the route.
 
+A time range over more than one quantum view plans, under
+``timeq.qcover()`` (the default), as a ``("qcover", (leaf, ...))`` node:
+one single-view row leaf a cover member, unioned in ``_eval``.  Each
+leaf is cached under its own view, so a rolling window builds only the
+view that entered the cover, a write at the live edge patches one
+leaf, and overlapping covers and one-view rows share leaves.  With
+qcover off the cover is one multi-view leaf, ORed on the host.
+
+The engine carries the JAX package's seams: the ``stacked.plan_build``,
+``stacked.stack`` (every access that is not a hit) and
+``stacked.dispatch`` spans, the flight recorder's phases and stack
+outcomes, the ``pilosa_stack_cache_total`` outcomes and
+``pilosa_stack_maintenance_bytes_total``, and the ``device-patch``
+fault point, whose injected fault is answered by a rebuild counted
+under the reason "fault".
+
 Per-shard partials are int32 (counts < 2^20 per shard); cross-shard
 totals are summed as int64 on the device and combined as Python ints.
 Histogram and per-combo totals are int32 on the device, exact below
@@ -43,13 +59,17 @@ totals are summed as int64 on the host.
 
 from __future__ import annotations
 
+import time
 from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.models import timeq
 from pilosa_tpu_torch.models.schema import FieldType
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
+from pilosa_tpu_torch.obs import faults, flight, metrics
+from pilosa_tpu_torch.obs.tracing import start_span
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import kernels
@@ -168,6 +188,13 @@ def _eval(node, leaves, params):
         return acc
     if k == "not":
         return bm.difference(leaves[node[1]], _eval(node[2], leaves, params))
+    if k == "qcover":
+        # a time range's cover: the union of its single-view leaves,
+        # ORed into the first union's fresh tensor
+        acc = bm.union(leaves[node[1][0]], leaves[node[1][1]])
+        for i in node[1][2:]:
+            acc |= leaves[i]
+        return acc
     if k == "shift":
         return bm.shift(_eval(node[2], leaves, params), node[1])
     if k == "bsi_range":
@@ -405,6 +432,10 @@ class PlanBuilder:
             raise ExecError(str(e)) from None
         if not views:
             return ("zeros",)
+        if len(views) > 1 and timeq.qcover():
+            metrics.TIMEQ_QCOVER_TOTAL.inc()
+            return ("qcover", tuple(self._row_leaf(f, (vn,), row_id)
+                                    for vn in views))
         return ("leaf", self._row_leaf(f, views, row_id))
 
     def _build_bsi(self, fname: str, cond: Condition):
@@ -607,18 +638,32 @@ class StackCache:
       version;
     - "gen": a fragment's gen moved (a retired fragment);
     - "dirty_frac": the patch would write more than _PATCH_MAX_FRAC of
-      the stack's words.
+      the stack's words;
+    - "fault": an armed ``device-patch`` fault point failed the patch
+      (the JAX package's chaos seam, answered as its cache does).
 
-    A patch that raises propagates, the entry out of the cache: nothing
-    falls back to a rebuild.  Counters: ``hits``, ``adopts`` (a stale
-    entry no logged write touched, which takes the new stamps as it
-    is), ``patches``, ``patched_bytes`` (the padded runs' words),
+    Any other patch that raises propagates, the entry out of the cache:
+    nothing else falls back to a rebuild.  Counters: ``hits``,
+    ``adopts`` (a stale entry no logged write touched, which takes the
+    new stamps as it is), ``patches``, ``patched_bytes`` (the padded runs' words),
     ``full_rebuilds`` and ``rebuilt_bytes`` (every build, cold ones
     included, as the JAX package's TileStackCache counts them).  Least
-    recently used stacks are dropped past max_bytes."""
+    recently used stacks are dropped past max_bytes.
 
-    def __init__(self, max_bytes: int = _CACHE_MAX_BYTES):
+    ``seams`` (the stacked engine's cache) adds the JAX TileStackCache's
+    observability and chaos seams: a ``stacked.stack`` span (tags
+    ``outcome`` and ``bytes``) around every access that is not a hit,
+    the access's outcome and bytes in the flight record, the
+    ``device-patch`` fault point, and ``pilosa_stack_cache_total`` by
+    outcome, where hit = hits, miss = every other access, patch =
+    patches + adopts (the JAX patcher answers an untouched stack as a
+    patch of 0 bytes) and rebuild = full_rebuilds, beside
+    ``pilosa_stack_maintenance_bytes_total`` (patched, rebuilt)."""
+
+    def __init__(self, max_bytes: int = _CACHE_MAX_BYTES,
+                 seams: bool = False):
         self.max_bytes = max_bytes
+        self.seams = seams
         self._entries: OrderedDict = OrderedDict()
         self._bytes = 0
         self.hits = self.adopts = self.patches = self.patched_bytes = 0
@@ -641,38 +686,69 @@ class StackCache:
         """The stack under key, fresh for the fragment slots `frags`:
         a hit, a patch through the _Layout that make_layout() gives
         (called only for a stale entry), or build()."""
+        t0 = time.perf_counter()
         versions = stamps(frags)
         ent = self._entries.get(key)
         if ent is not None and ent[0] == versions:
             self._entries.move_to_end(key)
             self.hits += 1
+            if self.seams:
+                metrics.STACK_CACHE.inc(outcome="hit")
+                flight.note_stack("hit", 0, time.perf_counter() - t0)
             return ent[1]
+        if not self.seams:
+            return self._serve(key, frags, build, make_layout, versions,
+                               ent)[0]
+        metrics.STACK_CACHE.inc(outcome="miss")
+        with start_span("stacked.stack") as sp:
+            t, outcome, moved = self._serve(key, frags, build, make_layout,
+                                            versions, ent)
+            sp.set_tag("outcome", outcome)
+            if moved:
+                sp.set_tag("bytes", moved)
+        metrics.STACK_CACHE.inc(outcome=outcome)
+        metrics.STACK_MAINT_BYTES.inc(
+            moved, kind="patched" if outcome == "patch" else "rebuilt")
+        flight.note_stack(outcome, moved, time.perf_counter() - t0)
+        return t
+
+    def _serve(self, key, frags, build, make_layout, versions: tuple, ent):
+        """A stale or missing entry: patched, or built.  Returns (stack,
+        outcome "patch" | "rebuild", bytes moved to the device)."""
         if ent is None:
             reason = "cold"
         else:
             self._drop(key)
-            layout = make_layout()
-            dirty = self._dirty_lanes(frags, layout, ent[0], versions)
-            if isinstance(dirty, str):
-                reason = dirty
+            try:
+                if self.seams:
+                    # chaos seam: an armed fault fails the patch as a
+                    # device-side error would, before any byte moves
+                    faults.fire("device-patch")
+            except faults.InjectedFault:
+                reason = "fault"
             else:
-                moved = self._apply_patch(ent[1], dirty, layout)
-                if moved is not None:
-                    if dirty:
-                        self.patches += 1
-                        self.patched_bytes += moved
-                    else:
-                        self.adopts += 1
-                    self._insert(key, versions, ent[1])
-                    return ent[1]
-                reason = "dirty_frac"
+                layout = make_layout()
+                dirty = self._dirty_lanes(frags, layout, ent[0], versions)
+                if isinstance(dirty, str):
+                    reason = dirty
+                else:
+                    moved = self._apply_patch(ent[1], dirty, layout)
+                    if moved is not None:
+                        if dirty:
+                            self.patches += 1
+                            self.patched_bytes += moved
+                        else:
+                            self.adopts += 1
+                        self._insert(key, versions, ent[1])
+                        return ent[1], "patch", moved
+                    reason = "dirty_frac"
         t = build()
         nbytes = t.numel() * t.element_size()
         self.full_rebuilds += 1
         self.rebuilt_bytes += nbytes
         self.rebuilds[reason] += 1
         self._insert(key, versions, t)
-        return t
+        return t, "rebuild", nbytes
 
     @staticmethod
     def _dirty_lanes(frags, layout: _Layout, old: tuple, new: tuple):
@@ -753,7 +829,7 @@ class StackedEngine:
     def __init__(self, executor, device: torch.device):
         self.executor = executor
         self.device = device
-        self.cache = StackCache()
+        self.cache = StackCache(seams=True)
         self._disjoint_cache: OrderedDict = OrderedDict()
         # which kernel serves the one-pass histogram: "fused", or
         # "onehot" where its bounds hold (_onepass_kernel)
@@ -823,14 +899,49 @@ class StackedEngine:
 
     # -- entry points --------------------------------------------------------
 
+    def _run(self, plan, b: PlanBuilder, span: bool = True):
+        """One plan on the device, in a ``stacked.dispatch`` span unless
+        it only makes an operand of a later launch (a GroupBy's filter);
+        see _dispatch."""
+        if not span:
+            return _plan_run(plan)(b.leaves, b.params)
+        return self._dispatch(plan[0],
+                              lambda: _plan_run(plan)(b.leaves, b.params))
+
+    def _dispatch(self, kind: str, fn):
+        """fn() in a ``stacked.dispatch`` span, timed into the flight
+        record's execute phase; the clock stops when the card has
+        finished (every caller pulls the result to the host next)."""
+        t0 = time.perf_counter()
+        with start_span("stacked.dispatch", kind=kind):
+            out = fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        flight.note_phase("execute", time.perf_counter() - t0)
+        return out
+
     @staticmethod
-    def _run(plan, b: PlanBuilder):
-        return _plan_run(plan)(b.leaves, b.params)
+    def _build(b: PlanBuilder, call: Call):
+        """PlanBuilder.build in a ``stacked.plan_build`` span.  The stack
+        accesses inside it are timed by StackCache itself, so the flight
+        record's plan_build phase is the walk alone."""
+        acc = flight.active_acc()
+        stack0 = (sum(v for k, v in acc.phases.items()
+                      if k.startswith("stack_")) if acc else 0.0)
+        t0 = time.perf_counter()
+        with start_span("stacked.plan_build", call=call.name):
+            tree = b.build(call)
+        dt = time.perf_counter() - t0
+        if acc is not None:
+            dt -= sum(v for k, v in acc.phases.items()
+                      if k.startswith("stack_")) - stack0
+        flight.note_phase("plan_build", max(dt, 0.0))
+        return tree
 
     def count(self, idx, call: Call, shards: list[int], pre: dict) -> int:
         """Exact Count of a bitmap tree."""
         b = PlanBuilder(self, idx, shards, pre)
-        tree = b.build(call)
+        tree = self._build(b, call)
         if tree == ("zeros",):
             return 0
         return int(self._run(("count", tree), b).sum(dtype=torch.int64))
@@ -838,7 +949,7 @@ class StackedEngine:
     def words(self, idx, call: Call, shards: list[int], pre: dict):
         """(S, W) host uint32 result of a bitmap tree, or None for a
         statically empty tree."""
-        out = self.filter_stack(idx, call, tuple(shards), pre)
+        out = self.filter_stack(idx, call, tuple(shards), pre, timed=True)
         return None if out is None else np.array(bm.to_numpy(out))
 
     def bsi_sum(self, idx, field, filter_call, shards: list[int], pre: dict):
@@ -871,14 +982,18 @@ class StackedEngine:
 
     # -- value histogram -----------------------------------------------------
 
-    def filter_stack(self, idx, filter_call, skey: tuple, pre: dict):
+    def filter_stack(self, idx, filter_call, skey: tuple, pre: dict,
+                     timed: bool = False):
         """(S, W) device words of a bitmap tree, or None when the tree is
-        statically empty."""
+        statically empty.  ``timed`` (a bitmap call's words) puts the
+        build in a stacked.plan_build span and the launch in a
+        stacked.dispatch span, as the JAX package does; a filter, an
+        operand of a later launch, opens neither."""
         b = PlanBuilder(self, idx, list(skey), pre)
-        tree = b.build(filter_call)
+        tree = self._build(b, filter_call) if timed else b.build(filter_call)
         if tree == ("zeros",):
             return None
-        return self._run(("words", tree), b)
+        return self._run(("words", tree), b, span=timed)
 
     def bsi_value_hist(self, idx, field, filter_call, shards: list[int],
                        pre: dict):
@@ -1056,8 +1171,9 @@ class StackedEngine:
         planes = (self.plane_stack(idx, agg_field, skey)
                   if agg_field is not None else None)
         gb = self._onepass_kernel(n_codes, depth, minmax)
-        out = (gb(cg[:, :-1], valid, planes, n_codes, signed, minmax=True)
-               if minmax else gb(cg[:, :-1], valid, planes, n_codes, signed))
+        out = self._dispatch("groupby", lambda: (
+            gb(cg[:, :-1], valid, planes, n_codes, signed, minmax=True)
+            if minmax else gb(cg[:, :-1], valid, planes, n_codes, signed)))
         if planes is None:
             counts = out[0].cpu().numpy().astype(np.int64)
             return counts[codes], None
@@ -1100,7 +1216,8 @@ class StackedEngine:
                 stacks[0] = stacks[0] & filt[lo:lo + chunk].unsqueeze(0)
             planes = (self.plane_stack(idx, agg_field, sc)
                       if agg_field is not None else None)
-            out = kernels.groupby_sum(stacks, sel, planes, signed)
+            out = self._dispatch("groupby", lambda: kernels.groupby_sum(
+                stacks, sel, planes, signed))
             if agg is None:
                 counts += out[0].cpu().numpy()
                 continue

@@ -10,18 +10,27 @@ A ``keys=True`` field translates string row keys to row ids through its
 own sequential ``TranslateStore`` (``row_translator``), whose log is
 ``<path>/keys.jsonl`` when the field has a path.  Given the index's
 ``storage``, the field's fragments load from and sync to its RBF files.
+
+A time field's quantum views have a lifecycle (time.go:158): views
+whose span ended more than ``options.ttl`` seconds ago are removed
+(``remove_expired_views``), and under ``timeq.configure(
+write_finest=True)`` a write lands in the finest unit only, the coarser
+views folding from it at rollup (``rollup_views``); a range over a
+coarse view that was never rolled up reads its finer views
+(``_refine_cover``).
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import itertools
 import os
 import threading
 
 import numpy as np
 
 from pilosa_tpu_torch.models import timeq
-from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+from pilosa_tpu_torch.models.schema import FieldOptions, FieldType, TimeQuantum
 from pilosa_tpu_torch.models.view import (
     VIEW_BSI_PREFIX,
     VIEW_STANDARD,
@@ -40,8 +49,8 @@ def _shard_groups(shards: np.ndarray):
     sort order too."""
     order = np.argsort(shards, kind="stable")
     sh = shards[order]
-    starts = np.flatnonzero(np.r_[True, sh[1:] != sh[:-1]]) if sh.size \
-        else np.array([], dtype=np.int64)
+    starts = np.flatnonzero(np.concatenate(([True], sh[1:] != sh[:-1]))) \
+        if sh.size else np.array([], dtype=np.int64)
     bounds = np.append(starts[1:], sh.size)
     return order, zip(sh[starts].tolist(), starts.tolist(), bounds.tolist())
 
@@ -60,6 +69,9 @@ class Field:
         self.views: dict[str, View] = {}
         self._row_translator: TranslateStore | None = None
         self._lock = threading.RLock()
+        # (child_view, parent_view) pairs rollup_views already folded:
+        # an OR fold is idempotent, the set only spares the copy a tick
+        self._rolled: set[tuple[str, str]] = set()
         # BSI depth grows with observed magnitudes (bsiGroup, field.go:2394)
         if self.options.type.is_bsi:
             lo, hi = self.options.min, self.options.max
@@ -93,6 +105,38 @@ class Field:
             if self.storage is not None:
                 self.storage.delete_view_bitmaps(self.name, name)
             return True
+
+    def remove_expired_views(self, now: dt.datetime | None = None,
+                             epoch_latch: list | None = None) -> list[str]:
+        """Drop the quantum views whose span ended more than
+        options.ttl seconds before ``now`` (UTC, naive; the current
+        time by default), time.go:158; returns their names.  Every
+        fragment of a dropped view bumps its gen, so no device stack or
+        tile built from it compares fresh again, and the view's bitmaps
+        leave the index's storage, so a reopen does not bring it back.
+
+        ``epoch_latch`` is the JAX package's one-element latch that a
+        holder's sweep shares across fields so the serving mutation
+        epoch moves once a sweep.  The port has no mutation epoch until
+        its serving layer comes; the argument is accepted and unused."""
+        del epoch_latch
+        if self.options.ttl <= 0:
+            return []
+        now = now or dt.datetime.now(dt.timezone.utc).replace(tzinfo=None)
+        removed = []
+        with self._lock:
+            for name in list(self.views):
+                span = timeq.view_time_range(name)
+                if span is None:
+                    continue
+                if (now - span[1]).total_seconds() > self.options.ttl:
+                    v = self.views.pop(name)
+                    removed.append(name)
+                    for fr in v.fragments.values():
+                        fr.bump_gen()
+                    if self.storage is not None:
+                        self.storage.delete_view_bitmaps(self.name, name)
+        return removed
 
     @property
     def bsi_view(self) -> str:
@@ -173,10 +217,32 @@ class Field:
         if t == FieldType.BOOL and row not in (FALSE_ROW, TRUE_ROW):
             raise ValueError("bool field rows must be 0 or 1")
         shard, shard_col = divmod(col, self.width)
-        view_names = [VIEW_STANDARD]
         if t == FieldType.TIME and timestamp is not None:
-            view_names += timeq.views_by_time(
-                VIEW_STANDARD, timestamp, self.options.time_quantum)
+            with self._lock:
+                # the views are chosen and written under the lock, so a
+                # rollup cannot make a parent between the two
+                return self._set_bit_views(
+                    [VIEW_STANDARD] + self._time_views(timestamp), row,
+                    shard, shard_col)
+        return self._set_bit_views([VIEW_STANDARD], row, shard, shard_col)
+
+    def _time_views(self, timestamp: dt.datetime) -> list[str]:
+        """The quantum views a write at ``timestamp`` lands in: every
+        unit of the quantum, or under write-finest the finest unit and
+        each coarser view of the time that already exists (rolled up,
+        or written before the switch), which must follow late writes
+        into its span.  The caller holds the lock."""
+        q = self.options.time_quantum
+        if not (timeq.write_finest() and len(q) > 1):
+            return timeq.views_by_time(VIEW_STANDARD, timestamp, q)
+        return [timeq.view_by_time_unit(VIEW_STANDARD, timestamp, q[-1])] + [
+            vn for u in q[:-1]
+            if (vn := timeq.view_by_time_unit(VIEW_STANDARD, timestamp, u))
+            in self.views]
+
+    def _set_bit_views(self, view_names, row: int, shard: int,
+                       shard_col: int) -> bool:
+        t = self.options.type
         changed = False
         for vn in view_names:
             frag = self.view(vn, create=True).fragment(shard, create=True)
@@ -273,10 +339,45 @@ class Field:
             imp = frag.import_mutex if mutexish else frag.import_bits
             imp(rows_s[lo:hi], cols_s[lo:hi] % self.width)
         if self.options.type == FieldType.TIME and timestamps is not None:
-            for r, c, ts in zip(rows, cols, timestamps):
-                if ts is not None:
-                    self.set_bit(int(r), int(c),
-                                 timestamp=timeq.parse_time(ts))
+            self._import_time_views(rows, cols, timestamps)
+
+    def _import_time_views(self, rows, cols, timestamps) -> None:
+        """The quantum views of the timestamped pairs, as set_bit routes
+        each of them (None: no time): the pairs group by their distinct
+        times, each view gathers the pairs of every time it serves, and
+        imports them a shard at a time.  A write-finest import makes no
+        coarser view, so the views that exist before it are the parents
+        every pair sees."""
+        # pairs past the end of `timestamps` have no time, and times
+        # past the pairs are ignored (the JAX package zips the three)
+        times_in = itertools.chain(itertools.islice(timestamps, rows.size),
+                                   itertools.repeat(None))
+        codes_of: dict = {}
+        codes = np.fromiter((codes_of.setdefault(ts, len(codes_of))
+                             for ts in times_in), dtype=np.int64,
+                            count=rows.size)
+        order = np.argsort(codes, kind="stable")
+        starts = np.flatnonzero(np.concatenate(
+            ([True], np.diff(codes[order]) != 0))) if order.size \
+            else np.array([], dtype=np.int64)
+        bounds = np.append(starts[1:], order.size)
+        times = list(codes_of)
+        with self._lock:
+            per_view: dict[str, list] = {}
+            for lo, hi in zip(starts.tolist(), bounds.tolist()):
+                ts = times[int(codes[order[lo]])]
+                if ts is None:
+                    continue
+                for vn in self._time_views(timeq.parse_time(ts)):
+                    per_view.setdefault(vn, []).append(order[lo:hi])
+            for vn, parts in per_view.items():
+                sel = np.sort(np.concatenate(parts))
+                grp, groups = _shard_groups(cols[sel] // self.width)
+                rows_s, cols_s = rows[sel][grp], cols[sel][grp]
+                view = self.view(vn, create=True)
+                for shard, lo, hi in groups:
+                    view.fragment(int(shard), create=True).import_bits(
+                        rows_s[lo:hi], cols_s[lo:hi] % self.width)
 
     # -- reads ---------------------------------------------------------------
 
@@ -297,6 +398,76 @@ class Field:
                  else min(s[0] for s in spans))
         end = (timeq.parse_time(to) if to is not None
                else max(s[1] for s in spans))
-        return [v for v in timeq.views_by_time_range(
+        views = timeq.views_by_time_range(
             VIEW_STANDARD, start, end, self.options.time_quantum)
-            if v in self.views]
+        return self._refine_cover(views, str(self.options.time_quantum))
+
+    def _refine_cover(self, views: list[str], quantum: str) -> list[str]:
+        """A quantum cover resolved against the views that exist: a
+        missing cover view refines into the next finer units of the
+        quantum over its span, recursively.  Under write-finest the
+        coarse views exist only after a rollup, so a cover naming an
+        unrolled day reads its hours instead of dropping the span; when
+        every unit is written this keeps the existing views only."""
+        out: list[str] = []
+        for v in views:
+            if v in self.views:
+                out.append(v)
+                continue
+            span = timeq.view_time_range(v)
+            unit = timeq.view_unit(v)
+            finer = timeq.finer_units(quantum, unit) if unit else ""
+            if span is None or not finer:
+                continue  # nothing written there, or not a time view
+            sub = timeq.views_by_time_range(
+                VIEW_STANDARD, span[0], span[1], TimeQuantum(finer))
+            out.extend(self._refine_cover(sub, finer))
+        return out
+
+    def rollup_views(self, now: dt.datetime | None = None
+                     ) -> list[tuple[str, str]]:
+        """Fold completed fine-unit quantum views into their coarser
+        parents (the [timeq] rollup): each child view whose span ended
+        by ``now`` (UTC, naive; the current time by default) ORs into
+        the parent view of the next coarser unit, finest unit first, so
+        an hour -> day -> month -> year cascade lands in one pass.
+        Returns the (child, parent) pairs folded; a pair folds once."""
+        if self.options.type != FieldType.TIME:
+            return []
+        q = str(self.options.time_quantum)
+        if len(q) < 2:
+            return []
+        now = now or dt.datetime.now(dt.timezone.utc).replace(tzinfo=None)
+        folded: list[tuple[str, str]] = []
+        with self._lock:
+            for child_unit, parent_unit in zip(q[::-1], q[::-1][1:]):
+                for vn in sorted(self.views):
+                    if timeq.view_unit(vn) != child_unit:
+                        continue
+                    span = timeq.view_time_range(vn)
+                    if span is None or span[1] > now:
+                        continue  # the quantum is still open for writes
+                    parent = timeq.view_by_time_unit(
+                        VIEW_STANDARD, span[0], parent_unit)
+                    if (vn, parent) in self._rolled:
+                        continue
+                    self._fold_view(vn, parent)
+                    self._rolled.add((vn, parent))
+                    folded.append((vn, parent))
+        return folded
+
+    def _fold_view(self, child: str, parent: str) -> None:
+        """OR every row of every shard of ``child`` into ``parent``
+        (made if missing) through the fragment's bulk import, so
+        versions, delta logs and dirty rows follow: the parent's rows
+        come out as the JAX package's whole-row OR leaves them.  The
+        caller holds the lock."""
+        pv = self.view(parent, create=True)
+        for shard, cfrag in sorted(self.views[child].fragments.items()):
+            pfrag = pv.fragment(shard, create=True)
+            parts = [(row, cfrag.row_columns(row)) for row in cfrag.row_ids]
+            if parts:
+                pfrag.import_bits(
+                    np.concatenate([np.full(c.size, r, np.int64)
+                                    for r, c in parts]),
+                    np.concatenate([c for _r, c in parts]))

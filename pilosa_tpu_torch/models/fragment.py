@@ -41,6 +41,7 @@ from collections import deque
 import numpy as np
 
 from pilosa_tpu_torch.models.cache import make_cache
+from pilosa_tpu_torch.obs import faults
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.shardwidth import (
     BSI_OFFSET_BIT,
@@ -127,6 +128,13 @@ class Fragment:
         self.dirty_rows.add(row)
         log = self._delta_log
         log.append((self.version, row, lo, hi))
+        # chaos seam: die right after the delta entry landed, the window
+        # between the in-memory write and any durability (the detail is
+        # built only when the point is armed)
+        if faults.armed("crash-post-append"):
+            faults.fire("crash-post-append",
+                        f"{self.index_name}/{self.field_name}/"
+                        f"{self.view_name}/{self.shard}")
         while len(log) > DELTA_LOG_MAX:
             self._delta_floor = log.popleft()[0]
         if self._cache is not None:
@@ -227,8 +235,9 @@ class Fragment:
         self._check_cols(cols)
         order = np.argsort(rows, kind="stable")
         rows_s, cols_s = rows[order], cols[order]
-        starts = np.flatnonzero(np.r_[True, rows_s[1:] != rows_s[:-1]]) \
-            if rows_s.size else np.array([], dtype=np.int64)
+        starts = np.flatnonzero(np.concatenate(
+            ([True], rows_s[1:] != rows_s[:-1]))) if rows_s.size \
+            else np.array([], dtype=np.int64)
         bounds = np.append(starts[1:], rows_s.size)
         for r, lo, hi in zip(rows_s[starts].tolist(), starts.tolist(),
                              bounds.tolist()):
@@ -410,6 +419,14 @@ class Fragment:
         if arr is not None:
             return bm.from_columns(arr, self.width)
         return bm.empty(self.width)
+
+    def row_columns(self, row: int) -> np.ndarray:
+        """A row's set column ids, ascending, as int64."""
+        w = self._rows.get(row)
+        if w is not None:
+            return bm.to_columns(w).astype(np.int64)
+        arr = self._sparse.get(row)
+        return arr.copy() if arr is not None else np.empty(0, np.int64)
 
     def row_count(self, row: int) -> int:
         w = self._rows.get(row)

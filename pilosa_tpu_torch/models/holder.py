@@ -11,6 +11,7 @@ holder over the path brings back the indexes, fields, rows and keys.
 
 from __future__ import annotations
 
+import datetime as dt
 import json
 import os
 import shutil
@@ -66,6 +67,34 @@ class Holder:
             self.save_schema()
             for idx in self.indexes.values():
                 idx.sync()
+
+    def remove_expired_views(self, now: dt.datetime | None = None
+                             ) -> list[str]:
+        """The TTL sweep over every time field of every index (time.go:158
+        and the holder's view-removal ticker): the names of the views
+        removed.  The fields share one epoch latch, as the JAX
+        package's sweep does (Field.remove_expired_views)."""
+        removed: list[str] = []
+        latch = [False]
+        with self._lock:
+            for idx in self.indexes.values():
+                for f in idx.fields.values():
+                    removed += f.remove_expired_views(now, epoch_latch=latch)
+        return removed
+
+    def rollup_views(self, now: dt.datetime | None = None
+                     ) -> list[tuple[str, str, str, str]]:
+        """The [timeq] rollup sweep over every time field: completed
+        fine-unit views fold into their coarser parents
+        (Field.rollup_views).  Returns the (index, field, child view,
+        parent view) tuples folded."""
+        folded = []
+        with self._lock:
+            for iname, idx in self.indexes.items():
+                for f in idx.fields.values():
+                    folded += [(iname, f.name, c, p)
+                               for c, p in f.rollup_views(now)]
+        return folded
 
     def close(self) -> None:
         with self._lock:

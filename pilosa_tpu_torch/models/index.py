@@ -10,6 +10,10 @@ fragments in ``<path>/backends/shard.%04d.rbf`` (``IndexStorage``), its
 column keys in ``<path>/_keys/``, and each field's row keys in
 ``<path>/fields/<field>/keys.jsonl``.  ``sync`` writes the dirty rows;
 ``load_fragments`` makes every fragment found on disk.
+
+``dataframe`` is the index's columnar companion store
+(``models/dataframe.py``), made at first use; ``sync`` saves its new
+rows to ``<path>/dataframe.parquet``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import threading
 
 import numpy as np
 
+from pilosa_tpu_torch.models.dataframe import IndexDataframe
 from pilosa_tpu_torch.models.field import Field
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
 from pilosa_tpu_torch.shardwidth import BSI_OFFSET_BIT, SHARD_WIDTH
@@ -41,9 +46,20 @@ class Index:
         self.fields: dict[str, Field] = {}
         self._lock = threading.RLock()
         self._column_translator: PartitionedTranslator | None = None
+        self._dataframe: IndexDataframe | None = None
         self.storage = IndexStorage(path) if path is not None else None
         if track_existence:
             self._ensure_existence()
+
+    @property
+    def dataframe(self) -> IndexDataframe:
+        """The index's dataframe (apply.go, arrow.go; the
+        /index/{i}/dataframe route), made at first use and loaded from
+        the index's path when one was saved there."""
+        with self._lock:  # two racing first uses must not make two
+            if self._dataframe is None:
+                self._dataframe = IndexDataframe(self.path)
+            return self._dataframe
 
     @property
     def column_translator(self) -> PartitionedTranslator | None:
@@ -122,7 +138,9 @@ class Index:
 
     def sync(self) -> None:
         """Persist every dirty fragment row, one write transaction a
-        shard file."""
+        shard file, and the dataframe's new rows."""
+        if self._dataframe is not None:
+            self._dataframe.sync()
         if self.storage is None:
             return
         with self._lock:
@@ -151,7 +169,10 @@ class Index:
                     f.bit_depth = max(f.bit_depth, depth)
 
     def close(self) -> None:
-        """Close the shard files and the key translators."""
+        """Close the shard files and the key translators, and let the
+        dataframe go (``sync`` saves it; close does not, as in the JAX
+        package)."""
+        self._dataframe = None
         if self.storage is not None:
             self.storage.close()
         if self._column_translator is not None:

@@ -15,8 +15,71 @@ import re as _re
 from pilosa_tpu_torch.models.schema import TimeQuantum
 
 _FMT = {"Y": "%Y", "M": "%Y%m", "D": "%Y%m%d", "H": "%Y%m%d%H"}
+_UNIT_BY_LEN = {4: "Y", 6: "M", 8: "D", 10: "H"}
+_UNIT_ORDER = "YMDH"  # coarse -> fine
 
 TIME_FORMAT = "%Y-%m-%dT%H:%M"  # pql time literal format (time.go TimeFormat)
+
+# The [timeq] switches, with the JAX package's defaults.  They are set
+# through configure() only: the port reads no environment variable for
+# them, as its other engine switches (Executor.use_stacked,
+# StackedEngine.onepass_arm) are attributes.
+#
+# write-finest: a TIME write lands in the standard view and the finest
+# quantum unit only, plus any coarser view of its time that already
+# exists; the coarse views fold from the fine ones at rollup
+# (Field.rollup_views).  Off: every unit is written.
+_WRITE_FINEST = False
+# qcover: a time range over more than one view plans as a ("qcover",
+# ...) node of single-view stack leaves, unioned in the program, so a
+# rolling window builds only the view that entered and a write at the
+# live edge dirties one leaf.  Off: one multi-view leaf, ORed on the
+# host, for the whole cover.
+_QCOVER = True
+# rollup: whether the maintenance tick folds completed fine views into
+# their coarser parents (Holder.rollup_views).
+_ROLLUP = False
+
+
+def configure(write_finest: bool | None = None,
+              rollup: bool | None = None,
+              qcover: bool | None = None) -> None:
+    """Set the [timeq] switches; None leaves a switch as it is."""
+    global _WRITE_FINEST, _ROLLUP, _QCOVER
+    if write_finest is not None:
+        _WRITE_FINEST = bool(write_finest)
+    if rollup is not None:
+        _ROLLUP = bool(rollup)
+    if qcover is not None:
+        _QCOVER = bool(qcover)
+
+
+def write_finest() -> bool:
+    return _WRITE_FINEST
+
+
+def rollup_enabled() -> bool:
+    return _ROLLUP
+
+
+def qcover() -> bool:
+    return _QCOVER
+
+
+def view_unit(view_name: str) -> str | None:
+    """Quantum unit ("Y"/"M"/"D"/"H") of a time view name, None for
+    other views (the suffix-length twin of view_time_range)."""
+    _, _, suffix = view_name.rpartition("_")
+    if not suffix.isdigit():
+        return None
+    return _UNIT_BY_LEN.get(len(suffix))
+
+
+def finer_units(quantum: str, unit: str) -> str:
+    """The units of ``quantum`` strictly finer than ``unit``, coarse
+    first: a suffix of a valid quantum, hence valid itself."""
+    i = _UNIT_ORDER.index(unit)
+    return "".join(u for u in str(quantum) if _UNIT_ORDER.index(u) > i)
 
 
 def view_by_time_unit(name: str, t: dt.datetime, unit: str) -> str:

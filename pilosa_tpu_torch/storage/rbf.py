@@ -19,6 +19,7 @@ import functools
 
 import numpy as np
 
+from pilosa_tpu_torch.obs import testhook
 from pilosa_tpu_torch.storage import _build
 
 PAGE_SIZE = 8192
@@ -230,6 +231,7 @@ class DB:
             raise RBFError(f"open {path}: {self._lib.rbf_errmsg().decode()}")
         self._ptr = ptr
         self.path = path
+        testhook.opened("rbf.DB", self, path)
 
     def begin(self, write: bool = False) -> Tx:
         return Tx(self, write)
@@ -253,6 +255,7 @@ class DB:
 
     def close(self):
         if self._ptr:
+            testhook.closed("rbf.DB", self)
             rc = self._lib.rbf_close(self._ptr)
             self._ptr = None
             if rc != 0:

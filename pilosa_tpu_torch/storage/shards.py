@@ -13,6 +13,11 @@ durability.  ``write_fragments`` persists a shard's dirty rows in one
 write transaction, and a fragment loads its rows from here when it is
 made.  A WAL past ``CHECKPOINT_WAL_BYTES`` is checkpointed after the
 commit (the checkpoint-on-size of rbf/db.go).
+
+Two fault points sit after the commit of ``write_fragments``, as in the
+JAX package: ``wal-torn`` closes the shard's handle and cuts the WAL
+mid-frame (the commit never replays), and ``crash-pre-checkpoint`` dies
+after the WAL is durable but before the rows count as synced.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import threading
 
 import numpy as np
 
+from pilosa_tpu_torch.obs import faults
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.shardwidth import SPARSE_MAX
 from pilosa_tpu_torch.storage import rbf
@@ -155,10 +161,30 @@ class IndexStorage:
                         tx.put(name, row * tpr + t, np.ascontiguousarray(
                             words[t * rbf.TILE_WORDS:
                                   (t + 1) * rbf.TILE_WORDS]))
+        path = self._shard_path(shard)
+        if faults.take("wal-torn", path):
+            self._tear_wal(shard)
+            raise faults.InjectedFault("wal-torn", path)
+        faults.fire("crash-pre-checkpoint", path)
         for frag in frags:
             frag.dirty_rows.clear()
         if db.wal_size > CHECKPOINT_WAL_BYTES:
             db.checkpoint()  # skipped (False) while readers pin the WAL
+
+    def _tear_wal(self, shard: int) -> None:
+        """Enact the wal-torn fault: close the shard's handle, as a
+        dying process loses it, and cut the WAL mid-frame so its last
+        commit can never replay.  4 KiB is half a page: always inside
+        the last frame's page image."""
+        with self._lock:
+            d = self._dbs.pop(shard, None)
+        if d is not None:
+            d.close()
+        wal = self._shard_path(shard) + ".wal"
+        if os.path.exists(wal):
+            sz = os.path.getsize(wal)
+            if sz:
+                os.truncate(wal, max(0, sz - 4096))
 
     def delete_field_bitmaps(self, field: str) -> None:
         prefix = field + "/"

@@ -17,7 +17,8 @@ JAX package.
 Given a path, a store keeps an append-only JSONL log and compacts it
 into ``<path>.snap`` once ``COMPACT_THRESHOLD`` records have gathered
 in the log; a reopen replays the snapshot and the tail, and a torn
-last line (a crash mid-append) is dropped.
+last line (a crash mid-append) is dropped.  The ``torn-write`` fault
+point makes that tear: half a record, the log closed, an error.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import json
 import os
 import threading
 
+from pilosa_tpu_torch.obs import faults
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 PARTITION_N = 256
@@ -130,7 +132,17 @@ class TranslateStore:
             self._compact_locked()
 
     def _append_locked(self, id_: int, key: str):
-        self._log.write(json.dumps({"id": id_, "key": key}) + "\n")
+        line = json.dumps({"id": id_, "key": key}) + "\n"
+        if faults.take("torn-write", self.path or ""):
+            # chaos seam: a crash mid-append leaves a torn last line.
+            # Write half the record and stop as the crash would: close
+            # the log, so nothing lands after the tear and the reopen's
+            # torn-tail recovery can absorb it, and raise
+            self._log.write(line[:max(1, len(line) // 2)])
+            self._log.flush()
+            self._log.close()
+            raise faults.InjectedFault("torn-write", self.path or "")
+        self._log.write(line)
         self._tail_records += 1
 
     def _maybe_compact_locked(self):

@@ -937,3 +937,122 @@ def test_api_import_sync_and_reopen_on_the_card(cuda, tmp_path, monkeypatch):
     again = API(h)
     assert [again.query("g", q) for q in queries] == want
     h.close()
+
+
+def _time_holder(width, n_shards, hours, seed=21):
+    """A TIME field ev (YMDH, rows 0-3) with seeded columns in each hour
+    from 2022-06-01, imported with timestamps; returns the holder and
+    the (row, column, hour) triples."""
+    import datetime as dt
+
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import (
+        FieldOptions, FieldType, TimeQuantum)
+
+    rng = np.random.default_rng(seed)
+    h = Holder(width=width)
+    f = h.create_index("e", track_existence=False).create_field(
+        "ev", FieldOptions(type=FieldType.TIME,
+                           time_quantum=TimeQuantum("YMDH")))
+    n = 40
+    hrs = np.repeat(np.arange(hours), n)
+    rows = rng.integers(0, 4, size=hrs.size)
+    cols = rng.integers(0, width * n_shards, size=hrs.size)
+    base = dt.datetime(2022, 6, 1)
+    f.import_bits(rows, cols,
+                  [base + dt.timedelta(hours=int(x)) for x in hrs])
+    return h, np.stack([rows, cols, hrs], axis=1)
+
+
+def _window(lo, hi):
+    import datetime as dt
+    base = dt.datetime(2022, 6, 1)
+    fmt = "%Y-%m-%dT%H:%M"
+    return (f"Count(Row(ev=1, from='"
+            f"{(base + dt.timedelta(hours=lo)).strftime(fmt)}', to='"
+            f"{(base + dt.timedelta(hours=hi)).strftime(fmt)}'))")
+
+
+def _window_count(tr, lo, hi):
+    m = (tr[:, 0] == 1) & (tr[:, 2] >= lo) & (tr[:, 2] < hi)
+    return int(np.unique(tr[m, 1]).size)
+
+
+def test_qcover_count_and_rolled_window_on_the_card(cuda):
+    """A Count over a 38-view cover runs as single-view leaves on the
+    card (one build a leaf, popcount_rows launched), equal to the CPU
+    and to numpy; the window shifted by an hour builds one leaf; with
+    qcover off the cover is one leaf and the answer is the same."""
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models import timeq
+
+    h, tr = _time_holder(1 << 16, 3, 120)
+    ex = Executor(h)
+    q = _window(30, 114)                # 18 H + 2 D + 18 H
+    before = K.LAUNCHES["popcount_rows"]
+    got = ex.execute("e", q)
+    assert K.LAUNCHES["popcount_rows"] > before
+    assert got == Executor(h, device="cpu").execute("e", q) == [
+        _window_count(tr, 30, 114)]
+    assert ex.stacked.cache.full_rebuilds == 38
+    assert ex.execute("e", _window(31, 115)) == [_window_count(tr, 31, 115)]
+    assert ex.stacked.cache.full_rebuilds == 39
+    timeq.configure(qcover=False)
+    try:
+        assert Executor(h).execute("e", q) == got
+    finally:
+        timeq.configure(qcover=True)
+
+
+def test_live_edge_write_patches_one_leaf_on_the_card(cuda):
+    """A Set inside the cover's newest hour patches that hour's leaf on
+    the card (one patch, no build), and the Count is exact."""
+    import datetime as dt
+
+    from pilosa_tpu_torch.executor.executor import Executor
+
+    h, tr = _time_holder(1 << 16, 3, 72)
+    ex = Executor(h)
+    q = _window(6, 60)
+    assert ex.execute("e", q) == [_window_count(tr, 6, 60)]
+    col = next(c for c in range(3 << 16) if not (
+        (tr[:, 0] == 1) & (tr[:, 1] == c) & (tr[:, 2] >= 6)
+        & (tr[:, 2] < 60)).any())
+    ts = (dt.datetime(2022, 6, 1) + dt.timedelta(hours=59, minutes=30)
+          ).strftime("%Y-%m-%dT%H:%M")
+    ex.execute("e", f"Set({col}, ev=1, {ts})")
+    c0 = ex.stacked.cache.counters()
+    assert ex.execute("e", q) == [_window_count(tr, 6, 60) + 1]
+    c1 = ex.stacked.cache.counters()
+    assert c1["patches"] - c0["patches"] == 1
+    assert c1["full_rebuilds"] == c0["full_rebuilds"]
+
+
+def test_dataframe_aggregate_on_the_card(cuda):
+    """aggregate reduces on the card and answers as the CPU does: ints
+    exact under the 32-bit wrap, float sums and means within a relative
+    1e-6 of numpy's float64 sum of the float32 values."""
+    from pilosa_tpu_torch.models.dataframe import IndexDataframe
+
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    ints = rng.integers(0, (1 << 31) + (1 << 28), size=n)
+    floats = rng.random(n)
+    df = IndexDataframe(None)
+    df.add_rows([{"_id": i, "i": int(a), "f": float(b)}
+                 for i, (a, b) in enumerate(zip(ints, floats))])
+    i32 = ints.astype(np.int32)
+    f32 = floats.astype(np.float32)
+    for op in ("sum", "min", "max", "count"):
+        assert df.aggregate(op, "i") == df.aggregate(op, "i", device="cpu")
+    assert df.aggregate("sum", "i") == (
+        int(i32.astype(np.int64).sum()) + (1 << 31)) % (1 << 32) - (1 << 31)
+    assert df.aggregate("min", "f") == float(f32.min())
+    assert df.aggregate("max", "f") == float(f32.max())
+    assert df.aggregate("count", "f") == float(n)
+    for op, col, want in (
+            ("sum", "f", f32.astype(np.float64).sum()),
+            ("mean", "f", f32.astype(np.float64).mean()),
+            ("mean", "i", i32.astype(np.float64).mean())):
+        got = df.aggregate(op, col)
+        assert abs(got - want) <= 1e-6 * abs(want), (op, col, got, want)

@@ -30,8 +30,12 @@ print(len(names), bad)
 assert not bad, bad
 for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "ingest.sources", "ingest.pipeline", "storage.rbf",
-          "storage.shards", "storage.roaring"):
+          "storage.shards", "storage.roaring", "models.dataframe",
+          "models.timeq", "obs.metrics", "obs.logger", "obs.tracing",
+          "obs.testhook", "obs.faults", "obs.flight"):
     assert "pilosa_tpu_torch." + n in names, n
+# pyarrow loads only when a dataframe is saved, loaded or exported
+assert "pyarrow" not in sys.modules
 """
 
 
@@ -41,7 +45,7 @@ def test_port_imports_no_jax_and_no_pilosa_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20
+    assert n_modules >= 27
 
 
 _RBF_BUILD = r"""
@@ -91,3 +95,19 @@ def test_executor_needs_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         API(h)
     assert API(h, device="cpu").executor.device.type == "cpu"
+
+
+def test_timeq_switches_read_no_environment():
+    """The port's [timeq] switches come through timeq.configure() only:
+    the JAX package's environment twins leave them at their defaults."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PILOSA_TPU_QCOVER="0",
+               PILOSA_TPU_TIMEQ_WRITE_FINEST="1", PILOSA_TPU_TIMEQ_ROLLUP="1")
+    code = ("from pilosa_tpu_torch.models import timeq as t; "
+            "print(t.qcover(), t.write_finest(), t.rollup_enabled()); "
+            "t.configure(qcover=False, write_finest=True, rollup=True); "
+            "print(t.qcover(), t.write_finest(), t.rollup_enabled())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["True False False",
+                                          "False True True"]

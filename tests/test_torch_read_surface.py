@@ -162,6 +162,13 @@ QUERIES = [
     "Limit(Row(a=1), offset=2500)",
     "Limit(Union(Row(s=1), Row(m=2)), limit=10, offset=1500)",
     "Limit(Row(s=9000), limit=0)",
+    # negative limits and offsets: Python's slice of the whole order
+    "Sort(Row(a=1), field=v, limit=-1)",
+    "Sort(Row(a=1), field=v, sort-desc=true, limit=-3)",
+    "Sort(Row(a=1), field=v, offset=-2, limit=3)",
+    "Limit(Row(a=1), offset=-3)",
+    "Limit(Row(a=1), limit=-1)",
+    "Limit(Row(a=1), limit=3, offset=-5)",
     # Extract: bool, mutex, set, time and BSI fields; Sort as the filter
     "Extract(Limit(Row(a=1), limit=40, offset=800), Rows(bl), Rows(m), "
     "Rows(s), Rows(tq), Rows(v), Rows(dec), Rows(ts), Rows(deep))",
@@ -306,7 +313,8 @@ def test_bad_nested_distinct_raises_as_jax(holders, engine, query):
 
 @pytest.mark.parametrize("engine", ["stacked", "per_shard"])
 @pytest.mark.parametrize("limit,offset", [(3000, 500), (5, 0), (7, 100000),
-                                          (None, 2500)])
+                                          (None, 2500), (None, -3), (-1, None),
+                                          (3, -5)])
 def test_nested_limit_counts_its_columns(holders, engine, limit, offset):
     """A Limit nested as an operand (Count(Limit(...))) is this port's
     own: the JAX executor raises "unknown or non-bitmap call".  Its
