@@ -95,7 +95,24 @@ Phases, each printing its own lines; any failure exits non-zero:
        (column keys), TopN with and without a filter (row keys), GroupBy
        (row_key), Rows(like=), Extract of ConstRow keys, FieldValue, and
        a Set creating a key of each kind, on both engines, each exact
-       against numpy and the key lists.
+       against numpy and the key lists;
+   5c. SQL on the card (SQL_KERNELS): COUNT(*) of two SETCONTAINS, SUM
+       of age with and without one, COUNT(*) of age >= 64 and of age
+       BETWEEN 10 AND 100, the able GROUP BY edu, gen, dom and GROUP BY
+       t, a (set columns grouped member-wise under the flatten hint),
+       MIN/MAX/AVG of age under a, DISTINCT age, PERCENTILE(age, 50),
+       ORDER BY age DESC LIMIT 100 and a LIMIT 10 of _id, age, and on
+       kidx a keyed COUNT(*) and a GROUP BY of the keyed set field,
+       through SQLEngine on phase 4's executor (stacked) and a new
+       per-shard executor (the S_DECODE leading shards for the decoding
+       statements), each exact against numpy from the mirror after 5a
+       and launching its kernels, with its first call, warm p50, parse
+       and plan (SQL_PLAN_COST) times; EXPLAIN of the able GROUP BY
+       shows the pushed GroupBy; API.sql's JSON equals the engine's
+       rows; an INSERT of 64 seeded age values (one column in each of
+       64 shards) leaves SUM, the ranges and MIN/MAX/AVG exact on both
+       engines with the stale stacks and tiles patched and none
+       rebuilt, and a second INSERT puts the old values back.
 6. restart and ingest (the holders persist under a fresh directory of
    tempfile.gettempdir(), removed at the end; its free bytes printed
    first, and the run stops there if fewer than DISK_NEEDED):
@@ -1556,6 +1573,9 @@ def phase_main_path(device, root: str, reps: int = 5) -> dict:
     t0 = time.perf_counter()
     keyed = phase_keys(h, note)
     print(f"keys: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sql(h, ex, data, post, keyed, note)
+    print(f"sql: {time.perf_counter() - t0:.1f} s")
     # 6a: sync, drop the holder and every executor, reopen from disk
     t0 = time.perf_counter()
     sync_and_close(h, "restart")
@@ -1743,7 +1763,7 @@ def phase_writes(ex, lp, data, hist, before: dict, note) -> dict:
     flat = hist.reshape(-1).copy()
     np.subtract.at(flat, old, 1)
     np.add.at(flat, column_codes(data, cols, deleted), 1)
-    headline, groupby, _ages = numpy_answers(data, flat.reshape(HIST_SHAPE))
+    headline, groupby, ages = numpy_answers(data, flat.reshape(HIST_SHAPE))
     want = {**headline, **groupby,
             STORE_COUNT: int(np.bitwise_count(data["s"]).sum(dtype=np.int64))}
     print(f"writes: {len(ops)} writes, {len(cols)} columns in the joint "
@@ -1788,7 +1808,8 @@ def phase_writes(ex, lp, data, hist, before: dict, note) -> dict:
                                  f"all patched: rebuilds {builds}")
         if e is ex and any("s" not in k and "t" not in k for k in new):
             raise AssertionError(f"{label}: unexpected new stacks {new}")
-    return {"want": want, "loop_want": loop_want, "deleted": deleted}
+    return {"want": want, "loop_want": loop_want, "deleted": deleted,
+            "ages": ages}
 
 
 # phase 5b: a keyed index through the translators and the import API
@@ -1924,7 +1945,326 @@ def phase_keys(h, note) -> dict:
     next_id = translate.next_partitioned_id(
         "kidx", int(in_part.max()) if in_part.size else 0, part, W * 32)
     return {"want": {q: want[q] for q in RESTART_KEYED}, "next_id": next_id,
-            "taken": set(taken.tolist())}
+            "taken": set(taken.tolist()),
+            "kf_counts": {**{k: int(n) for k, n in zip(
+                rkeys, np.bincount(rk, minlength=KEY_ROWS))}, "k65": 1}}
+
+
+# phase 5c: SQL on the card, on the index phases 4-5b left
+SQL_SEED = 2028
+SQL_INSERT_SHARDS = 64      # one INSERTed column in each of 64 shards
+SQL_REPS = {"stacked": 5, "per-shard": 3}
+SQL_COUNT_AB = ("SELECT COUNT(*) FROM bench WHERE SETCONTAINS(a, 1) AND "
+                "SETCONTAINS(b, 1)")
+SQL_SUM_A = "SELECT SUM(age) FROM bench WHERE SETCONTAINS(a, 1)"
+SQL_SUM = "SELECT SUM(age) FROM bench"
+SQL_GE64 = "SELECT COUNT(*) FROM bench WHERE age >= 64"
+SQL_BETWEEN = "SELECT COUNT(*) FROM bench WHERE age BETWEEN 10 AND 100"
+# the able gauntlet and GroupBy(t, a): set columns group member-wise
+# only under the flatten hint (without it a set column groups by its
+# whole set, sql3's semantics, on the host)
+SQL_ABLE = ("SELECT edu, gen, dom, SUM(age) FROM bench WITH (flatten(edu), "
+            "flatten(gen), flatten(dom)) GROUP BY edu, gen, dom")
+SQL_TA = ("SELECT t, a, SUM(age) FROM bench WITH (flatten(t), flatten(a)) "
+          "GROUP BY t, a")
+SQL_MINMAX = ("SELECT MIN(age), MAX(age), AVG(age) FROM bench WHERE "
+              "SETCONTAINS(a, 1)")
+SQL_DISTINCT = "SELECT DISTINCT age FROM bench"
+SQL_PERCENTILE = "SELECT PERCENTILE(age, 50) FROM bench"
+SQL_ORDER = ("SELECT _id, age FROM bench WHERE SETCONTAINS(a, 1) AND "
+             "age > 120 ORDER BY age DESC LIMIT 100")
+SQL_LIMIT = "SELECT _id, age FROM bench WHERE SETCONTAINS(a, 1) LIMIT 10"
+SQL_KCOUNT = "SELECT COUNT(*) FROM kidx WHERE SETCONTAINS(kf, 'k17')"
+SQL_KGROUP = "SELECT kf, COUNT(*) FROM kidx WITH (flatten(kf)) GROUP BY kf"
+# statement -> (kernels that must launch on the stacked engine, on the
+# per-shard engine, the per-shard engine's cut: None for every shard,
+# else the S_DECODE leading shards of phases 4a and 4d)
+SQL_KERNELS = {
+    SQL_COUNT_AB: (["pair_popcount"], ["popcount_rows"], None),
+    SQL_SUM_A: (["bsi_sum_counts"], ["bsi_sum_counts"], None),
+    SQL_SUM: (["bsi_sum_counts"], ["bsi_sum_counts"], None),
+    SQL_GE64: (["bsi_range", "popcount_rows"], ["bsi_range"], None),
+    SQL_BETWEEN: (["bsi_range", "popcount_rows"], ["bsi_range"], None),
+    SQL_ABLE: (["groupby_fused"], ["popcount_rows", "bsi_sum_counts"], None),
+    SQL_TA: (["groupby_sum"], ["popcount_rows", "bsi_sum_counts"], None),
+    SQL_MINMAX: (["groupby_fused", "bsi_sum_counts"],
+                 ["popcount_rows", "bsi_sum_counts"], S_DECODE),
+    # the per-shard BSI Distinct is a host decode (phase 4a)
+    SQL_DISTINCT: (["groupby_fused"], [], S_DECODE),
+    SQL_PERCENTILE: (["groupby_fused", "bsi_range"],
+                     ["popcount_rows", "bsi_range"], S_DECODE),
+    SQL_ORDER: (["bsi_range"], ["bsi_range"], S_DECODE),
+    SQL_LIMIT: (["popcount_rows"], ["popcount_rows"], S_DECODE),
+    SQL_KCOUNT: (["popcount_rows"], ["popcount_rows"], None),
+    SQL_KGROUP: (["groupby_fused"], ["popcount_rows"], None),
+}
+# the statements the INSERTs must leave exact, on both engines
+SQL_AFTER_INSERT = [SQL_SUM, SQL_SUM_A, SQL_GE64, SQL_BETWEEN, SQL_MINMAX]
+
+
+def age_hists(data, shards):
+    """age's per-value column counts over the listed shards, from the
+    mirror: over every column holding a value, and under a."""
+    import numpy as np
+    h_any = np.zeros(1 << DEPTH, np.int64)
+    h_a = np.zeros(1 << DEPTH, np.int64)
+    for s in shards:
+        v = age_values(data, s)
+        ex = unpack(data["age_exists"][s]).astype(bool)
+        a = unpack(data["a"][s]).astype(bool)
+        h_any += np.bincount(v[ex], minlength=1 << DEPTH)
+        h_a += np.bincount(v[ex & a], minlength=1 << DEPTH)
+    return h_any, h_a
+
+
+def bsi_sql_answers(h_any, h_a) -> dict:
+    """The SUM, range, MIN/MAX/AVG, DISTINCT and PERCENTILE statements'
+    rows from age's value histograms (every column, under a)."""
+    from decimal import ROUND_HALF_EVEN, Decimal
+
+    import numpy as np
+    vals = np.arange(1 << DEPTH, dtype=np.int64)
+    nz_a = np.nonzero(h_a)[0]
+    sum_a, n_a = int((h_a * vals).sum()), int(h_a.sum())
+    avg = (Decimal(sum_a) / n_a).quantize(Decimal("0.0001"),
+                                          rounding=ROUND_HALF_EVEN)
+    pct = percentile_ref(h_any, 50)
+    return {
+        SQL_SUM: [(int((h_any * vals).sum()),)],
+        SQL_SUM_A: [(sum_a,)],
+        SQL_GE64: [(int(h_any[64:].sum()),)],
+        SQL_BETWEEN: [(int(h_any[10:101].sum()),)],
+        SQL_MINMAX: [(int(nz_a[0]), int(nz_a[-1]), avg)],
+        SQL_DISTINCT: [(int(v),) for v in np.nonzero(h_any)[0]],
+        SQL_PERCENTILE: [(pct[0] if pct else None,)],
+    }
+
+
+def sql_answers(data, post, keyed) -> tuple[dict, dict]:
+    """Phase 5c's rows from numpy: every shard (the stacked engine) and
+    the per-shard engine's cut (the S_DECODE leading shards where
+    SQL_KERNELS says so)."""
+    want = post["want"]
+    h_any, h_a = post["ages"]
+    full = bsi_sql_answers(h_any, h_a)
+    if full[SQL_SUM] != [(want["Sum(field=age)"][0],)] or \
+            full[SQL_SUM_A] != [(want["Sum(Row(a=1), field=age)"][0],)] or \
+            full[SQL_GE64] != [(want["Count(Row(age >= 64))"],)]:
+        raise AssertionError("sql: the value histograms disagree with 5a's")
+    order = {}
+    for n in (S, S_DECODE):
+        cols, vals = sort_ref(data, n, True, 0, 100)
+        if min(vals) <= 120:
+            raise AssertionError("sql: fewer than 100 columns of a over 120")
+        order[n] = list(zip(cols, vals))
+    first = limit_ref(data, S, 10, 0)
+    ages = [sum(bit(data["age"][p], c) << p for p in range(DEPTH))
+            if bit(data["age_exists"], c) else None for c in first]
+    ta = want["GroupBy(Rows(t), Rows(a), aggregate=Sum(field=age))"]
+    full.update({
+        SQL_COUNT_AB: [(want["Count(Intersect(Row(a=1), Row(b=1)))"],)],
+        SQL_ABLE: [([e], [g], [d], s) for (e, g, d), _n, s, nv in
+                   want[ABLE_SUM] if nv],
+        SQL_TA: [([r], [a], s) for (r, a), _n, s, nv in ta if nv],
+        SQL_ORDER: order[S],
+        SQL_LIMIT: list(zip(first, ages)),
+        SQL_KCOUNT: [(keyed["want"]['Count(Row(kf="k17"))'],)],
+        SQL_KGROUP: [([k], n) for k, n in keyed["kf_counts"].items() if n],
+    })
+    cut = dict(full)
+    cut.update({q: r for q, r in bsi_sql_answers(
+        *age_hists(data, range(S_DECODE))).items()
+        if SQL_KERNELS[q][2] is not None})
+    cut[SQL_ORDER] = order[S_DECODE]
+    return full, cut
+
+
+def sql_cells_ok(rows) -> bool:
+    """Every cell a plain Python value (never a tensor or a numpy
+    scalar); a set cell a list of them."""
+    from decimal import Decimal
+    plain = (int, float, Decimal, str, bool, type(None))
+    return all(isinstance(c, plain) or (isinstance(c, list) and all(
+        isinstance(x, plain) for x in c)) for r in rows for c in r)
+
+
+def run_sql(eng, label: str, want: dict, reps: int) -> dict:
+    """Each statement cold and then reps times warm through
+    SQLEngine.query, held exactly to its rows; prints the first call,
+    the warm p50, the parse time (parse_sql alone, host) and the plan
+    time (SQL_PLAN_COST's mean over the runs, host).  Returns statement
+    -> (first ms, warm p50 ms, parse µs, plan ms)."""
+    import torch
+    from pilosa_tpu_torch.obs import metrics
+    from pilosa_tpu_torch.sql.parser import parse_sql
+    out = {}
+    for q, expect in want.items():
+        pt = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            parse_sql(q)
+            pt.append(time.perf_counter() - t0)
+        c0, s0 = metrics.SQL_PLAN_COST.count(), metrics.SQL_PLAN_COST.sum()
+        t0 = time.perf_counter()
+        got = eng.query_one(q).rows
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t0) * 1e3
+        if got != expect or not sql_cells_ok(got):
+            raise AssertionError(f"{label} {q}: port {str(got)[:200]} != "
+                                 f"numpy {str(expect)[:200]}")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = eng.query_one(q).rows
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if again != expect:
+                raise AssertionError(f"{label} {q}: repeat gave "
+                                     f"{str(again)[:200]}")
+        n = metrics.SQL_PLAN_COST.count() - c0
+        plan = (metrics.SQL_PLAN_COST.sum() - s0) / n if n else float("nan")
+        p50 = statistics.median(times) * 1e3 if times else float("nan")
+        out[q] = (cold, p50, statistics.median(pt) * 1e6, plan)
+        print(f"{label}: {q} = {str(got)[:60]} exact; first {cold:.2f} ms, "
+              f"warm p50 {p50:.3f} ms over {reps}; parse "
+              f"{out[q][2]:.1f} us, plan {plan:.3f} ms (host)")
+    return out
+
+
+def phase_sql(h, ex, data, post, keyed, note) -> None:
+    """5c: SQL on the card.  The statements of SQL_KERNELS through
+    SQLEngine on phase 4's executor (the stacked engine, every shard)
+    and on a new per-shard executor (use_stacked = False; the S_DECODE
+    leading shards where SQL_KERNELS cuts), each exact against numpy
+    from the mirror after 5a, each launching its kernels; EXPLAIN of the
+    able GROUP BY shows the pushed GroupBy; API.sql's JSON equals the
+    engine's rows.  Then an INSERT of 64 seeded age values, one column
+    in each of 64 shards (the 16 leading ones among them): SUM, the
+    ranges and MIN/MAX/AVG exact against the mirror updated by put, the
+    resident stacks and tiles patched and none rebuilt; a second INSERT
+    puts the old values back, and the same statements equal 5a's
+    answers again (phase 6a checks the rows)."""
+    import json as _json
+
+    import numpy as np
+    from pilosa_tpu_torch.api import API, _json_value
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.sql import SQLEngine
+
+    class CutEngine(SQLEngine):
+        """SQLEngine whose pushed calls run on the leading shards only
+        (the per-shard engine's cut)."""
+
+        def __init__(self, holder, executor, shards):
+            super().__init__(holder, executor=executor)
+            self.shards = shards
+
+        def run_call(self, idx, call):
+            return self.executor._execute_call(idx, call, self.shards)
+
+    t0 = time.perf_counter()
+    full, cut = sql_answers(data, post, keyed)
+    print(f"sql: numpy reference in {time.perf_counter() - t0:.1f} s "
+          f"({card_line()})")
+    lp = Executor(h)
+    lp.use_stacked = False
+    engines = {"stacked": (SQLEngine(h, executor=ex), SQLEngine(h, executor=ex)),
+               "per-shard": (SQLEngine(h, executor=lp),
+                             CutEngine(h, lp, list(range(S_DECODE))))}
+    for name, (whole, part) in engines.items():
+        for q, (k_st, k_ps, n_cut) in SQL_KERNELS.items():
+            on_cut = name == "per-shard" and n_cut is not None
+            label = f"sql {name}" + (f" ({n_cut} shards)" if on_cut else "")
+            got, _ = launches_of(lambda: run_sql(
+                part if on_cut else whole, label,
+                {q: (cut if on_cut else full)[q]}, SQL_REPS[name]))
+            note(label, got)
+            needs = k_st if name == "stacked" else k_ps
+            if any(got[k] == 0 for k in needs):
+                raise AssertionError(f"{label} {q}: launches {got}, "
+                                     f"expected each of {needs}")
+    eng = engines["stacked"][0]
+    plan = [r[0] for r in eng.query_one("EXPLAIN " + SQL_ABLE).rows]
+    print(f"sql: EXPLAIN {SQL_ABLE}: {plan}")
+    if not any("PQL GroupBy pushdown" in ln for ln in plan):
+        raise AssertionError(f"sql: EXPLAIN shows no pushed GroupBy: {plan}")
+    api = API(h)
+    for q in (SQL_COUNT_AB, SQL_SUM_A):
+        res = eng.query_one(q)
+        body = {"schema": {"fields": [{"name": n, "type": t}
+                                      for n, t in res.schema]},
+                "data": [[_json_value(v) for v in r] for r in res.rows]}
+        if _json.dumps(api.sql(q)) != _json.dumps(body):
+            raise AssertionError(f"sql: API.sql {q} differs from the engine")
+    print(f"sql: API.sql of {SQL_COUNT_AB!r} and {SQL_SUM_A!r} equal the "
+          "engine's rows as JSON")
+    del api
+    # the INSERTs: one seeded column a shard, each holding a value
+    rng = np.random.default_rng(SQL_SEED)
+    shards = list(range(S_DECODE)) + sorted(rng.choice(
+        np.arange(S_DECODE, S), SQL_INSERT_SHARDS - S_DECODE,
+        replace=False).tolist())
+    cols, old = [], []
+    for sh in shards:
+        while True:
+            c = sh * W * 32 + int(rng.integers(0, W * 32))
+            if bit(data["age_exists"], c):
+                break
+        cols.append(c)
+        old.append(sum(bit(data["age"][p], c) << p for p in range(DEPTH)))
+    new = [(v + 1 + int(rng.integers(0, (1 << DEPTH) - 1))) % (1 << DEPTH)
+           for v in old]
+    h_any, h_a = (x.copy() for x in post["ages"])
+
+    def insert(values, label):
+        stmt = "INSERT INTO bench (_id, age) VALUES " + ", ".join(
+            f"({c}, {v})" for c, v in zip(cols, values))
+        t0 = time.perf_counter()
+        eng.query(stmt)
+        took = (time.perf_counter() - t0) * 1e3
+        for c, v in zip(cols, values):
+            was = sum(bit(data["age"][p], c) << p for p in range(DEPTH))
+            for p in range(DEPTH):
+                put(data["age"][p], c, (v >> p) & 1)
+            h_any[was] -= 1
+            h_any[v] += 1
+            if bit(data["a"], c):
+                h_a[was] -= 1
+                h_a[v] += 1
+        print(f"sql: {label}: INSERT of {len(cols)} age values over "
+              f"{len(cols)} shards: {took:.3f} ms (host)")
+
+    def after(label):
+        want = bsi_sql_answers(h_any, h_a)
+        part = bsi_sql_answers(*age_hists(data, range(S_DECODE)))
+        for name, (whole, cut_eng), cache in (
+                ("stacked", engines["stacked"], ex.stacked.cache),
+                ("per-shard", engines["per-shard"], lp.tiles.cache)):
+            was = cache.counters()
+            for q in SQL_AFTER_INSERT:
+                on_cut = name == "per-shard" and SQL_KERNELS[q][2] is not None
+                got, _ = launches_of(lambda: run_sql(
+                    cut_eng if on_cut else whole, f"sql {name} {label}",
+                    {q: (part if on_cut else want)[q]}, 1))
+                note(f"sql {name} {label}", got)
+            now = cache.counters()
+            print(f"sql {name} {label}: patches "
+                  f"{now['patches'] - was['patches']}, patched bytes "
+                  f"{now['patched_bytes'] - was['patched_bytes']}, rebuilds "
+                  f"{now['full_rebuilds'] - was['full_rebuilds']}")
+            if now["patches"] == was["patches"] or \
+                    now["full_rebuilds"] != was["full_rebuilds"]:
+                raise AssertionError(f"sql {name} {label}: the INSERT's "
+                                     f"stale stacks were not all patched: "
+                                     f"{was} -> {now}")
+        return want
+
+    insert(new, "insert")
+    after("after the insert")
+    insert(old, "restore")
+    if after("after the restore") != bsi_sql_answers(*post["ages"]):
+        raise AssertionError("sql: the restore did not give 5a's answers")
+    print(f"sql: done ({card_line()})")
 
 
 # phase 6: restart onto disk (6a) and ingest through the API (6b)

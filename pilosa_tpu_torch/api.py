@@ -20,8 +20,12 @@ results, and a query slower than ``long_query_time`` seconds (0, the
 default, turns the log off) is kept with its spans in
 ``long_queries()`` and logged through ``logger`` (a stderr logger by
 default).  The imports count ``pilosa_import_total`` and
-``pilosa_imported_bits_total`` by index.  Queries run through
-``Executor.execute``, the solo path: a profile is that call's spans.
+``pilosa_imported_bits_total`` by index, and ``import_bits``/
+``import_values`` note each import in the statistics catalog
+(``obs/stats.py``), whose record counts order SQL joins.  Queries run
+through ``Executor.execute``, the solo path: a profile is that call's
+spans.  ``sql`` runs statements through ``sql_engine``, a
+``SQLEngine`` sharing the API's executor (and so its device stacks).
 """
 
 from __future__ import annotations
@@ -52,11 +56,13 @@ from pilosa_tpu_torch.models.schema import FieldOptions
 from pilosa_tpu_torch.models.timeq import ns_of
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
 from pilosa_tpu_torch.obs import metrics
+from pilosa_tpu_torch.obs import stats as _stats
 from pilosa_tpu_torch.obs import tracing as _tr
 from pilosa_tpu_torch.obs.logger import StderrLogger
 from pilosa_tpu_torch.obs.tracing import RecordingTracer
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.pql import ParseError
+from pilosa_tpu_torch.sql import SQLEngine, SQLError
 from pilosa_tpu_torch.storage import roaring
 
 
@@ -87,6 +93,7 @@ class API:
         self.holder = holder
         self.name = name
         self.executor = Executor(holder, device)
+        self.sql_engine = SQLEngine(holder, executor=self.executor)
         self.start_time = time.time()
         self._history: list[QueryHistoryEntry] = []
         self._hist_lock = threading.Lock()
@@ -126,6 +133,23 @@ class API:
             resp["profile"] = [sp.to_dict() for sp in tracer.roots]
         self._record_history(index, pql, t0, tracer)
         return resp
+
+    def sql(self, statement: str, auth_check=None) -> dict:
+        """SQL statements (http_handler.go:1440 /sql): the last one's
+        {"schema": {"fields": [...]}, "data": [...]}.  ``auth_check``,
+        when set, gates each statement's table access."""
+        metrics.SQL_TOTAL.inc()
+        t0 = time.time()
+        try:
+            res = self.sql_engine.query_one(statement, auth_check=auth_check)
+        except (ExecError, SQLError, ParseError, ValueError, KeyError) as e:
+            raise ApiError(str(e), 400) from e
+        self._record_history("", statement, t0)
+        return {
+            "schema": {"fields": [{"name": n, "type": t}
+                                  for n, t in res.schema]},
+            "data": [[_json_value(v) for v in row] for row in res.rows],
+        }
 
     def _record_history(self, index, query, t0, tracer=None):
         dur = time.time() - t0
@@ -257,6 +281,8 @@ class API:
             if mark_exists:
                 idx.mark_columns_exist(cols)
         metrics.IMPORTED_BITS.inc(len(cols), index=index)
+        # outside the import lock, as in the JAX package
+        _stats.note_ingest(index, field, rows=rows, cols=cols, width=idx.width)
         return len(cols)
 
     def import_roaring(self, index: str, field: str, shard: int,
@@ -327,6 +353,8 @@ class API:
             if mark_exists:
                 idx.mark_columns_exist(cols)
         metrics.IMPORTED_BITS.inc(len(cols), index=index)
+        _stats.note_ingest(index, field, cols=cols, values=values,
+                           width=idx.width)
         return len(cols)
 
     def mark_columns_exist(self, index: str, cols) -> None:

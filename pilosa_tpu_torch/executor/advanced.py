@@ -708,13 +708,13 @@ class AdvancedOps:
         shards is sorted on the device and keeps its first offset+limit
         (_sorted_prefix) where both are >= 0; the host merges the chunks
         with a stable sort and takes Python's slice [offset:offset+limit],
-        the JAX package's, whatever their signs."""
+        the JAX package's, whatever their signs.  Past depth 63 a value
+        may not fit int64: the per-shard engine then decodes on the host
+        in Python ints (_sort_host), as the JAX loop does."""
         fname = call.arg("_field") or call.arg("field")
         f = self._bsi_field(idx, fname) if fname else None
         if f is None:
             raise ExecError("Sort requires a BSI field")
-        if f.bit_depth > 63:
-            raise ExecError(f"Sort unsupported for depth {f.bit_depth} > 63")
         desc = bool(call.arg("sort-desc", False))
         filter_call = call.children[0] if call.children else None
         offset = int(call.arg("offset", 0))
@@ -735,6 +735,9 @@ class AdvancedOps:
                                       desc, chunk_keep)
 
         done, runs = self._try_stacked("Sort", stacked)
+        if not done and f.bit_depth > 63:
+            return self._sort_host(idx, f, filter_call, shard_list, pre,
+                                   desc, offset, keep)
         if not done:
             runs = self._sort_loop(idx, f, filter_call, shard_list, pre,
                                    desc, chunk_keep)
@@ -781,6 +784,31 @@ class AdvancedOps:
             runs.append(_sorted_prefix(ex, vals, [shard], idx.width, desc,
                                        keep))
         return runs
+
+    def _sort_host(self, idx, f, filter_call, shard_list, pre, desc,
+                   offset: int, keep) -> SortedRow:
+        """Sort of a field past depth 63: each fragment's planes decoded
+        on the host in exact Python ints, the filter's words brought
+        back a shard, and one sort by (value, column)."""
+        cols, vals = [], []
+        for shard in shard_list:
+            frag = self._bsi_frag(f, shard)
+            if frag is None:
+                continue
+            c, v = bsi_ops.decode(np.stack(
+                [frag.row_words(r) for r in range(2 + f.bit_depth)]))
+            if filter_call is not None:
+                filt = bm.to_numpy(self._bitmap_call_shard(
+                    idx, filter_call, shard, pre))
+                sel = np.nonzero(bsi_ops.unpack_bits_np(filt)[c])[0]
+                c, v = c[sel], [v[i] for i in sel]
+            base = shard * idx.width
+            cols.extend(int(x) + base for x in c)
+            vals.extend(v)
+        order = sorted(range(len(cols)), key=lambda i: (
+            -vals[i] if desc else vals[i], cols[i]))[offset:keep]
+        return SortedRow(columns=[cols[i] for i in order],
+                         values=[f.int_to_value(vals[i]) for i in order])
 
     # -- Extract -----------------------------------------------------------
 

@@ -1174,10 +1174,13 @@ class Executor(AdvancedOps):
     def _constrow_cols(self, idx: Index, call: Call, pre: dict) -> list[int]:
         """ConstRow(columns=[...])'s column ids, keys translated (computed
         once a query into ``pre``, the preTranslate of executor.go:6814);
-        an unknown key matches nothing."""
+        an unknown key matches nothing.  An int is a column id, on a
+        keyed index too (SQL's ``WHERE _id = 'key'`` sends the id it
+        found), as in the JAX package."""
         cols = pre.get(("constrow", id(call)))
         if cols is None:
-            cols = [c for c in (self._col_id(idx, c)
+            cols = [c for c in (self._col_id(idx, c) if isinstance(c, str)
+                                else int(c)
                                 for c in call.arg("columns", []) or [])
                     if c is not None]
         return cols

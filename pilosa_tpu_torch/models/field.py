@@ -381,6 +381,16 @@ class Field:
 
     # -- reads ---------------------------------------------------------------
 
+    def row_ids(self) -> list[int]:
+        """The row ids set in the standard view in any shard, sorted."""
+        v = self.views.get(VIEW_STANDARD)
+        if v is None:
+            return []
+        ids: set[int] = set()
+        for frag in v.fragments.values():
+            ids.update(frag.row_ids)
+        return sorted(ids)
+
     def views_for_range(self, from_=None, to=None) -> list[str]:
         """Existing views to union for Row(field=x, from=..., to=...)."""
         if from_ is None and to is None:

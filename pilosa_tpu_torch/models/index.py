@@ -27,9 +27,14 @@ import numpy as np
 from pilosa_tpu_torch.models.dataframe import IndexDataframe
 from pilosa_tpu_torch.models.field import Field
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+from pilosa_tpu_torch.models.view import bsi_view_name
 from pilosa_tpu_torch.shardwidth import BSI_OFFSET_BIT, SHARD_WIDTH
 from pilosa_tpu_torch.storage.shards import IndexStorage
-from pilosa_tpu_torch.storage.translate import PartitionedTranslator
+from pilosa_tpu_torch.storage.translate import (
+    PartitionedTranslator,
+    key_to_key_partition,
+    shard_to_shard_partition,
+)
 
 EXISTENCE_FIELD = "_exists"
 
@@ -101,6 +106,81 @@ class Index:
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
+
+    def clone_to(self, dst: "Index") -> None:
+        """Deep-copy this index's schema, bitmaps (every view), key
+        translations and BSI depths into ``dst``, a fresh index with the
+        same ``keys`` (SQL COPY).  Column keys re-partition under dst's
+        name, since a partition hashes the index name: each goes to its
+        key's partition and, where that differs, its shard's too."""
+        if self.keys:
+            src_ct, ct = self.column_translator, dst.column_translator
+            for p in src_ct.nonempty_partitions():
+                for i, k in src_ct._store(p).entries():
+                    fwd = key_to_key_partition(dst.name, k)
+                    rev = shard_to_shard_partition(dst.name, i // ct.shard_width)
+                    ct._store(fwd).force_set(i, k)
+                    if rev != fwd:
+                        ct._store(rev).force_set(i, k)
+
+        def copy_field(f, nf):
+            nf.bit_depth = f.bit_depth
+            if f.row_translator is not None and nf.row_translator is not None:
+                for i, k in f.row_translator.entries():
+                    nf.row_translator.force_set(i, k)
+            for vn, v in f.views.items():
+                nv = nf.view(vn, create=True)
+                for shard, frag in v.fragments.items():
+                    nfrag = nv.fragment(shard, create=True)
+                    for r in frag.row_ids:
+                        nfrag.set_row_words(r, frag.row_words(r))
+
+        for f in self.public_fields():
+            copy_field(f, dst.create_field(f.name, f.options))
+        ef = self.fields.get(EXISTENCE_FIELD)
+        if ef is not None:
+            copy_field(ef, dst._ensure_existence())
+
+    def rename_field(self, old: str, new: str) -> None:
+        """ALTER TABLE .. RENAME COLUMN (sql3/planner/
+        compilealtertable.go): the field takes the new name with its
+        views, fragments and row-key directory, and its persisted
+        bitmaps are written under the new name and dropped under the
+        old.  A device stack left under the old name (``StackCache``)
+        serves nothing stale: an entry is served only while its
+        fragment slots' (gen, version) stamps match, and a field made
+        later under the old name has fragments of new gens."""
+        with self._lock:
+            f = self.fields.get(old)
+            if f is None:
+                raise ValueError(f"field not found: {old}")
+            if new in self.fields or new == EXISTENCE_FIELD:
+                raise ValueError(f"field already exists: {new}")
+            del self.fields[old]
+            f.name = new
+            self.fields[new] = f
+            oldp, newp = self._field_path(old), self._field_path(new)
+            if oldp and os.path.isdir(oldp):
+                os.rename(oldp, newp)  # open key logs survive a rename
+            if f.path:
+                f.path = newp
+            old_bsi, new_bsi = bsi_view_name(old), bsi_view_name(new)
+            for vn in list(f.views):
+                v = f.views[vn]
+                v.field_name = new
+                nvn = new_bsi if vn == old_bsi else vn
+                for frag in v.fragments.values():
+                    frag.field_name = new
+                    frag.view_name = nvn
+                    # every row is written again under the new name
+                    frag.dirty_rows.update(frag._rows)
+                    frag.dirty_rows.update(frag._sparse)
+                if nvn != vn:
+                    v.name = nvn
+                    f.views[nvn] = f.views.pop(vn)
+        if self.storage is not None:
+            self.sync()
+            self.storage.delete_field_bitmaps(old)
 
     def delete_field(self, name: str) -> None:
         """Drop a field with its bitmaps and its row-key files, so a

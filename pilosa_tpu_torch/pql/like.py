@@ -10,6 +10,9 @@ Two matchers, as in the reference:
   ``.*`` and ``_`` is ``.+`` (one or more characters).  Regex
   metacharacters of the pattern are escaped (the reference splices
   them in unescaped).
+
+``like_match`` and ``sql_like_match`` test one value against a
+pattern (SQL's LIKE operator calls the latter).
 """
 
 from __future__ import annotations
@@ -31,3 +34,11 @@ def sql_like_regex(pattern: str) -> re.Pattern:
             ".*" if ch == "%" else ".+" if ch == "_"
             else re.escape(ch) for ch in pattern) + "$",
         re.DOTALL | re.IGNORECASE)
+
+
+def like_match(value: str, pattern: str) -> bool:
+    return like_regex(pattern).match(value) is not None
+
+
+def sql_like_match(value: str, pattern: str) -> bool:
+    return sql_like_regex(pattern).match(value) is not None

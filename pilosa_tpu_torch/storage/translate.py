@@ -204,6 +204,16 @@ class TranslateStore:
                 self._maybe_compact_locked()
         return out
 
+    def force_set(self, id_: int, key: str):
+        """Record a key under a given id (translate.go ForceSet: the
+        replication write path; ``Index.clone_to`` copies keys so)."""
+        with self._lock:
+            self._set(id_, key)
+            if self._log:
+                self._append_locked(id_, key)
+                self._log.flush()
+                self._maybe_compact_locked()
+
     def translate_id(self, id_: int) -> str | None:
         return self._by_id.get(id_)
 
@@ -288,6 +298,12 @@ class PartitionedTranslator:
             return []
         return [int(fn.split(".")[1]) for fn in os.listdir(self._path)
                 if fn.startswith("keys.") and fn.endswith(".jsonl")]
+
+    def nonempty_partitions(self) -> list[int]:
+        """Partitions holding a key, opened or only on disk (right after
+        a reopen no store is open yet)."""
+        return sorted(p for p in set(self._stores) | set(self._on_disk())
+                      if self._store(p).max_id())
 
     def match(self, predicate) -> list[int]:
         ids: set[int] = set()

@@ -1056,3 +1056,65 @@ def test_dataframe_aggregate_on_the_card(cuda):
             ("mean", "i", i32.astype(np.float64).mean())):
         got = df.aggregate(op, col)
         assert abs(got - want) <= 1e-6 * abs(want), (op, col, got, want)
+
+
+def test_sql_on_the_card_matches_the_cpu(cuda):
+    """SQL statements answered on the card, on both engines, equal the
+    plain versions' answers; an INSERT between two passes patches the
+    resident stacks, and the kernels of SQL's path launch."""
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.sql import SQLEngine
+
+    rng = np.random.default_rng(5)
+    stmts = [
+        "SELECT COUNT(*) FROM t WHERE SETCONTAINS(s, 1) AND "
+        "SETCONTAINS(s, 2)",
+        "SELECT SUM(age) FROM t WHERE SETCONTAINS(s, 1)",
+        "SELECT COUNT(*) FROM t WHERE age BETWEEN 10 AND 100",
+        "SELECT m, SUM(age) FROM t GROUP BY m",
+        "SELECT MIN(age), MAX(age), AVG(age) FROM t WHERE SETCONTAINS(s, 3)",
+        "SELECT DISTINCT age FROM t",
+        "SELECT PERCENTILE(age, 50) FROM t",
+        "SELECT _id, age FROM t WHERE SETCONTAINS(s, 1) AND age > 120 "
+        "ORDER BY age DESC LIMIT 20",
+        "SELECT _id FROM t WHERE SETCONTAINS(s, 2) LIMIT 10",
+    ]
+
+    def build(device):
+        h = Holder(width=4096)
+        eng = SQLEngine(h, executor=Executor(h, device=device))
+        eng.query("CREATE TABLE t (_id id, s idset, age int min -10 "
+                  "max 250, m string)")
+        r = np.random.default_rng(5)
+        vals = ", ".join(
+            f"({c}, ({int(r.integers(0, 4))}, {int(r.integers(0, 4))}), "
+            f"{int(r.integers(-10, 251))}, '{'xyz'[int(r.integers(0, 3))]}')"
+            for c in r.choice(4096 * 6, size=1500, replace=False).tolist())
+        eng.query("INSERT INTO t (_id, s, age, m) VALUES " + vals)
+        return eng
+
+    cpu = build("cpu")
+    insert = "INSERT INTO t (_id, age) VALUES " + ", ".join(
+        f"({c}, {int(v)})" for c, v in zip(
+            rng.choice(4096 * 6, size=64, replace=False).tolist(),
+            rng.integers(0, 251, size=64)))
+    wants = [[cpu.query_one(q).rows for q in stmts]]
+    cpu.query(insert)
+    wants.append([cpu.query_one(q).rows for q in stmts])
+    for stacked in (True, False):
+        eng = build(None)
+        eng.executor.use_stacked = stacked
+        K.reset_launches()
+        assert [eng.query_one(q).rows for q in stmts] == wants[0]
+        cache = (eng.executor.stacked.cache if stacked
+                 else eng.executor.tiles.cache)
+        before = cache.counters()
+        eng.query(insert)
+        assert [eng.query_one(q).rows for q in stmts] == wants[1]
+        after = cache.counters()
+        assert after["patches"] > before["patches"]
+        assert {k: v for k, v in after["rebuilds"].items() if k != "cold"} \
+            == {k: v for k, v in before["rebuilds"].items() if k != "cold"}
+        for k in ("popcount_rows", "bsi_range", "bsi_sum_counts"):
+            assert K.LAUNCHES[k] > 0, (stacked, k, K.LAUNCHES)

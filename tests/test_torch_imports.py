@@ -32,7 +32,11 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "ingest.sources", "ingest.pipeline", "storage.rbf",
           "storage.shards", "storage.roaring", "models.dataframe",
           "models.timeq", "obs.metrics", "obs.logger", "obs.tracing",
-          "obs.testhook", "obs.faults", "obs.flight"):
+          "obs.testhook", "obs.faults", "obs.flight", "obs.stats",
+          "storage.bufferpool", "storage.extendiblehash", "sql",
+          "sql.lexer", "sql.ast", "sql.parser", "sql.common", "sql.funcs",
+          "sql.typecheck", "sql.wherec", "sql.costplan", "sql.plan",
+          "sql.select_exec", "sql.statements", "sql.engine"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -45,7 +49,7 @@ def test_port_imports_no_jax_and_no_pilosa_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 27
+    assert n_modules >= 60
 
 
 _RBF_BUILD = r"""
@@ -95,6 +99,10 @@ def test_executor_needs_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         API(h)
     assert API(h, device="cpu").executor.device.type == "cpu"
+    from pilosa_tpu_torch.sql import SQLEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SQLEngine(h)
+    assert SQLEngine(h, device="cpu").executor.device.type == "cpu"
 
 
 def test_timeq_switches_read_no_environment():
@@ -111,3 +119,20 @@ def test_timeq_switches_read_no_environment():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["True False False",
                                           "False True True"]
+
+
+def test_sql_and_stats_switches_read_no_environment():
+    """The port's [sql] pushdown and [stats] switches come through
+    costplan.configure() and stats.configure() only: the JAX package's
+    environment twins leave them at their defaults (on)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PILOSA_TPU_SQL_PUSHDOWN="0",
+               PILOSA_TPU_STATS="0")
+    code = ("from pilosa_tpu_torch.sql import costplan as c; "
+            "from pilosa_tpu_torch.obs import stats as s; "
+            "print(c.enabled(), s.enabled()); "
+            "c.configure(enabled=False); s.configure(enabled=False); "
+            "print(c.enabled(), s.enabled())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["True True", "False False"]

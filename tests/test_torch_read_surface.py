@@ -44,9 +44,9 @@ def _surface(h, opts, ftype, tq_opts):
     ids past the data, so a nested Distinct sets bits in shards 4 and
     5), mutex m, bool bl, time tq, INT v with heavy ties and negatives,
     DECIMAL dec, TIMESTAMP ts, a depth-40 INT deep, an INT empty with
-    no value and a depth-63 INT big.  Index o: INT userid holding
-    column ids of r (some negative, some past r's data), INT price, a
-    set field cat and a DECIMAL dd."""
+    no value, a depth-63 INT big and a depth-64 INT huge.  Index o: INT
+    userid holding column ids of r (some negative, some past r's data),
+    INT price, a set field cat and a DECIMAL dd."""
     rng = np.random.default_rng(17)
     idx = h.create_index("r")
     cols = np.arange(NCOLS)
@@ -93,6 +93,11 @@ def _surface(h, opts, ftype, tq_opts):
                                        max=1 << 62))
     big.import_values(np.array([1, 2, 4097]),
                       np.array([5, -(1 << 62), (1 << 62) - 3]))
+    huge = idx.create_field("huge", opts(type=ftype.INT, min=-(1 << 63),
+                                         max=(1 << 63) - 1))
+    huge.import_values(np.array([0, 1, 2, 4100, 6000, 6001]),
+                       np.array([5, -(1 << 63), (1 << 63) - 1, -7, 5,
+                                 (1 << 63) - 2], dtype=object))
     idx.mark_columns_exist(cols)
 
     o = h.create_index("o")
@@ -155,6 +160,13 @@ QUERIES = [
     "Sort(Row(a=1), field=empty, limit=3)",
     "Sort(Intersect(Row(a=1), Row(v < 0)), field=v, sort-desc=true, "
     "limit=40)",
+    # Sort of a depth-64 field (-2^63 and 2^63 - 1 among its values):
+    # decoded on the host in Python ints on both engines
+    "Sort(field=huge)",
+    "Sort(All(), field=huge, sort-desc=true, limit=3, offset=1)",
+    "Sort(Row(a=1), field=huge)",
+    "Sort(ConstRow(columns=[1, 2, 6000, 6001]), field=huge, sort-desc=true)",
+    "Extract(Sort(field=huge, sort-desc=true, limit=4), Rows(huge))",
     # Limit: a limit spanning shards, offsets past the end, no limit
     "Limit(Row(a=1), limit=3000, offset=500)",
     "Limit(Row(a=1), offset=100000)",
