@@ -8,8 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card   — nvidia-smi name and power limit, torch's device name
-2. build  — nvcc builds every kernel from pilosa_tpu_torch/ops/csrc
-3. kernels — each of the nine CUDA kernels at the query path's shapes
+2. build  — nvcc builds every kernel from pilosa_tpu_torch/ops/csrc, on
+   a thread beside the host's build of phase 4's index and reference,
+   after which phase 3 runs
+3. kernels — each of the ten CUDA kernels at the query path's shapes
    (954 shards x 32768 words, 8 TopN rows, BSI depth 7, with and
    without a filter, and bsi_sum_counts with one shard's planes at
    shard stride 0 against 954 filters and against the per-shard
@@ -29,7 +31,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    per-combo kernel at the 8 combos of GroupBy(Rows(t), Rows(a)),
    unsigned and signed; the BSI comparator bsi_range for all seven
    comparisons at 954 x 9 planes and on the 64-shard depth-40 ts shape)
-   on seeded random words, held to its plain
+   on seeded random words, and assemble_pages on a (954, 32768) stack
+   of 30 dense 4 MiB pages, the (954, 9, 32768) planes stack, one
+   packed page at 2^8, 2^12 and 2^16 coordinates and one run page, with
+   torch.cat of the dense pages beside it), each held to its plain
    PyTorch version exactly (integer outputs, tolerance 0), then timed
    with CUDA events (the profiler's device time for masked_popcount
    and the short stride-0 bsi_sum_counts launches) beside its bound,
@@ -54,7 +59,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    answer held exactly to an independent numpy reference:
    4.  the stacked engine (the default executor): the headline queries,
        GroupBy (one pass and per combo), Min, Max and Distinct, whose
-       kernel launches must equal STACKED_LAUNCHES;
+       kernel launches must equal STACKED_LAUNCHES (paging is on: one
+       assemble_pages a leaf fetch);
    4a. the per-shard engine (use_stacked = False) at full width: the
        headline queries, TopK, MinRow/MaxRow, set-field Distinct, Min
        and Max of age and the able GroupBy Sum, each timed beside the
@@ -175,8 +181,33 @@ Phases, each printing its own lines; any failure exits non-zero:
        index's dataframe, each aggregate on the card against numpy under
        the JAX package's 32-bit rule (ints exact, float sums and means
        within a relative 1e-6).
+8. the memory plane (memory.configure; restored at its end), on the
+   headline holder reopened in 6a:
+   8a. phase 4's stacked set warm, the ledger's resident bytes R read,
+       the budget clamped to R // 2, then MEM_ROUNDS rounds of the set,
+       exact, each round's page_rebuilds, full_rebuilds, misses and
+       rebuilt bytes printed (under R, with misses); a broad TopN(t,
+       n=8) leaves a hot Count(Row(a=1))'s pages resident (no rebuild on
+       its next call); after an eviction of half the ledger one
+       Prefetcher.step() warms a key and counts no error;
+   8b. each query of the set, warm p50 paged and under
+       configure(paged=False), assemble_pages' launches and device time
+       in one call (profiler) beside;
+   8c. fields sp (64 rows, 256 seeded bits a shard) and rn (8 rows, a
+       run over an eighth of every shard plus 64 bits) added: Count,
+       TopN and a Union count of sp, Intersects with Row(a=1) and a
+       filtered TopN, each expanding the encoded pages on the card
+       through assemble_pages, every answer exact against numpy; the
+       flight records' page_mix and the ledger's bytes for sp and rn
+       beside their dense size;
+   8d. the OOM ladder: inject_oom(1) absorbed by the retry, inject_oom(2)
+       raised after the retry (pilosa_device_oom_total raised 1; a query
+       on the card never degrades to the host, so host_fallback reads 0
+       in every phase), then a real torch.cuda.OutOfMemoryError:
+       a ballast tensor leaves BALLAST_SLACK free and a cold query's
+       upload runs out, the relief sweep sheds, the retry answers.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-7
+   launched over 4-8
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -192,6 +223,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -214,6 +246,7 @@ SRC = {
     "groupby_onehot": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
     "groupby_sum": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
     "bsi_range": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
+    "assemble_pages": "pilosa_tpu_torch/ops/csrc/page_kernels.cu",
 }
 REPLACES = {
     "popcount_rows": "pilosa_tpu/ops/kernels.py:128",
@@ -227,12 +260,20 @@ REPLACES = {
     # no Pallas kernel: the jnp comparator (cmp_unsigned, range_*,
     # bsi.py:199-305) that XLA fuses under the stacked plan's jit
     "bsi_range": "pilosa_tpu/ops/bsi.py:199",
+    # no Pallas kernel: the jitted page concatenation and the sparse
+    # pages' expands (bitmap.py:352 expand_coords, :374 expand_runs)
+    "assemble_pages": "pilosa_tpu/ops/bitmap.py:263",
 }
+# lanes of one 4 MiB page of W words (memory.page_bytes())
+PAGE_LANES = (4 << 20) // (W * 4)
 # the stacked engine's launches over phase 4's six runs of its query set
+# (paging on: every leaf of more than one 4 MiB page is assembled by one
+# assemble_pages launch a fetch, 32 a run of the set)
 STACKED_LAUNCHES = {"popcount_rows": 36, "pair_popcount": 6,
                     "masked_popcount": 0, "rows_filter_counts": 6,
                     "bsi_sum_counts": 12, "groupby_fused": 48,
-                    "groupby_onehot": 0, "groupby_sum": 6, "bsi_range": 18}
+                    "groupby_onehot": 0, "groupby_sum": 6, "bsi_range": 18,
+                    "assemble_pages": 192}
 # categorical fields of the able GroupBy (bench/common.py:129): rows
 CATEGORIES = {"edu": 6, "gen": 2, "dom": 5, "reg": 4}
 ABLE_SUM = "GroupBy(Rows(edu), Rows(gen), Rows(dom), aggregate=Sum(field=age))"
@@ -763,7 +804,108 @@ def phase_kernels(device) -> dict:
           "contiguous stack")
     topn_loop(flat_rows, a, view1, filters, device)
     compare_arms(device, codes, planes)
+    records["assemble_pages"] = assemble_cases(device)
     return records
+
+
+def _sparse_block(rng, n_bits: int, run_words: int = 0):
+    """A (PAGE_LANES, W) host page of n_bits seeded random bits, over a
+    run of run_words all-ones words from a seeded start."""
+    import numpy as np
+    blk = np.zeros((PAGE_LANES, W), np.uint32)
+    flat = blk.reshape(-1)
+    if run_words:
+        lo = int(rng.integers(0, flat.size - run_words))
+        flat[lo:lo + run_words] = 0xFFFFFFFF
+    pos = rng.choice(flat.size * 32, size=n_bits, replace=False)
+    np.bitwise_or.at(flat, pos // 32,
+                     np.uint32(1) << (pos % 32).astype(np.uint32))
+    return blk
+
+
+def assemble_cases(device) -> dict:
+    """Phase 3's assemble_pages: a (954, 32768) stack of 30 dense 4 MiB
+    pages, the (954, 9, 32768) planes stack of 269, one packed page at
+    2^8, 2^12 and 2^16 coordinates and one run page, each held exactly to
+    the plain version (torch.cat of each page's plain expansion, trimmed)
+    and timed beside its bound: the bytes read (the lanes' dense words,
+    or the payload) plus the bytes written, at the card's rate.  The
+    library call beside the dense stack is one torch.cat of its pages."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch.memory import encode
+    from pilosa_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261017)
+    rng = np.random.default_rng(20261017)
+
+    def dense(lead):
+        lanes = int(np.prod(lead))
+        n = -(-lanes // PAGE_LANES)
+        flat = random_words(gen, (n * PAGE_LANES, W), device)
+        flat[lanes:] = 0
+        pages = list(flat.view(n, PAGE_LANES, W).unbind(0))
+        return (f"dense {tuple(lead) + (W,)}, {n} pages", pages,
+                tuple(lead) + (W,), 2 * lanes * W * 4 + n * 80)
+
+    def sparse(label, blk):
+        enc = encode.encode_block(blk).to_device(device)
+        assert enc.kind in label, (label, enc.kind)
+        return (f"{label} page ({PAGE_LANES}, {W}), {enc.n_valid} coordinates"
+                f" ({enc.coords.numel()} padded), {enc.n_runs} runs",
+                [enc], (PAGE_LANES, W), enc.nbytes + PAGE_LANES * W * 4 + 80)
+
+    cases = [dense((S,)), dense((S, 2 + DEPTH))]
+    cases += [sparse("packed", _sparse_block(rng, 1 << k)) for k in (8, 12, 16)]
+    cases.append(sparse("run", _sparse_block(rng, 1 << 10,
+                                             run_words=PAGE_LANES * W // 8)))
+    rec = None
+    for label, pages, shape, nbytes in cases:
+        # the stack cache keeps a hit's page table: time the launch over
+        # a kept table, as a warm hit makes it
+        table = K.page_table(pages, shape, PAGE_LANES)
+
+        def kern():
+            return K.assemble_pages(pages, shape, PAGE_LANES, table=table)
+
+        def plain():
+            return K.assemble_pages_plain(pages, shape, PAGE_LANES)
+        err = max_abs_err(f"assemble_pages {label}", kern(), plain())
+        if err != 0:
+            raise AssertionError(f"assemble_pages {label}: kernel differs from "
+                                 f"its plain version, max |err| {err}")
+        call_ms = cuda_ms(kern, reps=20)
+        built_ms = cuda_ms(lambda: K.assemble_pages(pages, shape, PAGE_LANES),
+                           reps=20)
+        ms = device_ms(kern, "assemble_")
+        print(f"kernel assemble_pages {label}: {call_ms:.4f} ms a call back to "
+              f"back through the wrapper over the kept table, {built_ms:.4f} "
+              f"ms building the table each call (host), {ms:.4f} ms of kernel "
+              "(profiler)")
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        bound_ms, bound_by, t_bytes, _ = bound(nbytes, 0)
+        lib = ""
+        lib_ms = None
+        if all(isinstance(p, torch.Tensor) for p in pages):
+            # CUDA events: torch.cat of many pages is several launches
+            lib_ms = cuda_ms(lambda: torch.cat(pages), reps=20)
+            again = device_ms(kern, "assemble_")
+            lib = (f", library torch.cat of the pages {lib_ms:.4f} ms a "
+                   f"call (kernel again {again:.4f} ms)")
+        print(f"kernel assemble_pages {label}: exact vs plain; {ms:.4f} ms "
+              f"(plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({bound_ms / ms:.1%} of bound; {nbytes} bytes read "
+              f"and written){lib} ({card_line()})")
+        if rec is None:
+            rec = {"name": "assemble_pages", "route": "cuda",
+                   "source": SRC["assemble_pages"],
+                   "replaces": REPLACES["assemble_pages"], "launches": 0,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms}
+        del pages
+    return rec
 
 
 def empty_launch_ms() -> float:
@@ -1423,15 +1565,19 @@ def launches_of(run) -> tuple[dict, object]:
     return dict(K.LAUNCHES), out
 
 
-def phase_main_path(device, root: str, reps: int = 5) -> dict:
-    """Phases 4 to 7, the holders persisted under root; returns each
-    kernel's launches summed over them."""
+def phase_main_path(device, root: str, kernels_phase,
+                    reps: int = 5) -> tuple[dict, dict]:
+    """Phases 4 to 8, the holders persisted under root, with
+    kernels_phase() (phase 3, once the kernels are built) run between
+    the host's preparation of phase 4 and its first query; returns phase
+    3's records and each kernel's launches summed over phases 4-8."""
     import gc
     import os
 
     import numpy as np
     import torch
     from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.obs import metrics
 
     free = shutil.disk_usage(root).free
     print(f"main: {root} on a disk with {free} bytes free ({card_line()})")
@@ -1454,12 +1600,17 @@ def phase_main_path(device, root: str, reps: int = 5) -> dict:
     print(f"main: numpy reference and the deep field ts in "
           f"{time.perf_counter() - t0:.1f} s")
     del secs
+    records = kernels_phase()
     totals: dict = {}
 
     def note(label, launches):
         print(f"{label}: kernel launches {launches}")
         for k, n in launches.items():
             totals[k] = totals.get(k, 0) + n
+        fell = metrics.OOM_TOTAL.value(outcome="host_fallback")
+        if fell:
+            raise AssertionError(f"{label}: pilosa_device_oom_total"
+                                 f"{{outcome=host_fallback}} reads {fell:g}")
 
     # 4: the stacked engine (the default executor)
     t0 = time.perf_counter()
@@ -1584,9 +1735,12 @@ def phase_main_path(device, root: str, reps: int = 5) -> dict:
     torch.cuda.empty_cache()
     print(f"restart: holder and executors dropped; device memory allocated "
           f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
-    phase_restart(os.path.join(root, "headline"), data, post, keyed, before,
-                  note)
+    h = phase_restart(os.path.join(root, "headline"), data, post, keyed,
+                      before, note)
     print(f"restart: {time.perf_counter() - t0:.1f} s")
+    # phase 8's reference: the a row and COLD_QUERY from the mirror
+    mem_ref = {"a": data["a"],
+               "cold": int(np.bitwise_count(data["t"][3]).sum(dtype=np.int64))}
     del data
     gc.collect()
     torch.cuda.empty_cache()
@@ -1598,11 +1752,17 @@ def phase_main_path(device, root: str, reps: int = 5) -> dict:
     t0 = time.perf_counter()
     phase_time_window(device, note)
     print(f"time: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    try:
+        phase_memory(h, post["want"], mem_ref, device, note)
+    finally:
+        h.close()
+    print(f"memory: {time.perf_counter() - t0:.1f} s")
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-7 {totals}")
-    return totals
+    print(f"main path: kernel launches over phases 4-8 {totals}")
+    return records, totals
 
 
 def phase_read_surface(h, surface, note) -> None:
@@ -1918,13 +2078,21 @@ def phase_keys(h, note) -> dict:
         launches, _ = launches_of(lambda: run_queries(
             kex, label, want, 3, index="kidx", norm=keyed_norm))
         note(label, launches)
-        needs = ["popcount_rows", "groupby_fused" if use_stacked
-                 else "bsi_sum_counts",
-                 "rows_filter_counts" if use_stacked else "masked_popcount"]
+        # stacked, kf's rows fill packed pages (about 64 bits a shard),
+        # which expand on the card through assemble_pages
+        needs = (["popcount_rows", "groupby_fused", "rows_filter_counts",
+                  "assemble_pages"] if use_stacked else
+                 ["popcount_rows", "bsi_sum_counts", "masked_popcount"])
         if any(launches[k] == 0 for k in needs):
             raise AssertionError(f"{label}: launches {launches}, expected "
                                  f"each of {needs}")
         if use_stacked:
+            q = 'Count(Row(kf="k17"))'
+            arm, _ = launches_of(lambda: run_queries(
+                kex, label, {q: want[q]}, 1, index="kidx", norm=keyed_norm))
+            if not arm["popcount_rows"]:
+                raise AssertionError(f"{label}: {q} launched {arm}, expected "
+                                     "popcount_rows")
             t0 = time.perf_counter()
             kex.execute("kidx", 'Set("c9999999", kf="k65")')
             print(f'{label}: Set("c9999999", kf="k65") creating a column '
@@ -2392,14 +2560,14 @@ def check_rows(h, data, deleted) -> None:
           f"({(time.perf_counter() - t0):.1f} s, host)")
 
 
-def phase_restart(path, data, post, keyed, before, note) -> None:
+def phase_restart(path, data, post, keyed, before, note):
     """6a: reopen the synced headline holder, check its rows against the
     mirror, then phase 4's stacked set and phase 4a's per-shard
     TopN/Count set on new APIs through API.query, exact against the
     answers after phase 5a, each first call (stacks built from rows that
     came off disk) and warm p50 printed beside phase 4's; the keyed
     index's answers equal those before the restart, and a new column key
-    gets the next id."""
+    gets the next id.  Returns the reopened holder, open, for phase 8."""
     from pilosa_tpu_torch.api import API
     h = reopen(path, "restart")
     check_rows(h, data, post["deleted"])
@@ -2436,7 +2604,7 @@ def phase_restart(path, data, post, keyed, before, note) -> None:
         raise AssertionError(f"restart: Set of {NEW_KEY} reads back {cnt}")
     print(f"restart keys: Set of the new column key {NEW_KEY} after the "
           f"reopen got id {got}, the partition's next (not 0)")
-    h.close()
+    return h
 
 
 def ingest_answers(seg, amount, active) -> dict:
@@ -3054,6 +3222,344 @@ def phase_time_window(device, note) -> None:
           f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB after")
 
 
+# phase 8: the memory plane on the headline index
+MEM_SEED = 2029
+SP_ROWS, SP_BITS = 64, 256      # 8c: sp, 256 seeded bits a row a shard
+RN_ROWS, RN_RESID = 8, 64       # 8c: rn, a run over an eighth + 64 bits
+MEM_ROUNDS = 3
+BALLAST_SLACK = 64 << 20        # 8d: device bytes left free beside the ballast
+BROAD_TOPN = "TopN(t, n=8)"
+HOT_COUNT = "Count(Row(a=1))"
+OOM_QUERY = "Count(Intersect(Row(a=1), Row(b=1)))"
+COLD_QUERY = "Count(Row(t=3))"  # a key no earlier phase-8 query holds
+
+
+def add_sparse_fields(h, rng):
+    """8c's fields on the headline index: sp (SP_ROWS rows of SP_BITS
+    seeded bits a shard, about 2^-12 of the columns) and rn (RN_ROWS
+    rows, row r a run of all-ones words over the r-th eighth of every
+    shard plus RN_RESID seeded bits outside it).  Returns sp's bit
+    offsets a (row, shard), deduplicated, and rn's (RN_ROWS, S, W)
+    words."""
+    import numpy as np
+    from pilosa_tpu_torch.models.schema import CACHE_TYPE_NONE, FieldOptions
+    from pilosa_tpu_torch.models.view import VIEW_STANDARD
+    idx = h.index("bench")
+    bits = W * 32
+    sp_cols = rng.integers(0, bits, size=(SP_ROWS, S, SP_BITS))
+    sp = idx.create_field("sp", FieldOptions(cache_type=CACHE_TYPE_NONE))
+    shard_base = (np.arange(S, dtype=np.int64) * bits)[None, :, None]
+    rows = np.repeat(np.arange(SP_ROWS), S * SP_BITS)
+    sp.import_bits(rows, (sp_cols + shard_base).reshape(-1))
+    rn = idx.create_field("rn", FieldOptions(cache_type=CACHE_TYPE_NONE))
+    view = rn.view(VIEW_STANDARD, create=True)
+    eighth = W // 8
+    rn_words = np.zeros((RN_ROWS, S, W), np.uint32)
+    for r in range(RN_ROWS):
+        lo = (r % 8) * eighth
+        rn_words[r, :, lo:lo + eighth] = 0xFFFFFFFF
+        cols = rng.integers(0, bits, size=(S, RN_RESID))
+        outside = (cols // 32 < lo) | (cols // 32 >= lo + eighth)
+        for s in range(S):
+            c = cols[s][outside[s]]
+            np.bitwise_or.at(rn_words[r, s], c // 32,
+                             np.uint32(1) << (c % 32).astype(np.uint32))
+    for s in range(S):
+        frag = view.fragment(s, create=True)
+        for r in range(RN_ROWS):
+            frag.import_row_words(r, rn_words[r, s])
+    return [[np.unique(sp_cols[r, s]) for s in range(S)]
+            for r in range(SP_ROWS)], rn_words
+
+
+def sparse_answers(sp, rn_words, a_words) -> dict:
+    """8c's numpy reference, from the offsets and words the fields were
+    made from and the headline a row after phase 5a."""
+    import numpy as np
+
+    def in_a(s, cols):
+        return ((a_words[s][cols // 32] >> (cols % 32).astype(np.uint32))
+                & 1).astype(bool)
+
+    def top(counts):
+        pairs = sorted((-c, r) for r, c in enumerate(counts) if c > 0)
+        return [(r, -c) for c, r in pairs][:8]
+
+    counts = [sum(c.size for c in sp[r]) for r in range(SP_ROWS)]
+    under_a = [sum(int(in_a(s, sp[r][s]).sum()) for s in range(S))
+               for r in range(SP_ROWS)]
+    union = sum(np.union1d(sp[1][s], sp[2][s]).size for s in range(S))
+    rn_a = [int(np.bitwise_count(rn_words[r] & a_words).sum(dtype=np.int64))
+            for r in range(RN_ROWS)]
+    return {
+        "packed": {"Count(Row(sp=5))": counts[5], "TopN(sp, n=8)": top(counts),
+                   "Count(Union(Row(sp=1), Row(sp=2)))": union},
+        "expand": {"Count(Intersect(Row(sp=5), Row(a=1)))": under_a[5],
+                   "TopN(sp, Row(a=1), n=8)": top(under_a),
+                   "Count(Intersect(Row(rn=3), Row(a=1)))": rn_a[3],
+                   "Count(Intersect(Row(rn=7), Row(a=1)))": rn_a[7]},
+    }
+
+
+def run_round(ex, want: dict, label: str) -> None:
+    """Each query once through Executor.execute, exact."""
+    import torch
+    for q, expect in want.items():
+        got = normalise(ex.execute("bench", q)[0])
+        torch.cuda.synchronize()
+        if got != expect:
+            raise AssertionError(f"{label} {q}: port {str(got)[:200]} != "
+                                 f"numpy {str(expect)[:200]}")
+
+
+def assemble_device_ms(ex, q: str) -> tuple[float, int]:
+    """Device ms and launches of assemble_pages in one warm call of q
+    (torch.profiler's CUDA activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ex.execute("bench", q)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "assemble_pages_kernel" in e.key]
+    return (sum(e.device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def phase_memory(h, want: dict, ref: dict, device, note) -> None:
+    """Phase 8 (see the module docstring) on the reopened headline holder:
+    want is phase 4's stacked set's answers after phase 5a, ref the a
+    row's words and COLD_QUERY's answer from the mirror."""
+    import gc
+
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch import memory
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.memory import pressure
+    from pilosa_tpu_torch.memory.policy import Prefetcher
+    from pilosa_tpu_torch.obs import flight, metrics
+    from pilosa_tpu_torch.ops import kernels as K
+
+    led = memory.ledger()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        # 8a: a clamped budget
+        t0 = time.perf_counter()
+        ex = Executor(h)
+        cache = ex.stacked.cache
+        launches, _ = launches_of(lambda: run_round(ex, want, "8a warm"))
+        note("8a warm", launches)
+        resident = led.total_bytes
+        print(f"8a: phase 4's stacked set warm: the ledger holds {resident} "
+              f"bytes (stack cache {cache.nbytes}, {len(cache.keys())} "
+              f"entries) of a {led.budget()}-byte budget ({card})")
+        memory.configure(budget_bytes=resident // 2)
+        launches = dict.fromkeys(K.LAUNCHES, 0)
+        for i in range(1, MEM_ROUNDS + 1):
+            c0 = cache.counters()
+            got, _ = launches_of(lambda: run_round(ex, want, f"8a round {i}"))
+            for k, n in got.items():
+                launches[k] += n
+            c1 = cache.counters()
+            again = c1["rebuilt_bytes"] - c0["rebuilt_bytes"]
+            print(f"8a round {i} under a {resident // 2}-byte budget: exact; "
+                  f"page_rebuilds {c1['page_rebuilds'] - c0['page_rebuilds']},"
+                  f" full_rebuilds {c1['full_rebuilds'] - c0['full_rebuilds']},"
+                  f" misses {c1['misses'] - c0['misses']}, rebuilt_bytes "
+                  f"{again} ({again / resident:.1%} of R); ledger "
+                  f"{led.total_bytes} bytes")
+            if again >= resident or c1["misses"] == c0["misses"]:
+                raise AssertionError(f"8a round {i}: {again} bytes uploaded "
+                                     f"again of R = {resident}, misses "
+                                     f"{c1['misses'] - c0['misses']}")
+            if led.total_bytes > led.budget():
+                raise AssertionError("8a: the ledger crossed its budget")
+        note("8a rounds", launches)
+        want_hot = want[HOT_COUNT]
+        run_round(ex, {HOT_COUNT: want_hot}, "8a hot")
+        run_round(ex, {BROAD_TOPN: want[BROAD_TOPN]}, "8a broad")
+        c0 = cache.counters()
+        run_round(ex, {HOT_COUNT: want_hot}, "8a hot again")
+        c1 = cache.counters()
+        print(f"8a: {HOT_COUNT} after {BROAD_TOPN} (a (8, {S}, {W}) stack): "
+              f"hits {c1['hits'] - c0['hits']}, page_rebuilds "
+              f"{c1['page_rebuilds'] - c0['page_rebuilds']}, full_rebuilds "
+              f"{c1['full_rebuilds'] - c0['full_rebuilds']}")
+        if (c1["page_rebuilds"], c1["full_rebuilds"]) != (
+                c0["page_rebuilds"], c0["full_rebuilds"]):
+            raise AssertionError("8a: the broad TopN evicted the hot pages")
+        led.reclaim_frac(0.5, trigger="shrink")
+        e0 = metrics.PREFETCH_TOTAL.value(outcome="error")
+        w0 = metrics.PREFETCH_TOTAL.value(outcome="warmed")
+        warmed = Prefetcher(cache).step()
+        errors = metrics.PREFETCH_TOTAL.value(outcome="error") - e0
+        print(f"8a: after an eviction of half the ledger, one Prefetcher.step()"
+              f" warmed {warmed} keys (pilosa_prefetch_total warmed "
+              f"+{metrics.PREFETCH_TOTAL.value(outcome='warmed') - w0:g}, "
+              f"error +{errors:g})")
+        if warmed < 1 or errors:
+            raise AssertionError(f"8a: the prefetcher warmed {warmed} keys "
+                                 f"with {errors} errors")
+        memory.configure(budget_bytes=0)
+        print(f"8a: {time.perf_counter() - t0:.1f} s")
+
+        # 8b: the cost of paging
+        t0 = time.perf_counter()
+        run_round(ex, want, "8b paged warm")
+        K.reset_launches()
+        paged = run_queries(ex, "8b paged", want, 5)
+        per_query = K.LAUNCHES["assemble_pages"] / (6 * len(want))
+        asm = {q: assemble_device_ms(ex, q) for q in want}
+        # a fresh entry keeps its kind: drop them so the set is built
+        # whole, and again after, so that 8c starts paged
+        cache.clear()
+        memory.configure(paged=False)
+        try:
+            whole = run_queries(ex, "8b whole", want, 5)
+        finally:
+            memory.configure(paged=True)
+            cache.clear()
+        for q in want:
+            ms, n = asm[q]
+            print(f"8b: {q}: warm p50 {paged[q]:.3f} ms paged, "
+                  f"{whole[q]:.3f} ms whole (configure(paged=False)); "
+                  f"assemble_pages {n} launches, {ms:.4f} ms of device time a "
+                  f"call ({card})")
+        print(f"8b: {per_query:.2f} assemble_pages launches a query on "
+              f"average; {time.perf_counter() - t0:.1f} s")
+
+        # 8c: sparse pages
+        t0 = time.perf_counter()
+        sp, rn_words = add_sparse_fields(h, np.random.default_rng(MEM_SEED))
+        sparse = sparse_answers(sp, rn_words, ref["a"])
+        del sp
+        print(f"8c: fields sp ({SP_ROWS} rows x {SP_BITS} bits a shard) and "
+              f"rn ({RN_ROWS} run rows) added in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        for q, expect in sparse["packed"].items():
+            run_round(ex, {q: expect}, "8c build")
+            got, _ = launches_of(lambda: run_round(ex, {q: expect}, "8c"))
+            note(f"8c {q}", got)
+            print(f"8c: {q} = {str(expect)[:60]} exact; launches on a warm "
+                  f"call { {k: n for k, n in got.items() if n} } (packed "
+                  "pages expanded on the card)")
+            if not got["assemble_pages"] or not any(
+                    n for k, n in got.items() if k != "assemble_pages"):
+                raise AssertionError(f"8c {q}: launched {got}, expected "
+                                     "assemble_pages and a count kernel")
+        flight.recorder.clear()
+        launches, _ = launches_of(lambda: run_round(ex, sparse["expand"],
+                                                    "8c expand"))
+        note("8c", launches)
+        if launches["assemble_pages"] == 0:
+            raise AssertionError("8c: assemble_pages never launched")
+        mix: dict = {}
+        for rec in flight.recorder.recent(64):
+            for k, n in rec.get("page_mix", {}).items():
+                mix[k] = mix.get(k, 0) + n
+        print(f"8c: {list(sparse['expand'])} exact, through assemble_pages "
+              f"({launches['assemble_pages']} launches); their flight "
+              f"records' page_mix {mix}")
+        if not mix.get("packed") or not mix.get("run"):
+            raise AssertionError(f"8c: page_mix {mix} lacks packed or run")
+        for fname in ("sp", "rn"):
+            ents = [(k, e) for k, e in cache._entries.items()
+                    if k[0] == "rows" and k[2] == fname]
+            held = sum(e[2] for _k, e in ents)
+            dense = sum(e[1].lanes * W * 4 for _k, e in ents)
+            kinds = Counter(encode_kind for _k, e in ents
+                            for encode_kind in _page_kinds(e[1]))
+            print(f"8c: the ledger holds {held} bytes for {fname} "
+                  f"({len(ents)} stacks, pages {dict(kinds)}) against "
+                  f"{dense} bytes dense ({held / max(dense, 1):.2%})")
+            if not ents or held >= dense:
+                raise AssertionError(f"8c: {fname} holds {held} of {dense}")
+        print(f"8c: {time.perf_counter() - t0:.1f} s")
+
+        # 8d: the OOM ladder
+        t0 = time.perf_counter()
+        o0 = {k: metrics.OOM_TOTAL.value(outcome=k)
+              for k in ("caught", "retry_ok", "host_fallback", "raised")}
+        # each injection on a warm query (its stacks resident, so the
+        # dispatch is the first guarded call): the relief sweep of the
+        # first can evict pages the second would upload.  On the card the
+        # ladder has no host fallback: inject_oom(2) must ride up
+        for n in (1, 2):
+            run_round(ex, {OOM_QUERY: want[OOM_QUERY]}, "8d warm")
+            pressure.inject_oom(n)
+            try:
+                run_round(ex, {OOM_QUERY: want[OOM_QUERY]},
+                          f"8d inject_oom({n})")
+            except pressure.InjectedOOM:
+                if n == 1:
+                    raise
+            else:
+                if n == 2:
+                    raise AssertionError("8d inject_oom(2): the query "
+                                         "answered; expected the OOM raised")
+        run_round(ex, {OOM_QUERY: want[OOM_QUERY]}, "8d after the raise")
+        got = {k: metrics.OOM_TOTAL.value(outcome=k) - v for k, v in o0.items()}
+        print(f"8d: inject_oom(1) absorbed by the retry, exact; inject_oom(2) "
+              f"raised after the retry, the next call exact; "
+              f"pilosa_device_oom_total {got}")
+        if got != {"caught": 2, "retry_ok": 1, "host_fallback": 0,
+                   "raised": 1}:
+            raise AssertionError(f"8d: OOM outcomes {got}")
+        run_round(ex, want, "8d refill")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ballast: chunks until the allocator refuses even 2 MiB (its
+        # cached free blocks too), halving a refused size; then the
+        # smallest chunks go back, BALLAST_SLACK of them, to its cache
+        ballast, size = [], 1 << 30
+        while size >= (2 << 20):
+            try:
+                ballast.append(torch.empty(size, dtype=torch.uint8,
+                                           device=device))
+            except torch.cuda.OutOfMemoryError:
+                size //= 2
+        freed = 0
+        while ballast and freed < BALLAST_SLACK:
+            freed += ballast.pop().numel()
+        size = sum(b.numel() for b in ballast)
+        left = (torch.cuda.mem_get_info(device)[0]
+                + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+        c0 = metrics.OOM_TOTAL.value(outcome="caught")
+        r0 = metrics.OOM_TOTAL.value(outcome="retry_ok")
+        held = led.total_bytes
+        try:
+            run_round(ex, {COLD_QUERY: ref["cold"]}, "8d real OOM")
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+        caught = metrics.OOM_TOTAL.value(outcome="caught") - c0
+        retried = metrics.OOM_TOTAL.value(outcome="retry_ok") - r0
+        print(f"8d: a {size}-byte ballast left {left} bytes free (the card's "
+              f"and the allocator's cache); {COLD_QUERY}"
+              f" cold: exact, torch.cuda.OutOfMemoryError caught {caught:g}, "
+              f"retry_ok {retried:g}; relief shed the ledger from {held} to "
+              f"{led.total_bytes} bytes ({card})")
+        if caught < 1 or retried != caught:
+            raise AssertionError(f"8d: the real OOM: caught {caught}, "
+                                 f"retry_ok {retried}")
+        note("8d", dict.fromkeys(K.LAUNCHES, 0))
+        print(f"8d: {time.perf_counter() - t0:.1f} s")
+    finally:
+        memory.configure(budget_bytes=0, paged=True)
+        pressure.inject_oom(0)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _page_kinds(ps):
+    from pilosa_tpu_torch.memory import encode
+    return [encode.page_kind(p) for p in ps.pages if p is not None]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3070,16 +3576,34 @@ def main() -> int:
           f"numpy {numpy.__version__} "
           f"device {name} count {torch.cuda.device_count()}")
 
+    # nvcc builds the kernels (one process a source) beside the host's
+    # build of the headline index; phase 3 waits for it
     t0 = time.perf_counter()
-    out = _build.build_all()
-    print(f"build: {out} in {time.perf_counter() - t0:.1f} s")
+    built: dict = {}
 
-    records = phase_kernels(device)
-    torch.cuda.empty_cache()
+    def build():
+        try:
+            built["dir"] = _build.build_all()
+        except BaseException as e:  # re-raised on the main thread
+            built["error"] = e
+    builder = threading.Thread(target=build, name="nvcc")
+    builder.start()
+
+    def kernels_phase():
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+        print(f"build: {built['dir']} in {time.perf_counter() - t0:.1f} s "
+              "(beside the host's index build)")
+        records = phase_kernels(device)
+        torch.cuda.empty_cache()
+        return records
+
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = phase_main_path(device, root)
+        records, launches = phase_main_path(device, root, kernels_phase)
     finally:
+        builder.join()
         shutil.rmtree(root, ignore_errors=True)
     for k, rec in records.items():
         rec["launches"] = launches[k]

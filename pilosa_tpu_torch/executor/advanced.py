@@ -244,7 +244,10 @@ class AdvancedOps:
         counts: dict[int, int] = {}
         for i in range(0, len(row_ids), chunk):
             rows = row_ids[i:i + chunk]
-            stack = eng.rows_stack_for(idx, f, tuple(views), rows, skey)
+            # under sparse_raw() a stack of encoded pages comes back as
+            # a PageView, which an unfiltered scan counts on the host
+            with eng.sparse_raw():
+                stack = eng.rows_stack_for(idx, f, tuple(views), rows, skey)
             got = eng.row_counts(idx, stack, filter_call, list(skey), pre)
             for r, c in zip(rows, got.tolist()):
                 counts[r] = int(c)

@@ -106,9 +106,6 @@ _BITMAP_CALLS = {"Row", "Range", "Union", "Intersect", "Difference", "Xor",
 # the write calls (pql.Call.IsWrite)
 _WRITE_CALLS = {"Set", "Clear", "Store", "ClearRow", "Delete"}
 
-# per-shard tile cache bound; least recently used tiles go first
-_TILE_CACHE_MAX_BYTES = 16 << 30
-
 # rows per device batch in the per-shard engine's row scans
 _ROW_CHUNK = 256
 
@@ -133,14 +130,16 @@ class TileCache:
     stamp.  After a write a tile is patched in place (``StackCache``):
     a tile whose row no logged write touched adopts the new version, a
     touched row takes only its dirty words, a planes tile only its
-    dirty planes' words.  Least recently used tiles go first past
-    max_bytes.  Its own cache, apart from the stacked engine's stacks:
-    the two engines share no device state."""
+    dirty planes' words.  Its own cache, apart from the stacked engine's
+    stacks (the two engines share no device state), of whole tiles, and
+    the budget ledger's client ``"tile_cache"`` (memory/ledger.py): one
+    budget covers both engines' device bytes, and the coldest tiles go
+    first under pressure.  ``max_bytes`` is an explicit local cap."""
 
-    def __init__(self, device: torch.device,
-                 max_bytes: int = _TILE_CACHE_MAX_BYTES):
+    def __init__(self, device: torch.device, max_bytes: int | None = None):
         self.device = device
-        self.cache = StackCache(max_bytes)
+        self.cache = StackCache(max_bytes, client="tile_cache",
+                                device=device)
 
     def row(self, frag, row: int) -> torch.Tensor:
         return self.cache.get((frag.gen, row), [frag],
@@ -148,7 +147,7 @@ class TileCache:
                               lambda: FragRowsLayout(frag, [row]))
 
     def _upload_row(self, frag, row: int) -> torch.Tensor:
-        t = bm.to_tensor(frag.row_words(row), self.device)
+        t = self.cache.upload(frag.row_words(row))
         if t.device.type == "cpu":
             # to_tensor shared the host row's memory: the tile must not
             # follow a write, nor a patch land in the row
@@ -165,8 +164,8 @@ class TileCache:
     def planes(self, frag, depth: int) -> torch.Tensor:
         return self.cache.get(
             (frag.gen, "planes", depth), [frag],
-            lambda: bm.to_tensor(np.stack(
-                [frag.row_words(r) for r in range(2 + depth)]), self.device),
+            lambda: self.cache.upload(np.stack(
+                [frag.row_words(r) for r in range(2 + depth)])),
             lambda: FragRowsLayout(frag, range(2 + depth)))
 
 

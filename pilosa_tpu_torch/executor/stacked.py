@@ -5,7 +5,8 @@ device-resident shard stacks — one ``(S, W)`` int32 tensor per row,
 ``(S, 2+depth, W)`` per BSI field, ``(R, S, W)`` per TopN candidate
 block — gathered from the fragments' host rows and kept on the
 engine's device in a cache keyed by the fragments' ``(gen, version)``
-stamps.  The IR is evaluated eagerly with torch bitwise ops
+stamps (``StackCache``: paged and held in the process's device budget,
+``memory/``).  The IR is evaluated eagerly with torch bitwise ops
 (``_eval``); every popcount goes through one of the four kernels of
 ``ops/kernels.py``, so on the card the plan kinds below run on CUDA
 kernels end to end:
@@ -59,16 +60,23 @@ totals are summed as int64 on the host.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import logging
+import threading
 import time
 from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import memory
+from pilosa_tpu_torch.memory import encode, policy, pressure
+from pilosa_tpu_torch.memory.pages import PagedStack, StackRecipe, page_lanes_for
 from pilosa_tpu_torch.models import timeq
 from pilosa_tpu_torch.models.schema import FieldType
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
-from pilosa_tpu_torch.obs import faults, flight, metrics
+from pilosa_tpu_torch.obs import faults, flight, metrics, stats
 from pilosa_tpu_torch.obs.tracing import start_span
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -103,8 +111,10 @@ _NARY_OPS = {
     "xor": bm.xor,
 }
 
-# device-stack cache bound; least recently used stacks go first
-_CACHE_MAX_BYTES = 32 << 30
+# admission cap: one paged entry retains at most this share of the
+# budget; its other pages serve the query and are not kept, so a broad
+# scan streams its tail instead of evicting the hot set
+_ENTRY_RESIDENT_FRAC = 0.5
 
 # a patch dirtying more than this share of a stack's words rebuilds it
 # instead (the JAX package's default; its environment knob and
@@ -130,6 +140,8 @@ _GROUPBY_STACK_BUDGET = 1 << 31
 _DECODE_CHUNK = 64
 
 ONEPASS_ARMS = ("fused", "onehot")
+
+_log = logging.getLogger("pilosa_tpu_torch.stacked")
 
 
 # ---------------------------------------------------------------------------
@@ -621,19 +633,154 @@ class _GroupcodeLayout(_Layout):
         return out
 
 
+# Under raw_pages(), a fetch of a paged entry returns a PageView, a
+# snapshot of the entry's pages, instead of the assembled operand: the
+# engine's packed arms (Count, set-op Count, TopN row counts) answer
+# from the encode-time popcounts and host coordinates of encoded pages
+# with no device program, and every other plan expands the views
+# (_expand_view), the same assembly the fetch would have made.
+
+_RAW_TLS = threading.local()
+
+
+class PageView:
+    """The pages of one paged entry.  ``pages`` is a snapshot (its
+    references keep the tensors alive against an eviction); the last
+    page is zero-padded past ``lanes``.  Pages are dense tensors or
+    memory/encode.py encoded pages.  ``source`` is the (PagedStack,
+    version) the snapshot came from, whose kept page table its
+    expansion reuses."""
+
+    __slots__ = ("shape", "lanes", "page_lanes", "pages", "source")
+
+    def __init__(self, shape: tuple, lanes: int, page_lanes: int,
+                 pages: list, source=None):
+        self.shape = tuple(shape)
+        self.lanes = int(lanes)
+        self.page_lanes = int(page_lanes)
+        self.pages = list(pages)
+        self.source = source
+
+    def all_encoded(self) -> bool:
+        return all(encode.is_encoded(p) for p in self.pages)
+
+    def lead_dropped(self) -> "PageView":
+        """The view of a (1, ...) stack as its one (...) slab, whose
+        lanes are the same."""
+        return PageView(self.shape[1:], self.lanes, self.page_lanes,
+                        self.pages, self.source)
+
+
+def _assemble_operand(pages: list, shape: tuple, lanes: int,
+                      page_lanes: int, table=None) -> torch.Tensor:
+    """The dense operand of a paged entry: one dense page that holds
+    every lane, reshaped as it is; anything else, one assemble_pages
+    launch (which also expands encoded pages), over ``table`` when the
+    caller kept the pages' device table."""
+    if (len(pages) == 1 and lanes == page_lanes
+            and not encode.is_encoded(pages[0])):
+        return pages[0].reshape(shape)
+    return bm.assemble_pages(pages, shape, page_lanes, table=table)
+
+
+def _kept(ps: PagedStack, version):
+    """The (version, page table, page mix) the entry kept for this
+    snapshot's version, or None.  A slot change resets it, and a stale
+    one never matches: no lock is needed to read or replace it."""
+    made = ps.assembly
+    if version is None or made is None or made[0] != version:
+        return None
+    return made
+
+
+def _pages_mix(ps: PagedStack, pages: list, version) -> dict:
+    made = _kept(ps, version)
+    if made is not None:
+        return made[2]
+    mix = _page_mix(pages)
+    if version is not None:
+        ps.assembly = (version, None, mix)
+    return mix
+
+
+def _paged_operand(ps: PagedStack, pages: list, version, shape=None):
+    """The dense operand of a snapshot of ``ps``'s pages (in ``shape``,
+    by default the entry's), over the page table kept for its version:
+    a warm hit builds no table and walks no page."""
+    shape = ps.shape if shape is None else shape
+    table = None
+    if version is not None and len(pages) > 1:
+        made = _kept(ps, version)
+        table = None if made is None else made[1]
+        if table is None:
+            table = kernels.page_table(pages, ps.shape, ps.page_lanes)
+            ps.assembly = (version, table, _page_mix(pages) if made is None
+                           else made[2])
+    return _assemble_operand(pages, shape, ps.lanes, ps.page_lanes, table)
+
+
+def _expand_view(view):
+    """A PageView's dense operand; anything else as it is."""
+    if not isinstance(view, PageView):
+        return view
+    if view.source is not None:
+        ps, version = view.source
+        return _paged_operand(ps, view.pages, version, view.shape)
+    return _assemble_operand(view.pages, view.shape, view.lanes,
+                             view.page_lanes)
+
+
+def _page_mix(pages) -> dict:
+    """{encoding: page count} of one entry's pages."""
+    mix: dict[str, int] = {}
+    for p in pages:
+        k = encode.page_kind(p)
+        mix[k] = mix.get(k, 0) + 1
+    return mix
+
+
+class raw_pages:
+    """Context manager: stack fetches on this thread return PageViews
+    for paged entries (whole entries still return tensors)."""
+
+    def __enter__(self):
+        self._prev = getattr(_RAW_TLS, "on", False)
+        _RAW_TLS.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _RAW_TLS.on = self._prev
+        return False
+
+
 class StackCache:
     """Device stacks keyed by what they were built from, each tagged with
-    its fragment slots' (gen, version) stamps.  A stale entry is
-    patched in place: the slots' delta logs name the dirty (lane, word
-    run) spans, each run is read from the live host rows and scattered
-    with ``bm.patch_rows``, and the entry adopts the new stamps.  A
-    slot that gained or lost its fragment patches its whole lanes.  The
-    cache rebuilds only where a patch cannot serve, each case counted
-    in ``rebuilds`` by its reason:
+    its fragment slots' (gen, version) stamps, their bytes held in the
+    process's budget ledger (memory/ledger.py) as one client.
 
-    - "cold": no entry under the key; the key names the shard list, the
-      rows and the bit depth, so a new shard, row set, depth or field
-      is a new key;
+    An entry is whole (one tensor) or paged (memory/pages.py).  With a
+    recipe and ``memory.paged_enabled()`` (the default) the stack's lanes
+    are cut into pages of ``memory.page_bytes()``, each dense, packed or
+    run (memory/encode.py), reserved in the ledger at its true size,
+    evicted by cost-aware scoring (memory/policy.py) and built again on
+    its own; a hit assembles the operand from the pages in one
+    ``assemble_pages`` launch (none where one dense page holds every
+    lane).  An entry retains at most ``_ENTRY_RESIDENT_FRAC`` of the
+    budget: the tail of a broad scan is served and not kept, so it
+    cannot evict the hot set.
+
+    A stale entry is patched in place: the slots' delta logs name the
+    dirty (lane, word run) spans, each run is read from the live host
+    rows and scattered with ``bm.patch_rows`` (into the page that holds
+    the lane: an encoded page is built and encoded again, a page dirtier
+    than _PATCH_MAX_FRAC is built again), and the entry adopts the new
+    stamps.  A slot that gained or lost its fragment patches its whole
+    lanes.  The cache rebuilds only where a patch cannot serve, each
+    case counted in ``rebuilds`` by its reason:
+
+    - "cold": no entry under the key, or one of the other kind (whole or
+      paged); the key names the shard list, the rows and the bit depth,
+      so a new shard, row set, depth or field is a new key;
     - "coverage": a delta log no longer reaches back to the entry's
       version;
     - "gen": a fragment's gen moved (a retired fragment);
@@ -642,113 +789,191 @@ class StackCache:
     - "fault": an armed ``device-patch`` fault point failed the patch
       (the JAX package's chaos seam, answered as its cache does).
 
-    Any other patch that raises propagates, the entry out of the cache:
-    nothing else falls back to a rebuild.  Counters: ``hits``,
-    ``adopts`` (a stale entry no logged write touched, which takes the
-    new stamps as it is), ``patches``, ``patched_bytes`` (the padded runs' words),
-    ``full_rebuilds`` and ``rebuilt_bytes`` (every build, cold ones
-    included, as the JAX package's TileStackCache counts them).  Least
-    recently used stacks are dropped past max_bytes.
+    Any other patch that raises propagates, the entry out of the cache.
+    Counters: ``hits``, ``misses`` (every other access), ``adopts`` (a
+    stale entry no logged write touched, which takes the new stamps as
+    it is), ``patches``, ``patched_bytes`` (the padded runs' words),
+    ``full_rebuilds``, ``page_rebuilds`` (a fresh entry whose evicted
+    pages were built again), ``rebuilt_bytes`` (every byte built and
+    uploaded, encoded pages at their true size, cold builds included, as
+    the JAX package's TileStackCache counts them) and ``too_big`` (a
+    whole entry larger than the budget, served and never kept).
+    ``max_bytes`` is an explicit local cap; None leaves the bound to the
+    ledger.
 
     ``seams`` (the stacked engine's cache) adds the JAX TileStackCache's
     observability and chaos seams: a ``stacked.stack`` span (tags
     ``outcome`` and ``bytes``) around every access that is not a hit,
-    the access's outcome and bytes in the flight record, the
-    ``device-patch`` fault point, and ``pilosa_stack_cache_total`` by
-    outcome, where hit = hits, miss = every other access, patch =
-    patches + adopts (the JAX patcher answers an untouched stack as a
-    patch of 0 bytes) and rebuild = full_rebuilds, beside
-    ``pilosa_stack_maintenance_bytes_total`` (patched, rebuilt)."""
+    the access's outcome, bytes and key fingerprint in the flight
+    record, the ``device-patch`` fault point, and
+    ``pilosa_stack_cache_total`` by outcome (hit = hits, miss = misses,
+    patch = patches + adopts, rebuild = full_rebuilds, page_rebuild =
+    page_rebuilds), beside ``pilosa_stack_maintenance_bytes_total``
+    (patched, rebuilt) and ``pilosa_stack_pages_total``."""
 
-    def __init__(self, max_bytes: int = _CACHE_MAX_BYTES,
-                 seams: bool = False):
+    _MAX_RECIPES = 512
+    _MAX_WARNED = 1024
+
+    def __init__(self, max_bytes: int | None = None, seams: bool = False,
+                 ledger=None, client: str = "stack_cache", device=None):
         self.max_bytes = max_bytes
         self.seams = seams
+        self.device = torch.device("cpu") if device is None else device
+        self._ledger = memory.ledger() if ledger is None else ledger
+        self._client = self._ledger.register(
+            client, reclaim=self._reclaim, cold_ts=self._cold_ts)
+        # key -> (versions, tensor | PagedStack, accounted bytes, last use)
         self._entries: OrderedDict = OrderedDict()
         self._bytes = 0
-        self.hits = self.adopts = self.patches = self.patched_bytes = 0
-        self.full_rebuilds = self.rebuilt_bytes = 0
+        self._lock = threading.RLock()
+        self._building: dict = {}        # key -> Event (single flight)
+        # key fingerprint -> (key, recipe), for the prefetcher
+        self._recipes: OrderedDict = OrderedDict()
+        self._key_fps: dict = {}
+        self._warned_big: set = set()
+        self.hits = self.misses = self.adopts = 0
+        self.patches = self.patched_bytes = 0
+        self.full_rebuilds = self.page_rebuilds = self.rebuilt_bytes = 0
+        self.too_big = 0
         self.rebuilds: Counter = Counter()
 
     def keys(self) -> list:
         """The keys of the resident stacks, least recently used first."""
-        return list(self._entries)
+        with self._lock:
+            return list(self._entries)
 
     def counters(self) -> dict:
-        return {"hits": self.hits, "adopts": self.adopts,
-                "patches": self.patches,
+        return {"hits": self.hits, "misses": self.misses,
+                "adopts": self.adopts, "patches": self.patches,
                 "patched_bytes": self.patched_bytes,
                 "full_rebuilds": self.full_rebuilds,
+                "page_rebuilds": self.page_rebuilds,
                 "rebuilt_bytes": self.rebuilt_bytes,
+                "too_big": self.too_big,
                 "rebuilds": dict(self.rebuilds)}
 
-    def get(self, key, frags, build, make_layout) -> torch.Tensor:
-        """The stack under key, fresh for the fragment slots `frags`:
-        a hit, a patch through the _Layout that make_layout() gives
-        (called only for a stale entry), or build()."""
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+    # -- access ----------------------------------------------------------
+
+    def get(self, key, frags, build, make_layout, make_recipe=None):
+        """The stack under key, fresh for the fragment slots `frags`: a
+        hit, a patch through the _Layout that make_layout() gives (called
+        only for a stale entry), or a build.  ``make_recipe()``, called
+        only on a miss, gives the StackRecipe that pages the entry."""
         t0 = time.perf_counter()
         versions = stamps(frags)
-        ent = self._entries.get(key)
-        if ent is not None and ent[0] == versions:
-            self._entries.move_to_end(key)
-            self.hits += 1
-            if self.seams:
-                metrics.STACK_CACHE.inc(outcome="hit")
-                flight.note_stack("hit", 0, time.perf_counter() - t0)
-            return ent[1]
-        if not self.seams:
-            return self._serve(key, frags, build, make_layout, versions,
-                               ent)[0]
-        metrics.STACK_CACHE.inc(outcome="miss")
-        with start_span("stacked.stack") as sp:
-            t, outcome, moved = self._serve(key, frags, build, make_layout,
-                                            versions, ent)
-            sp.set_tag("outcome", outcome)
-            if moved:
-                sp.set_tag("bytes", moved)
-        metrics.STACK_CACHE.inc(outcome=outcome)
-        metrics.STACK_MAINT_BYTES.inc(
-            moved, kind="patched" if outcome == "patch" else "rebuilt")
-        flight.note_stack(outcome, moved, time.perf_counter() - t0)
-        return t
-
-    def _serve(self, key, frags, build, make_layout, versions: tuple, ent):
-        """A stale or missing entry: patched, or built.  Returns (stack,
-        outcome "patch" | "rebuild", bytes moved to the device)."""
-        if ent is None:
-            reason = "cold"
-        else:
-            self._drop(key)
-            try:
+        while True:
+            with self._lock:
+                ent = self._entries.get(key)
+                hit = self._hit_locked(key, ent, versions)
+                if hit is None:
+                    ev = self._building.get(key)
+                    if ev is None:
+                        ev = self._building[key] = threading.Event()
+                        self.misses += 1
+                        break
+            if hit is not None:
+                payload, snap = hit
+                out = payload if snap is None else self._assemble(payload,
+                                                                  *snap)
                 if self.seams:
-                    # chaos seam: an armed fault fails the patch as a
-                    # device-side error would, before any byte moves
-                    faults.fire("device-patch")
-            except faults.InjectedFault:
-                reason = "fault"
+                    metrics.STACK_CACHE.inc(outcome="hit")
+                    flight.note_stack("hit", 0, time.perf_counter() - t0)
+                return out
+            # single flight: another thread builds or patches this key
+            ev.wait()
+        try:
+            recipe = (make_recipe() if make_recipe is not None
+                      and memory.paged_enabled() else None)
+            fp = self._remember_recipe(key, recipe) if recipe else None
+            if not self.seams:
+                return self._serve(key, frags, build, make_layout, versions,
+                                   ent, recipe)[0]
+            metrics.STACK_CACHE.inc(outcome="miss")
+            with start_span("stacked.stack") as sp:
+                t, outcome, moved = self._serve(key, frags, build,
+                                                make_layout, versions, ent,
+                                                recipe)
+                sp.set_tag("outcome", outcome)
+                if moved:
+                    sp.set_tag("bytes", moved)
+            metrics.STACK_CACHE.inc(outcome=outcome)
+            flight.note_stack(outcome, moved, time.perf_counter() - t0,
+                              key_fp=fp)
+            return t
+        finally:
+            with self._lock:
+                self._building.pop(key, None)
+            ev.set()
+
+    def _hit_locked(self, key, ent, versions: tuple):
+        """(tensor, None) or (PagedStack, (page snapshot, its version))
+        for a fresh, fully resident entry that no builder holds, else
+        None."""
+        if ent is None or ent[0] != versions or key in self._building:
+            return None
+        payload = ent[1]
+        if isinstance(payload, PagedStack):
+            if not payload.complete():
+                return None
+            hit = (payload, (list(payload.pages), payload.version))
+        else:
+            self._entries[key] = (ent[0], payload, ent[2], time.time())
+            hit = (payload, None)
+        self._entries.move_to_end(key)
+        self.hits += 1
+        fp = self._key_fps.get(key)
+        if fp is not None and fp in self._recipes:
+            self._recipes.move_to_end(fp)
+        return hit
+
+    def _serve(self, key, frags, build, make_layout, versions: tuple,
+               stale, recipe):
+        """A stale or missing entry: patched, or built.  Returns (stack,
+        outcome "patch" | "rebuild" | "page_rebuild", bytes moved)."""
+        if recipe is not None:
+            return self._serve_paged(key, frags, versions, stale, recipe)
+        return self._serve_whole(key, frags, build, make_layout, versions,
+                                 stale)
+
+    # -- counters ----------------------------------------------------------
+
+    def _count_rebuild(self, reason: str, nbytes: int) -> None:
+        with self._lock:
+            self.full_rebuilds += 1
+            self.rebuilt_bytes += nbytes
+            self.rebuilds[reason] += 1
+        if self.seams:
+            metrics.STACK_MAINT_BYTES.inc(nbytes, kind="rebuilt")
+
+    def _count_patch(self, dirty: bool, patched: int, rebuilt: int) -> None:
+        with self._lock:
+            if dirty:
+                self.patches += 1
             else:
-                layout = make_layout()
-                dirty = self._dirty_lanes(frags, layout, ent[0], versions)
-                if isinstance(dirty, str):
-                    reason = dirty
-                else:
-                    moved = self._apply_patch(ent[1], dirty, layout)
-                    if moved is not None:
-                        if dirty:
-                            self.patches += 1
-                            self.patched_bytes += moved
-                        else:
-                            self.adopts += 1
-                        self._insert(key, versions, ent[1])
-                        return ent[1], "patch", moved
-                    reason = "dirty_frac"
-        t = build()
-        nbytes = t.numel() * t.element_size()
-        self.full_rebuilds += 1
-        self.rebuilt_bytes += nbytes
-        self.rebuilds[reason] += 1
-        self._insert(key, versions, t)
-        return t, "rebuild", nbytes
+                self.adopts += 1
+            self.patched_bytes += patched
+            self.rebuilt_bytes += rebuilt
+        if self.seams:
+            metrics.STACK_MAINT_BYTES.inc(patched, kind="patched")
+            if rebuilt:
+                metrics.STACK_MAINT_BYTES.inc(rebuilt, kind="rebuilt")
+
+    # -- patching ------------------------------------------------------------
+
+    def _fault(self) -> bool:
+        """The chaos seam: an armed ``device-patch`` fault fails the
+        patch as a device-side error would, before any byte moves."""
+        if not self.seams:
+            return False
+        try:
+            faults.fire("device-patch")
+        except faults.InjectedFault:
+            return True
+        return False
 
     @staticmethod
     def _dirty_lanes(frags, layout: _Layout, old: tuple, new: tuple):
@@ -779,12 +1004,10 @@ class StackCache:
         return dirty
 
     @staticmethod
-    def _apply_patch(t: torch.Tensor, dirty: dict, layout: _Layout):
-        """Scatter the dirty runs into t in place; the bytes written, or
-        None when they pass _PATCH_MAX_FRAC of t.  Runs pad to
-        power-of-two widths (the content comes from the live rows, so
-        widening is exact) and land in one patch_rows call a width."""
-        w = t.shape[-1]
+    def _segments(dirty: dict, w: int) -> list:
+        """(start, plen, lane) of each dirty run, padded to a power-of-two
+        width (the content comes from the live rows, so widening is
+        exact)."""
         segs = []
         for lane in sorted(dirty):
             runs = dirty[lane]
@@ -792,34 +1015,490 @@ class StackCache:
             for lo, hi in runs:
                 plen = min(1 << (hi - lo - 1).bit_length(), w)
                 segs.append((min(lo, w - plen), plen, lane))
-        words = sum(plen for _s, plen, _l in segs)
-        if words > _PATCH_MAX_FRAC * t.numel():
-            return None
+        return segs
+
+    @staticmethod
+    def _scatter(flat: torch.Tensor, segs: list, words, base: int = 0):
+        """The segments' live words into flat (rows = lanes - base), one
+        patch_rows call a width."""
         cur: dict[int, np.ndarray] = {}
         by_len: dict[int, list] = {}
         for start, plen, lane in segs:
             by_len.setdefault(plen, []).append((lane, start))
-        flat = t.view(-1, w)
         for plen, group in sorted(by_len.items()):
             data = np.empty((len(group), plen), dtype=np.uint32)
             for k, (lane, start) in enumerate(group):
                 if lane not in cur:
-                    cur[lane] = layout.words(lane)
+                    cur[lane] = words(lane)
                 data[k] = cur[lane][start:start + plen]
-            bm.patch_rows(flat, [ln for ln, _s in group],
+            bm.patch_rows(flat, [ln - base for ln, _s in group],
                           [s_ for _l, s_ in group], data)
+
+    # -- whole entries ---------------------------------------------------------
+
+    def _serve_whole(self, key, frags, build, make_layout, versions, stale):
+        reason = "cold"
+        if stale is not None:
+            self._drop_entry(key, stale)
+            if not isinstance(stale[1], PagedStack):
+                reason = self._patch_whole(stale, frags, make_layout,
+                                           versions)
+                if not isinstance(reason, str):
+                    t, moved = stale[1], reason
+                    self._insert(key, versions, t)
+                    return t, "patch", moved
+        t = build()
+        nbytes = t.numel() * t.element_size()
+        self._count_rebuild(reason, nbytes)
+        self._insert(key, versions, t)
+        return t, "rebuild", nbytes
+
+    def _patch_whole(self, stale, frags, make_layout, versions):
+        """Patch a stale whole entry in place: the bytes written, or the
+        reason it rebuilds."""
+        if self._fault():
+            return "fault"
+        layout = make_layout()
+        dirty = self._dirty_lanes(frags, layout, stale[0], versions)
+        if isinstance(dirty, str):
+            return dirty
+        t = stale[1]
+        w = t.shape[-1]
+        segs = self._segments(dirty, w)
+        words = sum(plen for _s, plen, _l in segs)
+        if words > _PATCH_MAX_FRAC * t.numel():
+            return "dirty_frac"
+        self._scatter(t.view(-1, w), segs, layout.words)
+        self._count_patch(bool(dirty), words * 4, 0)
         return words * 4
 
     def _insert(self, key, versions: tuple, t: torch.Tensor) -> None:
+        """Retain a whole entry if the ledger admits it."""
         nbytes = t.numel() * t.element_size()
-        while self._entries and self._bytes + nbytes > self.max_bytes:
-            self._drop(next(iter(self._entries)))
-        self._entries[key] = (versions, t)
-        self._bytes += nbytes
+        cap = self._budget_cap()
+        if nbytes > cap:
+            self._note_too_big(key, nbytes, cap)
+            return
+        if not self._client.reserve(nbytes):
+            metrics.STACK_CACHE.inc(outcome="denied")
+            return
+        with self._lock:
+            self._entries[key] = (versions, t, nbytes, time.time())
+            self._bytes += nbytes
+            shed = self._enforce_local_cap_locked()
+        if shed:
+            self._client.release(shed)
 
-    def _drop(self, key) -> None:
-        _v, t = self._entries.pop(key)
-        self._bytes -= t.numel() * t.element_size()
+    def _drop_entry(self, key, ent, payload=None) -> None:
+        """Drop the entry ``ent`` (or whichever holds ``payload``) from
+        under key, releasing its bytes."""
+        with self._lock:
+            if ent is None or self._entries.get(key) is not ent or (
+                    payload is not None and ent[1] is not payload):
+                return
+            self._entries.pop(key)
+            self._bytes -= ent[2]
+        if ent[2]:
+            self._client.release(ent[2])
+
+    # -- paged entries -----------------------------------------------------
+
+    def _serve_paged(self, key, frags, versions: tuple, stale,
+                     recipe: StackRecipe):
+        w = recipe.width_words
+        shape = tuple(recipe.logical_lead) + (w,)
+        pl = max(1, min(page_lanes_for(w), recipe.lanes))
+        ps = old_versions = None
+        if (stale is not None and isinstance(stale[1], PagedStack)
+                and stale[1].shape == shape and stale[1].page_lanes == pl):
+            ps, old_versions = stale[1], stale[0]
+        elif stale is not None:
+            self._drop_entry(key, stale)
+        reason, dirty = "cold", {}
+        if ps is not None and old_versions != versions:
+            dirty = "fault" if self._fault() else recipe.deltas_fn(
+                old_versions)
+            if not isinstance(dirty, str):
+                words = sum(plen for _s, plen, _l
+                            in self._segments(dirty, w))
+                if words > _PATCH_MAX_FRAC * recipe.lanes * w:
+                    dirty = "dirty_frac"
+            if isinstance(dirty, str):
+                reason, dirty = dirty, None
+        # every page tensor this access touches: the final assembly is
+        # immune to evictions meanwhile, and pages the ledger denied
+        # residency still serve this query
+        local: dict[int, object] = {}
+        resident_cap = max(int(_ENTRY_RESIDENT_FRAC * self._budget_cap()),
+                           pl * w * 4)
+        patched_b = rebuilt_b = 0
+        if ps is None or dirty is None:
+            # a stale entry built again keeps its pages' encodings as
+            # the hysteresis and flip attribution of the new ones
+            prev = [None] if ps is None else list(ps.pages)
+            if ps is not None:
+                self._drop_pages(key, ps)
+            ps = PagedStack(shape, pl, weight=recipe.weight)
+            host = np.asarray(recipe.build_host(),
+                              dtype=np.uint32).reshape(-1, w)
+            retained = 0
+            for pi in range(ps.n_pages):
+                lo, hi = ps.lane_range(pi)
+                block = host[lo:hi]
+                if block.shape[0] < pl:
+                    block = np.concatenate(
+                        [block, np.zeros((pl - block.shape[0], w),
+                                         np.uint32)])
+                was = prev[pi] if pi < len(prev) else None
+                local[pi] = self._commit_page(
+                    block, key, prev=was,
+                    reason="build" if was is None else "drift")
+                nb = encode.page_nbytes(local[pi])
+                rebuilt_b += nb
+                if (retained + nb <= resident_cap
+                        and self._page_install(key, ps, pi, local[pi])):
+                    retained += nb
+            self._count_rebuild(reason, rebuilt_b)
+            outcome = "rebuild"
+        else:
+            try:
+                patched_b, rebuilt_b = self._refresh_pages(key, ps, dirty,
+                                                           recipe, local)
+            except BaseException:
+                # nothing half-patched may be served: the entry goes
+                self._drop_entry(key, self._entries.get(key), payload=ps)
+                raise
+            if old_versions != versions:
+                outcome = "patch"
+                self._count_patch(bool(dirty), patched_b, rebuilt_b)
+            else:
+                outcome = "page_rebuild"
+                with self._lock:
+                    self.page_rebuilds += 1
+                    self.rebuilt_bytes += rebuilt_b
+                if self.seams and rebuilt_b:
+                    metrics.STACK_MAINT_BYTES.inc(rebuilt_b, kind="rebuilt")
+        repl = None
+        with self._lock:
+            old = self._entries.get(key)
+            old_nb = old[2] if old is not None and old[1] is ps else 0
+            if old is not None and old[1] is not ps:
+                self._entries.pop(key)
+                self._bytes -= old[2]
+                repl = old[2]
+            nb = ps.resident_bytes()
+            self._entries[key] = (versions, ps, nb, time.time())
+            self._entries.move_to_end(key)
+            self._bytes += nb - old_nb
+            shed = self._enforce_local_cap_locked()
+        if repl:
+            self._client.release(repl)
+        if shed:
+            self._client.release(shed)
+        arrs = [local[i] for i in range(ps.n_pages)]
+        return self._assemble(ps, arrs), outcome, patched_b + rebuilt_b
+
+    def _refresh_pages(self, key, ps: PagedStack, dirty: dict,
+                       recipe: StackRecipe, local: dict):
+        """A kept paged entry made fresh: its evicted pages built again
+        from the live rows, its other dirty pages patched.  Fills
+        ``local`` with every page; returns (patched, rebuilt) bytes."""
+        pl, w = ps.page_lanes, ps.width_words
+        patched_b = rebuilt_b = 0
+        resident_cap = max(int(_ENTRY_RESIDENT_FRAC * self._budget_cap()),
+                           pl * w * 4)
+        with self._lock:
+            local.update((pi, p) for pi, p in enumerate(ps.pages)
+                         if p is not None)
+        by_page: dict[int, dict] = {}
+        for lane, runs in dirty.items():
+            by_page.setdefault(ps.page_of(lane)[0], {})[lane] = runs
+        fresh: set[int] = set()
+        retained = ps.resident_bytes()
+        for pi in range(ps.n_pages):
+            if pi in local:
+                continue
+            block = ps.build_page_host(pi, recipe.lane_words)
+            local[pi] = self._commit_page(block, key)
+            nb = encode.page_nbytes(local[pi])
+            if (retained + nb <= resident_cap
+                    and self._page_install(key, ps, pi, local[pi])):
+                retained += nb
+            rebuilt_b += nb
+            fresh.add(pi)
+        for pi, lanes_d in by_page.items():
+            if pi not in fresh:  # a fresh page read the live rows
+                pb, rb = self._patch_page(key, ps, pi, lanes_d, recipe,
+                                          local)
+                patched_b += pb
+                rebuilt_b += rb
+        return patched_b, rebuilt_b
+
+    @staticmethod
+    def _stats_ident(key):
+        """(index, field) of a stack key that names one field (rows and
+        planes stacks; a group-code key names several)."""
+        if (len(key) >= 3 and isinstance(key[1], str)
+                and isinstance(key[2], str)):
+            return key[1], key[2]
+        return None
+
+    def upload(self, block: np.ndarray) -> torch.Tensor:
+        """Host words to the device under the OOM ladder (no host
+        fallback: a stack lives on the card)."""
+        return pressure.guarded(lambda: bm.to_tensor(block, self.device))
+
+    def _commit_page(self, block: np.ndarray, key, prev=None,
+                     reason: str = "build"):
+        """One host page block on the device, encoded where that pays
+        (memory/encode.py).  ``prev`` is the page's current payload
+        (hysteresis); ``reason`` labels pilosa_page_encode_total."""
+        prev_kind = encode.page_kind(prev) if prev is not None else None
+        enc = None
+        if encode.enabled():
+            ident = self._stats_ident(key)
+            hint = (None if ident is None else stats.field_density(
+                ident[0], ident[1], block.shape[1] * 32))
+            enc = encode.encode_block(block, prev_kind=prev_kind,
+                                      density_hint=hint)
+            kind = "dense" if enc is None else enc.kind
+            if enc is not None or prev_kind not in (None, "dense"):
+                metrics.PAGE_ENCODE.inc(**{"from": prev_kind or "none",
+                                           "to": kind, "reason": reason})
+            if ident is not None:
+                stats.note_page_encoding(ident[0], ident[1], kind)
+        if enc is None:
+            return self.upload(block)
+        return pressure.guarded(lambda: enc.to_device(self.device))
+
+    def _page_install(self, key, ps: PagedStack, pi: int, page) -> bool:
+        """Retain one built page if the ledger admits it at its true
+        size; a denied page serves this access and is built next time."""
+        if not self._client.reserve(encode.page_nbytes(page)):
+            metrics.STACK_CACHE.inc(outcome="denied")
+            return False
+        with self._lock:
+            ps.set_page(pi, page)
+            ps.last_access = time.time()
+            self._sync_entry_locked(key, ps)
+        metrics.STACK_PAGES.inc(event="build", encoding=encode.page_kind(page))
+        return True
+
+    def _patch_page(self, key, ps: PagedStack, pi: int, lanes_d: dict,
+                    recipe: StackRecipe, local: dict):
+        """The dirty runs of one resident page; returns (patched bytes,
+        rebuilt bytes).  An encoded page has no word patch: it is built
+        from the live rows and encoded again (where a filling page turns
+        dense); so is a dense page dirtier than _PATCH_MAX_FRAC."""
+        cur = local.get(pi)
+        w = ps.width_words
+        segs = self._segments(lanes_d, w)
+        words = sum(plen for _s, plen, _l in segs)
+        if encode.is_encoded(cur) or words > _PATCH_MAX_FRAC * ps.page_lanes * w:
+            block = ps.build_page_host(pi, recipe.lane_words)
+            page = self._commit_page(
+                block, key, prev=cur,
+                reason="patch" if encode.is_encoded(cur) else "drift")
+            local[pi] = page
+            self._page_replace(key, ps, pi, page)
+            metrics.STACK_PAGES.inc(event="patch",
+                                    encoding=encode.page_kind(page))
+            return 0, encode.page_nbytes(page)
+        if not segs:
+            return 0, 0
+        self._scatter(cur, segs, recipe.lane_words, base=pi * ps.page_lanes)
+        self._page_replace(key, ps, pi, cur)
+        metrics.STACK_PAGES.inc(event="patch", encoding="dense")
+        return words * 4, 0
+
+    def _page_replace(self, key, ps: PagedStack, pi: int, page):
+        """Put a patched or rebuilt page in its slot: the same size keeps
+        the reservation; another size (an encoding flip) releases the old
+        bytes and reserves the new; a slot evicted meanwhile is installed
+        again."""
+        nb_new = encode.page_nbytes(page)
+        release = 0
+        with self._lock:
+            was = ps.pages[pi]
+            if was is not None:
+                nb_old = encode.page_nbytes(was)
+                if nb_old == nb_new:
+                    ps.set_page(pi, page)
+                    ps.last_access = time.time()
+                    return
+                ps.set_page(pi, None)
+                self._sync_entry_locked(key, ps)
+                release = nb_old
+        if release:
+            self._client.release(release)
+        self._page_install(key, ps, pi, page)
+
+    def _assemble(self, ps: PagedStack, pages: list, version=None):
+        """The entry's operand, or a PageView under raw_pages().  A hit
+        passes its snapshot's version: the page table and page mix are
+        built once a version and kept (_paged_operand)."""
+        ps.touch()
+        if flight.active_acc() is not None:
+            flight.note_pages(_pages_mix(ps, pages, version))
+        if getattr(_RAW_TLS, "on", False):
+            return PageView(ps.shape, ps.lanes, ps.page_lanes, pages,
+                            (ps, version))
+        return _paged_operand(ps, pages, version)
+
+    # -- budget and eviction ---------------------------------------------
+
+    def _budget_cap(self) -> int:
+        return (self.max_bytes if self.max_bytes is not None
+                else self._ledger.budget())
+
+    def _enforce_local_cap_locked(self) -> int:
+        """Shed down to the local max_bytes cap (none: the ledger
+        governs); returns the bytes to release to the ledger."""
+        if self.max_bytes is None or self._bytes <= self.max_bytes:
+            return 0
+        return self._shed_locked(self._bytes - self.max_bytes)
+
+    def _shed_locked(self, need: int) -> int:
+        """Evict about ``need`` bytes, concentrated on entries: order
+        them by cost-aware score (memory/policy.py), then drain the
+        victim's pages in order, stopping in mid-entry once enough is
+        freed; a fully drained entry is dropped.  Returns the bytes
+        freed (the caller releases them)."""
+        freed = 0
+        cands = []
+        for k, ent in self._entries.items():
+            payload = ent[1]
+            if isinstance(payload, PagedStack):
+                if any(p is not None for p in payload.pages):
+                    cands.append((payload.last_access, payload.weight,
+                                  payload.hits, (k, payload)))
+            elif ent[2]:
+                cands.append((ent[3], 1.0, 1, (k, None)))
+        for _la, _w, _h, (k, ps) in policy.victim_order(cands):
+            if freed >= need:
+                break
+            if ps is None:
+                ent = self._entries.pop(k)
+                self._bytes -= ent[2]
+                freed += ent[2]
+                continue
+            for pi, p in enumerate(ps.pages):
+                if freed >= need:
+                    break
+                if p is None:
+                    continue
+                ps.set_page(pi, None)
+                freed += encode.page_nbytes(p)
+                metrics.STACK_PAGES.inc(event="evict",
+                                        encoding=encode.page_kind(p))
+            self._sync_entry_locked(k, ps)
+            if not any(p is not None for p in ps.pages):
+                ent = self._entries.pop(k, None)
+                if ent is not None:
+                    self._bytes -= ent[2]
+        return freed
+
+    def _reclaim(self, need: int) -> int:
+        """The ledger's reclaim callback."""
+        with self._lock:
+            freed = self._shed_locked(int(need))
+        if freed:
+            self._client.release(freed)
+        return freed
+
+    def _cold_ts(self) -> float:
+        """The coldest resident entry's last use."""
+        with self._lock:
+            ts = None
+            for ent in self._entries.values():
+                la = (ent[1].last_access if isinstance(ent[1], PagedStack)
+                      else ent[3])
+                if ent[2] and (ts is None or la < ts):
+                    ts = la
+            return ts or 0.0
+
+    def _sync_entry_locked(self, key, ps: PagedStack):
+        """An entry's accounted bytes from its resident pages."""
+        ent = self._entries.get(key)
+        if ent is not None and ent[1] is ps:
+            nb = ps.resident_bytes()
+            self._bytes += nb - ent[2]
+            self._entries[key] = (ent[0], ps, nb, ent[3])
+
+    def _drop_pages(self, key, ps: PagedStack):
+        freed = 0
+        with self._lock:
+            for pi, p in enumerate(ps.pages):
+                if p is not None:
+                    ps.set_page(pi, None)
+                    freed += encode.page_nbytes(p)
+            self._sync_entry_locked(key, ps)
+        if freed:
+            self._client.release(freed)
+
+    def _note_too_big(self, key, nbytes: int, cap: int):
+        with self._lock:
+            self.too_big += 1
+            warn = key not in self._warned_big
+            if warn:
+                self._warned_big.add(key)
+                while len(self._warned_big) > self._MAX_WARNED:
+                    self._warned_big.pop()
+        metrics.STACK_CACHE.inc(outcome="too_big")
+        if warn:
+            _log.warning("stack %r (%d bytes) alone exceeds the device "
+                         "budget (%d bytes); it is built and served "
+                         "unretained on every access", key, nbytes, cap)
+
+    # -- prefetch (memory/policy.py Prefetcher) ----------------------------
+
+    def _remember_recipe(self, key, recipe: StackRecipe) -> str:
+        with self._lock:
+            fp = self._key_fps.get(key)
+            if fp is None:
+                fp = hashlib.blake2b(repr(key).encode(),
+                                     digest_size=8).hexdigest()
+                self._key_fps[key] = fp
+            self._recipes[fp] = (key, recipe)
+            self._recipes.move_to_end(fp)
+            while len(self._recipes) > self._MAX_RECIPES:
+                _ofp, (okey, _r) = self._recipes.popitem(last=False)
+                self._key_fps.pop(okey, None)
+        return fp
+
+    def prewarm(self, fp: str) -> bool:
+        """Build a key's missing pages again from its recorded recipe at
+        the current fragment versions (the prefetcher's warm target).
+        False for an unknown key, a fresh fully resident entry, or a
+        recipe whose fields were dropped (the recipe goes too)."""
+        with self._lock:
+            rec = self._recipes.get(fp)
+        if rec is None:
+            return False
+        key, recipe = rec
+        if recipe.alive_fn is not None and not recipe.alive_fn():
+            with self._lock:
+                if self._recipes.get(fp) is rec:
+                    self._recipes.pop(fp)
+                    self._key_fps.pop(key, None)
+            return False
+        versions = recipe.versions_fn()
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is not None and ent[0] == versions and not (
+                    isinstance(ent[1], PagedStack)
+                    and not ent[1].complete()):
+                return False
+        recipe.replay()
+        return True
+
+    def clear(self):
+        with self._lock:
+            total = self._bytes
+            self._entries.clear()
+            self._bytes = 0
+        if total:
+            self._client.release(total)
 
 
 class StackedEngine:
@@ -829,7 +1508,7 @@ class StackedEngine:
     def __init__(self, executor, device: torch.device):
         self.executor = executor
         self.device = device
-        self.cache = StackCache(seams=True)
+        self.cache = StackCache(seams=True, device=device)
         self._disjoint_cache: OrderedDict = OrderedDict()
         # which kernel serves the one-pass histogram: "fused", or
         # "onehot" where its bounds hold (_onepass_kernel)
@@ -837,46 +1516,83 @@ class StackedEngine:
 
     # -- stack builders (cached, patched on write) --------------------------
 
-    def _stack(self, key, frags, build_host, make_layout) -> torch.Tensor:
+    def _stack(self, key, frags, build_host, make_layout, lead: tuple,
+               replay, alive_fn, weight: float = 1.0):
+        """The cached stack under key: whole, or paged under a recipe
+        (the builder's host words, its _Layout's lane words and delta
+        map, and ``replay`` for the prefetcher)."""
+        def make_recipe():
+            layout = make_layout()
+            return StackRecipe(
+                logical_lead=tuple(lead), width_words=layout.w,
+                lane_words=layout.words, build_host=build_host,
+                versions_fn=lambda: stamps(replay(fetch=False)),
+                deltas_fn=lambda old: StackCache._dirty_lanes(
+                    frags, layout, old, stamps(frags)),
+                weight=weight, alive_fn=alive_fn,
+                replay=lambda: replay())
+
         return self.cache.get(
-            key, frags, lambda: bm.to_tensor(build_host(), self.device),
-            make_layout)
+            key, frags, lambda: self.cache.upload(build_host()),
+            make_layout, make_recipe)
 
     def _frags(self, field, view: str, shards):
         v = field.views.get(view)
         return [v.fragment(s) if v else None for s in shards]
 
+    def sparse_fast(self) -> bool:
+        """The packed arms apply where pages can be encoded at all, on an
+        executor on the CPU.  On the card an encoded page expands through
+        assemble_pages and is counted by the kernels, as a dense one is."""
+        return (self.device.type == "cpu" and encode.enabled()
+                and memory.paged_enabled())
+
+    def sparse_raw(self):
+        """raw_pages() where the packed arms apply, else nothing."""
+        return raw_pages() if self.sparse_fast() else contextlib.nullcontext()
+
     def rows_stack_for(self, idx, field, views: tuple[str, ...], row_ids,
-                       skey: tuple) -> torch.Tensor:
-        """(R, S, W) stack of rows, each unioned across views."""
+                       skey: tuple, fetch: bool = True):
+        """(R, S, W) stack of rows, each unioned across views (a PageView
+        under raw_pages()).  ``fetch=False`` gives the fragment slots."""
         row_key = tuple(int(r) for r in row_ids)
         per_view = [self._frags(field, vn, skey) for vn in views]
+        frags = [fr for fs in per_view for fr in fs]
+        if not fetch:
+            return frags
 
         def build_host():
             out = np.zeros((len(row_key), len(skey), idx.width // 32),
                            dtype=np.uint32)
-            for frags in per_view:
-                for si, fr in enumerate(frags):
+            for fs in per_view:
+                for si, fr in enumerate(fs):
                     if fr is not None:
                         for ri, r in enumerate(row_key):
                             out[ri, si] |= fr.row_words(r)
             return out
 
-        return self._stack(("rows", idx.name, field.name, views, row_key,
-                            skey), [fr for fs in per_view for fr in fs],
-                           build_host,
-                           lambda: _RowsLayout(per_view, row_key, len(skey),
-                                               idx.width // 32))
+        return self._stack(
+            ("rows", idx.name, field.name, views, row_key, skey), frags,
+            build_host,
+            lambda: _RowsLayout(per_view, row_key, len(skey),
+                                idx.width // 32),
+            (len(row_key), len(skey)),
+            lambda fetch=True: self.rows_stack_for(idx, field, views,
+                                                   row_key, skey, fetch),
+            lambda: idx.fields.get(field.name) is field)
 
     def row_stack(self, idx, field, views: tuple[str, ...], row_id: int,
-                  skey: tuple) -> torch.Tensor:
+                  skey: tuple):
         """(S, W) stack of one row, unioned across views."""
-        return self.rows_stack_for(idx, field, views, (row_id,), skey)[0]
+        out = self.rows_stack_for(idx, field, views, (row_id,), skey)
+        return out.lead_dropped() if isinstance(out, PageView) else out[0]
 
-    def plane_stack(self, idx, field, skey: tuple) -> torch.Tensor:
+    def plane_stack(self, idx, field, skey: tuple, fetch: bool = True):
         """(S, 2+depth, W) stack of a BSI field's planes."""
         depth = field.bit_depth
         frags = self._frags(field, field.bsi_view, skey)
+        if not fetch:
+            return frags
 
         def build_host():
             out = np.zeros((len(skey), 2 + depth, idx.width // 32),
@@ -887,12 +1603,15 @@ class StackedEngine:
                         out[si, r] = fr.row_words(r)
             return out
 
-        return self._stack(("planes", idx.name, field.name, depth, skey),
-                           frags, build_host,
-                           lambda: _PlanesLayout(frags, depth,
-                                                 idx.width // 32))
+        return self._stack(
+            ("planes", idx.name, field.name, depth, skey), frags,
+            build_host,
+            lambda: _PlanesLayout(frags, depth, idx.width // 32),
+            (len(skey), 2 + depth),
+            lambda fetch=True: self.plane_stack(idx, field, skey, fetch),
+            lambda: idx.fields.get(field.name) is field)
 
-    def existence_stack(self, idx, skey: tuple) -> torch.Tensor:
+    def existence_stack(self, idx, skey: tuple):
         from pilosa_tpu_torch.models.index import EXISTENCE_FIELD
         return self.row_stack(idx, idx.fields[EXISTENCE_FIELD],
                               (VIEW_STANDARD,), 0, skey)
@@ -902,21 +1621,35 @@ class StackedEngine:
     def _run(self, plan, b: PlanBuilder, span: bool = True):
         """One plan on the device, in a ``stacked.dispatch`` span unless
         it only makes an operand of a later launch (a GroupBy's filter);
-        see _dispatch."""
+        see _dispatch.  On an executor on the CPU, a dispatched plan that
+        stays out of memory after the OOM ladder's retry runs again as
+        the host fallback (pressure.run_host_plan); on the card, and for
+        an operand, the OOM is raised."""
+        run = _plan_run(plan)
         if not span:
-            return _plan_run(plan)(b.leaves, b.params)
-        return self._dispatch(plan[0],
-                              lambda: _plan_run(plan)(b.leaves, b.params))
+            return pressure.guarded(lambda: run(b.leaves, b.params))
+        host = None
+        if self.device.type == "cpu":
+            def host():
+                return pressure.run_host_plan(plan, b.leaves, b.params)
+        return self._dispatch(plan[0], lambda: run(b.leaves, b.params),
+                              host=host)
 
-    def _dispatch(self, kind: str, fn):
-        """fn() in a ``stacked.dispatch`` span, timed into the flight
-        record's execute phase; the clock stops when the card has
-        finished (every caller pulls the result to the host next)."""
-        t0 = time.perf_counter()
-        with start_span("stacked.dispatch", kind=kind):
+    def _dispatch(self, kind: str, fn, host=None):
+        """fn() in a ``stacked.dispatch`` span, under the OOM ladder
+        (memory/pressure.py; ``host`` is its degraded-mode closure),
+        timed into the flight record's execute phase; the clock stops
+        when the card has finished (every caller pulls the result to the
+        host next)."""
+        def run():
             out = fn()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            return out
+
+        t0 = time.perf_counter()
+        with start_span("stacked.dispatch", kind=kind):
+            out = pressure.guarded(run, host_fallback=host)
         flight.note_phase("execute", time.perf_counter() - t0)
         return out
 
@@ -939,12 +1672,126 @@ class StackedEngine:
         return tree
 
     def count(self, idx, call: Call, shards: list[int], pre: dict) -> int:
-        """Exact Count of a bitmap tree."""
+        """Exact Count of a bitmap tree.  Where the packed arms apply the
+        tree is built over PageViews: a bare leaf of encoded pages, or a
+        set op over leaves of packed pages, is counted on the host from
+        what encoding took; any other tree expands its views to the
+        operands the fetch would have assembled."""
         b = PlanBuilder(self, idx, shards, pre)
-        tree = self._build(b, call)
-        if tree == ("zeros",):
-            return 0
+        if not self.sparse_fast():
+            tree = self._build(b, call)
+            if tree == ("zeros",):
+                return 0
+        else:
+            with raw_pages():
+                tree = self._build(b, call)
+            if tree == ("zeros",):
+                return 0
+            fast = self._count_packed_host(b, tree)
+            if fast is None:
+                fast = self._count_setop_packed_host(b, tree)
+            if fast is not None:
+                return fast
+            b.leaves = [_expand_view(lf) for lf in b.leaves]
         return int(self._run(("count", tree), b).sum(dtype=torch.int64))
+
+    # -- the packed arms (no device program) ----------------------------------
+
+    @staticmethod
+    def _count_packed_host(b: PlanBuilder, tree):
+        """Count of a bare leaf whose pages are all encoded: the sum of
+        their encode-time popcounts.  None for anything else."""
+        if tree[0] != "leaf":
+            return None
+        leaf = b.leaves[tree[1]]
+        if not isinstance(leaf, PageView) or not leaf.all_encoded():
+            return None
+        t0 = time.perf_counter()
+        total = sum(p.bit_count() for p in leaf.pages)
+        flight.note_phase("execute", time.perf_counter() - t0)
+        return int(total)
+
+    @staticmethod
+    def _leaf_positions(leaf):
+        """(sorted distinct flat set-bit offsets, page partition) of a
+        PageView whose pages are all packed, or None."""
+        if not isinstance(leaf, PageView) or not leaf.pages:
+            return None
+        parts, off, sig = [], 0, []
+        for p in leaf.pages:
+            if not (encode.is_encoded(p) and p.kind == "packed"):
+                return None
+            pos = p.positions()
+            parts.append(pos if off == 0 else pos + off)
+            bits = p.page_lanes * p.width_words * 32
+            sig.append(bits)
+            off += bits
+        pos = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        return pos, tuple(sig)
+
+    @staticmethod
+    def _member(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """Which elements of sorted distinct ``b`` are in sorted distinct
+        ``a``."""
+        if a.size == 0:
+            return np.zeros(b.size, dtype=bool)
+        idx = np.searchsorted(a, b)
+        return (idx < a.size) & (a[np.minimum(idx, a.size - 1)] == b)
+
+    def _count_setop_packed_host(self, b: PlanBuilder, tree):
+        """Count of an n-ary set op over bare leaves of packed pages, by
+        set algebra on their sorted coordinates.  None for anything
+        else."""
+        if tree[0] != "nary" or not all(c[0] == "leaf" for c in tree[2]):
+            return None
+        op = tree[1]
+        t0 = time.perf_counter()
+        leaves, sig = [], None
+        for c in tree[2]:
+            got = self._leaf_positions(b.leaves[c[1]])
+            if got is None or (sig is not None and got[1] != sig):
+                return None
+            sig = got[1]
+            leaves.append(got[0])
+        if len(leaves) == 2:
+            # both sides sorted distinct: the intersection size is the
+            # count of adjacent duplicates in their merge
+            x, y = leaves
+            c = np.concatenate((x, y))
+            c.sort(kind="stable")
+            both = int((c[1:] == c[:-1]).sum())
+            n = {"union": x.size + y.size - both, "intersect": both,
+                 "difference": x.size - both,
+                 "xor": x.size + y.size - 2 * both}[op]
+        else:
+            res = leaves[0]
+            for p in leaves[1:]:
+                if op == "union":
+                    res = np.sort(np.concatenate(
+                        (res, p[~self._member(res, p)])), kind="mergesort")
+                elif op == "intersect":
+                    res = res[self._member(p, res)]
+                elif op == "difference":
+                    res = res[~self._member(p, res)]
+                else:
+                    res = np.sort(np.concatenate(
+                        (res[~self._member(p, res)],
+                         p[~self._member(res, p)])), kind="mergesort")
+            n = int(res.size)
+        flight.note_phase("execute", time.perf_counter() - t0)
+        return n
+
+    @staticmethod
+    def _row_counts_packed_host(view: PageView) -> np.ndarray:
+        """(R,) counts of an unfiltered (R, S, W) candidate stack whose
+        pages are all encoded, from their encode-time lane popcounts."""
+        t0 = time.perf_counter()
+        r, s, _w = view.shape
+        flat = np.concatenate([np.asarray(p.lane_counts, dtype=np.int64)
+                               for p in view.pages])
+        out = flat[:r * s].reshape(r, s).sum(axis=1)
+        flight.note_phase("execute", time.perf_counter() - t0)
+        return out
 
     def words(self, idx, call: Call, shards: list[int], pre: dict):
         """(S, W) host uint32 result of a bitmap tree, or None for a
@@ -971,7 +1818,14 @@ class StackedEngine:
     def row_counts(self, idx, rows_stack, filter_call, shards: list[int],
                    pre: dict) -> np.ndarray:
         """(R,) exact counts of candidate rows under an optional filter
-        tree — the TopN/TopK scan (executor.go:2750 topKFilter)."""
+        tree — the TopN/TopK scan (executor.go:2750 topKFilter).  A
+        PageView stack (fetched under sparse_raw()) of encoded pages
+        answers an unfiltered scan from its lane popcounts; otherwise it
+        expands to the operand the fetch would have assembled."""
+        if isinstance(rows_stack, PageView):
+            if filter_call is None and rows_stack.all_encoded():
+                return self._row_counts_packed_host(rows_stack)
+            rows_stack = _expand_view(rows_stack)
         b = PlanBuilder(self, idx, shards, pre)
         rows_i = b._add_leaf(rows_stack)
         tree = b.build(filter_call) if filter_call is not None else None
@@ -1085,7 +1939,8 @@ class StackedEngine:
             acc = wds.copy() if acc is None else acc | wds
         return total == int(np.bitwise_count(acc).sum())
 
-    def groupcode_stack(self, idx, fields_rows, skey: tuple) -> torch.Tensor:
+    def groupcode_stack(self, idx, fields_rows, skey: tuple,
+                        fetch: bool = True):
         """(S, CB+1, W) group-code stack: CB packed code bit-planes (each
         field's digit planes at its _code_space shift) and the valid
         plane last (the AND of the fields' row unions: the columns that
@@ -1095,6 +1950,9 @@ class StackedEngine:
                      for f, rl in fields_rows)
         per_field = [self._frags(f, VIEW_STANDARD, skey)
                      for f, _ in fields_rows]
+        frags = [fr for fs in per_field for fr in fs]
+        if not fetch:
+            return frags
         bits, shifts, _n_codes = _code_space(fields_rows)
         cb = sum(bits)
 
@@ -1118,11 +1976,17 @@ class StackedEngine:
                 out[:, cb] &= union
             return out
 
-        return self._stack(("groupcodes", idx.name, fkey, skey),
-                           [fr for fs in per_field for fr in fs], build_host,
-                           lambda: _GroupcodeLayout(
-                               fields_rows, per_field, shifts, cb, len(skey),
-                               idx.width // 32))
+        # group-code pages OR many rows a lane: eviction holds them longer
+        return self._stack(
+            ("groupcodes", idx.name, fkey, skey), frags, build_host,
+            lambda: _GroupcodeLayout(fields_rows, per_field, shifts, cb,
+                                     len(skey), idx.width // 32),
+            (len(skey), cb + 1),
+            lambda fetch=True: self.groupcode_stack(idx, fields_rows, skey,
+                                                    fetch),
+            lambda: all(idx.fields.get(f.name) is f
+                        for f, _rl in fields_rows),
+            weight=4.0)
 
     def _groupby_onepass_fits(self, idx, fields_rows, skey: tuple) -> bool:
         """The one-pass histogram's correctness bounds: a dense code space

@@ -9,7 +9,10 @@ keeps the first, as far as SQL and the API read it:
   after the write landed) folds one import into the field's row set,
   per-shard bit counts and value range;
 - ``StatsCatalog.est_index_rows`` gives ``sql/costplan.py`` a table's
-  record count, the input of its join ordering.
+  record count, the input of its join ordering;
+- ``note_page_encoding`` tallies the stack cache's page encodings per
+  field (memory/encode.py), and ``field_density`` gives the encoder its
+  skip-the-scan hint.
 
 The runtime profiles, ``note_flight`` and ``est_cost_ms`` come with the
 serving plane.  The switch goes through ``configure(enabled=...)``
@@ -37,7 +40,7 @@ class FieldStats:
     """Data-plane stats for one (index, field)."""
 
     __slots__ = ("rows", "rows_capped", "shard_bits", "vmin", "vmax",
-                 "vcount")
+                 "vcount", "encodings")
 
     def __init__(self):
         self.rows: set[int] = set()
@@ -46,6 +49,8 @@ class FieldStats:
         self.vmin: float | None = None
         self.vmax: float | None = None
         self.vcount = 0
+        # page encodings chosen for this field's pages (kind -> pages)
+        self.encodings: dict[str, int] = {}
 
     def note(self, rows, shard_bits: dict, vmin=None, vmax=None,
              vcount: int = 0):
@@ -80,6 +85,8 @@ class FieldStats:
         if self.vcount:
             out["values"] = {"count": self.vcount, "min": self.vmin,
                              "max": self.vmax}
+        if self.encodings:
+            out["encodings"] = dict(self.encodings)
         return out
 
 
@@ -116,6 +123,28 @@ class StatsCatalog:
             if fs is None:
                 fs = self._fields[(index, field)] = FieldStats()
             fs.note(rows_l, sb, vmin=vmin, vmax=vmax, vcount=vn)
+
+    def note_page_encoding(self, index: str, field: str, kind: str):
+        """Tally one page-encoding decision for a field's pages."""
+        with self._lock:
+            fs = self._fields.get((index, field))
+            if fs is None:
+                fs = self._fields[(index, field)] = FieldStats()
+            fs.encodings[kind] = fs.encodings.get(kind, 0) + 1
+
+    def field_density(self, index: str, field: str,
+                      width_bits: int) -> float | None:
+        """Estimated set-bit density of one (row, shard) slab of the
+        field, or None when the catalog cannot say (no ingest stats, or
+        a capped row set, which would overstate it)."""
+        with self._lock:
+            fs = self._fields.get((index, field))
+            if (fs is None or fs.rows_capped or not fs.rows
+                    or not fs.shard_bits or width_bits <= 0):
+                return None
+            total = sum(fs.shard_bits.values())
+            slots = len(fs.rows) * len(fs.shard_bits) * width_bits
+        return total / slots if slots > 0 else None
 
     def field_stats(self, index: str, field: str) -> dict | None:
         with self._lock:
@@ -173,3 +202,15 @@ def note_ingest(index: str, field: str, rows=None, cols=None, values=None,
                              values=values, width=width)
     except Exception:
         pass  # stats must never fail a write
+
+
+def note_page_encoding(index: str, field: str, kind: str):
+    if not _enabled:
+        return
+    _catalog.note_page_encoding(index, field, kind)
+
+
+def field_density(index: str, field: str, width_bits: int) -> float | None:
+    if not _enabled:
+        return None
+    return _catalog.field_density(index, field, width_bits)

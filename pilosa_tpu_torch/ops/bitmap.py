@@ -342,3 +342,116 @@ def code_from_planes_np(planes: np.ndarray) -> np.ndarray:
         bits = ((planes[b][..., None] >> shifts) & 1).astype(np.int32)
         code |= bits.reshape(out_shape) << b
     return code
+
+
+# ---------------------------------------------------------------------------
+# Pages of the stack cache (memory/pages.py, memory/encode.py)
+# ---------------------------------------------------------------------------
+# A page is a (page_lanes, W) block of a stack's flattened lanes, dense
+# or encoded: packed, the sorted flat bit offsets of its set bits as
+# uint32 coordinates; run, sorted word-granular runs of all-ones words
+# (int32 starts and lengths) plus the residual bits as coordinates.
+# Payloads are pow2-padded with sentinels (a coordinate of the page's
+# bit count, a run start of its word count with length 0), which every
+# op here drops.  On the card the pages become dense through the
+# assemble_pages kernel (ops/kernels.py); the plain versions are below.
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 words or coordinates carrying uint32 bits → int64 values."""
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def _as_words(flat: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) → int32 tensor with the same bits."""
+    return torch.where(flat >= 1 << 31, flat - (1 << 32), flat) \
+        .to(torch.int32)
+
+
+def expand_coords_plain(coords: torch.Tensor, page_lanes: int,
+                        width_words: int) -> torch.Tensor:
+    """Packed coordinates → dense (page_lanes, W) int32 block."""
+    n_words = page_lanes * width_words
+    c = _u32(coords.reshape(-1))
+    c = c[c < n_words * BITS_PER_WORD]
+    flat = torch.zeros(n_words, dtype=torch.int64, device=coords.device)
+    # the coordinates are distinct set bits, so adding them ORs them
+    flat.index_add_(0, c >> 5, torch.ones_like(c) << (c & 31))
+    return _as_words(flat).reshape(page_lanes, width_words)
+
+
+def expand_runs_plain(starts: torch.Tensor, lens: torch.Tensor,
+                      coords: torch.Tensor, page_lanes: int,
+                      width_words: int) -> torch.Tensor:
+    """Run page (all-ones word runs + residual coordinates) → dense
+    (page_lanes, W) int32 block."""
+    n_words = page_lanes * width_words
+    base = expand_coords_plain(coords, page_lanes, width_words).reshape(-1)
+    s = starts.reshape(-1).to(torch.int64)
+    ln = lens.reshape(-1).to(torch.int64)
+    w = torch.arange(n_words, dtype=torch.int64, device=base.device)
+    # runs are sorted and disjoint: the covering candidate is the last
+    # run starting at or before w (sentinel starts sort past every w)
+    j = (torch.searchsorted(s, w, right=True) - 1).clamp(0, s.numel() - 1)
+    inside = (w >= s[j]) & (w < s[j] + ln[j])
+    return torch.where(inside, torch.full_like(base, -1), base) \
+        .reshape(page_lanes, width_words)
+
+
+def assemble_pages(pages, shape: tuple, page_lanes: int,
+                   table=None) -> torch.Tensor:
+    """Pages (dense tensors or encoded pages) → the stack's (lanes, W)
+    words in its logical shape, the last page's padding dropped: one
+    ``kernels.assemble_pages`` launch on the card (over ``table``, the
+    pages' ``kernels.page_table``, when the caller kept it)."""
+    from pilosa_tpu_torch.ops import kernels
+    return kernels.assemble_pages(pages, shape, page_lanes, table=table)
+
+
+class _Payload:
+    """An encoded page's payload for assemble_pages."""
+
+    __slots__ = ("kind", "coords", "run_starts", "run_lens")
+
+    def __init__(self, kind, coords, run_starts=None, run_lens=None):
+        self.kind, self.coords = kind, coords
+        self.run_starts, self.run_lens = run_starts, run_lens
+
+
+def expand_coords(coords: torch.Tensor, page_lanes: int,
+                  width_words: int) -> torch.Tensor:
+    """Packed coordinate page → dense (page_lanes, W) int32 block."""
+    return assemble_pages([_Payload("packed", coords)],
+                          (page_lanes, width_words), page_lanes)
+
+
+def expand_runs(starts: torch.Tensor, lens: torch.Tensor,
+                coords: torch.Tensor, page_lanes: int,
+                width_words: int) -> torch.Tensor:
+    """Run page → dense (page_lanes, W) int32 block."""
+    return assemble_pages([_Payload("run", coords, starts, lens)],
+                          (page_lanes, width_words), page_lanes)
+
+
+def packed_count(coords: torch.Tensor, total_bits: int) -> torch.Tensor:
+    """Set bits of a packed page (its sentinels dropped), int32."""
+    return (_u32(coords) < int(total_bits)).sum(dtype=torch.int32)
+
+
+def packed_segment_count(coords: torch.Tensor, lane_bits: int,
+                         num_lanes: int) -> torch.Tensor:
+    """Per-lane set bits of a packed page: a coordinate's lane is
+    coord // lane_bits; sentinels land past num_lanes and drop."""
+    lane = _u32(coords) // int(lane_bits)
+    lane = lane[lane < num_lanes]
+    return torch.bincount(lane, minlength=num_lanes).to(torch.int32)
+
+
+def packed_intersect_count(coords: torch.Tensor, dense_words: torch.Tensor,
+                           total_bits: int) -> torch.Tensor:
+    """popcount(expand(coords) & dense) without expanding: the dense
+    word under each coordinate, its bit tested."""
+    c = _u32(coords)
+    flat = _u32(dense_words.reshape(-1))
+    wi = (c >> 5).clamp(max=flat.numel() - 1)
+    bits = (flat[wi] >> (c & 31)) & 1
+    return torch.where(c < int(total_bits), bits, 0).sum(dtype=torch.int32)

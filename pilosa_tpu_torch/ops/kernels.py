@@ -1,8 +1,9 @@
 """The query path's kernels: CUDA on the card, plain PyTorch beside each.
 
 Eight hand-written CUDA kernels replace the eight Pallas kernels of
-``pilosa_tpu/ops/kernels.py``, and a ninth the BSI comparator that the
-JAX package fuses under its plan's jit.  In ``csrc/bitmap_kernels.cu``:
+``pilosa_tpu/ops/kernels.py``, a ninth the BSI comparator that the JAX
+package fuses under its plan's jit, and a tenth its jitted page
+assembly.  In ``csrc/bitmap_kernels.cu``:
 
 - ``popcount_rows``       — Count of a leaf or a per-shard tree, the
   stacked unfiltered TopN row counts, the per-shard GroupBy's combo counts
@@ -26,6 +27,12 @@ and in ``csrc/groupby_kernels.cu``:
 - ``groupby_onehot``      — the same histogram without the Min/Max table,
   as int8 tensor-core products (the stacked engine's ``"onehot"`` arm)
 - ``groupby_sum``         — the per-combo GroupBy count and Sum partials
+
+and in ``csrc/page_kernels.cu``:
+
+- ``assemble_pages``      — a paged stack's operand from its pages, dense,
+  packed or run, in one launch (the JAX package's jitted
+  ``assemble_pages``, ``expand_coords`` and ``expand_runs``: no Pallas)
 
 Words are ``torch.int32`` tensors carrying uint32 bits.  Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs, and
@@ -64,10 +71,12 @@ _ARGTYPES = {
                           _P, _P],
     "pt_groupby_sum": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _I, _P,
                        _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "pt_assemble_pages": [_P, _I, _P, _I, _I, _P],
 }
 _LIBS = {"pt_groupby_fused": "groupby_kernels",
          "pt_groupby_onehot": "groupby_kernels",
-         "pt_groupby_sum": "groupby_kernels"}
+         "pt_groupby_sum": "groupby_kernels",
+         "pt_assemble_pages": "page_kernels"}
 _GRID_MAX = (1 << 31) - 1
 _INT32_MAX = (1 << 31) - 1
 
@@ -95,7 +104,7 @@ _PLAIN_COLUMNS = 1 << 24
 LAUNCHES = {name: 0 for name in (
     "popcount_rows", "pair_popcount", "masked_popcount", "rows_filter_counts",
     "bsi_sum_counts", "bsi_range", "groupby_fused", "groupby_onehot",
-    "groupby_sum")}
+    "groupby_sum", "assemble_pages")}
 
 # bsi_range's comparisons, in the C entry's numbering
 RANGE_OPS = ("eq", "neq", "lt", "lte", "gt", "gte", "between")
@@ -367,6 +376,34 @@ def groupby_sum_plain(stacks, sel: torch.Tensor,
         return out_counts, None, None, None
     return (out_counts, stacked(nn, (c,)), stacked(pos, (c, depth)),
             stacked(neg, (c, depth)))
+
+
+def _page_lanes(lanes: int, page_lanes: int, n_pages: int) -> None:
+    if page_lanes < 1 or n_pages != -(-lanes // page_lanes):
+        raise ValueError(f"assemble_pages: {n_pages} pages of {page_lanes} "
+                         f"lanes cannot hold {lanes} lanes")
+
+
+def assemble_pages_plain(pages, shape: tuple, page_lanes: int):
+    """Plain version of assemble_pages: each page expanded on its own
+    (bm.expand_coords_plain / expand_runs_plain; a dense page as it
+    is), concatenated with torch.cat and trimmed to the stack's lanes."""
+    w = int(shape[-1])
+    lanes = int(np.prod(shape[:-1], dtype=np.int64))
+    _page_lanes(lanes, page_lanes, len(pages))
+    parts = []
+    for p in pages:
+        if isinstance(p, torch.Tensor):
+            parts.append(p.reshape(page_lanes, w))
+        elif p.kind == "packed":
+            parts.append(bm.expand_coords_plain(p.coords, page_lanes, w))
+        else:
+            parts.append(bm.expand_runs_plain(p.run_starts, p.run_lens,
+                                              p.coords, page_lanes, w))
+    if not parts:
+        return torch.empty(tuple(shape), dtype=torch.int32)
+    flat = torch.cat(parts) if len(parts) > 1 else parts[0]
+    return flat[:lanes].reshape(tuple(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +834,101 @@ def groupby_sum(stacks, sel: torch.Tensor, planes: torch.Tensor | None = None,
                 None if pos is None else pos.data_ptr(),
                 None if neg is None else neg.data_ptr())
     return counts, nn, pos, neg
+
+
+# one row of assemble_pages' page table (csrc/page_kernels.cu PageDesc):
+# kind, dense, coords, n_coords, run starts, run lens, n_runs, first
+# output lane, lanes written, padding
+_PAGE_KINDS = {"dense": 0, "packed": 1, "run": 2}
+_PAGE_DESC = 10
+
+
+def _payload(name: str, t: torch.Tensor, device) -> int:
+    if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous() \
+            or t.device != device:
+        raise ValueError(f"{name}: expected a contiguous 1-D int32 payload "
+                         f"on {device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+    return t.data_ptr()
+
+
+def _pages_device(pages):
+    first = pages[0]
+    return (first if isinstance(first, torch.Tensor) else first.coords).device
+
+
+def page_table(pages, shape: tuple, page_lanes: int):
+    """assemble_pages' (n_pages, _PAGE_DESC) int64 device table of
+    ``pages``, each page checked here; None for pages
+    on the CPU, whose plain version needs none.  A caller that keeps the
+    pages may keep the table and pass it to every assemble_pages of
+    them."""
+    name = "assemble_pages"
+    w = int(shape[-1])
+    lanes = int(np.prod(shape[:-1], dtype=np.int64))
+    _page_lanes(lanes, page_lanes, len(pages))
+    if not pages:
+        raise ValueError(f"{name}: no pages")
+    device = _pages_device(pages)
+    if device.type == "cpu":
+        return None
+    table = np.zeros((len(pages), _PAGE_DESC), dtype=np.int64)
+    for i, p in enumerate(pages):
+        row = table[i]
+        row[7] = i * page_lanes
+        row[8] = min(page_lanes, lanes - i * page_lanes)
+        if isinstance(p, torch.Tensor):
+            _check(name, p, 2, device)
+            if tuple(p.shape) != (page_lanes, w):
+                raise ValueError(f"{name}: page {tuple(p.shape)}, expected "
+                                 f"({page_lanes}, {w})")
+            row[0], row[1] = _PAGE_KINDS["dense"], p.data_ptr()
+            continue
+        if p.kind not in ("packed", "run"):
+            raise ValueError(f"{name}: unknown page kind {p.kind!r}")
+        row[0] = _PAGE_KINDS[p.kind]
+        row[2] = _payload(name, p.coords, device)
+        row[3] = p.coords.numel()
+        if p.kind == "run":
+            row[4] = _payload(name, p.run_starts, device)
+            row[5] = _payload(name, p.run_lens, device)
+            row[6] = p.run_starts.numel()
+            if p.run_lens.numel() != row[6]:
+                raise ValueError(f"{name}: run starts and lengths differ")
+    return torch.from_numpy(table).to(device)
+
+
+def assemble_pages(pages, shape: tuple, page_lanes: int,
+                   table=None) -> torch.Tensor:
+    """A paged stack's words from its pages: shape (lead..., W), lanes =
+    prod(lead), page i holding lanes [i*page_lanes, (i+1)*page_lanes).
+    A page is a dense (page_lanes, W) int32 tensor or an encoded page
+    (``kind`` "packed" with its uint32 ``coords`` as int32, or "run"
+    with ``run_starts``, ``run_lens`` and the residual ``coords``), its
+    payload pow2-padded with sentinels.  One launch writes every lane,
+    the last page's padding and every sentinel dropped.  ``table`` is
+    the pages' ``page_table``, kept by the caller; without it the table
+    is built (and each page checked) here."""
+    name = "assemble_pages"
+    shape = tuple(int(d) for d in shape)
+    w = shape[-1]
+    lanes = int(np.prod(shape[:-1], dtype=np.int64))
+    _page_lanes(lanes, page_lanes, len(pages))
+    if not pages:
+        raise ValueError(f"{name}: no pages")
+    device = _pages_device(pages)
+    if device.type == "cpu":
+        return assemble_pages_plain(pages, shape, page_lanes)
+    t = page_table(pages, shape, page_lanes) if table is None else table
+    if (t.dtype != torch.int64 or t.device != device
+            or tuple(t.shape) != (len(pages), _PAGE_DESC)):
+        raise ValueError(f"{name}: a table of {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device} for {len(pages)} pages on {device}")
+    out = torch.empty((lanes, w), dtype=torch.int32, device=device)
+    if lanes and w:
+        _launch(name, "pt_assemble_pages", t.data_ptr(), len(pages),
+                out.data_ptr(), w, page_lanes)
+    return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -656,15 +656,23 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
                "Min(field=v)", "Max(Row(f=2), field=v)", "Distinct(field=v)"]
     on_cpu = Executor(h, device="cpu")
     wants = [repr(on_cpu.execute("i", q)) for q in queries]
-    on_card = Executor(h)
-    per_shard = Executor(h)
-    per_shard.use_stacked = False
-    onehot = Executor(h)
-    onehot.stacked.onepass_arm = "onehot"
-    K.reset_launches()
-    for ex in (on_card, per_shard, onehot):
-        for q, want in zip(queries, wants):
-            assert repr(ex.execute("i", q)) == want, q
+    # 1 KiB pages: two lanes of 128 words a page, so every stack of the
+    # five shards has several pages and a hit runs assemble_pages
+    from pilosa_tpu_torch import memory
+    page_bytes = memory.page_bytes()
+    memory.configure(page_bytes=1024)
+    try:
+        on_card = Executor(h)
+        per_shard = Executor(h)
+        per_shard.use_stacked = False
+        onehot = Executor(h)
+        onehot.stacked.onepass_arm = "onehot"
+        K.reset_launches()
+        for ex in (on_card, per_shard, onehot):
+            for q, want in zip(queries, wants):
+                assert repr(ex.execute("i", q)) == want, q
+    finally:
+        memory.configure(page_bytes=page_bytes)
     assert all(n > 0 for n in K.LAUNCHES.values()), K.LAUNCHES
     assert per_shard.paths[("TopN", "asked")] == 2
 
@@ -1118,3 +1126,76 @@ def test_sql_on_the_card_matches_the_cpu(cuda):
             == {k: v for k, v in before["rebuilds"].items() if k != "cold"}
         for k in ("popcount_rows", "bsi_range", "bsi_sum_counts"):
             assert K.LAUNCHES[k] > 0, (stacked, k, K.LAUNCHES)
+
+
+# -- assemble_pages (csrc/page_kernels.cu) ------------------------------------
+
+def _page_mix_inputs(lanes, pl, w, kinds, device, seed=0):
+    """Pages of the given kinds (cycled) holding `lanes` lanes, their
+    payloads from memory/encode.py on seeded words; returns (pages,
+    host words of every lane)."""
+    from pilosa_tpu_torch.memory import encode
+    rng = np.random.default_rng(seed)
+    n_pages = -(-lanes // pl)
+    host = np.zeros((n_pages * pl, w), np.uint32)
+    pages = []
+    for i in range(n_pages):
+        kind = kinds[i % len(kinds)]
+        blk = np.zeros((pl, w), np.uint32)
+        nv = min(pl, lanes - i * pl)             # lanes past nv: padding
+        flat = blk[:nv].reshape(-1)
+        if kind == "dense":
+            flat[:] = rng.integers(0, 1 << 32, size=flat.size,
+                                   dtype=np.uint32)
+        else:
+            if kind == "run":
+                lo = int(rng.integers(0, flat.size // 2))
+                flat[lo:lo + max(flat.size // 4, 1)] = 0xFFFFFFFF
+            n = int(rng.integers(1, max(2, flat.size // 64)))
+            pos = rng.choice(flat.size * 32, size=n, replace=False)
+            np.bitwise_or.at(flat, pos // 32,
+                             np.uint32(1) << (pos % 32).astype(np.uint32))
+        host[i * pl:(i + 1) * pl] = blk
+        enc = None if kind == "dense" else encode.encode_block(blk)
+        assert (enc.kind if enc is not None else "dense") == kind
+        pages.append(torch.from_numpy(blk.view(np.int32)).to(device)
+                     if enc is None else enc.to_device(device))
+    return pages, host[:lanes]
+
+
+@pytest.mark.parametrize("lanes,pl,w,kinds", [
+    (1, 1, 8, ["dense"]), (5, 2, 201, ["dense"]), (7, 3, 64, ["packed"]),
+    (9, 4, 36, ["run"]), (40, 16, 64, ["dense", "packed", "run"]),
+    (954, 32, 32768, ["dense"]), (96, 32, 32768, ["packed", "run"])])
+def test_assemble_pages(cuda, lanes, pl, w, kinds):
+    pages, host = _page_mix_inputs(lanes, pl, w, kinds, cuda)
+    before = K.LAUNCHES["assemble_pages"]
+    got = K.assemble_pages(pages, (lanes, w), pl)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["assemble_pages"] == before + 1
+    _same(got, K.assemble_pages_plain(pages, (lanes, w), pl))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+    # a kept table (the stack cache's warm hit) gives the same words
+    table = K.page_table(pages, (lanes, w), pl)
+    _same(K.assemble_pages(pages, (lanes, w), pl, table=table), got)
+
+
+@pytest.mark.parametrize("n", [1 << 8, 1 << 12, 1 << 16])
+def test_expand_coords_on_the_card(cuda, n):
+    """One packed 4 MiB page (32 lanes of 32768 words) expanded."""
+    from pilosa_tpu_torch.ops import bitmap as bm
+    rng = np.random.default_rng(n)
+    pos = np.sort(rng.choice(32 * 32768 * 32, size=n, replace=False))
+    coords = np.full(1 << (n - 1).bit_length(), 32 * 32768 * 32, np.uint32)
+    coords[:n] = pos
+    c = torch.from_numpy(coords.view(np.int32)).to(cuda)
+    _same(bm.expand_coords(c, 32, 32768),
+          bm.expand_coords_plain(c, 32, 32768))
+
+
+def test_assemble_pages_refuses_a_bad_page(cuda):
+    good = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        K.assemble_pages([good, good[:, :4].contiguous()], (8, 8), 4)
+    with pytest.raises(ValueError):
+        K.assemble_pages([good, good.cpu()], (8, 8), 4)

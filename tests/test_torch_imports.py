@@ -36,7 +36,9 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "storage.bufferpool", "storage.extendiblehash", "sql",
           "sql.lexer", "sql.ast", "sql.parser", "sql.common", "sql.funcs",
           "sql.typecheck", "sql.wherec", "sql.costplan", "sql.plan",
-          "sql.select_exec", "sql.statements", "sql.engine"):
+          "sql.select_exec", "sql.statements", "sql.engine", "memory",
+          "memory.ledger", "memory.pages", "memory.encode", "memory.policy",
+          "memory.pressure"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -136,3 +138,31 @@ def test_sql_and_stats_switches_read_no_environment():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["True True", "False False"]
+
+
+def test_memory_switches_read_no_environment():
+    """The port's memory and sparse-format switches come through
+    memory.configure() and encode.configure() only: the JAX package's
+    environment twins leave them at their defaults (paging on, 4 MiB
+    pages, the sparse format on, the budget detected: 8 GiB with no
+    card)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PILOSA_TPU_MEMORY_PAGED="0",
+               PILOSA_TPU_MEMORY_PAGE_BYTES="8192",
+               PILOSA_TPU_MEMORY_BUDGET_BYTES="12345",
+               PILOSA_TPU_MEMORY_OOM_RETRY="0",
+               PILOSA_TPU_MEMORY_HOST_FALLBACK="0",
+               PILOSA_TPU_SPARSE_FORMAT="0", CUDA_VISIBLE_DEVICES="")
+    code = ("from pilosa_tpu_torch import memory as m; "
+            "from pilosa_tpu_torch.memory import encode as e, pressure as p; "
+            "print(m.paged_enabled(), m.page_bytes(), m.ledger().budget(), "
+            "p.OOM_RETRY, p.HOST_FALLBACK, e.enabled()); "
+            "m.configure(paged=False, page_bytes=8192, budget_bytes=12345, "
+            "oom_retry=False, host_fallback=False); e.configure(enabled=False); "
+            "print(m.paged_enabled(), m.page_bytes(), m.ledger().budget(), "
+            "p.OOM_RETRY, p.HOST_FALLBACK, e.enabled())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == [
+        f"True {4 << 20} {8 << 30} True True True",
+        "False 8192 12345 False False False"]
