@@ -32,7 +32,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    unsigned and signed; the BSI comparator bsi_range for all seven
    comparisons at 954 x 9 planes and on the 64-shard depth-40 ts shape)
    on seeded random words, and assemble_pages on a (954, 32768) stack
-   of 30 dense 4 MiB pages, the (954, 9, 32768) planes stack, one
+   of 30 dense 4 MiB pages, the (954, 9, 32768) planes stack, the
+   (16, 954, 32768) stack of 477 packed pages of phase 8c's sp layout,
+   the (8, 954, 32768) stack of 239 run pages of its rn layout, one
    packed page at 2^8, 2^12 and 2^16 coordinates and one run page, with
    torch.cat of the dense pages beside it), each held to its plain
    PyTorch version exactly (integer outputs, tolerance 0), then timed
@@ -823,14 +825,54 @@ def _sparse_block(rng, n_bits: int, run_words: int = 0):
     return blk
 
 
+def _sp_stack_blocks(rng, rows: int):
+    """Host page blocks of a (rows, S, W) stack laid out as phase 8c's sp
+    field: SP_BITS seeded bits a lane (duplicates merged), as
+    add_sparse_fields imports them."""
+    import numpy as np
+    lanes = rows * S
+    for lo in range(0, lanes, PAGE_LANES):
+        blk = np.zeros((PAGE_LANES, W), np.uint32)
+        n = min(PAGE_LANES, lanes - lo)
+        cols = rng.integers(0, W * 32, size=(n, SP_BITS))
+        flat = blk.reshape(-1)
+        pos = (cols + (np.arange(n)[:, None] * W * 32)).reshape(-1)
+        np.bitwise_or.at(flat, pos // 32,
+                         np.uint32(1) << (pos % 32).astype(np.uint32))
+        yield blk
+
+
+def _rn_stack_blocks(rng, rows: int):
+    """Host page blocks of a (rows, S, W) stack laid out as phase 8c's rn
+    field: lane (r, s) a run of all-ones words over the (r % 8)-th eighth
+    of the shard plus RN_RESID seeded bits outside it."""
+    import numpy as np
+    lanes, eighth = rows * S, W // 8
+    for lo in range(0, lanes, PAGE_LANES):
+        blk = np.zeros((PAGE_LANES, W), np.uint32)
+        for k, lane in enumerate(range(lo, min(lo + PAGE_LANES, lanes))):
+            r0 = (lane // S % 8) * eighth
+            blk[k, r0:r0 + eighth] = 0xFFFFFFFF
+            cols = rng.integers(0, W * 32, size=RN_RESID)
+            c = cols[(cols // 32 < r0) | (cols // 32 >= r0 + eighth)]
+            np.bitwise_or.at(blk[k], c // 32,
+                             np.uint32(1) << (c % 32).astype(np.uint32))
+        yield blk
+
+
 def assemble_cases(device) -> dict:
     """Phase 3's assemble_pages: a (954, 32768) stack of 30 dense 4 MiB
-    pages, the (954, 9, 32768) planes stack of 269, one packed page at
-    2^8, 2^12 and 2^16 coordinates and one run page, each held exactly to
-    the plain version (torch.cat of each page's plain expansion, trimmed)
-    and timed beside its bound: the bytes read (the lanes' dense words,
-    or the payload) plus the bytes written, at the card's rate.  The
-    library call beside the dense stack is one torch.cat of its pages."""
+    pages and the (954, 9, 32768) planes stack of 269, each page its own
+    allocation as the stack cache uploads it; the (16, 954, 32768) stack
+    of 477 packed pages that one chunk of phase 8c's TopN(sp, n=8)
+    expands (SP_BITS seeded bits a lane, 8192 coordinates a page); the
+    (8, 954, 32768) stack of 239 run pages of phase 8c's rn layout; one
+    packed page at 2^8, 2^12 and 2^16 coordinates and one run page.  Each
+    is held exactly to the plain version (torch.cat of each page's plain
+    expansion, trimmed) and timed beside its bound: the bytes read (the
+    lanes' dense words, or the payload) plus the bytes written, at the
+    card's rate.  The library call beside a dense stack is one torch.cat
+    of its pages (its padding lanes too: 0.6% more bytes at 954 lanes)."""
     import numpy as np
     import torch
     from pilosa_tpu_torch.memory import encode
@@ -843,23 +885,38 @@ def assemble_cases(device) -> dict:
     def dense(lead):
         lanes = int(np.prod(lead))
         n = -(-lanes // PAGE_LANES)
-        flat = random_words(gen, (n * PAGE_LANES, W), device)
-        flat[lanes:] = 0
-        pages = list(flat.view(n, PAGE_LANES, W).unbind(0))
+        pages = [random_words(gen, (PAGE_LANES, W), device) for _ in range(n)]
+        pages[-1][lanes - (n - 1) * PAGE_LANES:] = 0
         return (f"dense {tuple(lead) + (W,)}, {n} pages", pages,
                 tuple(lead) + (W,), 2 * lanes * W * 4 + n * 80)
 
-    def sparse(label, blk):
-        enc = encode.encode_block(blk).to_device(device)
-        assert enc.kind in label, (label, enc.kind)
-        return (f"{label} page ({PAGE_LANES}, {W}), {enc.n_valid} coordinates"
-                f" ({enc.coords.numel()} padded), {enc.n_runs} runs",
-                [enc], (PAGE_LANES, W), enc.nbytes + PAGE_LANES * W * 4 + 80)
+    def encoded(label, lead, blocks):
+        lanes = int(np.prod(lead))
+        pages = []
+        for blk in blocks:
+            enc = encode.encode_block(blk)
+            assert enc is not None and enc.kind in label, (label, enc)
+            pages.append(enc.to_device(device))
+        payload = sum(p.nbytes for p in pages)
+        mix = dict(Counter(p.kind for p in pages))
+        coords = sum(p.n_valid for p in pages)
+        runs = sum(p.n_runs for p in pages)
+        return (f"{label} {tuple(lead) + (W,)}, {len(pages)} pages {mix}, "
+                f"{coords} coordinates, {runs} runs, {payload} payload bytes",
+                pages, tuple(lead) + (W,),
+                payload + lanes * W * 4 + len(pages) * 80)
 
     cases = [dense((S,)), dense((S, 2 + DEPTH))]
-    cases += [sparse("packed", _sparse_block(rng, 1 << k)) for k in (8, 12, 16)]
-    cases.append(sparse("run", _sparse_block(rng, 1 << 10,
-                                             run_words=PAGE_LANES * W // 8)))
+    t0 = time.perf_counter()
+    cases.append(encoded("packed", (16, S), _sp_stack_blocks(rng, 16)))
+    cases.append(encoded("run", (RN_ROWS, S), _rn_stack_blocks(rng, RN_ROWS)))
+    print(f"host: the packed and run stacks' pages encoded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cases += [encoded("packed", (PAGE_LANES,), [_sparse_block(rng, 1 << k)])
+              for k in (8, 12, 16)]
+    cases.append(encoded("run", (PAGE_LANES,), [_sparse_block(
+        rng, 1 << 10, run_words=PAGE_LANES * W // 8)]))
+    print(f"card: {card_line()}")
     rec = None
     for label, pages, shape, nbytes in cases:
         # the stack cache keeps a hit's page table: time the launch over

@@ -71,7 +71,7 @@ _ARGTYPES = {
                           _P, _P],
     "pt_groupby_sum": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _I, _P,
                        _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "pt_assemble_pages": [_P, _I, _P, _I, _I, _P],
+    "pt_assemble_pages": [_P, _I, _I, _P, _I, _P],
 }
 _LIBS = {"pt_groupby_fused": "groupby_kernels",
          "pt_groupby_onehot": "groupby_kernels",
@@ -841,6 +841,13 @@ def groupby_sum(stacks, sel: torch.Tensor, planes: torch.Tensor | None = None,
 # output lane, lanes written, padding
 _PAGE_KINDS = {"dense": 0, "packed": 1, "run": 2}
 _PAGE_DESC = 10
+# words of one tile (csrc/page_kernels.cu kTileWords); the most tiles of a
+# page that one block takes (dense, encoded), fewer where a stack's tiles
+# of a kind would give the card fewer than _PAGE_MIN_BLOCKS blocks (about
+# four waves of two blocks an SM on an H100)
+_PAGE_TILE_WORDS = 8192
+_PAGE_RUN_TILES = (2, 8)
+_PAGE_MIN_BLOCKS = 1024
 
 
 def _payload(name: str, t: torch.Tensor, device) -> int:
@@ -857,12 +864,46 @@ def _pages_device(pages):
     return (first if isinstance(first, torch.Tensor) else first.coords).device
 
 
+def page_tiles(n_lanes, w: int) -> np.ndarray:
+    """Tiles of _PAGE_TILE_WORDS words of each page (the last shorter)."""
+    return -(-np.asarray(n_lanes, dtype=np.int64) * int(w) // _PAGE_TILE_WORDS)
+
+
+def page_runs(tiles, dense) -> tuple:
+    """Tiles a block takes of a dense and of an encoded page: at most
+    _PAGE_RUN_TILES, and fewer for a kind whose tiles would otherwise
+    make fewer than _PAGE_MIN_BLOCKS blocks."""
+    dense = np.asarray(dense, dtype=bool)
+    return tuple(int(min(most, max(1, int(tiles[kind].sum())
+                                   // _PAGE_MIN_BLOCKS)))
+                 for most, kind in zip(_PAGE_RUN_TILES, (dense, ~dense)))
+
+
+def page_plan(n_lanes, dense, w: int, run_tiles=None) -> np.ndarray:
+    """assemble_pages' grid: a (G, 3) int64 array, one row a block, of
+    (page, first tile, tiles).  Each page's tiles (``page_tiles``) are
+    cut into runs of ``run_tiles`` (dense, encoded) tiles, by default
+    ``page_runs``, in page order, and a block takes a run.  ``n_lanes``
+    and ``dense`` have one entry a page."""
+    dense = np.asarray(dense, dtype=bool)
+    tiles = page_tiles(n_lanes, w)
+    if run_tiles is None:
+        run_tiles = page_runs(tiles, dense)
+    run = np.where(dense, run_tiles[0], run_tiles[1]).astype(np.int64)
+    runs = -(-tiles // run)
+    page = np.repeat(np.arange(tiles.size, dtype=np.int64), runs)
+    first = (np.arange(page.size, dtype=np.int64)
+             - np.repeat(np.cumsum(runs) - runs, runs)) * run[page]
+    return np.stack([page, first, np.minimum(run[page], tiles[page] - first)],
+                    axis=1)
+
+
 def page_table(pages, shape: tuple, page_lanes: int):
-    """assemble_pages' (n_pages, _PAGE_DESC) int64 device table of
-    ``pages``, each page checked here; None for pages
-    on the CPU, whose plain version needs none.  A caller that keeps the
-    pages may keep the table and pass it to every assemble_pages of
-    them."""
+    """assemble_pages' 1-D int64 device table of ``pages``: one
+    _PAGE_DESC row a page, each page checked here, then the grid's
+    ``page_plan``; None for pages on the CPU, whose plain version needs
+    none.  A caller that keeps the pages may keep the table and pass it
+    to every assemble_pages of them."""
     name = "assemble_pages"
     w = int(shape[-1])
     lanes = int(np.prod(shape[:-1], dtype=np.int64))
@@ -895,7 +936,9 @@ def page_table(pages, shape: tuple, page_lanes: int):
             row[6] = p.run_starts.numel()
             if p.run_lens.numel() != row[6]:
                 raise ValueError(f"{name}: run starts and lengths differ")
-    return torch.from_numpy(table).to(device)
+    plan = page_plan(table[:, 8], table[:, 0] == _PAGE_KINDS["dense"], w)
+    return torch.from_numpy(np.concatenate([table.reshape(-1),
+                                            plan.reshape(-1)])).to(device)
 
 
 def assemble_pages(pages, shape: tuple, page_lanes: int,
@@ -920,14 +963,16 @@ def assemble_pages(pages, shape: tuple, page_lanes: int,
     if device.type == "cpu":
         return assemble_pages_plain(pages, shape, page_lanes)
     t = page_table(pages, shape, page_lanes) if table is None else table
-    if (t.dtype != torch.int64 or t.device != device
-            or tuple(t.shape) != (len(pages), _PAGE_DESC)):
+    # the grid: one row of three a block past the descriptors
+    n_blocks, rest = divmod(t.numel() - len(pages) * _PAGE_DESC, 3)
+    if (t.dtype != torch.int64 or t.device != device or t.ndim != 1
+            or rest or n_blocks < (1 if lanes and w else 0)):
         raise ValueError(f"{name}: a table of {tuple(t.shape)} {t.dtype} on "
                          f"{t.device} for {len(pages)} pages on {device}")
     out = torch.empty((lanes, w), dtype=torch.int32, device=device)
     if lanes and w:
-        _launch(name, "pt_assemble_pages", t.data_ptr(), len(pages),
-                out.data_ptr(), w, page_lanes)
+        _launch(name, "pt_assemble_pages", t.data_ptr(), len(pages), n_blocks,
+                out.data_ptr(), w)
     return out.reshape(shape)
 
 

@@ -1130,10 +1130,11 @@ def test_sql_on_the_card_matches_the_cpu(cuda):
 
 # -- assemble_pages (csrc/page_kernels.cu) ------------------------------------
 
-def _page_mix_inputs(lanes, pl, w, kinds, device, seed=0):
+def _page_mix_inputs(lanes, pl, w, kinds, device, seed=0, sparsity=64):
     """Pages of the given kinds (cycled) holding `lanes` lanes, their
-    payloads from memory/encode.py on seeded words; returns (pages,
-    host words of every lane)."""
+    payloads from memory/encode.py on seeded words (an encoded page
+    holds up to one bit in `sparsity` words); returns (pages, host words
+    of every lane)."""
     from pilosa_tpu_torch.memory import encode
     rng = np.random.default_rng(seed)
     n_pages = -(-lanes // pl)
@@ -1151,7 +1152,7 @@ def _page_mix_inputs(lanes, pl, w, kinds, device, seed=0):
             if kind == "run":
                 lo = int(rng.integers(0, flat.size // 2))
                 flat[lo:lo + max(flat.size // 4, 1)] = 0xFFFFFFFF
-            n = int(rng.integers(1, max(2, flat.size // 64)))
+            n = int(rng.integers(1, max(2, flat.size // sparsity)))
             pos = rng.choice(flat.size * 32, size=n, replace=False)
             np.bitwise_or.at(flat, pos // 32,
                              np.uint32(1) << (pos % 32).astype(np.uint32))
@@ -1178,6 +1179,121 @@ def test_assemble_pages(cuda, lanes, pl, w, kinds):
     # a kept table (the stack cache's warm hit) gives the same words
     table = K.page_table(pages, (lanes, w), pl)
     _same(K.assemble_pages(pages, (lanes, w), pl, table=table), got)
+
+
+# the kernel's blocks take runs of tiles of K._PAGE_TILE_WORDS words (up
+# to 2 a dense run, 8 an encoded one; 3 stages of shared memory an encoded
+# run): a page of under one tile, of exactly two, of three, of six, seven,
+# and one that ends inside a tile
+_TILE = K._PAGE_TILE_WORDS
+
+
+@pytest.mark.parametrize("lanes,pl,w", [
+    (2, 2, _TILE // 4), (2, 2, _TILE), (3, 3, _TILE), (6, 6, _TILE),
+    (7, 7, _TILE), (25, 25, 1000),
+    (40, 4, _TILE), (1, 1, 1), (9, 4, 1), (7, 3, 201), (300, 1, 256),
+    (300, 1, 8)])
+def test_assemble_pages_run_edges(cuda, lanes, pl, w):
+    pages, host = _page_mix_inputs(lanes, pl, w, ["dense"], cuda, seed=lanes)
+    got = K.assemble_pages(pages, (lanes, w), pl)
+    _same(got, K.assemble_pages_plain(pages, (lanes, w), pl))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+
+
+@pytest.mark.parametrize("lanes,pl,w,kinds,sparsity", [
+    (96, 4, 8192, ["packed", "dense", "run", "dense"], 16),
+    (64, 16, 8192, ["packed"], 8), (64, 16, 8192, ["run"], 8),
+    (30, 4, 1001, ["run", "dense", "packed"], 64),
+    (7, 1, 64, ["dense", "packed", "run"], 64),
+    (300, 1, 256, ["dense", "packed", "run"], 64),
+    (2000, 32, 4096, ["packed", "dense"], 256)])
+def test_assemble_pages_mixed_tables(cuda, lanes, pl, w, kinds, sparsity):
+    """Dense pages between encoded ones; blocks that start inside an
+    encoded page (several tiles a page); odd W (the word-loop branch)."""
+    pages, host = _page_mix_inputs(lanes, pl, w, kinds, cuda, seed=w,
+                                   sparsity=sparsity)
+    table = K.page_table(pages, (lanes, w), pl)
+    got = K.assemble_pages(pages, (lanes, w), pl, table=table)
+    _same(got, K.assemble_pages_plain(pages, (lanes, w), pl))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+
+
+def _edge_pages(pl, w, device):
+    """Encoded pages whose coordinates and runs fall on tile edges, a run
+    page holding every bit, a packed page of sentinels alone and a run
+    page of sentinels alone."""
+    from pilosa_tpu_torch.ops import bitmap as bm
+    total, words = pl * w * 32, pl * w
+
+    def t(a, dtype):
+        return torch.from_numpy(np.asarray(a, dtype).view(np.int32)).to(device)
+
+    bits = _TILE * 32
+    edge = sorted({0, 1, 31, 32, bits - 1, bits, 2 * bits - 1, 2 * bits,
+                   3 * bits, total - 1})
+    coords = np.full(16, total, np.uint32)
+    coords[:len(edge)] = edge
+    packed = bm._Payload("packed", t(coords, np.uint32))
+    resid = np.full(4, total, np.uint32)
+    resid[:2] = [5, bits + 7]
+    starts = np.full(8, words, np.int32)
+    starts[:3] = [_TILE - 1, 2 * _TILE, 3 * _TILE + 5]
+    lens = np.zeros(8, np.int32)
+    lens[:3] = [2, _TILE, _TILE - 5]
+    run = bm._Payload("run", t(resid, np.uint32), t(starts, np.int32),
+                      t(lens, np.int32))
+    every = bm._Payload("run", t([total], np.uint32), t([0], np.int32),
+                        t([words], np.int32))
+    no_bits = bm._Payload("packed", t([total] * 4, np.uint32))
+    no_runs = bm._Payload("run", t([total] * 2, np.uint32),
+                          t([words] * 2, np.int32), t([0, 0], np.int32))
+    return [packed, run, every, no_bits, no_runs]
+
+
+def test_assemble_pages_tile_boundaries(cuda):
+    """Every kind at tile edges, beside dense pages, the last page
+    padded; a packed page holding every bit; one launch a call, and a
+    kept table gives the words of a table built in the call."""
+    from pilosa_tpu_torch.ops import bitmap as bm
+    pl, w = 8, _TILE // 2                 # 4 tiles a page
+    dense, _ = _page_mix_inputs(pl, pl, w, ["dense"], cuda, seed=5)
+    enc = _edge_pages(pl, w, cuda)
+    pages = [enc[0], dense[0], enc[1], enc[2], enc[3], dense[0], enc[4]]
+    lanes = len(pages) * pl - 3
+    before = K.LAUNCHES["assemble_pages"]
+    built = K.assemble_pages(pages, (lanes, w), pl)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["assemble_pages"] == before + 1
+    _same(built, K.assemble_pages_plain(pages, (lanes, w), pl))
+    kept = K.page_table(pages, (lanes, w), pl)
+    for _ in range(2):
+        _same(K.assemble_pages(pages, (lanes, w), pl, table=kept), built)
+    assert K.LAUNCHES["assemble_pages"] == before + 3
+    every = torch.arange(4 * 64 * 32, dtype=torch.int32, device=cuda)
+    _same(bm.expand_coords(every, 4, 64),
+          torch.full((4, 64), -1, dtype=torch.int32, device=cuda))
+
+
+def test_assemble_pages_dense_view_one_word_in(cuda):
+    """A dense page one word into its allocation takes the word loop;
+    the output beside it still takes the bulk copies."""
+    from pilosa_tpu_torch.memory import encode
+    flat = _words((4 * 1024 + 1,), cuda, seed=9)
+    view = flat[1:].view(4, 1024)
+    blk = np.zeros((4, 1024), np.uint32)
+    blk.reshape(-1)[::97] = 0x10001
+    pages = [view, encode.encode_block(blk).to_device(cuda), view]
+    got = K.assemble_pages(pages, (11, 1024), 4)
+    _same(got, K.assemble_pages_plain(pages, (11, 1024), 4))
+
+
+def test_assemble_pages_refuses_a_bad_table(cuda):
+    pages, _ = _page_mix_inputs(8, 4, 8, ["dense"], cuda)
+    table = K.page_table(pages, (8, 8), 4)
+    with pytest.raises(ValueError):
+        K.assemble_pages(pages, (8, 8), 4, table=table[:-1])
+    with pytest.raises(ValueError):
+        K.assemble_pages(pages, (8, 8), 4, table=table.view(-1, 1))
 
 
 @pytest.mark.parametrize("n", [1 << 8, 1 << 12, 1 << 16])

@@ -269,6 +269,125 @@ def test_assemble_pages_equals_jax(lanes):
         bm.assemble_pages(pages + pages[:1], shape, pl)
 
 
+_TILE = kernels._PAGE_TILE_WORDS
+
+
+def _edge_page(rng, kind, pl, w, nv):
+    """A (pl, w) block of one kind, its first nv lanes used, with bits and
+    runs on the kernel's tile edges and the lanes' edges; returns (host
+    block, the port's page, the JAX expansion)."""
+    words, bits = pl * w, pl * w * 32
+    blk = np.zeros((pl, w), np.uint32)
+    flat = blk.reshape(-1)
+    used = nv * w
+    if kind == "dense":
+        flat[:used] = rng.integers(0, 1 << 32, size=used, dtype=np.uint32)
+        return blk, _t(blk).reshape(pl, w), blk
+    edges = {0, 1, 31, 32, w * 32 - 1, w * 32, used * 32 - 1}
+    for t in range(_TILE, used + 1, _TILE):
+        edges |= {t * 32 - 1, t * 32, t * 32 + 33}
+    pos = np.array(sorted(e for e in edges if 0 <= e < used * 32), np.int64)
+    if kind == "packed":
+        extra = rng.choice(used * 32, size=min(40, used), replace=False)
+        pos = np.unique(np.concatenate([pos, extra]))
+        np.bitwise_or.at(flat, pos // 32,
+                         np.uint32(1) << (pos % 32).astype(np.uint32))
+        coords = np.full(jax_encode._pow2(pos.size), bits, dtype=np.uint32)
+        coords[:pos.size] = pos
+        return (blk, bm._Payload("packed", _t(coords)),
+                np.asarray(jax_bm.expand_coords(coords, pl, w)))
+    # runs: ending on a tile edge, starting on one, the last used word,
+    # and one word at the lanes' edges; residual bits outside them
+    runs = [(2, 5), (used - 1, used)]
+    for t in range(_TILE, used, _TILE):
+        runs += [(t - 3, t), (t, t + 2)]
+    for lo, hi in runs:
+        flat[lo:hi] = 0xFFFFFFFF
+    full = flat == 0xFFFFFFFF
+    resid = pos[~full[pos // 32]]
+    np.bitwise_or.at(flat, resid // 32,
+                     np.uint32(1) << (resid % 32).astype(np.uint32))
+    enc = jax_encode.encode_block(blk)
+    assert enc is not None and enc.kind == "run", enc
+    return (blk, bm._Payload("run", _t(enc.coords), _t(enc.run_starts),
+                             _t(enc.run_lens)),
+            np.asarray(jax_bm.expand_runs(enc.run_starts, enc.run_lens,
+                                          enc.coords, pl, w)))
+
+
+@pytest.mark.parametrize("lanes,pl,w", [
+    (5, 1, 201), (7, 3, 1001), (9, 4, 8192), (3, 1, 8192), (11, 2, 8192),
+    (4, 4, 1)])
+def test_assemble_pages_tile_edges_equal_jax(lanes, pl, w):
+    """Odd W, one-lane pages, and every kind with bits and runs on the
+    kernel's tile edges (a page of 1, 2 or 4 tiles), dense pages between
+    encoded ones and the last page padded: the port's plain version
+    against the JAX assemble_pages over the JAX expands."""
+    rng = np.random.default_rng(lanes * w)
+    n_pages = -(-lanes // pl)
+    kinds = ("packed", "dense", "run") if w >= 8 else ("dense",)
+    full = np.zeros((n_pages * pl, w), np.uint32)
+    pages, jax_pages = [], []
+    for i in range(n_pages):
+        nv = min(pl, lanes - i * pl)
+        blk, page, jax_page = _edge_page(rng, kinds[i % len(kinds)], pl, w, nv)
+        full[i * pl:(i + 1) * pl] = blk
+        pages.append(page)
+        jax_pages.append(jax_page)
+    shape = (lanes, w)
+    want = np.asarray(jax_bm.assemble_pages(tuple(jax_pages), shape))
+    assert np.array_equal(want, full[:lanes])
+    assert np.array_equal(_u32(kernels.assemble_pages_plain(pages, shape, pl)),
+                          want)
+    assert np.array_equal(_u32(bm.assemble_pages(pages, shape, pl)), want)
+
+
+@pytest.mark.parametrize("run_tiles", [None, (1, 1), (5, 3)])
+@pytest.mark.parametrize("kinds", [("dense",), ("packed",), ("run",),
+                                   ("dense", "packed", "run", "dense")])
+@pytest.mark.parametrize("lanes,pl,w", [
+    (954, 32, 32768), (7632, 32, 32768), (1, 1, 1), (9, 4, 1), (7, 3, 201),
+    (300, 1, 256), (40, 16, 64), (25, 25, 1000), (2000, 32, 4096)])
+def test_page_plan_writes_every_word_once(kinds, lanes, pl, w, run_tiles):
+    """assemble_pages' grid: its blocks' runs of tiles, in order, cover
+    every output word once (a tile of a page covers _TILE of its lanes'
+    words, the last one fewer), each run inside one page and no longer
+    than its kind's run; by default (page_runs) the runs shorten until
+    each kind gives _PAGE_MIN_BLOCKS blocks, and no further."""
+    n_pages = -(-lanes // pl)
+    n_lanes = np.minimum(pl, lanes - pl * np.arange(n_pages))
+    dense = np.array([kinds[i % len(kinds)] == "dense"
+                      for i in range(n_pages)])
+    plan = kernels.page_plan(n_lanes, dense, w, run_tiles)
+    assert plan.dtype == np.int64 and plan.ndim == 2 and plan.shape[1] == 3
+    if run_tiles is None:
+        tiles = kernels.page_tiles(n_lanes, w)
+        run_tiles = kernels.page_runs(tiles, dense)
+        for r, most, kind in zip(run_tiles, kernels._PAGE_RUN_TILES,
+                                 (dense, ~dense)):
+            n = int(tiles[kind].sum())
+            assert 1 <= r <= most
+            assert r == most or n < (r + 1) * kernels._PAGE_MIN_BLOCKS
+    lane0 = np.concatenate(([0], np.cumsum(n_lanes)))
+    spans = []
+    for p, first, count in plan.tolist():
+        run = run_tiles[0] if dense[p] else run_tiles[1]
+        assert 1 <= count <= run and first % run == 0
+        words = int(n_lanes[p]) * w
+        assert (first + count - 1) * _TILE < words   # its last tile too
+        spans.append((int(lane0[p]) * w + first * _TILE,
+                      int(lane0[p]) * w + min((first + count) * _TILE, words)))
+        # a run stops at its page's end, or a whole run short of it
+        assert min((first + count) * _TILE, words) == words or count == run
+    assert [a for a, _ in spans] == [0] + [e for _, e in spans[:-1]]
+    assert spans[-1][1] == lanes * w
+
+
+def test_page_table_is_none_on_the_cpu():
+    pages = [torch.zeros((4, 8), dtype=torch.int32)] * 2
+    assert kernels.page_table(pages, (7, 8), 4) is None
+
+
 # ---------------------------------------------------------------------------
 # through the engine, against the JAX Executor
 # ---------------------------------------------------------------------------
