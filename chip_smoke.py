@@ -11,7 +11,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build  — nvcc builds every kernel from pilosa_tpu_torch/ops/csrc, on
    a thread beside the host's build of phase 4's index and reference,
    after which phase 3 runs
-3. kernels — each of the ten CUDA kernels at the query path's shapes
+3. kernels — each of the twelve CUDA kernels at the query path's shapes
    (954 shards x 32768 words, 8 TopN rows, BSI depth 7, with and
    without a filter, and bsi_sum_counts with one shard's planes at
    shard stride 0 against 954 filters and against the per-shard
@@ -51,8 +51,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    whole and as the sum of its kernels, beside the one
    masked_popcount_shards call that replaced it and its address table's
    host time; an empty kernel's device time (the launch
-   floor, printed beside the profiled rows); and a disjoint field of 2, 4
-   and 8 rows through both GroupBy arms, held equal and timed
+   floor, printed beside the profiled rows); a disjoint field of 2, 4
+   and 8 rows through both GroupBy arms, held equal and timed; and the
+   ragged program's page-table reads: concat_gather out of a bucket of
+   30 dense pages (954 lanes, the reversed half of 477, and 3 lanes,
+   beside torch.cat(pages)[lane_idx]) and segment_count over 1908 lanes
+   of 60 pages in 2 segments and in ragged segments of 954, 477, 1 and 2
+   lanes
 4. main path — the headline index (954 shards x 2^20 columns, random-
    word fields a, b, t, a 7-plane BSI field age and the disjoint
    categorical fields edu, gen, dom, reg, about 4.6 GB of words on the
@@ -208,8 +213,34 @@ Phases, each printing its own lines; any failure exits non-zero:
        in every phase), then a real torch.cuda.OutOfMemoryError:
        a ballast tensor leaves BALLAST_SLACK free and a cold query's
        upload runs out, the relief sweep sheds, the retry answers.
+9. the serving plane (Executor.enable_serving(window_s=0.001,
+   max_batch=64), as the server turns it on) on the headline holder,
+   with bench/ragged.py's events index (fields c, u and m, 3 shards)
+   beside it; every answer's digest held to a solo Executor.execute
+   on the same holder, a mismatch or a failure failing the run:
+   9a. SERVING_QUERIES at 1, 8 and 32 clients, STORM_S each after a
+       warm pass: qps, p50, p99, dispatches a query by kind, the
+       routes, result-cache hits and the flight phases;
+   9b. the cross-index mix (bench/ragged.py mixed_queries(954, 3)) at
+       16 clients with cache_bytes=0 and admission=False, ragged on and
+       off: dispatches a query, segment_count and concat_gather
+       launches; the ragged arm must dispatch kind "ragged", launch
+       both, capture no serving.* failure and degrade no rider;
+   9c. POINT_QUERIES under 4 clients of HEAVY_QUERY, admission classes
+       then FIFO (point p50, p99); then heavy_slots=1, queue_max=2 and a
+       third heavy query sheds typed 503 with retry_after_s > 0;
+   9e. (before 9d) phase 5c's statements of the stacked engine through
+       API.sql's serving arm, cold and cached, equal to the solo arm;
+   9d. 8 seeded bit-flipping Set/Clear of a and an import_bits of 1024
+       columns: each evicts the cached Count(Row(a=1)) (over every
+       shard), moves the mutation epoch and makes the canonical ragged
+       program build again, and a standing Count(Row(a=1)) stays equal
+       to a cold execution;
+   9f. the audit at sample rate 1.0 over 12 point reads: matches and no
+       mismatch; one audit-corrupt injection counted as one mismatch
+       with an audit-mismatch incident.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-8
+   launched over 4-9
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -249,6 +280,8 @@ SRC = {
     "groupby_sum": "pilosa_tpu_torch/ops/csrc/groupby_kernels.cu",
     "bsi_range": "pilosa_tpu_torch/ops/csrc/bitmap_kernels.cu",
     "assemble_pages": "pilosa_tpu_torch/ops/csrc/page_kernels.cu",
+    "concat_gather": "pilosa_tpu_torch/ops/csrc/ragged_kernels.cu",
+    "segment_count": "pilosa_tpu_torch/ops/csrc/ragged_kernels.cu",
 }
 REPLACES = {
     "popcount_rows": "pilosa_tpu/ops/kernels.py:128",
@@ -265,6 +298,10 @@ REPLACES = {
     # no Pallas kernel: the jitted page concatenation and the sparse
     # pages' expands (bitmap.py:352 expand_coords, :374 expand_runs)
     "assemble_pages": "pilosa_tpu/ops/bitmap.py:263",
+    # no Pallas kernel: the jnp page-table gather and segment popcount of
+    # the ragged program (stacked.py:1562-1578 inlines both)
+    "concat_gather": "pilosa_tpu/ops/bitmap.py:290",
+    "segment_count": "pilosa_tpu/ops/bitmap.py:306",
 }
 # lanes of one 4 MiB page of W words (memory.page_bytes())
 PAGE_LANES = (4 << 20) // (W * 4)
@@ -275,7 +312,8 @@ STACKED_LAUNCHES = {"popcount_rows": 36, "pair_popcount": 6,
                     "masked_popcount": 0, "rows_filter_counts": 6,
                     "bsi_sum_counts": 12, "groupby_fused": 48,
                     "groupby_onehot": 0, "groupby_sum": 6, "bsi_range": 18,
-                    "assemble_pages": 192}
+                    "assemble_pages": 192, "concat_gather": 0,
+                    "segment_count": 0}
 # categorical fields of the able GroupBy (bench/common.py:129): rows
 CATEGORIES = {"edu": 6, "gen": 2, "dom": 5, "reg": 4}
 ABLE_SUM = "GroupBy(Rows(edu), Rows(gen), Rows(dom), aggregate=Sum(field=age))"
@@ -807,6 +845,7 @@ def phase_kernels(device) -> dict:
     topn_loop(flat_rows, a, view1, filters, device)
     compare_arms(device, codes, planes)
     records["assemble_pages"] = assemble_cases(device)
+    records.update(ragged_kernel_cases(device))
     return records
 
 
@@ -1812,13 +1851,16 @@ def phase_main_path(device, root: str, kernels_phase,
     t0 = time.perf_counter()
     try:
         phase_memory(h, post["want"], mem_ref, device, note)
+        print(f"memory: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serving(h, device, note)
     finally:
         h.close()
-    print(f"memory: {time.perf_counter() - t0:.1f} s")
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-8 {totals}")
+    print(f"main path: kernel launches over phases 4-9 {totals}")
     return records, totals
 
 
@@ -3610,6 +3652,629 @@ def phase_memory(h, want: dict, ref: dict, device, note) -> None:
         pressure.inject_oom(0)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3's page-table kernels: concat_gather and segment_count
+# ---------------------------------------------------------------------------
+
+def ragged_kernel_cases(device) -> dict:
+    """concat_gather out of a bucket of 30 dense 4 MiB pages (a (954,
+    32768) row stack as the stack cache pages it): the identity gather
+    of 954 lanes, the reversed half (477 lanes) and 3 lanes; and
+    segment_count over 1908 lanes of a 60-page bucket in 2 segments (two
+    row stacks' point Counts) and over 9b's family shape, ragged segments
+    of 954, 477, 1 and 2 lanes.  Each held exactly to its plain version,
+    timed with CUDA events beside its plain version, its bound (bytes
+    read and written at the card's rate; segment_count's popcounts at
+    the __popc rate beside) and, for concat_gather, the library pair
+    torch.cat(pages)[lane_idx]."""
+    import torch
+    from pilosa_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261018)
+    pages = [random_words(gen, (PAGE_LANES, W), device) for _ in range(60)]
+    half = pages[:30]
+    card = card_line()
+    popc_rate = popc_per_s()
+    out = {}
+
+    def idx(a):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    gathers = [
+        ("identity, 954 lanes of 30 pages", half, idx(list(range(S)))),
+        ("reversed half, 477 lanes of 30 pages", half,
+         idx(list(range(S - 1, -1, -2)))),
+        ("3 lanes of 30 pages", half, idx([0, 500, S - 1])),
+    ]
+    for label, bucket, li in gathers:
+        table = K.gather_table(bucket)
+        n = li.numel()
+
+        def kern():
+            return K.concat_gather(bucket, li, table=table)
+
+        def plain():
+            return K.concat_gather_plain(bucket, li)
+        err = max_abs_err(f"concat_gather {label}", kern(), plain())
+        if err:
+            raise AssertionError(f"concat_gather {label}: differs from its "
+                                 f"plain version, max |err| {err}")
+        ms = cuda_ms(kern, reps=50)
+        kernel_ms = device_ms(kern, "concat_gather_kernel")
+        plain_ms = cuda_ms(plain, reps=20)
+        lib_ms = cuda_ms(lambda: torch.cat(bucket)[li.long()], reps=20)
+        nbytes = 2 * n * W * 4 + n * 4 + len(bucket) * 8
+        bound_ms, bound_by, _tb, _to = bound(nbytes, 0)
+        print(f"kernel concat_gather {label}: exact vs plain; {ms:.4f} ms "
+              f"a call back to back (CUDA events), {kernel_ms:.4f} ms of "
+              f"kernel (profiler) (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({bound_ms / ms:.1%} of bound; {nbytes} bytes "
+              f"read and written), library torch.cat(pages)[lane_idx] "
+              f"{lib_ms:.4f} ms ({card})")
+        out.setdefault("concat_gather", {
+            "name": "concat_gather", "route": "cuda",
+            "source": SRC["concat_gather"],
+            "replaces": REPLACES["concat_gather"], "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+    segs = [
+        ("1908 lanes of 60 pages in 2 segments", idx(list(range(2 * S))),
+         idx([0] * S + [1] * S), 2),
+        ("ragged segments of 954, 477, 1 and 2 lanes",
+         idx(list(range(S)) + list(range(S, S + 477)) + [2 * S - 1]
+             + [3, 4]),
+         idx([0] * S + [1] * 477 + [2] + [3, 3]), 4),
+    ]
+    for label, li, seg, nseg in segs:
+        table = K.gather_table(pages)
+        n = li.numel()
+
+        def kern():
+            return K.segment_count(pages, li, seg, nseg, table=table)
+
+        def plain():
+            return K.segment_count_plain(pages, li, seg, nseg)
+        err = max_abs_err(f"segment_count {label}", kern(), plain())
+        if err:
+            raise AssertionError(f"segment_count {label}: differs from its "
+                                 f"plain version, max |err| {err}")
+        ms = cuda_ms(kern, reps=50)
+        kernel_ms = device_ms(kern, "segment_count_kernel")
+        plain_ms = cuda_ms(plain, reps=5)
+        nbytes = n * W * 4 + 2 * n * 4 + nseg * 8 + len(pages) * 8
+        bound_ms, bound_by, t_bytes, t_ops = bound(
+            nbytes, n * W, OPS_PER_S, n * W, popc_rate)
+        print(f"kernel segment_count {label}: exact vs plain; {ms:.4f} ms "
+              f"a call back to back (CUDA events, the output's zero fill "
+              f"included), {kernel_ms:.4f} ms of kernel (profiler) (plain "
+              f"{plain_ms:.4f} ms), bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({bound_ms / ms:.1%} of bound; byte term "
+              f"{t_bytes:.4f} ms for {nbytes} bytes, operation term "
+              f"{t_ops:.4f} ms for {n * W} popcounts), library none (torch "
+              f"has no popcount) ({card})")
+        out.setdefault("segment_count", {
+            "name": "segment_count", "route": "cuda",
+            "source": SRC["segment_count"],
+            "replaces": REPLACES["segment_count"], "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+    del pages, half
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serving plane on the headline holder
+# ---------------------------------------------------------------------------
+
+# bench/common.py:209-222, the serving storm's query mix
+SERVING_QUERIES = [
+    "Count(Intersect(Row(a=1), Row(b=1)))", "Count(Row(a=1))",
+    "Count(Row(b=1))", "Count(Union(Row(a=1), Row(b=1)))", "TopN(t, n=10)",
+    "TopN(t, Row(a=1), n=10)", "Row(a=1)", "Count(Row(age > 63))",
+    "Sum(Row(a=1), field=age)", "Count(Xor(Row(a=1), Row(b=1)))",
+    "Count(Difference(Row(a=1), Row(b=1)))", "Count(Row(age < 32))"]
+# bench/ragged.py:100-107
+HEAVY_QUERY = ("GroupBy(Rows(edu), Rows(gen), Rows(dom), Rows(reg), "
+               "aggregate=Sum(field=age))")
+POINT_QUERIES = [("bench", "Count(Row(a=1))", None),
+                 ("bench", "Count(Intersect(Row(a=1), Row(b=1)))", None),
+                 ("events", "Count(Row(c=1))", None),
+                 ("events", "Sum(field=m)", None)]
+EVENTS_SHARDS = 3
+STORM_CLIENTS = (1, 8, 32)
+STORM_S = 1.2
+MIXED_CLIENTS = 16
+MIXED_S = 1.5
+ADMISSION_S = 1.5
+# phase 5c's statements on the stacked engine's full width
+SERVING_SQL = [SQL_COUNT_AB, SQL_SUM_A, SQL_SUM, SQL_GE64, SQL_BETWEEN,
+               SQL_ABLE, SQL_TA, SQL_MINMAX, SQL_DISTINCT, SQL_PERCENTILE,
+               SQL_LIMIT]
+WRITE_SEED = 2029
+
+
+def mixed_queries(bench_shards: int, events_shards: int) -> list:
+    """bench/ragged.py:72-98: point reads over both indexes, explicit
+    shard subsets among them, and batchable TopNs."""
+    items = [
+        ("bench", "Count(Row(a=1))", None),
+        ("bench", "Count(Intersect(Row(a=1), Row(b=1)))", None),
+        ("bench", "Count(Union(Row(a=1), Row(b=1)))", None),
+        ("bench", "Row(a=1)", None),
+        ("bench", "Sum(Row(a=1), field=age)", None),
+        ("bench", "Count(Row(age > 63))", None),
+        ("events", "Count(Row(c=1))", None),
+        ("events", "Count(Union(Row(c=0), Row(c=1)))", None),
+        ("events", "Count(Row(m > 255))", None),
+        ("events", "Sum(field=m)", None),
+        ("events", "Row(c=2)", None),
+        ("bench", "TopN(t, n=10)", None),
+        ("events", "TopN(u, n=5)", None),
+    ]
+    items.append(("bench", "Count(Row(a=1))",
+                  list(range(max(1, bench_shards // 2)))))
+    items.append(("bench", "Count(Row(b=1))", [bench_shards - 1]))
+    items.append(("events", "Count(Row(c=1))",
+                  list(range(max(1, events_shards - 1)))))
+    return items
+
+
+def build_events_index(h, n_shards: int = EVENTS_SHARDS, seed: int = 11):
+    """bench/ragged.py:31-70 through the port's model API: fields c (4
+    rows) and u (8 rows) of seeded random words, and m, an INT 0..511 of
+    9 planes, every column present."""
+    import numpy as np
+    from pilosa_tpu_torch.models.schema import (
+        CACHE_TYPE_NONE, FieldOptions, FieldType)
+    from pilosa_tpu_torch.models.view import VIEW_STANDARD
+
+    rng = np.random.default_rng(seed)
+    idx = h.create_index("events", track_existence=False)
+    for fname, rows in (("c", 4), ("u", 8)):
+        f = idx.create_field(fname, FieldOptions(cache_type=CACHE_TYPE_NONE))
+        view = f.view(VIEW_STANDARD, create=True)
+        for shard in range(n_shards):
+            frag = view.fragment(shard, create=True)
+            for r in range(rows):
+                frag.import_row_words(r, rng.integers(0, 1 << 32, size=W,
+                                                      dtype=np.uint32))
+    m = idx.create_field("m", FieldOptions(type=FieldType.INT, min=0,
+                                           max=511))
+    mview = m.view(m.bsi_view, create=True)
+    for shard in range(n_shards):
+        frag = mview.fragment(shard, create=True)
+        frag.import_row_words(0, np.full(W, 0xFFFFFFFF, dtype=np.uint32))
+        for plane in range(9):
+            frag.import_row_words(2 + plane, rng.integers(
+                0, 1 << 32, size=W, dtype=np.uint32))
+    return idx
+
+
+def digest(results) -> str:
+    """bench/ragged.py's _digest: a row result hashes its shards' raw
+    words (a dense row's column list costs far more than the query),
+    anything else its repr."""
+    import hashlib
+
+    import numpy as np
+    from pilosa_tpu_torch.executor.results import RowResult
+    hs = hashlib.blake2b(digest_size=16)
+    for r in results:
+        if isinstance(r, RowResult):
+            for s in sorted(r.segments):
+                hs.update(str(s).encode())
+                hs.update(np.ascontiguousarray(r.segments[s]).tobytes())
+        else:
+            hs.update(repr(r).encode())
+    return hs.hexdigest()
+
+
+def pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 if xs else 0.0
+
+
+def storm(ex, items, want: dict, n_clients: int, seconds: float) -> dict:
+    """n_clients threads, each looping over items (offset by its id)
+    through Executor.execute_serving for `seconds`, every answer's digest
+    held to want; returns the latencies, counts and mismatches."""
+    lat: list = []
+    bad: list = []
+    errors: list = []
+    lock = threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def client(cid):
+        k = cid
+        mine, wrong = [], []
+        try:
+            while time.perf_counter() < stop:
+                it = items[k % len(items)]
+                k += 1
+                t0 = time.perf_counter()
+                got = ex.execute_serving(*it)
+                mine.append(time.perf_counter() - t0)
+                if digest(got) != want[_key(it)]:
+                    wrong.append(it)
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {e}")
+        with lock:
+            lat.extend(mine)
+            bad.extend(wrong)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(n_clients)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(seconds + 120)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("a storm client did not finish")
+    wall = time.perf_counter() - t0
+    return {"n": len(lat), "qps": len(lat) / wall, "p50": pct(lat, 0.5),
+            "p99": pct(lat, 0.99), "bad": bad, "errors": errors}
+
+
+def _key(it) -> tuple:
+    index, q, shards = it
+    return (index, q, tuple(shards) if shards else None)
+
+
+def phase_serving(h, device, note) -> None:
+    """Phase 9 (see the module docstring) on the headline holder that
+    phase 8 served, with bench/ragged.py's events index beside it."""
+    import gc
+
+    import torch
+    from pilosa_tpu_torch.api import API, _json_value
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.executor.sched import ServingShedError
+    from pilosa_tpu_torch.models import fragment
+    from pilosa_tpu_torch.obs import audit, flight, incidents, metrics
+    from pilosa_tpu_torch.obs.monitor import global_monitor
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.sql.engine import SQLEngine
+
+    card = card_line()
+    t_all = time.perf_counter()
+    # no shadow samples until 9f: each sampled serve costs a per-shard
+    # re-execution, and 9a-9e measure serving
+    audit.configure(sample_rate=0.0)
+    build_events_index(h)
+    solo = Executor(h)
+    mixed = mixed_queries(S, EVENTS_SHARDS)
+    storm_items = [("bench", q, None) for q in SERVING_QUERIES]
+    heavy = [("bench", HEAVY_QUERY, None)]
+    t0 = time.perf_counter()
+    want = {}
+    for it in storm_items + mixed + POINT_QUERIES + heavy:
+        want.setdefault(_key(it), digest(solo.execute(*it)))
+    print(f"9: events index built ({EVENTS_SHARDS} shards); {len(want)} "
+          f"solo answers in {time.perf_counter() - t0:.1f} s ({card})")
+    totals = dict.fromkeys(K.LAUNCHES, 0)
+
+    def dispatches() -> dict:
+        return {k: metrics.SERVING_DISPATCH.value(kind=k)
+                for k in ("ragged", "group")}
+
+    def routes() -> dict:
+        return {k: metrics.SERVING_BATCHED.value(route=k)
+                for k in ("fused", "cached", "direct", "standing")}
+
+    def check(label, res):
+        if res["bad"] or res["errors"]:
+            raise AssertionError(f"{label}: {len(res['bad'])} mismatches "
+                                 f"{res['bad'][:3]}, errors "
+                                 f"{res['errors'][:3]}")
+
+    def add(launches):
+        for k, n in launches.items():
+            totals[k] += n
+
+    # 9a: the client storm, the server's layer
+    api = API(h)
+    ex = api.executor
+    layer = ex.enable_serving(window_s=0.001, max_batch=64)
+    try:
+        for n in STORM_CLIENTS:
+            for it in storm_items:                  # the warm pass
+                ex.execute_serving(*it)
+            d0, r0, h0 = dispatches(), routes(), layer.cache.hits
+            flight.recorder.clear()
+            got, res = launches_of(lambda: storm(ex, storm_items, want, n,
+                                                 STORM_S))
+            add(got)
+            check(f"9a {n} clients", res)
+            d1, r1 = dispatches(), routes()
+            per = {k: (d1[k] - d0[k]) / max(res["n"], 1) for k in d1}
+            phases = flight.phase_breakdown(flight.recorder.recent(4096))
+            print(f"9a: {n} clients x {STORM_S} s: {res['n']} queries, "
+                  f"{res['qps']:.1f} qps, p50 {res['p50']:.3f} ms, p99 "
+                  f"{res['p99']:.3f} ms; dispatches a query {per}; routes "
+                  f"{ {k: r1[k] - r0[k] for k in r1} }; result-cache hits "
+                  f"{layer.cache.hits - h0}; every answer exact ({card})")
+            print(f"9a: {n} clients: flight phases {json.dumps(phases)}")
+    finally:
+        layer.close()
+
+    # 9b: ragged against per-group on the cross-index mix
+    arms = {}
+    for ragged in (True, False):
+        layer = ex.enable_serving(window_s=0.001, max_batch=64,
+                                  cache_bytes=0, admission=False,
+                                  ragged=ragged)
+        try:
+            d0, r0 = dispatches(), routes()
+            m0 = len(global_monitor.recent())
+            for it in mixed:                        # the warm pass
+                ex.execute_serving(*it)
+            got, res = launches_of(lambda: storm(ex, mixed, want,
+                                                 MIXED_CLIENTS, MIXED_S))
+            add(got)
+            check(f"9b ragged={ragged}", res)
+            d1, r1 = dispatches(), routes()
+            plans = [e for e in global_monitor.recent()[m0:]
+                     if e.get("where", "").startswith("serving.")]
+            arm = {"n": res["n"], "qps": res["qps"], "p50": res["p50"],
+                   "p99": res["p99"],
+                   "dispatches": {k: d1[k] - d0[k] for k in d1},
+                   "routes": {k: r1[k] - r0[k] for k in r1},
+                   "segment_count": got["segment_count"],
+                   "concat_gather": got["concat_gather"],
+                   "builds": getattr(getattr(layer, "_ragged_canon", None),
+                                     "builds", 0),
+                   "captures": [e.get("where") for e in plans]}
+            arms[ragged] = arm
+            kind = "ragged" if ragged else "group"
+            print(f"9b: ragged={ragged}, {MIXED_CLIENTS} clients x "
+                  f"{MIXED_S} s: {res['n']} queries, {res['qps']:.1f} qps, "
+                  f"p50 {res['p50']:.3f} ms, p99 {res['p99']:.3f} ms; "
+                  f"{arm['dispatches'][kind] / max(res['n'], 1):.4f} "
+                  f"dispatches a query ({arm['dispatches']}); routes "
+                  f"{arm['routes']}; segment_count {got['segment_count']}, "
+                  f"concat_gather {got['concat_gather']} launches; canonical "
+                  f"builds {arm['builds']}; monitor captures "
+                  f"{arm['captures']}; every answer exact ({card})")
+        finally:
+            layer.close()
+    rg = arms[True]
+    if (rg["dispatches"]["ragged"] <= 0 or rg["segment_count"] <= 0
+            or rg["concat_gather"] <= 0 or rg["captures"]
+            or rg["routes"]["direct"] != 0 or rg["dispatches"]["group"]):
+        raise AssertionError(f"9b: the ragged route did not serve: {rg}")
+    print(f"9b: route held: SERVING_DISPATCH{{kind=ragged}} +"
+          f"{rg['dispatches']['ragged']:g}, segment_count "
+          f"{rg['segment_count']} and concat_gather {rg['concat_gather']} "
+          "launches, no serving.ragged_plan capture, no solo degrade")
+
+    # 9c: admission classes against FIFO, then typed sheds
+    for admission in (True, False):
+        layer = ex.enable_serving(window_s=0.001, max_batch=64,
+                                  cache_bytes=0, admission=admission)
+        try:
+            res = {}
+            heavy_done = threading.Event()
+
+            def heavy_storm():
+                res["heavy"] = storm(ex, heavy, want, 4, ADMISSION_S)
+                heavy_done.set()
+            ht = threading.Thread(target=heavy_storm, daemon=True)
+            for it in POINT_QUERIES + heavy:        # the warm pass
+                ex.execute_serving(*it)
+            a0 = {(c, o): metrics.ADMISSION_TOTAL.value(
+                **{"class": c, "outcome": o})
+                for c in ("point", "heavy") for o in ("admitted", "shed")}
+            ht.start()
+            got, pres = launches_of(lambda: storm(ex, POINT_QUERIES, want, 4,
+                                                  ADMISSION_S))
+            ht.join(ADMISSION_S + 300)
+            if ht.is_alive():
+                raise AssertionError("9c: the heavy storm did not finish")
+            add(got)
+            check(f"9c admission={admission} points", pres)
+            check(f"9c admission={admission} heavy", res["heavy"])
+            classes = {f"{c}:{o}": metrics.ADMISSION_TOTAL.value(
+                **{"class": c, "outcome": o}) - n0
+                for (c, o), n0 in a0.items()}
+            print(f"9c: admission={'classes' if admission else 'FIFO'}: "
+                  f"point p50 {pres['p50']:.3f} ms, p99 {pres['p99']:.3f} ms "
+                  f"({pres['n']} point reads) under {res['heavy']['n']} heavy "
+                  f"GroupBys (p50 {res['heavy']['p50']:.3f} ms); admission "
+                  f"by class {classes}; exact ({card})")
+        finally:
+            layer.close()
+    layer = ex.enable_serving(window_s=0.001, max_batch=64, cache_bytes=0,
+                              heavy_slots=1, queue_max=2)
+    try:
+        blocker = layer.sched.heavy_slot(None)
+        blocker.__enter__()
+        queued = [threading.Thread(target=lambda: ex.execute_serving(
+            *heavy[0]), daemon=True) for _ in range(2)]
+        try:
+            for t in queued:
+                t.start()
+            deadline = time.perf_counter() + 30
+            while layer.sched.queued() < 2:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("9c: the heavy queue did not fill")
+                time.sleep(0.001)
+            try:
+                ex.execute_serving(*heavy[0])
+                raise AssertionError("9c: a third heavy query was admitted")
+            except ServingShedError as e:
+                if e.status != 503 or not e.retry_after_s > 0:
+                    raise AssertionError(f"9c: shed {e.status} "
+                                         f"retry_after {e.retry_after_s}")
+                print(f"9c: heavy_slots=1, queue_max=2: the third heavy "
+                      f"query shed typed {e.status}, retry_after_s "
+                      f"{e.retry_after_s:.3f}")
+        finally:
+            blocker.__exit__(None, None, None)
+            for t in queued:
+                t.join(120)
+        if any(t.is_alive() for t in queued):
+            raise AssertionError("9c: a queued heavy query did not finish")
+    finally:
+        layer.close()
+
+    # 9e: SQL through API.sql's serving arm, each equal to the solo arm
+    layer = ex.enable_serving(window_s=0.001, max_batch=64)
+    try:
+        solo_sql = SQLEngine(h, executor=Executor(h))
+        t0 = time.perf_counter()
+        for s in SERVING_SQL:
+            ref = solo_sql.query_one(s)
+            ref_json = {"schema": {"fields": [{"name": n, "type": t}
+                                              for n, t in ref.schema]},
+                        "data": [[_json_value(v) for v in r]
+                                 for r in ref.rows]}
+            for arm in ("serving", "cached"):
+                got, out = launches_of(lambda: api.sql(s))
+                add(got)
+                if out != ref_json:
+                    raise AssertionError(f"9e {arm} {s}: {str(out)[:200]} != "
+                                         f"solo {str(ref_json)[:200]}")
+        print(f"9e: {len(SERVING_SQL)} statements through API.sql's serving "
+              f"arm, each equal to the solo arm's rows, cold and cached, in "
+              f"{time.perf_counter() - t0:.1f} s; statement-cache hits "
+              f"{layer.cache.hits}")
+    finally:
+        layer.close()
+
+    # 9d: writes against the result cache, the canonical program and a
+    # standing query
+    layer = ex.enable_serving(window_s=0.001, max_batch=64)
+    try:
+        import numpy as np
+        rng = np.random.default_rng(WRITE_SEED)
+        q = "Count(Row(a=1))"
+        every = list(range(S))
+        key = ("bench", f"[{q}]", tuple(every))
+        layer.standing.register("bench", q)
+        batch = [("bench", "Count(Row(a=1))", None),
+                 ("events", "Count(Row(c=1))", None),
+                 ("bench", "Count(Row(b=1))", None)]
+        canon_b = None
+
+        def run_batch():
+            from pilosa_tpu_torch.pql import parse
+            reqs = []
+            for index, qq, shards in batch:
+                idx = h.index(index)
+                r = layer._classify(index, idx, parse(qq), shards, None,
+                                    (index, qq, None))
+                reqs.append(r)
+            layer._run_batch(reqs)
+            for (index, qq, shards), r in zip(batch, reqs):
+                want_r = solo.execute(index, qq, shards)
+                if r.result != want_r:
+                    raise AssertionError(f"9d {qq}: fused {r.result} != "
+                                         f"solo {want_r}")
+        run_batch()
+        run_batch()
+        canon = layer._ragged_canon
+        a_view = h.index("bench").field("a").views["standard"]
+        writes = []
+        for col in rng.integers(0, S * W * 32, size=8).tolist():
+            # the write flips the bit, so the fragment's version moves
+            words = a_view.fragment(col // (W * 32)).row_words(1)
+            local = col % (W * 32)
+            on = (int(words[local >> 5]) >> (local & 31)) & 1
+            writes.append(f"{'Clear' if on else 'Set'}({col}, a=1)")
+        t0 = time.perf_counter()
+        for i, w in enumerate(writes + ["import"]):
+            ex.execute_serving("bench", q, every)
+            if key not in layer.cache:
+                raise AssertionError("9d: the Count was not cached")
+            canon_b = canon.builds
+            e0 = fragment.mutation_epoch()
+            if w == "import":
+                cols = rng.integers(0, S * W * 32, size=1024)
+                api.import_bits("bench", "a", rows=[1] * len(cols),
+                                cols=cols.tolist())
+            else:
+                ex.execute_serving("bench", w)
+            if fragment.mutation_epoch() == e0:
+                raise AssertionError(f"9d {w}: the epoch did not move")
+            if key in layer.cache:
+                raise AssertionError(f"9d {w}: the cached Count survived")
+            run_batch()
+            if canon.builds != canon_b + 1:
+                raise AssertionError(f"9d {w}: the canonical program was "
+                                     f"not built again ({canon.builds})")
+            cold = solo.execute("bench", q)
+            if ex.execute_serving("bench", q) != cold:
+                raise AssertionError(f"9d {w}: the standing Count differs "
+                                     f"from a cold execution {cold}")
+        (sq,) = layer.standing._by_id.values()
+        print(f"9d: {len(writes)} seeded Set/Clear and an import_bits of "
+              f"1024 columns into a: each evicted the cached {q}, moved the "
+              f"mutation epoch and made the canonical program build again; "
+              f"the standing {q} equal to a cold execution after each "
+              f"(maintained {sq.stats}) in {time.perf_counter() - t0:.1f} s")
+    finally:
+        layer.close()
+
+    # 9f: the audit plane at sample rate 1.0, then one corruption
+    for it in POINT_QUERIES:
+        want[_key(it)] = digest(solo.execute(*it))
+    audit.configure(sample_rate=1.0)
+    layer = ex.enable_serving(window_s=0.001, max_batch=64)
+    try:
+        plane = layer.audit
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for it in POINT_QUERIES:
+                if digest(ex.execute_serving(*it)) != want[_key(it)]:
+                    raise AssertionError(f"9f {it}: differs from solo")
+        if not plane.wait_idle(300):
+            raise AssertionError("9f: the audit queue did not drain")
+        c = dict(plane.counts)
+        matched = c.get(("shadow", "match"), 0)
+        if c.get(("shadow", "mismatch"), 0) or not matched:
+            raise AssertionError(f"9f: audit counts {c}")
+        from pilosa_tpu_torch.obs import faults
+
+        def mismatch_incidents():
+            return len([m for m in incidents.get().list(1000)
+                        if m["trigger"] == "audit-mismatch"])
+        inc0 = mismatch_incidents()
+        faults.inject("audit-corrupt", match="serve:", times=1)
+        try:
+            ex.execute_serving("events", "Count(Row(c=2))")
+        finally:
+            faults.clear("audit-corrupt")
+        if not plane.wait_idle(300) or not incidents.get().wait_idle(60):
+            raise AssertionError("9f: the audit did not drain")
+        c2 = dict(plane.counts)
+        got_inc = mismatch_incidents() - inc0
+        if c2.get(("shadow", "mismatch"), 0) != 1 or got_inc != 1:
+            raise AssertionError(f"9f: the injected corruption was not "
+                                 f"caught: {c2}, incidents {got_inc}")
+        print(f"9f: {matched} shadow matches, 0 mismatches, "
+              f"{c.get(('shadow', 'shed'), 0)} shed, "
+              f"{c.get(('shadow', 'stale_skip'), 0)} stale skips over 12 "
+              f"point reads; one audit-corrupt injection counted as 1 "
+              f"mismatch with an audit-mismatch incident, in "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        audit.configure(sample_rate=0.01)
+        layer.close()
+        ex.serving = None
+    from pilosa_tpu_torch.obs import watchdog
+    watchdog.stop()
+    incidents.get().stop()
+    note("9", totals)
+    del solo, api, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"9: {time.perf_counter() - t_all:.1f} s")
 
 
 def _page_kinds(ps):

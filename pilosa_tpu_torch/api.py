@@ -52,6 +52,7 @@ from pilosa_tpu_torch.executor.results import (
     ValCount,
 )
 from pilosa_tpu_torch.models.holder import Holder
+from pilosa_tpu_torch.models.index import EXISTENCE_FIELD
 from pilosa_tpu_torch.models.schema import FieldOptions
 from pilosa_tpu_torch.models.timeq import ns_of
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
@@ -110,10 +111,15 @@ class API:
     # -- queries -----------------------------------------------------------
 
     def query(self, index: str, pql: str, shards: list[int] | None = None,
-              profile: bool = False) -> dict:
+              profile: bool = False, qos=None) -> dict:
         """A PQL query (api.go:209 API.Query): {"results": [...]}, one
         serialized result a call, and with ``profile`` the span trees
-        of the call under "profile" (tracing/tracing.go:22-50)."""
+        of the call under "profile" (tracing/tracing.go:22-50).  Reads
+        go through ``Executor.execute_serving``: with the serving layer
+        on (``executor.enable_serving``) they pass admission (``qos``,
+        executor/sched.py QoS), the result cache and the micro-batcher,
+        and a profiled query's span tree holds the phases its batch
+        leader ran for it (tracing.capture_context / span_into)."""
         t0 = time.time()
         tracer = None
         # the long-query log records spans for every query, so a slow
@@ -122,7 +128,8 @@ class API:
             tracer = RecordingTracer()
             prev = _tr.push_thread_tracer(tracer)
         try:
-            results = self.executor.execute(index, pql, shards)
+            results = self.executor.execute_serving(index, pql, shards,
+                                                    qos=qos)
         except (ExecError, ParseError, ValueError, KeyError) as e:
             raise ApiError(str(e), 400) from e
         finally:
@@ -134,14 +141,17 @@ class API:
         self._record_history(index, pql, t0, tracer)
         return resp
 
-    def sql(self, statement: str, auth_check=None) -> dict:
+    def sql(self, statement: str, auth_check=None, qos=None) -> dict:
         """SQL statements (http_handler.go:1440 /sql): the last one's
         {"schema": {"fields": [...]}, "data": [...]}.  ``auth_check``,
-        when set, gates each statement's table access."""
+        when set, gates each statement's table access; ``qos`` carries
+        the request's admission intent to the serving arm (typed
+        shed and deadline errors propagate)."""
         metrics.SQL_TOTAL.inc()
         t0 = time.time()
         try:
-            res = self.sql_engine.query_one(statement, auth_check=auth_check)
+            res = self.sql_engine.query_one(statement, auth_check=auth_check,
+                                            qos=qos)
         except (ExecError, SQLError, ParseError, ValueError, KeyError) as e:
             raise ApiError(str(e), 400) from e
         self._record_history("", statement, t0)
@@ -247,6 +257,38 @@ class API:
 
     # -- imports (api.go:618 Import, api.go:1438 ImportValue) --------------
 
+    # distinct-shard cap past which an import's sweep falls back to field
+    # granularity (_slices_stale walks fields x views x shards)
+    _SWEEP_SHARDS_MAX = 256
+
+    def sweep_import(self, index: str, fields, cols=None,
+                     shards: set | None = None,
+                     mark_exists: bool = False) -> None:
+        """The import-time result-cache sweep: evict exactly the serving
+        cache's entries whose read set meets the (field, shard) slices a
+        bulk import dirtied (entries over other shards of the fields keep
+        serving), and push the landed delta through the standing
+        registrations.  No-op without a serving cache; the cache's
+        get-time validation backstops every write path.  ``mark_exists``
+        adds the existence field, which every import that marked columns
+        dirtied too."""
+        serving = getattr(self.executor, "serving", None)
+        if serving is None or serving.cache is None:
+            return
+        idx = self.holder.index(index)
+        if idx is None:
+            return
+        fields = set(fields)
+        if mark_exists:
+            fields.add(EXISTENCE_FIELD)
+        if shards is None and cols is not None and len(cols):
+            u = np.unique(np.asarray(cols, dtype=np.int64) // idx.width)
+            if u.size <= self._SWEEP_SHARDS_MAX:
+                shards = {int(s) for s in u}
+        serving.cache.sweep(self.holder, fields, shards)
+        metrics.RESULT_CACHE.inc(outcome="write")
+        serving.standing.on_write(index, fields, shards)
+
     def _import_lock(self, index: str) -> threading.Lock:
         with self._import_locks_mu:
             lk = self._import_locks.get(index)
@@ -275,15 +317,21 @@ class API:
             raise ApiError("rows and columns length mismatch", 400)
         with self._import_lock(index):
             if clear:
-                return sum(bool(f.clear_bit(int(r), int(c)))
-                           for r, c in zip(rows, cols))
-            f.import_bits(rows, cols, timestamps)
-            if mark_exists:
-                idx.mark_columns_exist(cols)
-        metrics.IMPORTED_BITS.inc(len(cols), index=index)
-        # outside the import lock, as in the JAX package
-        _stats.note_ingest(index, field, rows=rows, cols=cols, width=idx.width)
-        return len(cols)
+                n = sum(bool(f.clear_bit(int(r), int(c)))
+                        for r, c in zip(rows, cols))
+            else:
+                f.import_bits(rows, cols, timestamps)
+                if mark_exists:
+                    idx.mark_columns_exist(cols)
+        if not clear:
+            n = len(cols)
+            metrics.IMPORTED_BITS.inc(n, index=index)
+            # outside the import lock, as in the JAX package
+            _stats.note_ingest(index, field, rows=rows, cols=cols,
+                               width=idx.width)
+        self.sweep_import(index, {field}, cols,
+                          mark_exists=mark_exists and not clear)
+        return n
 
     def import_roaring(self, index: str, field: str, shard: int,
                        rows: dict, clear: bool = False) -> int:
@@ -322,6 +370,8 @@ class API:
             if touched:
                 idx.mark_columns_exist(np.concatenate(touched))
         metrics.IMPORTED_BITS.inc(n, index=index)
+        self.sweep_import(index, {field}, shards={int(shard)},
+                          mark_exists=True)
         return n
 
     def export_roaring(self, index: str, field: str, shard: int,
@@ -348,14 +398,19 @@ class API:
             raise ApiError("columns and values length mismatch", 400)
         with self._import_lock(index):
             if clear:
-                return sum(bool(f.clear_value(int(c))) for c in cols)
-            f.import_values(cols, values)
-            if mark_exists:
-                idx.mark_columns_exist(cols)
-        metrics.IMPORTED_BITS.inc(len(cols), index=index)
-        _stats.note_ingest(index, field, cols=cols, values=values,
-                           width=idx.width)
-        return len(cols)
+                n = sum(bool(f.clear_value(int(c))) for c in cols)
+            else:
+                f.import_values(cols, values)
+                if mark_exists:
+                    idx.mark_columns_exist(cols)
+        if not clear:
+            n = len(cols)
+            metrics.IMPORTED_BITS.inc(n, index=index)
+            _stats.note_ingest(index, field, cols=cols, values=values,
+                               width=idx.width)
+        self.sweep_import(index, {field}, cols,
+                          mark_exists=mark_exists and not clear)
+        return n
 
     def mark_columns_exist(self, index: str, cols) -> None:
         """Mark a columnar batch's records once (the per-field imports
@@ -363,6 +418,7 @@ class API:
         idx = self._index(index)
         with self._import_lock(index):
             idx.mark_columns_exist(cols)
+        self.sweep_import(index, set(), cols, mark_exists=True)
 
     def clear_field_columns(self, index: str, field: str, cols,
                             mark_exists: bool = True) -> int:
@@ -383,6 +439,7 @@ class API:
                         frag.clear_columns(mask)
             if mark_exists:
                 idx.mark_columns_exist(cols)
+        self.sweep_import(index, {field}, cols, mark_exists=mark_exists)
         return len(cols)
 
     def import_columns(self, index: str, cols, bits: dict | None = None,
@@ -411,6 +468,8 @@ class API:
                     fn(*args)
             idx.mark_columns_exist(cols)
         metrics.IMPORTED_BITS.inc(len(cols) * len(jobs), index=index)
+        self.sweep_import(index, set(bits or {}) | set(values or {}), cols,
+                          mark_exists=True)
         return len(cols) * len(jobs)
 
     def sync(self, index: str) -> None:

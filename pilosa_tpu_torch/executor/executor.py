@@ -181,6 +181,39 @@ class Executor(AdvancedOps):
         # (call, route) -> calls: "stacked", "asked" (use_stacked is
         # False), or why the per-shard engine took it
         self.paths: Counter = Counter()
+        # the serving front (executor/serving.py): None until a caller
+        # opts in with enable_serving()
+        self.serving = None
+
+    def enable_serving(self, window_s: float = 0.001, max_batch: int = 32,
+                       cache_bytes: int = 64 << 20, batching: bool = True,
+                       **qos_kwargs):
+        """Attach the serving layer (executor/serving.py): concurrent
+        reads coalesce into one fused program a batch (the ragged
+        cross-index page-table program where it can,
+        executor/ragged.py) and repeated reads serve from the
+        write-version-guarded result cache.  ``qos_kwargs`` go to the
+        layer (ragged, admission, heavy_slots, queue_max,
+        tenant_weights, default_deadline_ms).  A layer already attached
+        is closed first.  Returns the layer."""
+        from pilosa_tpu_torch.executor.serving import ServingLayer
+        if self.serving is not None:
+            self.serving.close()
+        self.serving = ServingLayer(self, window_s=window_s,
+                                    max_batch=max_batch,
+                                    cache_bytes=cache_bytes,
+                                    batching=batching, **qos_kwargs)
+        return self.serving
+
+    def execute_serving(self, index_name: str, query: str | Query,
+                        shards: list[int] | None = None, qos=None) -> list:
+        """The serving entry: admission, the micro-batcher and the
+        result cache when the layer is on, else ``execute``.  ``qos``
+        (executor/sched.py QoS) carries the request's tenant, priority
+        and deadline."""
+        if self.serving is None:
+            return self.execute(index_name, query, shards)
+        return self.serving.execute(index_name, query, shards, qos=qos)
 
     # -- entry point (executor.Execute analog) -------------------------------
 

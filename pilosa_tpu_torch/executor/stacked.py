@@ -76,7 +76,7 @@ from pilosa_tpu_torch.memory.pages import PagedStack, StackRecipe, page_lanes_fo
 from pilosa_tpu_torch.models import timeq
 from pilosa_tpu_torch.models.schema import FieldType
 from pilosa_tpu_torch.models.view import VIEW_STANDARD
-from pilosa_tpu_torch.obs import faults, flight, metrics, stats
+from pilosa_tpu_torch.obs import faults, flight, metrics, roofline, stats
 from pilosa_tpu_torch.obs.tracing import start_span
 from pilosa_tpu_torch.ops import bitmap as bm
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -229,6 +229,18 @@ def _as_stack(tree, leaves, params) -> torch.Tensor:
     return out.contiguous()
 
 
+# plan kind -> roofline op family (obs/roofline.py): the op labels of
+# pilosa_device_bandwidth_{gbps,fraction}
+ROOF_OPS = {"count": "count", "words": "row", "row_counts": "topn",
+            "bsi_sum": "sum", "multi": "multi"}
+
+
+def leaf_bytes(leaves) -> int:
+    """Bytes of a plan's tensor operands, each read once."""
+    return sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor))
+
+
 def _count_partials(tree, leaves, params) -> torch.Tensor:
     """(S,) per-shard popcounts of a tree, always through a kernel."""
     if tree[0] == "leaf":
@@ -242,9 +254,38 @@ def _count_partials(tree, leaves, params) -> torch.Tensor:
 
 def _plan_run(plan):
     """``run(leaves, params)`` for one plan:
-    ("words", tree) | ("count", tree) | ("bsi_sum", planes_i, tree|None)
-    | ("row_counts", rows_i, tree|None)."""
+    ("words", tree) | ("count", tree[, reduce]) | ("bsi_sum", planes_i,
+    tree|None[, reduce]) | ("row_counts", rows_i, tree|None[, reduce])
+    | ("gb_hist", ...) | ("multi", subplans) | ("ragged", ...).  With
+    ``reduce`` true a per-shard output is summed over the shards as
+    int64 on the device (the serving layer's fused subplans)."""
     kind = plan[0]
+    if kind == "multi":
+        # the micro-batcher's fused batch (executor/serving.py): every
+        # subplan over one shared leaf/param space, one output each
+        runs = tuple(_plan_run(p) for p in plan[1])
+
+        def run(leaves, params):
+            return tuple(r(leaves, params) for r in runs)
+        return run
+    if kind == "ragged":
+        return _ragged_run(plan)
+    if kind == "gb_hist":
+        return _gb_hist_run(plan)
+    n = _REDUCIBLE.get(kind)
+    if n is not None and len(plan) > n:
+        inner = _plan_run(plan[:n])
+        if not plan[n]:
+            return inner
+
+        def run(leaves, params):
+            out = inner(leaves, params)
+            if kind == "bsi_sum":
+                return tuple(x.sum(dim=0, dtype=torch.int64) for x in out)
+            if kind == "row_counts":
+                return out.sum(dim=1, dtype=torch.int64)
+            return out.sum(dtype=torch.int64)
+        return run
     if kind == "words":
         tree = plan[1]
 
@@ -277,6 +318,72 @@ def _plan_run(plan):
             return kernels.rows_filter_counts(rows, filt)       # (R, S)
     else:
         raise AssertionError(kind)
+    return run
+
+
+# the plan kinds that take a trailing ``reduce`` flag: their length
+# without it
+_REDUCIBLE = {"count": 2, "bsi_sum": 3, "row_counts": 3}
+
+
+def _gb_hist_run(plan):
+    """("gb_hist", cg_i, tree|None, planes_i|None, n_codes, signed, arm):
+    the one-pass group-code histogram as a batchable subplan (a GroupBy
+    rider of a fused batch), the same kernel as the solo one-pass path
+    (``arm`` "fused" or "onehot", StackedEngine._onepass_kernel).  The
+    output is the kernel's tables flattened into one int32 vector:
+    counts, then with planes nn, pos (G, d) and neg (G, d)."""
+    cg_i, tree, planes_i, n_codes, signed, arm = plan[1:7]
+    gb = kernels.groupby_onehot if arm == "onehot" else kernels.groupby_fused
+
+    def run(leaves, params):
+        cg = leaves[cg_i]                               # (S, CB+1, W)
+        valid = cg[:, -1]
+        if tree is not None:
+            valid = valid & _as_stack(tree, leaves, params)
+        planes = leaves[planes_i] if planes_i is not None else None
+        out = gb(cg[:, :-1], valid, planes, n_codes, signed)
+        if planes is None:
+            return out[0]
+        return torch.cat([x.reshape(-1) for x in out])
+    return run
+
+
+def _ragged_run(plan):
+    """("ragged", buckets, vmeta, subs): the serving layer's cross-index
+    page-table program (executor/ragged.py).  ``leaves`` holds every
+    bucket's dense pages first, then the direct leaves; ``buckets`` is
+    ((first leaf, pages, table param), ...), one a (page_lanes, W)
+    shape, its table the pages' kernels.gather_table; ``vmeta`` is
+    ((bucket, lane param, shape), ...), each virtual leaf one
+    concat_gather launch out of its bucket.  ``subs`` evaluate over the
+    virtual leaves then the direct ones, as under "multi", except a
+    ("segcount", bucket, lane param, segment param, nseg) entry: a
+    family of single-leaf Counts answered by one segment_count launch
+    over the bucket's lanes, no operand built."""
+    buckets, vmeta, subs = plan[1], plan[2], plan[3]
+    ndirect = (buckets[-1][0] + buckets[-1][1]) if buckets else 0
+    runs = tuple(None if s[0] == "segcount" else _plan_run(s) for s in subs)
+
+    def run(leaves, params):
+        pools = [(leaves[start:start + n], params[ti])
+                 for start, n, ti in buckets]
+        vl = []
+        for b, gi, shape in vmeta:
+            pages, table = pools[b]
+            vl.append(bm.concat_gather(pages, params[gi], table=table)
+                      .reshape(shape))
+        all_leaves = vl + list(leaves[ndirect:])
+        outs = []
+        for s, r in zip(subs, runs):
+            if r is None:
+                _k, b, gi, si, nseg = s
+                pages, table = pools[b]
+                outs.append(bm.segment_count(pages, params[gi], params[si],
+                                             nseg, table=table))
+            else:
+                outs.append(r(all_leaves, params))
+        return tuple(outs)
     return run
 
 
@@ -332,6 +439,13 @@ class PlanBuilder:
         return self._cached_leaf(
             ("planes", field.name, field.bit_depth),
             lambda: self.engine.plane_stack(self.idx, field, self.skey))
+
+    def _groupcode_leaf(self, fields_rows) -> int:
+        return self._cached_leaf(
+            ("groupcodes", tuple((f.name, tuple(int(r) for r in rl))
+                                 for f, rl in fields_rows)),
+            lambda: self.engine.groupcode_stack(self.idx, fields_rows,
+                                                self.skey))
 
     def _existence_leaf(self) -> int:
         if not self.idx.track_existence:
@@ -669,6 +783,16 @@ class PageView:
         lanes are the same."""
         return PageView(self.shape[1:], self.lanes, self.page_lanes,
                         self.pages, self.source)
+
+    @property
+    def width_words(self) -> int:
+        return int(self.shape[-1])
+
+    def dense_pages(self) -> list:
+        """Every page as a dense (page_lanes, W) tensor: an encoded page
+        expands (one assemble_pages launch on the card), a dense page
+        passes through.  The ragged program's buckets hold these."""
+        return [encode.to_dense(p) for p in self.pages]
 
 
 def _assemble_operand(pages: list, shape: tuple, lanes: int,
@@ -1633,24 +1757,30 @@ class StackedEngine:
             def host():
                 return pressure.run_host_plan(plan, b.leaves, b.params)
         return self._dispatch(plan[0], lambda: run(b.leaves, b.params),
-                              host=host)
+                              host=host, nbytes=leaf_bytes(b.leaves))
 
-    def _dispatch(self, kind: str, fn, host=None):
+    def _dispatch(self, kind: str, fn, host=None, nbytes: int = 0):
         """fn() in a ``stacked.dispatch`` span, under the OOM ladder
         (memory/pressure.py; ``host`` is its degraded-mode closure),
         timed into the flight record's execute phase; the clock stops
         when the card has finished (every caller pulls the result to the
-        host next)."""
+        host next).  A clean dispatch (no OOM caught) notes ``nbytes``,
+        its operands' bytes, over its time in the roofline attribution
+        (obs/roofline.py) under the plan kind's op family."""
         def run():
             out = fn()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return out
 
+        oom0 = metrics.OOM_TOTAL.total(outcome="caught")
         t0 = time.perf_counter()
         with start_span("stacked.dispatch", kind=kind):
             out = pressure.guarded(run, host_fallback=host)
-        flight.note_phase("execute", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        flight.note_phase("execute", dt)
+        if nbytes and metrics.OOM_TOTAL.total(outcome="caught") == oom0:
+            roofline.note(ROOF_OPS.get(kind, kind), nbytes, dt)
         return out
 
     @staticmethod

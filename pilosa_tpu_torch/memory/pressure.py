@@ -92,6 +92,12 @@ def guarded(run, host_fallback=None):
         if not is_oom(e):
             raise
         metrics.OOM_TOTAL.inc(outcome="caught")
+        # an OOM-ladder trip is the moment whose residency and flight
+        # state an operator needs later: one rate-limited incident
+        # bundle, captured off this thread before the relief sweep
+        from pilosa_tpu_torch.obs import incidents
+        incidents.report("device-oom", detail=type(e).__name__,
+                         context={"message": str(e)[:300]})
         relieve()
         if OOM_RETRY:
             try:

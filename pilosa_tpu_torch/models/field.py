@@ -30,6 +30,7 @@ import threading
 import numpy as np
 
 from pilosa_tpu_torch.models import timeq
+from pilosa_tpu_torch.models.fragment import bump_mutation_epoch
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType, TimeQuantum
 from pilosa_tpu_torch.models.view import (
     VIEW_BSI_PREFIX,
@@ -115,15 +116,14 @@ class Field:
         tile built from it compares fresh again, and the view's bitmaps
         leave the index's storage, so a reopen does not bring it back.
 
-        ``epoch_latch`` is the JAX package's one-element latch that a
-        holder's sweep shares across fields so the serving mutation
-        epoch moves once a sweep.  The port has no mutation epoch until
-        its serving layer comes; the argument is accepted and unused."""
-        del epoch_latch
+        ``epoch_latch`` is a one-element latch that a holder's sweep
+        shares across fields, so the mutation epoch moves once a sweep,
+        before the first gen moves."""
         if self.options.ttl <= 0:
             return []
         now = now or dt.datetime.now(dt.timezone.utc).replace(tzinfo=None)
         removed = []
+        latch = epoch_latch if epoch_latch is not None else [False]
         with self._lock:
             for name in list(self.views):
                 span = timeq.view_time_range(name)
@@ -132,8 +132,11 @@ class Field:
                 if (now - span[1]).total_seconds() > self.options.ttl:
                     v = self.views.pop(name)
                     removed.append(name)
+                    if not latch[0]:
+                        latch[0] = True
+                        bump_mutation_epoch()
                     for fr in v.fragments.values():
-                        fr.bump_gen()
+                        fr.bump_gen(bump_epoch=False)
                     if self.storage is not None:
                         self.storage.delete_view_bitmaps(self.name, name)
         return removed

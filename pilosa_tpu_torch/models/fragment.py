@@ -55,6 +55,25 @@ from pilosa_tpu_torch.shardwidth import (
 # for one built from its successor
 _FRAG_GEN = itertools.count(1)
 
+# process-wide mutation epoch: moves on every fragment version bump,
+# fragment creation, gen retirement and schema-level deletion
+# (models/index.py, models/holder.py), so one load answers "did any data
+# change since I built this?".  The ragged serving program
+# (executor/ragged.py) replays its cached canonical program while it is
+# unchanged.  A plain int += under the GIL: a torn read can only
+# under-read, which forces a rebuild and never a stale serve (the
+# fragments' (gen, version) stamps stay the precise staleness test).
+_MUT_EPOCH = 0
+
+
+def bump_mutation_epoch() -> None:
+    global _MUT_EPOCH
+    _MUT_EPOCH += 1
+
+
+def mutation_epoch() -> int:
+    return _MUT_EPOCH
+
 # delta-log window a fragment keeps (the JAX package's
 # PILOSA_TPU_DELTA_LOG_MAX default); read at each append
 DELTA_LOG_MAX = 256
@@ -76,6 +95,7 @@ class Fragment:
         # bumped by every host mutation; device stacks compare it
         self.version = 0
         self.gen = next(_FRAG_GEN)
+        bump_mutation_epoch()  # a new fragment changes read results
         # (version after the mutation, row, word_lo, word_hi) of the
         # mutations after version _delta_floor
         self._delta_log: deque = deque()
@@ -120,7 +140,10 @@ class Fragment:
         """After a mutation's bytes land: the version moves and the delta
         log records the row's dirtied words [lo, hi) (the whole row when
         lo is None), one entry a mutation.  Entries past DELTA_LOG_MAX
-        drop off the front, the floor rising to the dropped version."""
+        drop off the front, the floor rising to the dropped version.  The
+        mutation epoch moves before the version, after the bytes landed:
+        a reader that stamped the old epoch rebuilds."""
+        bump_mutation_epoch()
         self.version += 1
         if lo is None:
             lo, hi = 0, self.width // 32
@@ -151,9 +174,13 @@ class Fragment:
         return [(r, lo, hi) for (v, r, lo, hi) in self._delta_log
                 if v > version]
 
-    def bump_gen(self) -> None:
+    def bump_gen(self, bump_epoch: bool = True) -> None:
         """Retire the fragment's cache identity: every (gen, version)
-        stamp taken before compares unequal afterwards."""
+        stamp taken before compares unequal afterwards.  A batched sweep
+        passes ``bump_epoch=False`` and moves the mutation epoch once,
+        before the first gen moves."""
+        if bump_epoch:
+            bump_mutation_epoch()
         self.gen = next(_FRAG_GEN)
 
     def _row_mut(self, row: int) -> np.ndarray:

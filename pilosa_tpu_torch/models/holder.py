@@ -17,6 +17,7 @@ import os
 import shutil
 import threading
 
+from pilosa_tpu_torch.models.fragment import bump_mutation_epoch
 from pilosa_tpu_torch.models.index import Index
 from pilosa_tpu_torch.models.schema import FieldOptions
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
@@ -52,6 +53,7 @@ class Holder:
         """Drop an index with everything it holds on disk (rows and
         keys), and from the saved schema: a reopen does not bring it
         back, and an index made again under the name starts empty."""
+        bump_mutation_epoch()  # a deletion touches no fragment
         with self._lock:
             idx = self.indexes.pop(name, None)
             if idx is None:

@@ -26,8 +26,9 @@ import numpy as np
 
 from pilosa_tpu_torch.models.dataframe import IndexDataframe
 from pilosa_tpu_torch.models.field import Field
+from pilosa_tpu_torch.models.fragment import bump_mutation_epoch
 from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
-from pilosa_tpu_torch.models.view import bsi_view_name
+from pilosa_tpu_torch.models.view import VIEW_STANDARD, bsi_view_name
 from pilosa_tpu_torch.shardwidth import BSI_OFFSET_BIT, SHARD_WIDTH
 from pilosa_tpu_torch.storage.shards import IndexStorage
 from pilosa_tpu_torch.storage.translate import (
@@ -135,6 +136,7 @@ class Index:
                     for r in frag.row_ids:
                         nfrag.set_row_words(r, frag.row_words(r))
 
+        bump_mutation_epoch()
         for f in self.public_fields():
             copy_field(f, dst.create_field(f.name, f.options))
         ef = self.fields.get(EXISTENCE_FIELD)
@@ -156,6 +158,8 @@ class Index:
                 raise ValueError(f"field not found: {old}")
             if new in self.fields or new == EXISTENCE_FIELD:
                 raise ValueError(f"field already exists: {new}")
+            # the rows now answer under another name
+            bump_mutation_epoch()
             del self.fields[old]
             f.name = new
             self.fields[new] = f
@@ -189,12 +193,22 @@ class Index:
             f = self.fields.pop(name, None)
             if f is None:
                 return
+            # a deletion touches no fragment: the epoch must still move
+            bump_mutation_epoch()
             if self.storage is not None:
                 self.storage.delete_field_bitmaps(name)
             f.close()
             fp = self._field_path(name)
             if fp and os.path.isdir(fp):
                 shutil.rmtree(fp)
+
+    def existence_row(self, shard: int):
+        """Packed existence words of a shard (None if untracked or
+        absent)."""
+        f = self.fields.get(EXISTENCE_FIELD)
+        v = f.views.get(VIEW_STANDARD) if f is not None else None
+        frag = v.fragment(shard) if v else None
+        return frag.row_words(0) if frag else None
 
     def public_fields(self) -> list[Field]:
         return [f for n, f in sorted(self.fields.items())

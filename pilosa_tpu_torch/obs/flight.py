@@ -507,18 +507,32 @@ def commit(rec: dict | None, duration_s: float, route: str = "solo",
         # page-encoding mix of the stack operands touched (sparse
         # device format, memory/encode.py): packed vs dense served
         rec["page_mix"] = dict(acc.pages)
-    # The op-family roofline block ("roofline": bytes / execute time per
-    # op family) joins when a dispatch feeds ``note_op``: no device
-    # dispatch of this package calls it yet, so ``acc.ops`` stays empty.
+    if acc.ops:
+        # roofline share: bytes touched / execute time per op family,
+        # with achieved GB/s (and the fraction once the peak is known)
+        from pilosa_tpu_torch.obs import roofline
+        peak = roofline.peak_or_none()
+        rl = {}
+        for op, (b, s) in acc.ops.items():
+            if s <= 0:
+                continue
+            ent = {"bytes": b, "ms": round(s * 1e3, 4),
+                   "gbps": round(b / s / 1e9, 4)}
+            if peak:
+                ent["fraction"] = round((b / s) / peak, 5)
+            rl[op] = ent
+        if rl:
+            rec["roofline"] = rl
     if error is not None:
         rec["error"] = error[:200]
     if fingerprint is not None:
         rec["fingerprint"] = fingerprint
     recorder.record(rec)
     _buffer_phase_samples(acc, rec["trace_id"])
-    # The statistics catalog's fold of each record (obs/stats.py
-    # note_flight) comes with the serving layer, the catalog's only
-    # reader, in the serving slice of the port.
+    # statistics catalog (obs/stats.py): one enabled check + a
+    # lock-free pending append; folding is amortized off the hot path
+    from pilosa_tpu_torch.obs import stats as _stats
+    _stats.note_flight(rec)
 
 
 # -- buffered phase-histogram export ----------------------------------------

@@ -1,9 +1,9 @@
 """Statistics catalog, the data plane the SQL cost planner reads.
 
-The JAX package's ``obs/stats.py`` keeps two planes: per-(index,
+Two planes, as in the JAX package's ``obs/stats.py``: per-(index,
 field) data stats maintained from the ingest path, and per-plan-
-fingerprint runtime profiles folded from flight records.  The port
-keeps the first, as far as SQL and the API read it:
+fingerprint runtime profiles folded from flight records.  The data
+plane, as far as SQL and the API read it:
 
 - ``note_ingest`` (called by ``API.import_bits``/``import_values``
   after the write landed) folds one import into the field's row set,
@@ -14,26 +14,53 @@ keeps the first, as far as SQL and the API read it:
   field (memory/encode.py), and ``field_density`` gives the encoder its
   skip-the-scan hint.
 
-The runtime profiles, ``note_flight`` and ``est_cost_ms`` come with the
-serving plane.  The switch goes through ``configure(enabled=...)``
-only (on by default, as in the JAX package); the port reads no
-environment variable for it.  Stats steer plans, never results.
+The runtime plane: ``flight.commit`` hands every finished record to
+``note_flight`` (a lock-free append, folded in batches into a
+``FingerprintProfile`` a plan fingerprint).  ``est_cost_ms`` is the
+serving layer's admission signal (executor/sched.py classify),
+``est_recompute_ms`` the result cache's eviction signal, and the
+regression sentinel exports ``pilosa_perf_regression`` and reports a
+"perf-regression" incident while a fingerprint runs ``regression_ratio``
+times over its baseline.  ``tick`` folds pending records.  The catalog
+keeps no file (the JAX package's ``stats_store`` persistence waits for
+the server slice).
+
+The switch goes through ``configure(enabled=...)`` only (on by default,
+as in the JAX package); the port reads no environment variable for it.
+Stats steer plans, never results.
 """
 
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict, deque
 
 import numpy as np
 
+from pilosa_tpu_torch.obs import metrics
+
 # ingest row sets are capped (the JAX package's _ROWS_CAP)
 _ROWS_CAP = 8192
+# fold the pending flight records every N appends (amortizes the
+# catalog lock the same way flight.py amortizes the histogram lock)
+_FOLD_N = 32
+# bounded tables: profiles LRU-evict past this, per-node attempt rings
+# are capped below
+_MAX_PROFILES = 512
+_MAX_NODE_SAMPLES = 256
+_MAX_CLUSTER_DURS = 512
 
 _enabled = True
 
 
 def enabled() -> bool:
     return _enabled
+
+
+def _ewma(prev: float | None, v: float, alpha: float) -> float:
+    if prev is None:
+        return v
+    return prev + alpha * (v - prev)
 
 
 class FieldStats:
@@ -90,12 +117,98 @@ class FieldStats:
         return out
 
 
-class StatsCatalog:
-    """The process's per-(index, field) ingest stats."""
+class FingerprintProfile:
+    """Runtime-plane profile for one plan fingerprint.  ``ms`` is the
+    steady cost estimate (mid EWMA); ``fast_ms`` / ``base_ms`` are the
+    sentinel pair: the baseline freezes while a regression fires, so
+    the fault cannot be absorbed into it."""
+
+    __slots__ = ("n", "ms", "exec_ms", "recompute_ms", "bytes",
+                 "batch", "hits", "total", "fast_ms", "base_ms",
+                 "firing")
 
     def __init__(self):
+        self.n = 0
+        self.ms: float | None = None
+        self.exec_ms: float | None = None
+        # EWMA over non-cached serves only: what the plan costs to
+        # compute (the cache-eviction signal); ``ms`` counts hits too
+        # (the admission signal: a cached serve costs the engine nothing)
+        self.recompute_ms: float | None = None
+        self.bytes: float | None = None
+        self.batch: float | None = None
+        self.hits = 0
+        self.total = 0
+        self.fast_ms: float | None = None
+        self.base_ms: float | None = None
+        self.firing = False
+
+    def fold(self, rec: dict, ratio: float = 3.0,
+             min_samples: int = 6):
+        d = float(rec.get("duration_ms", 0.0))
+        phases = rec.get("phases", {}) or {}
+        self.n += 1
+        self.total += 1
+        if rec.get("route") == "cached" or rec.get("cached"):
+            self.hits += 1
+        else:
+            self.recompute_ms = _ewma(self.recompute_ms, d, 0.2)
+        self.ms = _ewma(self.ms, d, 0.2)
+        self.exec_ms = _ewma(
+            self.exec_ms,
+            float(phases.get("execute", 0.0))
+            + float(phases.get("compile", 0.0)), 0.2)
+        self.bytes = _ewma(self.bytes,
+                           float(rec.get("bytes_moved", 0)), 0.2)
+        self.batch = _ewma(self.batch, float(rec.get("batch", 1)), 0.2)
+        self.fast_ms = _ewma(self.fast_ms, d, 0.5)
+        # detection per record, before the baseline moves: a sustained
+        # slowdown must not drip into the baseline faster than the
+        # comparison runs
+        if self.base_ms is not None and self.base_ms >= 0.01 \
+                and self.n >= min_samples:
+            self.firing = (self.fast_ms / self.base_ms) >= ratio
+        # the baseline skips the first (cold) samples and freezes while
+        # a regression fires
+        if not self.firing and self.n > 3:
+            self.base_ms = _ewma(self.base_ms, d, 0.05)
+
+    def payload(self) -> dict:
+        out = {"n": self.n,
+               "ms": round(self.ms or 0.0, 4),
+               "execute_ms": round(self.exec_ms or 0.0, 4),
+               "bytes": int(self.bytes or 0),
+               "batch": round(self.batch or 1.0, 2),
+               "cache_hit_rate": round(self.hits / self.total, 4)
+               if self.total else 0.0}
+        if self.base_ms is not None:
+            out["baseline_ms"] = round(self.base_ms, 4)
+            out["window_ms"] = round(self.fast_ms or 0.0, 4)
+        if self.firing:
+            out["regressing"] = True
+        return out
+
+
+class StatsCatalog:
+    """The process statistics catalog: the per-(index, field) ingest
+    stats, the per-fingerprint runtime profiles and the regression
+    sentinel."""
+
+    def __init__(self, heavy_cost_ms: float = 5.0,
+                 regression_ratio: float = 3.0,
+                 regression_min_samples: int = 6):
+        self.heavy_cost_ms = float(heavy_cost_ms)
+        self.regression_ratio = float(regression_ratio)
+        self.regression_min_samples = int(regression_min_samples)
         self._lock = threading.Lock()
         self._fields: dict[tuple[str, str], FieldStats] = {}
+        self._profiles: OrderedDict[str, FingerprintProfile] = \
+            OrderedDict()
+        self._node_ms: dict[str, deque] = {}
+        self._cluster_durs: deque = deque(maxlen=_MAX_CLUSTER_DURS)
+        # lock-free pending list (list.append is GIL-atomic): flight
+        # records queue here and fold in batches off the hot path
+        self._pending: list[dict] = []
 
     def note_ingest(self, index: str, field: str, rows=None, cols=None,
                     values=None, width: int = 1 << 20):
@@ -168,9 +281,164 @@ class StatsCatalog:
                     best = n
             return float(best) if best is not None else None
 
+    # -- runtime plane -------------------------------------------------------
+
+    def note_flight(self, rec: dict):
+        """Queue one finished flight record for folding (lock-free
+        append; amortized batch fold)."""
+        pend = self._pending
+        pend.append(rec)
+        if len(pend) >= _FOLD_N:
+            self.fold()
+
+    def fold(self):
+        """Drain the pending records into the profiles and node tables
+        and run the sentinel over the touched fingerprints.  The swap of
+        the pending list happens under the lock, so two folders never
+        drain the same buffer."""
+        with self._lock:
+            buf, self._pending = self._pending, []
+        if not buf:
+            return
+        touched: list[str] = []
+        evicted_firing: list[str] = []
+        with self._lock:
+            for rec in buf:
+                fp = rec.get("fingerprint")
+                if fp is not None and rec.get("error") is None:
+                    p = self._profiles.get(fp)
+                    if p is None:
+                        p = self._profiles[fp] = FingerprintProfile()
+                        while len(self._profiles) > _MAX_PROFILES:
+                            ofp, op = self._profiles.popitem(last=False)
+                            if op.firing:
+                                evicted_firing.append(ofp)
+                    else:
+                        self._profiles.move_to_end(fp)
+                    p.fold(rec, ratio=self.regression_ratio,
+                           min_samples=self.regression_min_samples)
+                    touched.append(fp)
+                if rec.get("route") == "cluster" and \
+                        rec.get("error") is None:
+                    self._cluster_durs.append(
+                        float(rec.get("duration_ms", 0.0)))
+                    for a in rec.get("attempts", ()):
+                        if not str(a.get("outcome", "")).endswith("ok"):
+                            continue
+                        node = str(a.get("node", ""))
+                        dq = self._node_ms.get(node)
+                        if dq is None:
+                            dq = self._node_ms[node] = deque(
+                                maxlen=_MAX_NODE_SAMPLES)
+                        dq.append(float(a.get("ms", 0.0)))
+            n_profiles = len(self._profiles)
+        metrics.STATS_FOLDS.inc(len(buf))
+        metrics.STATS_PROFILES.set(n_profiles)
+        for fp in evicted_firing:
+            metrics.PERF_REGRESSION.set(0.0, fingerprint=fp,
+                                        metric="duration_ms")
+        for fp in set(touched):
+            self._sentinel(fp)
+
+    def _sentinel(self, fp: str):
+        """Export one fingerprint's sentinel state as
+        ``pilosa_perf_regression{fingerprint,metric}``: the ratio while
+        firing (with one rate-limited "perf-regression" incident), an
+        explicit 0 once it recovers."""
+        with self._lock:
+            p = self._profiles.get(fp)
+            if p is None:
+                return
+            base, fast, firing = p.base_ms, p.fast_ms, p.firing
+        if firing and base:
+            metrics.PERF_REGRESSION.set(round(fast / base, 3),
+                                        fingerprint=fp,
+                                        metric="duration_ms")
+            from pilosa_tpu_torch.obs import incidents
+            incidents.report(
+                "perf-regression", detail=fp,
+                context={"fingerprint": fp,
+                         "baseline_ms": round(base, 4),
+                         "window_ms": round(fast or 0.0, 4),
+                         "ratio": round((fast or 0.0) / base, 3)})
+        elif metrics.PERF_REGRESSION.value(fingerprint=fp,
+                                           metric="duration_ms"):
+            metrics.PERF_REGRESSION.set(0.0, fingerprint=fp,
+                                        metric="duration_ms")
+
+    def regressions(self) -> list[dict]:
+        self.fold()
+        out = []
+        with self._lock:
+            items = list(self._profiles.items())
+        for fp, p in items:
+            if p.firing and p.base_ms:
+                out.append({"fingerprint": fp, "metric": "duration_ms",
+                            "baseline_ms": round(p.base_ms, 4),
+                            "window_ms": round(p.fast_ms or 0.0, 4),
+                            "ratio": round((p.fast_ms or 0.0)
+                                           / p.base_ms, 3)})
+        return out
+
+    def profile(self, fingerprint: str) -> FingerprintProfile | None:
+        with self._lock:
+            return self._profiles.get(fingerprint)
+
+    def est_cost_ms(self, fingerprint: str) -> float | None:
+        """Estimated serve cost of a plan fingerprint (cache hits
+        included: the admission signal), or None below three samples."""
+        with self._lock:
+            p = self._profiles.get(fingerprint)
+            if p is None or p.n < 3 or p.ms is None:
+                return None
+            return p.ms
+
+    def est_recompute_ms(self, fingerprint: str) -> float | None:
+        """Estimated recompute cost (non-cached serves only: the
+        cache-eviction signal)."""
+        with self._lock:
+            p = self._profiles.get(fingerprint)
+            if p is None:
+                return None
+            return p.recompute_ms
+
+    def hedge_samples(self, min_records: int = 32):
+        """Per-node attempt samples + cluster durations, or None when
+        the catalog holds too few."""
+        self.fold()
+        with self._lock:
+            by_node = {n: list(dq) for n, dq in self._node_ms.items()
+                       if dq}
+            durs = list(self._cluster_durs)
+        atts = sum(len(v) for v in by_node.values())
+        if atts < min_records and len(durs) < min_records:
+            return None
+        return by_node, durs
+
+    def payload(self, index: str | None = None,
+                fingerprint: str | None = None) -> dict:
+        self.fold()
+        with self._lock:
+            fields = {f"{i}/{f}": fs.payload()
+                      for (i, f), fs in sorted(self._fields.items())
+                      if index is None or i == index}
+            profs = [(fp, p.payload())
+                     for fp, p in reversed(self._profiles.items())
+                     if fingerprint is None or fp == fingerprint]
+        return {"enabled": enabled(), "data": fields,
+                "runtime": dict(profs), "regressions": self.regressions(),
+                "knobs": {"heavy_cost_ms": self.heavy_cost_ms,
+                          "regression_ratio": self.regression_ratio,
+                          "regression_min_samples":
+                              self.regression_min_samples}}
+
     def clear(self):
         with self._lock:
             self._fields.clear()
+            self._profiles.clear()
+            self._node_ms.clear()
+            self._cluster_durs.clear()
+            self._pending = []
 
 
 _catalog = StatsCatalog()
@@ -180,12 +448,28 @@ def get() -> StatsCatalog:
     return _catalog
 
 
-def configure(enabled: bool | None = None) -> StatsCatalog:
-    """The [stats] switch; None leaves it as it is."""
+def configure(enabled: bool | None = None,
+              heavy_cost_ms: float | None = None,
+              regression_ratio: float | None = None,
+              regression_min_samples: int | None = None) -> StatsCatalog:
+    """The [stats] knobs; None leaves a knob as it is."""
     global _enabled
     if enabled is not None:
         _enabled = bool(enabled)
+    if heavy_cost_ms is not None:
+        _catalog.heavy_cost_ms = float(heavy_cost_ms)
+    if regression_ratio is not None:
+        _catalog.regression_ratio = float(regression_ratio)
+    if regression_min_samples is not None:
+        _catalog.regression_min_samples = int(regression_min_samples)
     return _catalog
+
+
+def swap(catalog: StatsCatalog) -> StatsCatalog:
+    """Test seam: replace the process catalog, returning the prior one."""
+    global _catalog
+    prev, _catalog = _catalog, catalog
+    return prev
 
 
 def reset() -> None:
@@ -214,3 +498,42 @@ def field_density(index: str, field: str, width_bits: int) -> float | None:
     if not _enabled:
         return None
     return _catalog.field_density(index, field, width_bits)
+
+
+def note_flight(rec: dict):
+    """Hot-path entry (flight.commit): one enabled check + one lock-free
+    list append; folding is amortized."""
+    if not _enabled:
+        return
+    _catalog.note_flight(rec)
+
+
+def est_cost_ms(fingerprint: str) -> float | None:
+    if not _enabled:
+        return None
+    return _catalog.est_cost_ms(fingerprint)
+
+
+def est_recompute_ms(fingerprint: str) -> float | None:
+    if not _enabled:
+        return None
+    return _catalog.est_recompute_ms(fingerprint)
+
+
+def heavy_cost_ms() -> float:
+    return _catalog.heavy_cost_ms
+
+
+def hedge_samples(min_records: int = 32):
+    if not _enabled:
+        return None
+    return _catalog.hedge_samples(min_records=min_records)
+
+
+def tick():
+    """Maintenance hook: fold pending records and refresh the
+    sentinel."""
+    try:
+        _catalog.fold()
+    except Exception:
+        pass  # the stats plane must never take its caller down

@@ -407,6 +407,26 @@ def assemble_pages(pages, shape: tuple, page_lanes: int,
     return kernels.assemble_pages(pages, shape, page_lanes, table=table)
 
 
+def concat_gather(pages, lane_idx, table=None) -> torch.Tensor:
+    """Rows ``lane_idx`` of a bucket of dense (page_lanes, W) pages viewed
+    as one concatenated array: one ``kernels.concat_gather`` launch on the
+    card, the concatenation never built."""
+    from pilosa_tpu_torch.ops import kernels
+    return kernels.concat_gather(pages, lane_idx, table=table)
+
+
+def segment_count(pages, lane_idx, seg_ids, num_segments: int,
+                  table=None) -> torch.Tensor:
+    """Per-segment popcount totals (int64) of bucket lanes ``lane_idx``,
+    ids outside [0, num_segments) dropped: one ``kernels.segment_count``
+    launch on the card, no lane materialised.  The JAX package's
+    segment_count takes gathered lanes and answers int32; this one reads
+    the lanes through the page table and is exact in int64."""
+    from pilosa_tpu_torch.ops import kernels
+    return kernels.segment_count(pages, lane_idx, seg_ids, num_segments,
+                                 table=table)
+
+
 class _Payload:
     """An encoded page's payload for assemble_pages."""
 

@@ -34,6 +34,15 @@ and in ``csrc/page_kernels.cu``:
   packed or run, in one launch (the JAX package's jitted
   ``assemble_pages``, ``expand_coords`` and ``expand_runs``: no Pallas)
 
+and in ``csrc/ragged_kernels.cu``, the ragged serving program's two
+page-table reads (the JAX package's jnp ``concat_gather`` and
+``segment_count``: no Pallas):
+
+- ``concat_gather``       — lanes of a bucket of dense pages, viewed as one
+  concatenated array that is never built, gathered into an operand
+- ``segment_count``       — the popcounts of such lanes summed by segment:
+  a family of point Counts in one pass, no operand materialised
+
 Words are ``torch.int32`` tensors carrying uint32 bits.  Each wrapper
 checks device, dtype, shape and contiguity, allocates its outputs, and
 then either launches its kernel on the current stream (a CUDA tensor)
@@ -72,11 +81,15 @@ _ARGTYPES = {
     "pt_groupby_sum": [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _I, _P,
                        _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "pt_assemble_pages": [_P, _I, _I, _P, _I, _P],
+    "pt_concat_gather": [_P, _I, _I, _P, _I, _P, _I, _P],
+    "pt_segment_count": [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P],
 }
 _LIBS = {"pt_groupby_fused": "groupby_kernels",
          "pt_groupby_onehot": "groupby_kernels",
          "pt_groupby_sum": "groupby_kernels",
-         "pt_assemble_pages": "page_kernels"}
+         "pt_assemble_pages": "page_kernels",
+         "pt_concat_gather": "ragged_kernels",
+         "pt_segment_count": "ragged_kernels"}
 _GRID_MAX = (1 << 31) - 1
 _INT32_MAX = (1 << 31) - 1
 
@@ -104,7 +117,7 @@ _PLAIN_COLUMNS = 1 << 24
 LAUNCHES = {name: 0 for name in (
     "popcount_rows", "pair_popcount", "masked_popcount", "rows_filter_counts",
     "bsi_sum_counts", "bsi_range", "groupby_fused", "groupby_onehot",
-    "groupby_sum", "assemble_pages")}
+    "groupby_sum", "assemble_pages", "concat_gather", "segment_count")}
 
 # bsi_range's comparisons, in the C entry's numbering
 RANGE_OPS = ("eq", "neq", "lt", "lte", "gt", "gte", "between")
@@ -974,6 +987,142 @@ def assemble_pages(pages, shape: tuple, page_lanes: int,
         _launch(name, "pt_assemble_pages", t.data_ptr(), len(pages), n_blocks,
                 out.data_ptr(), w)
     return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# the ragged program's page-table reads: a bucket of dense (page_lanes, W)
+# pages viewed as one concatenated (P * page_lanes, W) array
+# ---------------------------------------------------------------------------
+
+def _bucket_shape(name: str, pages, checked: bool = False) -> tuple:
+    """(page_lanes, W, device) of a bucket: dense contiguous int32 pages
+    of one shape on one device, each checked unless ``checked`` (the
+    pages of a kept ``gather_table``, which checked them)."""
+    if not pages:
+        raise ValueError(f"{name}: no pages")
+    first = pages[0]
+    if not isinstance(first, torch.Tensor) or first.ndim != 2:
+        raise ValueError(f"{name}: a bucket holds dense (page_lanes, W) "
+                         f"pages")
+    shape = tuple(first.shape)
+    for p in (pages[:1] if checked else pages):
+        if not isinstance(p, torch.Tensor) or tuple(p.shape) != shape:
+            raise ValueError(f"{name}: pages of differing shapes, expected "
+                             f"{shape}")
+        _check(name, p, 2, first.device)
+    return shape[0], shape[1], first.device
+
+
+def gather_table(pages) -> torch.Tensor | None:
+    """concat_gather's and segment_count's device table of a bucket: the
+    pages' base addresses, int64, one a page, each page checked here;
+    None for pages on the CPU, whose plain versions need none.  A caller
+    that keeps the pages may keep the table and pass it to every read
+    of them."""
+    _pl, _w, device = _bucket_shape("gather_table", pages)
+    if device.type == "cpu":
+        return None
+    return torch.tensor([p.data_ptr() for p in pages], dtype=torch.int64,
+                        device=device)
+
+
+def _lane_param(name: str, t, n_lanes: int, device, what: str):
+    """An int32 (L,) index array on the pages' device.  Host indices
+    (numpy or a CPU tensor) are checked against ``n_lanes`` here, then
+    uploaded; device ones go as they are (the kernels read a lane
+    outside the bucket as zeros)."""
+    if isinstance(t, np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(t, dtype=np.int32))
+    if t.dtype != torch.int32 or t.ndim != 1:
+        raise ValueError(f"{name}: {what} must be a 1-D int32 array, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device.type == "cpu":
+        if what == "lane_idx" and t.numel() and (
+                int(t.min()) < 0 or int(t.max()) >= n_lanes):
+            raise ValueError(f"{name}: lane_idx outside the bucket's "
+                             f"{n_lanes} lanes")
+        return t.contiguous().to(device)
+    if t.device != device:
+        raise ValueError(f"{name}: {what} on {t.device}, pages on {device}")
+    return t.contiguous()
+
+
+def _table_ok(name: str, t: torch.Tensor, n_pages: int, device) -> None:
+    if (t.dtype != torch.int64 or t.ndim != 1 or t.numel() != n_pages
+            or t.device != device):
+        raise ValueError(f"{name}: a table of {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device} for {n_pages} pages on {device}")
+
+
+def concat_gather_plain(pages, lane_idx) -> torch.Tensor:
+    """Plain version of concat_gather: torch.cat(pages)[lane_idx]."""
+    flat = torch.cat(list(pages)) if len(pages) > 1 else pages[0]
+    return flat[torch.as_tensor(lane_idx).to(torch.int64)]
+
+
+def segment_count_plain(pages, lane_idx, seg_ids, nseg: int) -> torch.Tensor:
+    """Plain version of segment_count: the gathered lanes' SWAR popcounts
+    (bm.popcount_words) summed into their segments with index_add_; ids
+    outside [0, nseg) are dropped."""
+    lanes = concat_gather_plain(pages, lane_idx)
+    pc = bm.popcount_words(lanes).sum(dim=-1, dtype=torch.int64)
+    seg = torch.as_tensor(seg_ids).to(torch.int64)
+    keep = (seg >= 0) & (seg < nseg)
+    out = torch.zeros(int(nseg), dtype=torch.int64, device=lanes.device)
+    return out.index_add_(0, seg[keep], pc[keep])
+
+
+def concat_gather(pages, lane_idx, table=None) -> torch.Tensor:
+    """(L, W) int32 whose row i is lane ``lane_idx[i]`` of the bucket
+    ``pages`` (dense (page_lanes, W) int32 pages, viewed as one
+    concatenated array that is never built).  ``table`` is the pages'
+    ``gather_table``, kept by the caller (its pages are then not
+    checked again); without it the table is built here."""
+    name = "concat_gather"
+    page_lanes, w, device = _bucket_shape(name, pages, table is not None)
+    if device.type == "cpu":
+        return concat_gather_plain(pages, lane_idx)
+    idx = _lane_param(name, lane_idx, len(pages) * page_lanes, device,
+                      "lane_idx")
+    t = gather_table(pages) if table is None else table
+    _table_ok(name, t, len(pages), device)
+    n = idx.numel()
+    if n > _GRID_MAX:
+        raise ValueError(f"{name}: too many lanes for one launch")
+    out = torch.empty((n, w), dtype=torch.int32, device=device)
+    if n and w:
+        _launch(name, "pt_concat_gather", t.data_ptr(), len(pages),
+                page_lanes, idx.data_ptr(), n, out.data_ptr(), w)
+    return out
+
+
+def segment_count(pages, lane_idx, seg_ids, nseg: int,
+                  table=None) -> torch.Tensor:
+    """(nseg,) int64: row s sums popcount(lane lane_idx[i]) of the bucket
+    ``pages`` over every i with ``seg_ids[i] == s``; ids outside [0,
+    nseg) are dropped (a padded index array may point its padding past
+    the last segment).  One pass over the lanes; none is materialised."""
+    name = "segment_count"
+    page_lanes, w, device = _bucket_shape(name, pages, table is not None)
+    if device.type == "cpu":
+        return segment_count_plain(pages, lane_idx, seg_ids, nseg)
+    idx = _lane_param(name, lane_idx, len(pages) * page_lanes, device,
+                      "lane_idx")
+    seg = _lane_param(name, seg_ids, 0, device, "seg_ids")
+    if seg.numel() != idx.numel():
+        raise ValueError(f"{name}: {idx.numel()} lanes but {seg.numel()} "
+                         f"segment ids")
+    t = gather_table(pages) if table is None else table
+    _table_ok(name, t, len(pages), device)
+    n = idx.numel()
+    if n > _GRID_MAX:
+        raise ValueError(f"{name}: too many lanes for one launch")
+    out = torch.zeros(int(nseg), dtype=torch.int64, device=device)
+    if n and w and nseg > 0:
+        _launch(name, "pt_segment_count", t.data_ptr(), len(pages),
+                page_lanes, idx.data_ptr(), seg.data_ptr(), n, int(nseg),
+                out.data_ptr(), w)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -29,25 +29,31 @@ pushdown (wherec), aggregate/GROUP BY/Sort/LIMIT/DISTINCT pushdown
 (plan.py dispatch), join hash refinement (select_exec.select_join),
 subquery materialization (wherec.fold_subqueries).
 
-The port's engine takes the JAX package's solo arm, the one its
-engine takes without a serving layer: every SELECT runs ``op.run()``
-on the host path and every pushed call goes to
-``Executor._execute_call``.  The serving plane's methods
-(``_select_serving``, ``_run_select``, the serving branch of
-``run_call``, the statement result cache and the write-path sweep)
-are left out until the port has a serving layer.
-``SQLEngine(holder)`` builds ``Executor(holder, device)``, which runs
-on the CUDA card unless ``device="cpu"``.
+With a serving layer on its executor (``Executor.enable_serving``) a
+SELECT takes the serving arm: statement-level admission
+(``sched.classify_sql``), the serving ResultCache keyed by the
+canonical statement and guarded by its read set's snapshot, standing
+SQL registrations, a route-"sql" flight record, and every pushed call
+through ``ServingLayer.execute`` (so fused batching, the ragged program
+and the PQL result cache apply to SQL's operators); writes sweep the
+cache.  Without one, or with ``costplan.configure(enabled=False)``,
+every SELECT runs ``op.run()`` on the host path and every pushed call
+goes to ``Executor._execute_call``: bit-exact either way, because the
+serving path's fallback is the solo path.  ``SQLEngine(holder)``
+builds ``Executor(holder, device)``, which runs on the CUDA card
+unless ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 from pilosa_tpu_torch.executor.executor import ExecError, Executor
 from pilosa_tpu_torch.models import Holder
-from pilosa_tpu_torch.obs import metrics
-from pilosa_tpu_torch.sql import ast, plan
+from pilosa_tpu_torch.obs import flight, metrics
+from pilosa_tpu_torch.obs import stats as _stats
+from pilosa_tpu_torch.sql import ast, costplan, plan
 from pilosa_tpu_torch.sql.common import SQLResult
 from pilosa_tpu_torch.sql.lexer import SQLError
 from pilosa_tpu_torch.sql.parser import parse_sql
@@ -66,6 +72,11 @@ class SQLEngine:
         # see the same device stacks
         self.executor = executor if executor is not None \
             else Executor(holder, device)
+        # per-thread serving state: the statement's derived QoS for
+        # inner calls, and a reentrancy flag so nested selects (views,
+        # derived tables, subqueries) skip the statement-level
+        # admission, cache and flight wrapper
+        self._tls = threading.local()
         # name -> stored Select (sql3 CREATE VIEW); views re-execute
         # on read
         self._views: dict[str, ast.Select] = {}
@@ -128,14 +139,15 @@ class SQLEngine:
     # -- entry points ---------------------------------------------------
 
     def query(self, sql: str, auth_check=None,
-              write_guard=None) -> list[SQLResult]:
+              write_guard=None, qos=None) -> list[SQLResult]:
         """Execute statements.
 
         auth_check(table_or_None, "read"|"write") raises on denial —
         the SQL-side authz hook (the reference resolves table names
         during planning and consults authz per table).  write_guard()
         is called once when any statement writes (the exclusive-
-        transaction read-only gate).
+        transaction read-only gate).  ``qos`` (executor/sched.py QoS)
+        carries the request's admission intent to the serving arm.
         """
         try:
             stmts = parse_sql(sql)
@@ -148,17 +160,50 @@ class SQLEngine:
                 for stmt in stmts:
                     for table, perm in self._stmt_accesses(stmt):
                         auth_check(table, perm)
-            return [self._execute(stmt, auth_check) for stmt in stmts]
+            try:
+                return [self._execute(stmt, auth_check, qos=qos)
+                        for stmt in stmts]
+            finally:
+                if writes:
+                    # eager sweep after SQL writes, narrowed to the
+                    # written tables' fields; the cache's get-time
+                    # snapshot check still backstops correctness
+                    serving = getattr(self.executor, "serving", None)
+                    if serving is not None and serving.cache is not None:
+                        wf = self._written_fields(stmts)
+                        serving.cache.sweep(self.holder, wf)
+                        serving.standing.on_write(None, wf)
         except ExecError as e:  # surface executor errors as SQL errors
             raise SQLError(str(e)) from e
 
     def query_one(self, sql: str, auth_check=None,
-                  write_guard=None) -> SQLResult:
-        return self.query(sql, auth_check, write_guard)[-1]
+                  write_guard=None, qos=None) -> SQLResult:
+        return self.query(sql, auth_check, write_guard, qos=qos)[-1]
+
+    def _written_fields(self, stmts) -> set | None:
+        """Field names the batch's write statements can touch (every
+        field of each written table, plus existence): the cache
+        sweep's narrowing.  None (sweep everything) when a written
+        table cannot be resolved (DDL that dropped it, schema
+        statements)."""
+        from pilosa_tpu_torch.models.index import EXISTENCE_FIELD
+        out: set = set()
+        for s in stmts:
+            for table, perm in self._stmt_accesses(s):
+                if perm != "write":
+                    continue
+                if table is None:
+                    return None
+                idx = self.holder.index(table)
+                if idx is None:
+                    return None
+                out.update(idx.fields)
+        out.add(EXISTENCE_FIELD)
+        return out
 
     # -- statement dispatch ---------------------------------------------
 
-    def _execute(self, stmt, auth_check=None) -> SQLResult:
+    def _execute(self, stmt, auth_check=None, qos=None) -> SQLResult:
         st = self.stmts
         if isinstance(stmt, ast.CreateTable):
             return st.create_table(stmt)
@@ -250,25 +295,153 @@ class SQLEngine:
         if isinstance(stmt, ast.Delete):
             return st.delete(stmt)
         if isinstance(stmt, ast.Select):
-            return self._select(stmt)
+            return self._select(stmt, qos=qos)
         raise SQLError(f"unsupported statement {type(stmt).__name__}")
 
     # -- SELECT ---------------------------------------------------------
 
-    def _select(self, stmt: ast.Select) -> SQLResult:
-        """Plan (timed into SQL_PLAN_COST) and run on the host path,
-        counting the planner's pushdown decisions with outcome
-        "host", as the JAX engine does without a serving layer."""
+    def _select(self, stmt: ast.Select, qos=None) -> SQLResult:
+        """Plan (timed into SQL_PLAN_COST), then the serving arm, or the
+        host path: without a serving layer, with pushdown off, and for
+        nested selects (the outer statement owns admission, cache and
+        the flight record), counting the planner's pushdown decisions
+        with outcome "host"."""
+        serving = getattr(self.executor, "serving", None)
         t0 = time.perf_counter()
         op = plan.plan_select(self, stmt)
         metrics.SQL_PLAN_COST.observe((time.perf_counter() - t0) * 1e3)
-        for opname, _outcome in op.decisions():
-            metrics.SQL_PUSHDOWN.inc(op=opname, outcome="host")
-        return op.run()
+        nested = getattr(self._tls, "active", False)
+        if serving is None or not costplan.enabled() or nested:
+            if not nested:
+                for opname, _outcome in op.decisions():
+                    metrics.SQL_PUSHDOWN.inc(op=opname, outcome="host")
+            return op.run()
+        return self._select_serving(serving, op, stmt, qos)
+
+    def _select_serving(self, serving, op, stmt, qos) -> SQLResult:
+        """SELECT on the serving arm: per-statement cost-classed
+        admission (executor/sched.py), then _run_select."""
+        from pilosa_tpu_torch.executor import sched as _sched
+        canon = costplan.canonical(stmt)
+        fp = costplan.fingerprint(stmt.table or "", canon)
+        cls = _sched.classify_sql(stmt, qos, fingerprint=fp)
+        if (qos is not None and qos.deadline_s is not None
+                and time.monotonic() > qos.deadline_s):
+            metrics.ADMISSION_TOTAL.inc(**{"class": cls,
+                                           "outcome": "expired"})
+            raise _sched.ServingDeadlineExceeded(
+                "deadline expired before SQL execution")
+        if cls == _sched.CLASS_HEAVY and serving.sched is not None:
+            with serving.sched.heavy_slot(qos):
+                return self._run_select(serving, op, stmt, qos, canon,
+                                        fp, cls)
+        metrics.ADMISSION_TOTAL.inc(**{"class": cls,
+                                       "outcome": "admitted"})
+        return self._run_select(serving, op, stmt, qos, canon, fp, cls)
+
+    def _run_select(self, serving, op, stmt, qos, canon: str,
+                    fp: str, cls: str) -> SQLResult:
+        """A single-table statement's result in the serving ResultCache
+        (keyed by the canonical statement, guarded by its read set's
+        snapshot, so writes invalidate SQL results as they do PQL ones),
+        a standing registration's maintained result, or a run whose
+        inner calls ride the point lane of the serving layer, with a
+        route-"sql" flight record of the plan fingerprint and the
+        planner's pushdown decisions."""
+        from pilosa_tpu_torch.executor import sched as _sched
+        from pilosa_tpu_torch.executor.serving import _MISS, field_snapshot
+        t0 = time.perf_counter()
+        decisions = op.decisions()
+        idx = getattr(op, "idx", None)
+        key = fields = snap = None
+        if idx is not None and serving.cache is not None:
+            fields = costplan.stmt_read_fields(self, idx, stmt)
+            if fields is not None:
+                key = (idx.name, "sql\x00" + canon, None)
+                snap = field_snapshot(idx, fields)
+                hit = serving.cache.get(idx, key, cur_snap=snap)
+                if hit is not _MISS:
+                    metrics.RESULT_CACHE.inc(outcome="hit")
+                    self._commit_sql_flight(
+                        stmt, canon, fp, cls, qos, decisions,
+                        time.perf_counter() - t0, routes=["cached"])
+                    return hit
+                # a standing SQL registration: a stale poll pulls
+                # maintenance instead of planning the SELECT again
+                if serving.standing.owns(key):
+                    got = serving.standing.catch_up(key)
+                    if got is not _MISS:
+                        self._commit_sql_flight(
+                            stmt, canon, fp, cls, qos, decisions,
+                            time.perf_counter() - t0,
+                            routes=["standing"])
+                        return got
+                metrics.RESULT_CACHE.inc(outcome="miss")
+        fl = flight.begin(stmt.table or "", canon)
+        inner = _sched.QoS(
+            tenant=qos.tenant if qos is not None else "default",
+            priority=_sched.CLASS_POINT,
+            deadline_ms=qos.deadline_ms if qos is not None else None,
+            deadline_s=qos.deadline_s if qos is not None else None)
+        self._tls.qos = inner
+        self._tls.active = True
+        err = None
+        try:
+            res = op.run()
+        except Exception as e:
+            err = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            self._tls.active = False
+            self._tls.qos = None
+            dur = time.perf_counter() - t0
+            if fl is not None:
+                fl["tenant"] = qos.tenant if qos is not None \
+                    else "default"
+                fl["priority"] = cls
+                fl["pushdown"] = [{"op": o, "outcome": oc}
+                                  for o, oc in decisions]
+                flight.commit(fl, dur, route="sql", fingerprint=fp,
+                              error=err)
+            for o, oc in decisions:
+                metrics.SQL_PUSHDOWN.inc(op=o, outcome=oc)
+        if key is not None and field_snapshot(idx, fields) == snap:
+            # store only if no write raced the execution
+            cost = None
+            if _stats.enabled():
+                cost = _stats.est_recompute_ms(fp)
+                if cost is None:
+                    cost = dur * 1e3
+            serving.cache.put(key, fields, snap, res, cost_ms=cost)
+        return res
+
+    def _commit_sql_flight(self, stmt, canon, fp, cls, qos, decisions,
+                           dur: float, routes=None):
+        """A route-"sql" flight record for a serve that ran no inner
+        call (a cache hit or a standing result), marked cached so the
+        catalog's recompute-cost estimate ignores it."""
+        fl = flight.begin(stmt.table or "", canon)
+        if fl is None:
+            return
+        fl["tenant"] = qos.tenant if qos is not None else "default"
+        fl["priority"] = cls
+        fl["pushdown"] = [{"op": o, "outcome": oc} for o, oc in decisions]
+        if routes:
+            fl["serving_routes"] = list(routes)
+        fl["cached"] = True
+        flight.commit(fl, dur, route="sql", fingerprint=fp)
 
     def run_call(self, idx, call):
-        """Run one pushed read call on the executor's solo path."""
-        return self.executor._execute_call(idx, call, None)
+        """One pushed read call: through the serving layer (point lane,
+        the statement owns admission) when the executor has one and
+        pushdown is on, else the executor's solo path."""
+        serving = getattr(self.executor, "serving", None)
+        if serving is None or not costplan.enabled():
+            return self.executor._execute_call(idx, call, None)
+        from pilosa_tpu_torch.pql.ast import Query
+        qos = getattr(self._tls, "qos", None)
+        return serving.execute(idx.name, Query(calls=[call]), None,
+                               qos=qos)[0]
 
     # -- schema lookups shared by the modules ---------------------------
 

@@ -673,8 +673,68 @@ def test_executor_on_the_card_matches_the_cpu(cuda):
                 assert repr(ex.execute("i", q)) == want, q
     finally:
         memory.configure(page_bytes=page_bytes)
-    assert all(n > 0 for n in K.LAUNCHES.values()), K.LAUNCHES
+    # the ragged program's page-table reads launch only under the serving
+    # layer (test_serving_ragged_on_the_card)
+    assert all(n > 0 for k, n in K.LAUNCHES.items()
+               if k not in ("concat_gather", "segment_count")), K.LAUNCHES
     assert per_shard.paths[("TopN", "asked")] == 2
+
+
+def test_serving_ragged_on_the_card(cuda):
+    """A mixed batch over two indexes and a shard subset through the
+    serving layer's ragged program on the card equals the CPU's solo
+    answers, and launches both page-table kernels."""
+    from pilosa_tpu_torch import memory
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.models.schema import FieldOptions, FieldType
+    from pilosa_tpu_torch.pql import parse
+
+    rng = np.random.default_rng(5)
+    h = Holder(width=4096)
+    for name, n_shards in (("alpha", 5), ("beta", 3)):
+        idx = h.create_index(name)
+        f = idx.create_field("f", FieldOptions(cache_type="none"))
+        v = idx.create_field("v", FieldOptions(type=FieldType.INT,
+                                               min=0, max=500))
+        cat = idx.create_field("cat")
+        cols = rng.integers(0, 4096 * n_shards, size=6000)
+        f.import_bits(rng.integers(0, 4, size=cols.size), cols)
+        v.import_values(cols[:2000], rng.integers(0, 501, size=2000))
+        every = np.arange(4096 * n_shards)
+        cat.import_bits(rng.integers(0, 5, size=every.size), every)
+        idx.mark_columns_exist(cols)
+    items = [("alpha", "Count(Row(f=1))", None),
+             ("alpha", "Count(Row(f=2))", None),
+             ("alpha", "Count(Row(f=1))", [0, 1, 2]),
+             ("beta", "Count(Row(f=0))", None),
+             ("beta", "Count(Row(f=3))", None),
+             ("alpha", "Count(Intersect(Row(f=1), Row(f=2)))", None),
+             ("beta", "Row(f=2)", None), ("alpha", "TopN(f, n=3)", None),
+             ("alpha", "Sum(Row(f=1), field=v)", None),
+             ("beta", "Count(Row(v > 250))", None),
+             ("alpha", "GroupBy(Rows(cat), aggregate=Sum(field=v))", None)]
+    on_cpu = Executor(h, device="cpu")
+    wants = [repr(on_cpu.execute(i, q, s)) for i, q, s in items]
+    page_bytes = memory.page_bytes()
+    memory.configure(page_bytes=1024)     # two lanes of 128 words a page
+    try:
+        ex = Executor(h)
+        layer = ex.enable_serving(window_s=0.0, max_batch=64, cache_bytes=0,
+                                  admission=False)
+        K.reset_launches()
+        for _ in range(2):
+            reqs = [layer._classify(i, h.index(i), parse(q), s, None,
+                                    (i, q, None)) for i, q, s in items]
+            layer._run_batch(reqs)
+            for (i, q, s), r, want in zip(items, reqs, wants):
+                assert r.error is None and not r.direct, (q, r.error)
+                assert repr(r.result) == want, q
+        assert K.LAUNCHES["concat_gather"] > 0
+        assert K.LAUNCHES["segment_count"] > 0
+        layer.close()
+    finally:
+        memory.configure(page_bytes=page_bytes)
 
 
 def test_fallback_shapes_on_the_card_match_the_cpu(cuda):
@@ -1315,3 +1375,85 @@ def test_assemble_pages_refuses_a_bad_page(cuda):
         K.assemble_pages([good, good[:, :4].contiguous()], (8, 8), 4)
     with pytest.raises(ValueError):
         K.assemble_pages([good, good.cpu()], (8, 8), 4)
+
+
+# -- the ragged program's page-table reads ------------------------------------
+
+def _bucket(n_pages, pl, w, device, seed=0):
+    return [_words((pl, w), device, seed=seed + i) for i in range(n_pages)]
+
+
+@pytest.mark.parametrize("n_pages,pl,w", [
+    (1, 4, 8), (3, 5, 201), (30, 32, 32768), (7, 1, 100003), (4, 3, 1)])
+def test_concat_gather(cuda, n_pages, pl, w):
+    """Identity, reversed, permuted and padded gathers, and a lane on the
+    last page, against torch.cat(pages)[lane_idx]."""
+    pages = _bucket(n_pages, pl, w, cuda, seed=n_pages)
+    n = n_pages * pl
+    g = np.random.default_rng(n)
+    cases = [np.arange(n), np.arange(n)[::-1], g.permutation(n),
+             np.array([n - 1]), np.r_[np.arange(n // 2), [n - 1] * 3]]
+    table = K.gather_table(pages)
+    for li in cases:
+        li = np.ascontiguousarray(li, dtype=np.int32)
+        before = K.LAUNCHES["concat_gather"]
+        got = K.concat_gather(pages, li)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["concat_gather"] == before + 1
+        _same(got, K.concat_gather_plain(pages, torch.from_numpy(li).to(cuda)))
+        # a kept table and device indices give the same rows
+        dev = torch.from_numpy(li).to(cuda)
+        _same(K.concat_gather(pages, dev, table=table), got)
+
+
+def test_concat_gather_refuses_lanes_outside_the_bucket(cuda):
+    pages = _bucket(2, 4, 64, cuda)
+    for li in ([8], [-1]):
+        with pytest.raises(ValueError, match="outside"):
+            K.concat_gather(pages, np.array(li, dtype=np.int32))
+    with pytest.raises(ValueError, match="shape"):
+        K.concat_gather([pages[0], pages[1][:2]], np.zeros(1, np.int32))
+
+
+@pytest.mark.parametrize("n_pages,pl,w", [
+    (60, 32, 32768), (3, 5, 201), (2, 1, 100003)])
+def test_segment_count(cuda, n_pages, pl, w):
+    """Two segments, ragged segments, repeated lanes, and padded ids at
+    and past nseg (dropped), against popcount + index_add_."""
+    pages = _bucket(n_pages, pl, w, cuda, seed=7)
+    n = n_pages * pl
+    g = np.random.default_rng(n)
+    half = n // 2
+    cases = [
+        (np.arange(n), np.repeat([0, 1], [half, n - half]), 2),
+        (g.permutation(n), g.integers(0, 4, n), 4),
+        # padding: the last lane repeated into the dump segment nseg, and
+        # ids past it and below 0
+        (np.r_[np.arange(n), [n - 1] * 5],
+         np.r_[np.zeros(n, int), [3, 3, 3, 9, -1]], 3)]
+    for li, seg, nseg in cases:
+        li = np.ascontiguousarray(li, dtype=np.int32)
+        seg = np.ascontiguousarray(seg, dtype=np.int32)
+        before = K.LAUNCHES["segment_count"]
+        got = K.segment_count(pages, li, seg, nseg)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["segment_count"] == before + 1
+        want = K.segment_count_plain(pages, torch.from_numpy(li).to(cuda),
+                                     torch.from_numpy(seg).to(cuda), nseg)
+        _same(got, want)
+        host = np.concatenate([p.cpu().numpy() for p in pages]).view(np.uint32)
+        ref = np.zeros(nseg, np.int64)
+        ok = (seg >= 0) & (seg < nseg)
+        np.add.at(ref, seg[ok], np.bitwise_count(host[li[ok]]).sum(axis=1))
+        assert np.array_equal(got.cpu().numpy(), ref)
+
+
+def test_segment_count_of_954_full_lanes(cuda):
+    """A segment of 954 all-ones lanes of 32768 words (954 * 2^20 bits),
+    and one of 2100 (past int32), exact in the int64 output."""
+    pages = [torch.full((32, 32768), -1, dtype=torch.int32, device=cuda)
+             for _ in range(66)]
+    for n in (954, 2100):
+        li = np.arange(n, dtype=np.int32)
+        got = K.segment_count(pages, li, np.zeros(n, np.int32), 1)
+        assert got.cpu().tolist() == [n << 20]

@@ -38,7 +38,10 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "sql.typecheck", "sql.wherec", "sql.costplan", "sql.plan",
           "sql.select_exec", "sql.statements", "sql.engine", "memory",
           "memory.ledger", "memory.pages", "memory.encode", "memory.policy",
-          "memory.pressure"):
+          "memory.pressure", "executor.sched", "executor.serving",
+          "executor.ragged", "executor.standing", "obs.monitor",
+          "obs.diagnostics", "obs.profiler", "obs.incidents",
+          "obs.watchdog", "obs.roofline", "obs.audit"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -138,6 +141,35 @@ def test_sql_and_stats_switches_read_no_environment():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["True True", "False False"]
+
+
+def test_serving_switches_read_no_environment():
+    """The serving layer's ragged and admission switches are constructor
+    arguments, and the audit, standing, incidents, watchdog and roofline
+    planes go through configure() only: the JAX package's environment
+    twins leave them at their defaults (on)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               PILOSA_TPU_SERVING_RAGGED="0",
+               PILOSA_TPU_SERVING_ADMISSION="0", PILOSA_TPU_AUDIT="0",
+               PILOSA_TPU_AUDIT_SAMPLE_RATE="0.5", PILOSA_TPU_STANDING="0",
+               PILOSA_TPU_INCIDENTS="0", PILOSA_TPU_WATCHDOG="0",
+               PILOSA_TPU_ROOFLINE="0", PILOSA_TPU_PEAK_GBPS="7")
+    code = ("from pilosa_tpu_torch.models.holder import Holder; "
+            "from pilosa_tpu_torch.executor.executor import Executor; "
+            "from pilosa_tpu_torch.executor import standing; "
+            "from pilosa_tpu_torch.obs import audit, incidents, watchdog, "
+            "roofline; "
+            "lay = Executor(Holder(width=2048), device='cpu')"
+            ".enable_serving(); "
+            "print(lay.ragged, lay.sched is not None, audit.enabled(), "
+            "audit._SAMPLE_RATE, standing.enabled(), incidents.enabled(), "
+            "watchdog.enabled(), roofline.enabled(), "
+            "roofline.peak_or_none()); lay.close()")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == \
+        "True True True 0.01 True True True True None"
 
 
 def test_memory_switches_read_no_environment():
