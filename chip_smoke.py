@@ -213,6 +213,8 @@ Phases, each printing its own lines; any failure exits non-zero:
        in every phase), then a real torch.cuda.OutOfMemoryError:
        a ballast tensor leaves BALLAST_SLACK free and a cold query's
        upload runs out, the relief sweep sheds, the retry answers.
+   Then sp and rn are deleted: no later phase reads them, and phase
+   10's node would otherwise sync their rows before its first write.
 9. the serving plane (Executor.enable_serving(window_s=0.001,
    max_batch=64), as the server turns it on) on the headline holder,
    with bench/ragged.py's events index (fields c, u and m, 3 shards)
@@ -235,12 +237,49 @@ Phases, each printing its own lines; any failure exits non-zero:
        columns: each evicts the cached Count(Row(a=1)) (over every
        shard), moves the mutation epoch and makes the canonical ragged
        program build again, and a standing Count(Row(a=1)) stays equal
-       to a cold execution;
+       to a cold execution; then every column 9d changed is written
+       back, and Count(Row(a=1)) counts what it did before 9d;
    9f. the audit at sample rate 1.0 over 12 point reads: matches and no
        mismatch; one audit-corrupt injection counted as one mismatch
        with an audit-mismatch incident.
+10. a node (the port's HTTP Server, from a TOML file the script writes:
+   grpc-port = -1, serving and the streaming write plane at their
+   defaults, acknowledged writes synced to disk) on the same holder:
+   10a. phase 4's query set and 5c's statements through client.Client
+        and POST /sql, each equal to a solo Executor.execute or SQLEngine
+        on the node's executor and to the numpy answers of 4-5c (6a's
+        Set of a new key mirrored), each query's HTTP p50 beside its
+        in-process API p50; the kernels they launch must launch (the
+        serving routes printed); the solo pass runs on the node's own
+        executor with its serving layer set aside;
+   10b. 8 clients POST 6 batches each of 32 Set and 16 Clear of a and 16
+        age values, over the 32 leading shards of the full-width index,
+        to /index/bench/ingest (sync on); after each ack the
+        client's own read counts its writes; then Count(Row(a=1)) and
+        Sum(field=age) equal the mirror, the stale stacks patched, none
+        rebuilt; windows, submits a window, mutations/s, ack p50/p99 and
+        the windows' apply/maintain/sync phases printed;
+   10c. 2^14 JSON and 2^14 Avro records of 16 shards through an
+        in-process Broker, StreamSource/AvroStreamSource, Pipeline and a
+        StreamImporter on
+        the node's writer into index kf, crash-pre-commit armed once:
+        the restarted consumer re-delivers, every count and sum equals
+        numpy, records/s printed;
+   10d. an exclusive transaction: a PQL Set, an import and a SQL INSERT
+        answer 409, then land once it is finished; /debug/slo reports
+        its windows; under slo.configure(latency_ms=a tenth of the
+        smallest 10a p50, windows="3s") one slo.tick() reports a
+        slo-burn incident at /debug/incidents;
+   10e. `python -m pilosa_tpu_torch.cli.main server` (on the card,
+        grpc-port -1, an auth secret) in a subprocess: the CLI import of
+        2^17 CSV records over 16 shards through HTTPImporter, a keygen
+        token for Client and for `cli.main sql` with piped statements,
+        a request without the token answering 401, an /ingest write;
+        then SIGKILL and a restart on the same directory, where every
+        acknowledged write reads back; the seconds to the first answer
+        after the restart printed.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-9
+   launched over 4-10
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -1663,10 +1702,10 @@ def launches_of(run) -> tuple[dict, object]:
 
 def phase_main_path(device, root: str, kernels_phase,
                     reps: int = 5) -> tuple[dict, dict]:
-    """Phases 4 to 8, the holders persisted under root, with
+    """Phases 4 to 10, the holders persisted under root, with
     kernels_phase() (phase 3, once the kernels are built) run between
     the host's preparation of phase 4 and its first query; returns phase
-    3's records and each kernel's launches summed over phases 4-8."""
+    3's records and each kernel's launches summed over phases 4-10."""
     import gc
     import os
 
@@ -1821,7 +1860,7 @@ def phase_main_path(device, root: str, kernels_phase,
     keyed = phase_keys(h, note)
     print(f"keys: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_sql(h, ex, data, post, keyed, note)
+    sql_want = phase_sql(h, ex, data, post, keyed, note)
     print(f"sql: {time.perf_counter() - t0:.1f} s")
     # 6a: sync, drop the holder and every executor, reopen from disk
     t0 = time.perf_counter()
@@ -1832,7 +1871,7 @@ def phase_main_path(device, root: str, kernels_phase,
     print(f"restart: holder and executors dropped; device memory allocated "
           f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
     h = phase_restart(os.path.join(root, "headline"), data, post, keyed,
-                      before, note)
+                      sql_want, before, note)
     print(f"restart: {time.perf_counter() - t0:.1f} s")
     # phase 8's reference: the a row and COLD_QUERY from the mirror
     mem_ref = {"a": data["a"],
@@ -1855,12 +1894,15 @@ def phase_main_path(device, root: str, kernels_phase,
         gc.collect()
         torch.cuda.empty_cache()
         phase_serving(h, device, note)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_node(h, post["want"], sql_want, root, note)
     finally:
         h.close()
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-9 {totals}")
+    print(f"main path: kernel launches over phases 4-10 {totals}")
     return records, totals
 
 
@@ -2336,7 +2378,7 @@ def sql_answers(data, post, keyed) -> tuple[dict, dict]:
         SQL_ORDER: order[S],
         SQL_LIMIT: list(zip(first, ages)),
         SQL_KCOUNT: [(keyed["want"]['Count(Row(kf="k17"))'],)],
-        SQL_KGROUP: [([k], n) for k, n in keyed["kf_counts"].items() if n],
+        SQL_KGROUP: kgroup_rows(keyed),
     })
     cut = dict(full)
     cut.update({q: r for q, r in bsi_sql_answers(
@@ -2344,6 +2386,11 @@ def sql_answers(data, post, keyed) -> tuple[dict, dict]:
         if SQL_KERNELS[q][2] is not None})
     cut[SQL_ORDER] = order[S_DECODE]
     return full, cut
+
+
+def kgroup_rows(keyed) -> list:
+    """SQL_KGROUP's rows from the keyed mirror."""
+    return [([k], n) for k, n in keyed["kf_counts"].items() if n]
 
 
 def sql_cells_ok(rows) -> bool:
@@ -2398,7 +2445,7 @@ def run_sql(eng, label: str, want: dict, reps: int) -> dict:
     return out
 
 
-def phase_sql(h, ex, data, post, keyed, note) -> None:
+def phase_sql(h, ex, data, post, keyed, note) -> dict:
     """5c: SQL on the card.  The statements of SQL_KERNELS through
     SQLEngine on phase 4's executor (the stacked engine, every shard)
     and on a new per-shard executor (use_stacked = False; the S_DECODE
@@ -2532,6 +2579,7 @@ def phase_sql(h, ex, data, post, keyed, note) -> None:
     if after("after the restore") != bsi_sql_answers(*post["ages"]):
         raise AssertionError("sql: the restore did not give 5a's answers")
     print(f"sql: done ({card_line()})")
+    return full
 
 
 # phase 6: restart onto disk (6a) and ingest through the API (6b)
@@ -2659,14 +2707,15 @@ def check_rows(h, data, deleted) -> None:
           f"({(time.perf_counter() - t0):.1f} s, host)")
 
 
-def phase_restart(path, data, post, keyed, before, note):
+def phase_restart(path, data, post, keyed, sql_want, before, note):
     """6a: reopen the synced headline holder, check its rows against the
     mirror, then phase 4's stacked set and phase 4a's per-shard
     TopN/Count set on new APIs through API.query, exact against the
     answers after phase 5a, each first call (stacks built from rows that
     came off disk) and warm p50 printed beside phase 4's; the keyed
     index's answers equal those before the restart, and a new column key
-    gets the next id.  Returns the reopened holder, open, for phase 8."""
+    gets the next id; that Set is mirrored into keyed and sql_want.
+    Returns the reopened holder, open, for phase 8."""
     from pilosa_tpu_torch.api import API
     h = reopen(path, "restart")
     check_rows(h, data, post["deleted"])
@@ -2703,6 +2752,8 @@ def phase_restart(path, data, post, keyed, before, note):
         raise AssertionError(f"restart: Set of {NEW_KEY} reads back {cnt}")
     print(f"restart keys: Set of the new column key {NEW_KEY} after the "
           f"reopen got id {got}, the partition's next (not 0)")
+    keyed["kf_counts"]["k03"] += 1
+    sql_want[SQL_KGROUP] = kgroup_rows(keyed)
     return h
 
 
@@ -3647,6 +3698,11 @@ def phase_memory(h, want: dict, ref: dict, device, note) -> None:
                                  f"retry_ok {retried}")
         note("8d", dict.fromkeys(K.LAUNCHES, 0))
         print(f"8d: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for fname in ("sp", "rn"):
+            h.index("bench").delete_field(fname)
+        print(f"8: fields sp and rn deleted in "
+              f"{time.perf_counter() - t0:.1f} s")
     finally:
         memory.configure(budget_bytes=0, paged=True)
         pressure.inject_oom(0)
@@ -4180,12 +4236,17 @@ def phase_serving(h, device, note) -> None:
         run_batch()
         canon = layer._ragged_canon
         a_view = h.index("bench").field("a").views["standard"]
+
+        def a_bit(col):
+            words = a_view.fragment(col // (W * 32)).row_words(1)
+            local = col % (W * 32)
+            return (int(words[local >> 5]) >> (local & 31)) & 1
+        count0 = solo.execute("bench", q)
+        orig = {}  # each written column's bit before 9d
         writes = []
         for col in rng.integers(0, S * W * 32, size=8).tolist():
             # the write flips the bit, so the fragment's version moves
-            words = a_view.fragment(col // (W * 32)).row_words(1)
-            local = col % (W * 32)
-            on = (int(words[local >> 5]) >> (local & 31)) & 1
+            on = orig.setdefault(col, a_bit(col))
             writes.append(f"{'Clear' if on else 'Set'}({col}, a=1)")
         t0 = time.perf_counter()
         for i, w in enumerate(writes + ["import"]):
@@ -4196,6 +4257,8 @@ def phase_serving(h, device, note) -> None:
             e0 = fragment.mutation_epoch()
             if w == "import":
                 cols = rng.integers(0, S * W * 32, size=1024)
+                for c in cols.tolist():
+                    orig.setdefault(c, a_bit(c))
                 api.import_bits("bench", "a", rows=[1] * len(cols),
                                 cols=cols.tolist())
             else:
@@ -4218,6 +4281,20 @@ def phase_serving(h, device, note) -> None:
               f"mutation epoch and made the canonical program build again; "
               f"the standing {q} equal to a cold execution after each "
               f"(maintained {sq.stats}) in {time.perf_counter() - t0:.1f} s")
+        # a back as phases 4-5c left it, so that phase 10 holds every
+        # answer to their numpy mirror
+        back = {on: [c for c, was in orig.items()
+                     if was == on and a_bit(c) != on] for on in (0, 1)}
+        for on, verb in ((1, "Set"), (0, "Clear")):
+            if back[on]:
+                ex.execute_serving("bench", " ".join(
+                    f"{verb}({c}, a=1)" for c in back[on]))
+        cold = solo.execute("bench", q)
+        if cold != count0 or ex.execute_serving("bench", q) != count0:
+            raise AssertionError(f"9d: after writing back {q} is {cold}, "
+                                 f"before 9d {count0}")
+        print(f"9d: {len(back[1])} Set and {len(back[0])} Clear wrote a "
+              f"back: {q} is its count before 9d again, cold and standing")
     finally:
         layer.close()
 
@@ -4275,6 +4352,588 @@ def phase_serving(h, device, note) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"9: {time.perf_counter() - t_all:.1f} s")
+
+
+# phase 10: a node over HTTP on the headline holder
+NODE_SEED = 2031
+NODE_REPS = 3            # warm HTTP and in-process calls a query
+INGEST_CLIENTS = 8
+INGEST_BATCHES = 6       # /ingest POSTs a client
+INGEST_WRITES = 64       # columns a POST: 32 Set, 16 Clear of a, 16 age
+INGEST_SHARDS = 32       # the leading shards 10b's columns fall in
+KAFKA_RECORDS = 1 << 14  # records a topic, JSON and Avro
+KAFKA_SHARDS = 16        # shards the stream's record ids fall in
+CLI_RECORDS = 1 << 17    # CSV records of 10e, over CLI_SHARDS shards
+CLI_SHARDS = 16
+CLI_SECRET = "chip-smoke-node-secret"
+SLO_WINDOW_S = 3.0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ms_stats(xs) -> str:
+    """p50 and p99 of times in ms."""
+    if not xs:
+        return "none"
+    xs = sorted(xs)
+    p99 = xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+    return f"p50 {statistics.median(xs):.3f} ms, p99 {p99:.3f} ms"
+
+
+def phase_node(h, want: dict, sql_want: dict, root: str, note) -> None:
+    """Phase 10 (see the module docstring): the port's Server on the
+    headline holder that phases 8-9 served, then a CLI node in a
+    subprocess."""
+    import os
+
+    from pilosa_tpu_torch import config
+    from pilosa_tpu_torch.server.http import Server
+
+    t_all = time.perf_counter()
+    path = os.path.join(root, "node.toml")
+    with open(path, "w") as f:
+        f.write('bind = "127.0.0.1"\nport = 0\ngrpc-port = -1\n\n'
+                '[serving]\nbatching = true\n\n[ingest]\nstream = true\n'
+                'sync = true\n')
+    cfg = config.load(path, env={})
+    # the rows phases 8-9 wrote (9d's a and its write-back, the events
+    # index) are synced first: the node's first acknowledged write would
+    # otherwise wait on persisting them
+    t0 = time.perf_counter()
+    h.sync()
+    print(f"10: the holder's rows dirtied since 6a synced in "
+          f"{time.perf_counter() - t0:.1f} s before the node takes writes")
+    srv = Server(holder=h, bind=cfg.bind, port=cfg.port, config=cfg)
+    srv.start()
+    try:
+        host = f"127.0.0.1:{srv.port}"
+        print(f"10: Server on {host} from {path} (grpc-port {cfg.grpc_port}, "
+              f"serving and the stream writer at their defaults, device "
+              f"{srv.api.executor.device}, durable acks "
+              f"{srv.api.durable_writes}) ({card_line()})")
+        p50s = node_queries(srv, host, want, sql_want, note)
+        node_ingest(srv, host, note)
+        node_kafka(srv, note)
+        node_txn_slo(srv, host, p50s, cfg, note)
+    finally:
+        srv.close()
+    node_cli(root, note)
+    print(f"10: {time.perf_counter() - t_all:.1f} s")
+
+
+def node_queries(srv, host, want, sql_want, note) -> dict:
+    """10a: phase 4's query set and 5c's statements over HTTP."""
+    import torch
+    from pilosa_tpu_torch import client
+    from pilosa_tpu_torch.obs import metrics
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.sql import SQLEngine
+
+    # solo: Executor.execute and SQLEngine's host path on the node's
+    # executor, its serving layer set aside (no result cache, batcher or
+    # serving arm between); the stacks built here serve the HTTP calls
+    t0 = time.perf_counter()
+    solo = srv.api.executor
+    seng = SQLEngine(srv.holder, executor=solo)
+    layer, solo.serving = solo.serving, None
+    expect = {}
+    try:
+        solo_answers(solo, seng, want, sql_want, expect)
+    finally:
+        solo.serving = layer
+    torch.cuda.synchronize()
+    del seng
+    print(f"10a: {len(expect)} solo answers in {time.perf_counter() - t0:.1f}"
+          f" s, each equal to numpy")
+    cl = client.Client(host)
+    bench = client.Schema().index("bench")
+    api = srv.api
+    p50s = {}
+
+    def routes() -> dict:
+        return {k: metrics.SERVING_BATCHED.value(route=k)
+                for k in ("fused", "cached", "direct", "standing")}
+    K.reset_launches()
+    r0 = routes()
+    t0 = time.perf_counter()
+    for (kind, q), exp in expect.items():
+        http_ms, local_ms = [], []
+        for _ in range(1 + NODE_REPS):
+            t1 = time.perf_counter()
+            got = (cl.query(client.PQL(bench, q)) if kind == "pql"
+                   else cl.sql(q)["data"])
+            http_ms.append((time.perf_counter() - t1) * 1e3)
+            if got != exp:
+                raise AssertionError(f"10a HTTP {q}: {str(got)[:200]} != "
+                                     f"solo {str(exp)[:200]}")
+            t1 = time.perf_counter()
+            got = json.loads(json.dumps(
+                api.query("bench", q)["results"] if kind == "pql"
+                else api.sql(q)["data"]))
+            local_ms.append((time.perf_counter() - t1) * 1e3)
+            if got != exp:
+                raise AssertionError(f"10a in-process {q}: {str(got)[:200]}"
+                                     f" != solo {str(exp)[:200]}")
+        p50s[q] = statistics.median(http_ms[1:])
+        print(f"10a: {q[:70]}: first {http_ms[0]:.2f} ms over HTTP; warm "
+              f"p50 {p50s[q]:.3f} ms over HTTP, "
+              f"{statistics.median(local_ms[1:]):.3f} ms in-process "
+              f"(API.query/API.sql, result cache on)")
+    http = dict(K.LAUNCHES)
+    r1 = routes()
+    note("10a", http)
+    print(f"10a: serving routes over HTTP "
+          f"{ {k: r1[k] - r0[k] for k in r1} }")
+    need = ["groupby_fused", "groupby_sum", "bsi_sum_counts", "bsi_range",
+            "assemble_pages"]
+    counting = ("popcount_rows", "pair_popcount", "rows_filter_counts",
+                "segment_count")
+    if any(http[k] == 0 for k in need) or \
+            not any(http[k] for k in counting):
+        raise AssertionError(f"10a: launches {http}, expected each of "
+                             f"{need} and a counting kernel")
+    print(f"10a: {len(expect)} answers over HTTP equal to solo, in "
+          f"{time.perf_counter() - t0:.1f} s ({card_line()})")
+    return p50s
+
+
+def solo_answers(ex, seng, want: dict, sql_want: dict, expect: dict):
+    """10a's solo pass: each query of want through ex.execute and each
+    statement of sql_want through seng, held to numpy, their JSON put
+    in expect under ("pql" | "sql", text)."""
+    from pilosa_tpu_torch.api import _json_value, serialize_result
+    for q, w in want.items():
+        res = ex.execute("bench", q)
+        if normalise(res[0]) != w:
+            raise AssertionError(f"10a {q}: solo {str(res)[:200]} != "
+                                 f"numpy {str(w)[:200]}")
+        expect[("pql", q)] = json.loads(json.dumps(
+            [serialize_result(r) for r in res]))
+    for q, w in sql_want.items():
+        rows = seng.query_one(q).rows
+        if rows != w:
+            raise AssertionError(f"10a {q}: solo {str(rows)[:200]} != "
+                                 f"numpy {str(w)[:200]}")
+        expect[("sql", q)] = json.loads(json.dumps(
+            [[_json_value(v) for v in r] for r in rows]))
+
+
+def node_ingest(srv, host, note) -> None:
+    """10b: 8 clients streaming writes through /index/bench/ingest."""
+    import numpy as np
+    from pilosa_tpu_torch.cluster.client import InternalClient
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.obs import flight
+    from pilosa_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(NODE_SEED)
+    n = INGEST_CLIENTS * INGEST_BATCHES * INGEST_WRITES
+    cols = np.unique(rng.integers(0, INGEST_SHARDS * W * 32, size=2 * n))
+    cols = rng.permutation(cols)[:n].reshape(
+        INGEST_CLIENTS, INGEST_BATCHES, INGEST_WRITES)
+    vals = rng.integers(0, 1 << DEPTH, size=cols.shape)
+    flat = sorted(int(c) for c in cols.reshape(-1))
+    solo = Executor(srv.holder)
+    const = f"ConstRow(columns={flat})"
+    pre_a = set(solo.execute("bench", f"Intersect(Row(a=1), {const})")[0]
+                .columns().tolist())
+    ext = solo.execute("bench", f"Extract({const}, Rows(age))")[0]
+    pre_age = {e["column"]: e["rows"][0] for e in ext.columns}
+    a0 = solo.execute("bench", "Count(Row(a=1))")[0]
+    s0 = solo.execute("bench", "Sum(field=age)")[0]
+    cache = srv.api.executor.stacked.cache
+    was = cache.counters()
+    keys_before = set(cache.keys())
+    lat: list = []
+    errors: list = []
+    w0, m0 = srv.stream.windows_landed, srv.stream.mutations_landed
+    lat_lock = threading.Lock()
+
+    def client_run(i):
+        ic = InternalClient(timeout=120.0)
+        try:
+            for b in range(INGEST_BATCHES):
+                c = cols[i, b].tolist()
+                sets, clears, vcols = c[:32], c[32:48], c[48:]
+                v = vals[i, b, 48:].tolist()
+                body = {"writes": [
+                    {"field": "a", "rows": [1] * 32, "columns": sets},
+                    {"field": "a", "rows": [1] * 16, "columns": clears,
+                     "clear": True},
+                    {"field": "age", "columns": vcols, "values": v}]}
+                t1 = time.perf_counter()
+                got = ic._request(host, "POST", "/index/bench/ingest", body)
+                with lat_lock:
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                if got["landed"] != INGEST_WRITES:
+                    raise AssertionError(f"client {i}: landed {got}")
+                # read your own acknowledged write
+                r = ic._request(host, "POST", "/index/bench/query", {
+                    "query": f"Count(Intersect(Row(a=1), ConstRow(columns="
+                             f"{sorted(sets + clears)}))) Sum(ConstRow("
+                             f"columns={sorted(vcols)}), field=age)"})
+                if r["results"] != [32, {"value": sum(v), "count": 16}]:
+                    raise AssertionError(f"client {i} batch {b}: read "
+                                         f"{r['results']} after its ack")
+        except BaseException as e:
+            errors.append(e)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client_run, args=(i,))
+               for i in range(INGEST_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    took = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    windows = srv.stream.windows_landed - w0
+    muts = srv.stream.mutations_landed - m0
+    recs = [r for r in flight.recorder.recent(len(flight.recorder))
+            if r.get("route") == "ingest" and r.get("start", 0) >= time.time()
+            - took - 1]
+    phases = {k: statistics.median([r["phases"].get(k, 0.0) for r in recs])
+              for k in ("apply", "maintain", "sync")} if recs else {}
+    posts = INGEST_CLIENTS * INGEST_BATCHES
+    print(f"10b: {INGEST_CLIENTS} clients x {INGEST_BATCHES} POSTs of "
+          f"{INGEST_WRITES} writes over {INGEST_SHARDS} shards (sync on): "
+          f"{windows} windows landed, "
+          f"{3 * posts / max(windows, 1):.2f} submits a window, {muts} "
+          f"mutations in {took:.2f} s ({muts / took:.0f} mutations/s); ack "
+          f"{ms_stats(lat)}; window phases p50 (ms) {phases} over "
+          f"{len(recs)} flight records; every read after an ack counted "
+          f"its own writes ({card_line()})")
+    # the mirror: a's row 1 and age's values at the written columns
+    sets = {int(c) for c in cols[:, :, :32].reshape(-1)}
+    clears = {int(c) for c in cols[:, :, 32:48].reshape(-1)}
+    a_want = a0 + len(sets - pre_a) - len(clears & pre_a)
+    vc = cols[:, :, 48:].reshape(-1).tolist()
+    vv = vals[:, :, 48:].reshape(-1).tolist()
+    old = [pre_age[c] for c in vc]
+    s_want = (s0.value - sum(x for x in old if x is not None) + sum(vv),
+              s0.count + sum(x is None for x in old))
+    got_a = srv.api.query("bench", "Count(Row(a=1))")["results"][0]
+    now = cache.counters()
+    got_s = srv.api.query("bench", "Sum(field=age)")["results"][0]
+    if got_a != a_want or (got_s["value"], got_s["count"]) != s_want:
+        raise AssertionError(f"10b: after the storm Count(Row(a=1)) {got_a},"
+                             f" Sum(field=age) {got_s}; mirror {a_want}, "
+                             f"{s_want}")
+    for q, w in (("Count(Row(a=1))", a_want), ("Sum(field=age)", s_want)):
+        r = normalise(solo.execute("bench", q)[0])
+        if r != w:
+            raise AssertionError(f"10b: solo {q} {r} != mirror {w}")
+    builds = {k: n - was["rebuilds"].get(k, 0)
+              for k, n in now["rebuilds"].items()
+              if n != was["rebuilds"].get(k, 0)}
+    new = [k for k in cache.keys() if k not in keys_before]
+    print(f"10b: Count(Row(a=1)) {got_a} and Sum(field=age) {got_s} equal "
+          f"the mirror; the storm's reads and the first read after it: "
+          f"patches "
+          f"{now['patches'] - was['patches']}, patched bytes "
+          f"{now['patched_bytes'] - was['patched_bytes']}, rebuilds {builds}"
+          f", new keys {len(new)}")
+    if now["patches"] == was["patches"] or set(builds) - {"cold"} or \
+            builds.get("cold", 0) > len(new):
+        raise AssertionError(f"10b: the stale stacks were not all patched: "
+                             f"rebuilds {builds}")
+    note("10b", dict(K.LAUNCHES))
+    del solo
+
+
+def node_kafka(srv, note) -> None:
+    """10c: JSON and Avro records from an in-process Broker through
+    StreamSource, Pipeline and a StreamImporter on the node's writer,
+    with crash-pre-commit armed once."""
+    import numpy as np
+    from pilosa_tpu_torch.ingest import Pipeline, avro, kafka, stream
+    from pilosa_tpu_torch.obs import faults
+    from pilosa_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(NODE_SEED + 1)
+    ids = rng.permutation(np.unique(rng.integers(
+        0, KAFKA_SHARDS * W * 32, size=3 * KAFKA_RECORDS)))[
+        :2 * KAFKA_RECORDS]
+    jids, aids = ids[:KAFKA_RECORDS].tolist(), ids[KAFKA_RECORDS:].tolist()
+    jrow = rng.integers(0, 8, size=KAFKA_RECORDS).tolist()
+    jval = rng.integers(0, 1 << 20, size=KAFKA_RECORDS).tolist()
+    arows = [sorted(set(rng.integers(0, 8, size=int(k)).tolist()))
+             for k in rng.integers(1, 3, size=KAFKA_RECORDS)]
+    aval = rng.integers(-(1 << 40), 1 << 40, size=KAFKA_RECORDS).tolist()
+    broker = kafka.Broker(n_partitions=4)
+    for i, c in enumerate(jids):
+        broker.produce("json", {"_id": c, "jf": jrow[i], "jv": jval[i]},
+                       key=c)
+    schema = {"type": "record", "name": "ev", "fields": [
+        {"name": "_id", "type": "long"},
+        {"name": "af", "type": {"type": "array", "items": "long"}},
+        {"name": "av", "type": "long"}]}
+    reg = avro.SchemaRegistry()
+    sid = reg.register("avro-value", schema)
+    for i, c in enumerate(aids):
+        broker.produce("avro", avro.frame(sid, avro.encode(
+            schema, {"_id": c, "af": arows[i], "av": aval[i]})), key=c)
+    imp = stream.StreamImporter(srv.api, srv.stream)
+    jschema = {"jf": {"type": "set"},
+               "jv": {"type": "int", "min": 0, "max": 1 << 20}}
+    K.reset_launches()
+
+    def run(src, label):
+        t0 = time.perf_counter()
+        p = Pipeline(src, imp, "kf", batch_size=4096)
+        p.apply_schema()
+        n = p.run()
+        took = time.perf_counter() - t0
+        print(f"10c: {label}: {n} records in {took:.2f} s "
+              f"({n / took:.0f} records/s) ({card_line()})")
+        return n
+    faults.inject("crash-pre-commit", times=1)
+    t0 = time.perf_counter()
+    try:
+        run(kafka.StreamSource(broker, "json", group="g", schema=jschema),
+            "json, crash-pre-commit armed")
+    except faults.InjectedFault:
+        print(f"10c: json: the crash-pre-commit fault fired after "
+              f"{time.perf_counter() - t0:.2f} s; committed offsets "
+              f"{broker.committed('g', 'json')}")
+    else:
+        raise AssertionError("10c: crash-pre-commit never fired")
+    finally:
+        faults.clear("crash-pre-commit")
+    src = kafka.StreamSource(broker, "json", group="g", schema=jschema)
+    run(src, "json, the restarted consumer")
+    if src.replayed == 0:
+        raise AssertionError("10c: the restarted consumer replayed nothing")
+    run(avro.AvroStreamSource(broker, "avro", reg, group="g"), "avro")
+    for topic in ("json", "avro"):
+        done = broker.committed("g", topic)
+        if any(done.get(p, 0) != broker.head(topic, p)
+               for p in broker.partitions(topic)):
+            raise AssertionError(f"10c: {topic} offsets {done} short of "
+                                 f"the heads")
+    jcounts = np.bincount(jrow, minlength=8).tolist()
+    acounts = [sum(r in rs for rs in arows) for r in range(8)]
+    q = " ".join([f"Count(Row(jf={r}))" for r in range(8)]
+                 + [f"Count(Row(af={r}))" for r in range(8)]
+                 + ["Sum(field=jv)", "Sum(field=av)", "Count(All())"])
+    got = srv.api.query("kf", q)["results"]
+    exp = jcounts + acounts + [{"value": sum(jval), "count": KAFKA_RECORDS},
+                               {"value": sum(aval), "count": KAFKA_RECORDS},
+                               2 * KAFKA_RECORDS]
+    if got != exp:
+        raise AssertionError(f"10c: {got} != numpy {exp}")
+    print(f"10c: {src.replayed} records re-delivered after the crash; "
+          f"every count and sum of index kf equals numpy, no acknowledged "
+          f"record lost")
+    note("10c", dict(K.LAUNCHES))
+
+
+def node_txn_slo(srv, host, p50s, cfg, note) -> None:
+    """10d: writes under an exclusive transaction, then the SLO plane."""
+    import numpy as np
+    from pilosa_tpu_torch.cluster.client import InternalClient, RemoteError
+    from pilosa_tpu_torch.obs import incidents, slo
+    from pilosa_tpu_torch.ops import kernels as K
+
+    ic = InternalClient()
+    rng = np.random.default_rng(NODE_SEED + 2)
+    c1, c2, c3 = (int(x) for x in rng.integers(0, S * W * 32, size=3))
+    writes = [
+        ("PQL Set", "POST", "/index/bench/query",
+         {"query": f"Set({c1}, a=1)"}),
+        ("import", "POST", "/index/bench/field/a/import",
+         {"rows": [1], "columns": [c2]}),
+        ("SQL INSERT", "POST", "/sql",
+         {"sql": f"INSERT INTO bench (_id, age) VALUES ({c3}, 7)"})]
+    K.reset_launches()
+    tx = ic._request(host, "POST", "/transaction",
+                     {"exclusive": True, "timeout": 120})
+    if not tx["active"]:
+        raise AssertionError(f"10d: transaction {tx} not active")
+    for label, m, p, body in writes:
+        try:
+            ic._request(host, m, p, body)
+        except RemoteError as e:
+            if e.status != 409:
+                raise
+        else:
+            raise AssertionError(f"10d: {label} landed under the exclusive "
+                                 f"transaction")
+    ic._request(host, "POST", f"/transaction/{tx['id']}/finish")
+    took = []
+    for label, m, p, body in writes:
+        t0 = time.perf_counter()
+        ic._request(host, m, p, body)
+        took.append(f"{label} {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    got = ic._request(host, "POST", "/index/bench/query", {
+        "query": f"Count(Intersect(Row(a=1), ConstRow(columns="
+                 f"{sorted([c1, c2])}))) Sum(ConstRow(columns=[{c3}]), "
+                 f"field=age)"})["results"]
+    if got != [2, {"value": 7, "count": 1}]:
+        raise AssertionError(f"10d: after the transaction {got}")
+    print(f"10d: PQL Set, import and SQL INSERT answered 409 under the "
+          f"exclusive transaction and landed after it finished (each "
+          f"acknowledged after the index's sync: {', '.join(took)})")
+    body = ic._request(host, "GET", "/debug/slo")
+    if body["windows"] != ["5m", "1h", "6h"]:
+        raise AssertionError(f"10d: /debug/slo windows {body['windows']}")
+    thr = min(p50s.values()) / 10
+    t = slo.configure(latency_ms=thr, windows=f"{SLO_WINDOW_S:g}s")
+    t.sample()
+    t0 = time.perf_counter()
+    n = 0
+    while time.perf_counter() - t0 < SLO_WINDOW_S * 0.93:
+        ic._request(host, "POST", "/index/bench/query",
+                    {"query": f"Count(Row(t={n % R}))",
+                     "shards": [n % S]})
+        n += 1
+
+    def burns():
+        return [m for m in incidents.get().list(1000)
+                if m["trigger"] == "slo-burn"]
+    before = len(burns())
+    slo.tick()
+    incidents.get().wait_idle(30)
+    listed = ic._request(host, "GET", "/debug/incidents")["incidents"]
+    fired = [m for m in listed if m["trigger"] == "slo-burn"]
+    ev = t.evaluate()["slos"]["latency"]["windows"]
+    if len(burns()) != before + 1 or not fired:
+        raise AssertionError(f"10d: no slo-burn incident: {ev}")
+    print(f"10d: /debug/slo windows {body['windows']}; under latency-ms "
+          f"{thr:.4f} (a tenth of the smallest 10a HTTP p50) and a "
+          f"{SLO_WINDOW_S:g} s window, {n} queries and one slo.tick() "
+          f"reported slo-burn {fired[0]['detail']} at /debug/incidents "
+          f"(burn {ev})")
+    cfg.apply_slo_settings()
+    note("10d", dict(K.LAUNCHES))
+
+
+def node_cli(root, note) -> None:
+    """10e: `python -m pilosa_tpu_torch.cli.main server` in a subprocess
+    on the card, with an auth secret: the CLI import, queries through
+    Client and `cli.main sql`, a 401, SIGKILL and a restart."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    from pilosa_tpu_torch import client
+    from pilosa_tpu_torch.cli import main as climain
+    from pilosa_tpu_torch.cluster.client import InternalClient, RemoteError
+
+    def cli(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = climain.main(argv)
+        if rc != 0:
+            raise AssertionError(f"10e: cli {argv[0]} exited {rc}")
+        return out.getvalue()
+
+    data = os.path.join(root, "cli_node")
+    port = free_port()
+    host = f"127.0.0.1:{port}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "pilosa_tpu_torch.cli.main", "server",
+            "--data-dir", data, "--grpc-port", "-1", "--bind", "127.0.0.1",
+            "--port", str(port), "--auth-secret", CLI_SECRET]
+    env = dict(os.environ, PYTHONPATH=repo)
+
+    def start():
+        t0 = time.perf_counter()
+        p = subprocess.Popen(argv, cwd=repo, env=env, text=True,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE)
+        lines: list = []
+        up = threading.Event()
+
+        def drain():
+            for ln in p.stderr:
+                lines.append(ln)
+                if "listening" in ln:
+                    up.set()
+        threading.Thread(target=drain, daemon=True).start()
+        if not up.wait(180):
+            p.kill()
+            raise AssertionError(f"10e: the node never listened: "
+                                 f"{''.join(lines)[-1500:]}")
+        return p, time.perf_counter() - t0
+
+    token = cli(["keygen", "--secret", CLI_SECRET]).strip()
+    rng = np.random.default_rng(NODE_SEED + 3)
+    ids = np.unique(rng.integers(0, CLI_SHARDS * W * 32, size=CLI_RECORDS))
+    rows = rng.integers(0, 6, size=ids.size)
+    ages = rng.integers(0, 100, size=ids.size)
+    csv = os.path.join(root, "cli.csv")
+    with open(csv, "w") as f:
+        f.write("_id,a:id,age:int\n")
+        f.writelines(f"{c},{r},{v}\n" for c, r, v in zip(
+            ids.tolist(), rows.tolist(), ages.tolist()))
+    p, up_s = start()
+    try:
+        print(f"10e: cli server on {host} listening after {up_s:.1f} s")
+        try:
+            InternalClient()._request(host, "POST", "/index/x/query",
+                                      {"query": "Count(All())"})
+        except RemoteError as e:
+            if e.status != 401:
+                raise
+        else:
+            raise AssertionError("10e: a request without a token answered")
+        t0 = time.perf_counter()
+        out = cli(["import", "--host", host, "--token", token, "-i", "clix",
+                   "--batch-size", "65536", csv])
+        took = time.perf_counter() - t0
+        print(f"10e: {out.strip()} through HTTPImporter in {took:.2f} s "
+              f"({ids.size / took:.0f} records/s)")
+        ic = InternalClient(headers={"Authorization": f"Bearer {token}"})
+        got = ic._request(host, "POST", "/index/clix/ingest", {"writes": [
+            {"field": "a", "rows": [9, 9], "columns": [5, int(ids[-1])]}]})
+        if got["landed"] != 2:
+            raise AssertionError(f"10e: ingest {got}")
+        cl = client.Client(host, token=token)
+        idx = client.Schema().index("clix")
+        q = client.PQL(idx, " ".join(
+            [f"Count(Row(a={r}))" for r in range(6)]
+            + ["Count(Row(a=9))", "Sum(field=age)", "Count(All())"]))
+        exp = np.bincount(rows, minlength=6).tolist() + [
+            2, {"value": int(ages.sum()), "count": int(ids.size)},
+            int(ids.size) + (0 if 5 in set(ids.tolist()) else 1)]
+        before = cl.query(q)
+        if before != exp:
+            raise AssertionError(f"10e: {before} != numpy {exp}")
+        sql = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli.main", "sql",
+             "--host", host, "--token", token], cwd=repo, env=env,
+            input="SELECT COUNT(*) FROM clix;\nSELECT SUM(age) FROM clix;\n",
+            capture_output=True, text=True, timeout=120)
+        if sql.returncode != 0 or str(exp[-1]) not in sql.stdout or \
+                str(int(ages.sum())) not in sql.stdout:
+            raise AssertionError(f"10e: cli sql: {sql.stdout[-500:]} "
+                                 f"{sql.stderr[-500:]}")
+        print(f"10e: Client and `cli.main sql` answers equal numpy "
+              f"({exp[-1]} records)")
+        p.kill()
+        p.wait(60)
+        t0 = time.perf_counter()
+        p, up_s = start()
+        after = cl.query(q)
+        first = time.perf_counter() - t0
+        if after != before:
+            raise AssertionError(f"10e: after SIGKILL and a restart {after} "
+                                 f"!= {before}")
+        print(f"10e: SIGKILL, restart on {data}: listening after {up_s:.1f} "
+              f"s, first answer {first:.1f} s after the restart began; "
+              f"every acknowledged write read back ({card_line()})")
+    finally:
+        p.kill()
+        p.wait(60)
 
 
 def _page_kinds(ps):

@@ -6,9 +6,12 @@ words of the reference.  The query path is PQL → ``Executor.execute``
 → the stacked engine (``executor/stacked.py``) → hand-written CUDA
 kernels (``ops/kernels.py``, ``ops/csrc/``).
 
-``api.API`` is the facade a server calls (queries, schema, imports,
-key translation); ``ingest`` batches records into it; a holder given
-a path persists in RBF files (``storage``) and reopens from them.
+``api.API`` is the facade the server (``server/http.py``, started by
+``python -m pilosa_tpu_torch.cli.main server``) calls: queries, SQL,
+schema, imports, key translation, transactions; ``ingest`` batches
+records into it and ``ingest/stream.py`` coalesces streamed writes into
+durable windows; a holder given a path persists in RBF files
+(``storage``) and reopens from them.
 
 The package imports ``torch`` and ``numpy`` only: nothing of JAX and
 nothing of ``pilosa_tpu``.  Its entry points run on the card unless

@@ -41,6 +41,7 @@ from decimal import Decimal
 import numpy as np
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.cluster.txn import TransactionError, TransactionManager
 from pilosa_tpu_torch.executor.executor import ExecError, Executor
 from pilosa_tpu_torch.executor.results import (
     DistinctValues,
@@ -62,7 +63,7 @@ from pilosa_tpu_torch.obs import tracing as _tr
 from pilosa_tpu_torch.obs.logger import StderrLogger
 from pilosa_tpu_torch.obs.tracing import RecordingTracer
 from pilosa_tpu_torch.ops import bitmap as bm
-from pilosa_tpu_torch.pql import ParseError
+from pilosa_tpu_torch.pql import ParseError, is_write_query
 from pilosa_tpu_torch.sql import SQLEngine, SQLError
 from pilosa_tpu_torch.storage import roaring
 
@@ -107,6 +108,30 @@ class API:
         self.logger = StderrLogger()
         self._import_locks: dict[str, threading.Lock] = {}
         self._import_locks_mu = threading.Lock()
+        # exclusive transactions (transaction.go:20): while one is
+        # active every write answers 409
+        self.txns = TransactionManager()
+        # when true (the server sets it for a holder on disk), a write
+        # returns only after its index's dirty rows are synced: an
+        # acknowledged write survives a kill, as a streamed one does
+        self.durable_writes = False
+
+    def _ack(self, index: str | None) -> None:
+        """The durability barrier of ``durable_writes`` after a write:
+        the index's sync, or with no index (SQL) the holder's."""
+        if not self.durable_writes:
+            return
+        if index is None:
+            self.holder.sync()
+        elif self.holder.index(index) is not None:
+            self.sync(index)
+
+    def _check_writable(self) -> None:
+        """Writes are refused while an exclusive transaction is active
+        (transaction.go: a backup quiesces the cluster)."""
+        if self.txns.exclusive_active():
+            raise ApiError(
+                "cluster is read-only: exclusive transaction active", 409)
 
     # -- queries -----------------------------------------------------------
 
@@ -121,6 +146,9 @@ class API:
         and a profiled query's span tree holds the phases its batch
         leader ran for it (tracing.capture_context / span_into)."""
         t0 = time.time()
+        write = is_write_query(pql)
+        if write:
+            self._check_writable()
         tracer = None
         # the long-query log records spans for every query, so a slow
         # one can show where its time went
@@ -135,6 +163,8 @@ class API:
         finally:
             if tracer is not None:
                 _tr.pop_thread_tracer(prev)
+        if write:
+            self._ack(index)
         resp = {"results": [serialize_result(r) for r in results]}
         if profile and tracer.roots:
             resp["profile"] = [sp.to_dict() for sp in tracer.roots]
@@ -149,11 +179,19 @@ class API:
         shed and deadline errors propagate)."""
         metrics.SQL_TOTAL.inc()
         t0 = time.time()
+        wrote = []
+
+        def guard():  # the engine calls it once when a statement writes
+            self._check_writable()
+            wrote.append(True)
+
         try:
-            res = self.sql_engine.query_one(statement, auth_check=auth_check,
-                                            qos=qos)
+            res = self.sql_engine.query_one(
+                statement, auth_check=auth_check, write_guard=guard, qos=qos)
         except (ExecError, SQLError, ParseError, ValueError, KeyError) as e:
             raise ApiError(str(e), 400) from e
+        if wrote:
+            self._ack(None)
         self._record_history("", statement, t0)
         return {
             "schema": {"fields": [{"name": n, "type": t}
@@ -308,6 +346,7 @@ class API:
         """Set (or with ``clear``, clear) the (row, column) pairs; keys
         are created as needed.  Returns the pairs set, or the bits a
         clear changed."""
+        self._check_writable()
         idx = self._index(index)
         f = self._field(idx, field)
         metrics.IMPORT_TOTAL.inc(index=index)
@@ -331,6 +370,7 @@ class API:
                                width=idx.width)
         self.sweep_import(index, {field}, cols,
                           mark_exists=mark_exists and not clear)
+        self._ack(index)
         return n
 
     def import_roaring(self, index: str, field: str, shard: int,
@@ -338,6 +378,7 @@ class API:
         """A roaring fragment import (api.go:1771 ImportRoaring): one
         official-format blob (bytes or base64) a row id, of
         shard-relative columns.  Returns the bits set or cleared."""
+        self._check_writable()
         idx = self._index(index)
         f = self._field(idx, field)
         metrics.IMPORT_TOTAL.inc(index=index)
@@ -372,6 +413,7 @@ class API:
         metrics.IMPORTED_BITS.inc(n, index=index)
         self.sweep_import(index, {field}, shards={int(shard)},
                           mark_exists=True)
+        self._ack(index)
         return n
 
     def export_roaring(self, index: str, field: str, shard: int,
@@ -388,6 +430,7 @@ class API:
                       col_keys=None, clear: bool = False,
                       mark_exists: bool = True) -> int:
         """Store (or with ``clear``, drop) BSI values at the columns."""
+        self._check_writable()
         idx = self._index(index)
         f = self._field(idx, field)
         metrics.IMPORT_TOTAL.inc(index=index)
@@ -410,6 +453,7 @@ class API:
                                width=idx.width)
         self.sweep_import(index, {field}, cols,
                           mark_exists=mark_exists and not clear)
+        self._ack(index)
         return n
 
     def mark_columns_exist(self, index: str, cols) -> None:
@@ -419,11 +463,13 @@ class API:
         with self._import_lock(index):
             idx.mark_columns_exist(cols)
         self.sweep_import(index, set(), cols, mark_exists=True)
+        self._ack(index)
 
     def clear_field_columns(self, index: str, field: str, cols,
                             mark_exists: bool = True) -> int:
         """Drop every bit the field holds at the columns, in every view
         (a record's field set to NULL); the records still exist."""
+        self._check_writable()
         idx = self._index(index)
         f = self._field(idx, field)
         by_shard: dict[int, list[int]] = {}
@@ -440,6 +486,7 @@ class API:
             if mark_exists:
                 idx.mark_columns_exist(cols)
         self.sweep_import(index, {field}, cols, mark_exists=mark_exists)
+        self._ack(index)
         return len(cols)
 
     def import_columns(self, index: str, cols, bits: dict | None = None,
@@ -450,6 +497,7 @@ class API:
         ``workers`` threads (each writes only its own fragments, and
         numpy releases the interpreter lock); the records are marked
         once.  Returns columns x fields."""
+        self._check_writable()
         idx = self._index(index)
         jobs = []
         for fname, rows in (bits or {}).items():
@@ -470,6 +518,7 @@ class API:
         metrics.IMPORTED_BITS.inc(len(cols) * len(jobs), index=index)
         self.sweep_import(index, set(bits or {}) | set(values or {}), cols,
                           mark_exists=True)
+        self._ack(index)
         return len(cols) * len(jobs)
 
     def sync(self, index: str) -> None:
@@ -495,6 +544,28 @@ class API:
             m = idx.column_translator.create_keys(*col_keys)
             return [m[k] for k in col_keys]
         return cols if cols is not None else []
+
+    # -- transactions (api.go StartTransaction; transaction.go) ------------
+
+    def start_transaction(self, id=None, exclusive: bool = False,
+                          timeout: float | None = None) -> dict:
+        try:
+            return self.txns.start(id=id, timeout=timeout,
+                                   exclusive=exclusive).to_dict()
+        except TransactionError as e:
+            raise ApiError(str(e), 409) from e
+
+    def finish_transaction(self, tid: str) -> dict:
+        try:
+            return self.txns.finish(tid).to_dict()
+        except TransactionError as e:
+            raise ApiError(str(e), 404) from e
+
+    def get_transaction(self, tid: str) -> dict:
+        try:
+            return self.txns.get(tid).to_dict()
+        except TransactionError as e:
+            raise ApiError(str(e), 404) from e
 
     # -- introspection -----------------------------------------------------
 

@@ -9,11 +9,15 @@
 - ``Pipeline`` (idk/ingest.go:59 Main): Source → schema → batches →
   imports, with per-worker clones and offset commits.
 - Sources (idk/csv, idk/datagen, idk/kafka): CSV files with typed
-  headers, a seeded generator, and a Kafka gate.
+  headers, a seeded generator, and a Kafka gate; ``kafka.py`` and
+  ``avro.py`` hold the in-process broker's consumer-group sources.
+- ``StreamWriter`` / ``StreamImporter`` (``stream.py``): the
+  crash-consistent streaming write plane — coalesced windows, acks
+  after the durable land, bounded backlogs.
 """
 
 from pilosa_tpu_torch.ingest.batch import Batch, Record
-from pilosa_tpu_torch.ingest.importer import APIImporter, Importer
+from pilosa_tpu_torch.ingest.importer import APIImporter, HTTPImporter, Importer
 from pilosa_tpu_torch.ingest.pipeline import Pipeline
 from pilosa_tpu_torch.ingest.sources import (
     CSVSource,
@@ -21,6 +25,14 @@ from pilosa_tpu_torch.ingest.sources import (
     KafkaSource,
     Source,
 )
+from pilosa_tpu_torch.ingest.stream import (
+    MutationError,
+    StreamImporter,
+    StreamWriter,
+    WriteBacklogError,
+)
 
-__all__ = ["Batch", "Record", "Importer", "APIImporter", "Pipeline",
-           "Source", "CSVSource", "DatagenSource", "KafkaSource"]
+__all__ = ["Batch", "Record", "Importer", "APIImporter", "HTTPImporter",
+           "Pipeline", "Source", "CSVSource", "DatagenSource", "KafkaSource",
+           "StreamWriter", "StreamImporter", "WriteBacklogError",
+           "MutationError"]

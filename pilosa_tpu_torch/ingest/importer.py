@@ -1,8 +1,8 @@
 """Importer — the bridge from client-side batches to the engine.
 
 The reference's ``Importer`` interface (importer.go:13) and its
-in-process implementation over the API (importer.go:34).  An importer
-over HTTP waits for the port's server.
+in-process implementation over the API (importer.go:34), and
+``HTTPImporter`` over a node's HTTP import endpoints.
 """
 
 from __future__ import annotations
@@ -72,3 +72,54 @@ class APIImporter(Importer):
         transaction a shard, the WAL fsynced): a no-op for an index
         without a path."""
         self.api.sync(index)
+
+
+class HTTPImporter(Importer):
+    """Importer over the HTTP import endpoints of a node: the
+    client-side half of the reference's shard-transactional import path
+    (client/client.go import; api.go:618).  Every import the node
+    acknowledges has landed there."""
+
+    def __init__(self, host: str, client=None):
+        from pilosa_tpu_torch.cluster.client import InternalClient
+        # InternalClient addresses are host:port; tolerate a scheme
+        self.host = host.split("://", 1)[-1]
+        self.client = client or InternalClient()
+
+    def import_bits(self, index, field, rows, cols, timestamps=None,
+                    clear=False, mark_exists=True):
+        return self.client.import_bits(self.host, index, field, rows, cols,
+                                       timestamps=timestamps, clear=clear)
+
+    def import_values(self, index, field, cols, values, clear=False,
+                      mark_exists=True):
+        return self.client.import_values(self.host, index, field, cols,
+                                         values, clear=clear)
+
+    def create_keys(self, index, field, keys):
+        ids = self.client.create_keys(self.host, index, field, list(keys))
+        return dict(zip(keys, ids))
+
+    def apply_schema(self, schema):
+        self.client._request(self.host, "POST", "/schema", schema)
+
+    def import_columns(self, index, cols, bits=None, values=None) -> int:
+        """A columnar binary import (POST /index/{i}/import-columns, an
+        .npz payload), the bulk path of an out-of-process ingester
+        (idk/ingest.go:319's per-clone shard imports)."""
+        import io
+        import json
+
+        import numpy as np
+        buf = io.BytesIO()
+        arrays = {"cols": np.asarray(cols, dtype=np.int64)}
+        for f, rows in (bits or {}).items():
+            arrays[f"bits/{f}"] = np.asarray(rows, dtype=np.int64)
+        for f, vals in (values or {}).items():
+            arrays[f"values/{f}"] = np.asarray(vals, dtype=np.int64)
+        np.savez(buf, **arrays)
+        # through the shared client, so auth headers and RemoteError
+        # handling match the other methods
+        raw = self.client.post_raw(
+            self.host, f"/index/{index}/import-columns", buf.getvalue())
+        return json.loads(raw)["imported"]

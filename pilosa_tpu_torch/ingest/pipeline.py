@@ -103,11 +103,13 @@ class Pipeline:
     def _alloc_session(self, n: int) -> bytes:
         """The reservation session of the batch a worker starts after n
         records: the same batch retried reserves the same session, and
-        so the same id range (idalloc.go:127).  The middle field is the
-        source position of the JAX package's streaming sources, which
-        the port does not have; it stays in the key so that both
-        packages name a session alike."""
-        return hashlib.blake2b(f"{self.index}|None|{n}".encode(),
+        so the same id range (idalloc.go:127).  The middle field is a
+        streaming source's position (``ingest/kafka.StreamSource``'s
+        last pending offset), None for the other sources."""
+        pos = None
+        if getattr(self.source, "_pending", None):
+            pos = self.source._pending[-1]
+        return hashlib.blake2b(f"{self.index}|{pos}|{n}".encode(),
                                digest_size=16).digest()
 
     def _run_worker(self, records, worker: int = 0) -> int:

@@ -1,4 +1,5 @@
-"""Ingest sources — CSV, datagen, and the Kafka gate.
+"""Ingest sources — CSV, datagen, and the Kafka gate (the in-process
+broker's consumer is ``ingest/kafka.py``).
 
 idk's pluggable ``Source`` (idk/kafka/source.go:34, idk/csv,
 idk/datagen): a source yields ``Record``s and carries a field schema.
@@ -161,11 +162,13 @@ class DatagenSource(Source):
 
 
 class KafkaSource(Source):
-    """The gate of a Kafka consumer (idk/kafka/source.go:34): there is
-    no Kafka client here, and the streaming write plane that would take
-    its records is not ported."""
+    """The gate of a real Kafka consumer (idk/kafka/source.go:34), which
+    needs confluent-kafka.  ``ingest/kafka.StreamSource`` gives the full
+    consumer-group semantics (partitions, offset commits, resume) over
+    the in-process ``Broker``."""
 
     def __init__(self, *a, **kw):
         raise NotImplementedError(
-            "KafkaSource requires a kafka client (confluent-kafka) and "
-            "the streaming write plane, which the port does not have")
+            "KafkaSource requires a kafka client (confluent-kafka); "
+            "use pilosa_tpu_torch.ingest.kafka.StreamSource for the "
+            "in-process broker")

@@ -30,12 +30,17 @@ compares unequal, and a cache rebuilds.
 Given ``storage`` (the index's ``storage.shards.IndexStorage``), a
 fragment loads its rows from the shard's RBF file when it is made, and
 ``touch`` adds each written row to ``dirty_rows``, the rows the next
-``Index.sync`` persists.
+``Index.sync`` persists.  Every host mutation runs under the fragment's
+``lock``, which the sync also holds while it takes a fragment's dirty
+rows and writes their words: a sync sees each mutation whole, and a
+write that lands during a sync marks its row again for the next one.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
+import threading
 from collections import deque
 
 import numpy as np
@@ -64,6 +69,15 @@ _FRAG_GEN = itertools.count(1)
 # under-read, which forces a rebuild and never a stale serve (the
 # fragments' (gen, version) stamps stay the precise staleness test).
 _MUT_EPOCH = 0
+
+
+def _locked(fn):
+    """Run a host mutation under the fragment's lock."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with self.lock:
+            return fn(self, *args, **kwargs)
+    return run
 
 
 def bump_mutation_epoch() -> None:
@@ -111,6 +125,9 @@ class Fragment:
         self._cache_stale: dict[int, None] = {}
         # rows written since the last sync (IndexStorage.write_fragments)
         self.dirty_rows: set[int] = set()
+        # held by every host mutation and by the sync of this fragment
+        # (re-entrant: import_mutex and set_value call other mutations)
+        self.lock = threading.RLock()
         if storage is not None:
             # int64 arrays are sorted columns, uint32 arrays packed words
             for r, w in storage.load_rows(field, view, shard,
@@ -199,6 +216,7 @@ class Fragment:
 
     # -- host mutation -----------------------------------------------------
 
+    @_locked
     def set_row_words(self, row: int, words) -> None:
         """Replace a whole row (the Store and ClearRow write path; a
         scalar fills every word); it re-compresses under the
@@ -213,6 +231,7 @@ class Fragment:
             self._rows[row] = w
         self.touch(row)
 
+    @_locked
     def set_bit(self, row: int, col: int) -> bool:
         """Set one bit; True if it changed (fragment.setBit)."""
         if not 0 <= col < self.width:
@@ -233,6 +252,18 @@ class Fragment:
         self.touch(row, col >> 5, (col >> 5) + 1)
         return True
 
+    def contains(self, row: int, col: int) -> bool:
+        """Whether the bit (row, col) is set."""
+        words = self._rows.get(row)
+        if words is None:
+            arr = self._sparse.get(row)
+            if arr is None:
+                return False
+            i = int(np.searchsorted(arr, col))
+            return i < arr.size and int(arr[i]) == col
+        return bool((words[col >> 5] >> np.uint32(col & 31)) & 1)
+
+    @_locked
     def clear_bit(self, row: int, col: int) -> bool:
         words = self._rows.get(row)
         if words is None:
@@ -252,6 +283,7 @@ class Fragment:
         self.touch(row, col >> 5, (col >> 5) + 1)
         return True
 
+    @_locked
     def import_bits(self, rows, cols, clear: bool = False) -> None:
         """Bulk set/clear, one vectorised merge per distinct row
         (fragment.bulkImport semantics)."""
@@ -292,6 +324,7 @@ class Fragment:
                 words |= mask
             self.touch(r, wlo, whi)
 
+    @_locked
     def import_row_words(self, row: int, words) -> None:
         """Bulk dense-row import: OR pre-packed words into a row (the
         dense analog of fragment.importRoaring, fragment.go:2038)."""
@@ -299,6 +332,7 @@ class Fragment:
         np.bitwise_or(w, np.asarray(words, dtype=np.uint32), out=w)
         self.touch(row)
 
+    @_locked
     def clear_columns(self, mask_words: np.ndarray) -> bool:
         """Clear the masked columns in every row; True if any changed."""
         mask = np.asarray(mask_words, dtype=np.uint32)
@@ -321,6 +355,7 @@ class Fragment:
                 changed = True
         return changed
 
+    @_locked
     def import_mutex(self, rows, cols) -> None:
         """Mutex/bool bulk write: one row per column, the last write of
         a column winning; the column is cleared in every other row."""
@@ -336,6 +371,7 @@ class Fragment:
 
     # -- BSI mutation (fragment.setValueBase semantics) --------------------
 
+    @_locked
     def set_value(self, col: int, depth: int, value: int) -> bool:
         """Write one sign-magnitude value across the bit-plane rows."""
         uval = abs(int(value))
@@ -352,6 +388,7 @@ class Fragment:
             changed |= self.clear_bit(BSI_SIGN_BIT, col)
         return changed
 
+    @_locked
     def clear_value(self, col: int, depth: int) -> bool:
         """Drop a column's value: its bit in every plane, exists first."""
         changed = False
@@ -359,6 +396,7 @@ class Fragment:
             changed |= self.clear_bit(r, col)
         return changed
 
+    @_locked
     def import_values(self, cols, values, depth: int,
                       clear: bool = False) -> None:
         """Bulk BSI write (fragment.importValue): last write per column

@@ -239,9 +239,12 @@ class Index:
             return
         with self._lock:
             by_shard: dict[int, list] = {}
-            for f in self.fields.values():
-                for v in f.views.values():
-                    for frag in v.fragments.values():
+            # syncs of an index run one at a time under its lock, so a
+            # write's own sync ends after any sync that took its rows;
+            # writers may add views and fragments meanwhile
+            for f in list(self.fields.values()):
+                for v in list(f.views.values()):
+                    for frag in list(v.fragments.values()):
                         if frag.dirty_rows:
                             by_shard.setdefault(frag.shard, []).append(frag)
             for shard in sorted(by_shard):

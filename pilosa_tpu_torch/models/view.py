@@ -39,7 +39,8 @@ class View:
                          self.width, storage=self.storage,
                          cache_type=self.cache_type,
                          cache_size=self.cache_size)
-            self.fragments[shard] = f
+            # two writers making the shard's fragment at once keep one
+            f = self.fragments.setdefault(shard, f)
         return f
 
     @property

@@ -416,7 +416,9 @@ class StatsCatalog:
         return by_node, durs
 
     def payload(self, index: str | None = None,
-                fingerprint: str | None = None) -> dict:
+                fingerprint: str | None = None,
+                limit: int | None = None) -> dict:
+        """The /debug/stats answer; ``limit`` keeps the newest profiles."""
         self.fold()
         with self._lock:
             fields = {f"{i}/{f}": fs.payload()
@@ -425,6 +427,8 @@ class StatsCatalog:
             profs = [(fp, p.payload())
                      for fp, p in reversed(self._profiles.items())
                      if fingerprint is None or fp == fingerprint]
+        if limit is not None:
+            profs = profs[: max(0, int(limit))]
         return {"enabled": enabled(), "data": fields,
                 "runtime": dict(profs), "regressions": self.regressions(),
                 "knobs": {"heavy_cost_ms": self.heavy_cost_ms,

@@ -135,39 +135,51 @@ class IndexStorage:
 
     def write_fragments(self, frags) -> None:
         """Persist the dirty rows of fragments of ONE shard in one write
-        transaction, then clear their dirty sets.  A row written empty
-        removes its containers."""
+        transaction.  Each fragment's dirty rows are taken, and their
+        words written, under the fragment's lock: a write that lands
+        during the sync marks its row dirty again for the next sync.
+        Rows taken by a sync that fails stay dirty.  A row written
+        empty removes its containers."""
         if not frags:
             return
         shard = frags[0].shard
+        if any(frag.shard != shard for frag in frags):
+            raise ValueError("write_fragments takes one shard's fragments")
         db = self.db(shard)
-        with db.begin(write=True) as tx:
-            for frag in frags:
-                if frag.shard != shard:
-                    raise ValueError("write_fragments takes one shard's "
-                                     "fragments")
-                name = bitmap_name(frag.field_name, frag.view_name)
-                tx.create_bitmap(name)
-                tpr = tiles_per_row(frag.width)
-                nw = frag.width // 32
-                for row in sorted(frag.dirty_rows):
-                    words = frag.row_words(row)
-                    if nw < rbf.TILE_WORDS:
-                        tile = np.zeros(rbf.TILE_WORDS, dtype=np.uint32)
-                        tile[:nw] = words
-                        tx.put(name, row, tile)
-                        continue
-                    for t in range(tpr):
-                        tx.put(name, row * tpr + t, np.ascontiguousarray(
-                            words[t * rbf.TILE_WORDS:
-                                  (t + 1) * rbf.TILE_WORDS]))
-        path = self._shard_path(shard)
-        if faults.take("wal-torn", path):
-            self._tear_wal(shard)
-            raise faults.InjectedFault("wal-torn", path)
-        faults.fire("crash-pre-checkpoint", path)
-        for frag in frags:
-            frag.dirty_rows.clear()
+        taken = []  # (fragment, the rows this sync took from it)
+        try:
+            with db.begin(write=True) as tx:
+                for frag in frags:
+                    name = bitmap_name(frag.field_name, frag.view_name)
+                    tx.create_bitmap(name)
+                    tpr = tiles_per_row(frag.width)
+                    nw = frag.width // 32
+                    with frag.lock:
+                        rows, frag.dirty_rows = frag.dirty_rows, set()
+                        taken.append((frag, rows))
+                        for row in sorted(rows):
+                            words = frag.row_words(row)
+                            if nw < rbf.TILE_WORDS:
+                                tile = np.zeros(rbf.TILE_WORDS,
+                                                dtype=np.uint32)
+                                tile[:nw] = words
+                                tx.put(name, row, tile)
+                                continue
+                            for t in range(tpr):
+                                tx.put(name, row * tpr + t,
+                                       np.ascontiguousarray(words[
+                                           t * rbf.TILE_WORDS:
+                                           (t + 1) * rbf.TILE_WORDS]))
+            path = self._shard_path(shard)
+            if faults.take("wal-torn", path):
+                self._tear_wal(shard)
+                raise faults.InjectedFault("wal-torn", path)
+            faults.fire("crash-pre-checkpoint", path)
+        except BaseException:
+            for frag, rows in taken:
+                with frag.lock:
+                    frag.dirty_rows |= rows
+            raise
         if db.wal_size > CHECKPOINT_WAL_BYTES:
             db.checkpoint()  # skipped (False) while readers pin the WAL
 

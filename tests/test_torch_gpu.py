@@ -1457,3 +1457,56 @@ def test_segment_count_of_954_full_lanes(cuda):
         li = np.arange(n, dtype=np.int32)
         got = K.segment_count(pages, li, np.zeros(n, np.int32), 1)
         assert got.cpu().tolist() == [n << 20]
+
+
+def test_server_on_the_card_answers_over_http(cuda, tmp_path):
+    """A port node with no device argument serves from the card: Count,
+    TopN and a GroupBy over HTTP equal ``Executor.execute`` on the same
+    holder, and a write acknowledged by /index/{i}/ingest is counted by
+    the next read."""
+    import json
+    import urllib.request
+
+    from pilosa_tpu_torch import config
+    from pilosa_tpu_torch.api import serialize_result
+    from pilosa_tpu_torch.executor.executor import Executor
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.server.http import Server
+
+    rng = np.random.default_rng(3)
+    w = 1 << 16
+    h = Holder(width=w)
+    idx = h.create_index("i")
+    a, b = idx.create_field("a"), idx.create_field("b")
+    cols = np.unique(rng.integers(0, 8 * w, size=20000))
+    a.import_bits(rng.integers(0, 4, cols.size), cols)
+    b.import_bits(rng.integers(0, 3, cols.size), cols)
+    idx.mark_columns_exist(cols)
+    srv = Server(holder=h, port=0,
+                 config=config.load(None, env={},
+                                    overrides={"grpc_port": -1})).start()
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}{path}",
+            data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+    try:
+        assert srv.api.executor.device.type == "cuda"
+        solo = Executor(h, cuda)
+        for q in ("Count(Intersect(Row(a=1), Row(b=2)))", "TopN(a, n=3)",
+                  "GroupBy(Rows(a), Rows(b))"):
+            want = srv.api.query("i", q)["results"]
+            assert want == [serialize_result(r) for r in solo.execute("i", q)]
+            assert post("/index/i/query", {"query": q})["results"] == want
+        n0 = post("/index/i/query", {"query": "Count(Row(a=1))"})["results"][0]
+        free = int(np.setdiff1d(np.arange(8 * w), cols)[0])
+        got = post("/index/i/ingest", {"writes": [
+            {"field": "a", "rows": [1], "columns": [free]}]})
+        assert got["landed"] == 1
+        assert post("/index/i/query",
+                    {"query": "Count(Row(a=1))"})["results"] == [n0 + 1]
+    finally:
+        srv.close()
+        h.close()

@@ -41,7 +41,12 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "memory.pressure", "executor.sched", "executor.serving",
           "executor.ragged", "executor.standing", "obs.monitor",
           "obs.diagnostics", "obs.profiler", "obs.incidents",
-          "obs.watchdog", "obs.roofline", "obs.audit"):
+          "obs.watchdog", "obs.roofline", "obs.audit", "taskpool",
+          "cluster", "cluster.txn", "cluster.client", "obs.slo",
+          "ingest.stream", "ingest.kafka", "ingest.avro", "config",
+          "server", "server.authn", "server.authz", "server.http",
+          "server.grpc", "server.proto", "client", "cli", "cli.fbsql",
+          "cli.main"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -198,3 +203,71 @@ def test_memory_switches_read_no_environment():
     assert out.stdout.split("\n")[:2] == [
         f"True {4 << 20} {8 << 30} True True True",
         "False 8192 12345 False False False"]
+
+
+_NO_GRPC = r"""
+import importlib, importlib.abc, io, contextlib, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("grpc", "yaml") or \
+                name.startswith("google.protobuf"):
+            raise ImportError(f"refused: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for n in ("server", "server.http", "server.authn", "server.authz", "config",
+          "cli", "cli.main", "cli.fbsql", "client", "ingest",
+          "ingest.stream", "ingest.kafka", "ingest.avro", "obs.slo",
+          "taskpool", "cluster", "cluster.txn", "cluster.client", "api"):
+    importlib.import_module("pilosa_tpu_torch." + n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("grpc", "yaml")
+             or m.startswith("google.protobuf"))
+assert not bad, bad
+try:
+    importlib.import_module("pilosa_tpu_torch.server.grpc")
+except ImportError as e:
+    assert "grpc" in str(e) and "grpc-port = -1" in str(e), e
+else:
+    raise AssertionError("server.grpc imported without grpc")
+from pilosa_tpu_torch.cli import main as cli
+err = io.StringIO()
+with contextlib.redirect_stderr(err):
+    rc = cli.main(["server", "--device", "cpu", "--port", "0",
+                   "--grpc-port", "0"])
+assert rc == 1 and "grpc" in err.getvalue(), err.getvalue()
+print("ok")
+"""
+
+
+def test_server_imports_without_grpc_protobuf_or_yaml():
+    """server.http, config, cli, client, the stream plane and the SLO
+    plane import with grpc, google.protobuf and yaml refused; importing
+    server.grpc then raises an ImportError naming the packages, and a
+    node asked for gRPC fails to start instead of serving without it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _NO_GRPC], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_config_load_reads_the_environment_apply_writes_none():
+    """config.load takes the PILOSA_TPU_* environment; the port's
+    apply_* then hand the values to configure() calls and write no
+    environment variable (the JAX package's write PILOSA_TPU_PALLAS,
+    PILOSA_TPU_STACK_PATCH and the cluster twins)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PILOSA_TPU_SLO_WINDOWS="7m",
+               PILOSA_TPU_TIMEQ_QCOVER="false")
+    code = ("import os; from pilosa_tpu_torch import config; "
+            "from pilosa_tpu_torch.models import timeq; "
+            "from pilosa_tpu_torch.obs import slo; "
+            "before = dict(os.environ); c = config.load(); "
+            "c.apply_all(); "
+            "print(c.slo_windows, slo.get().windows, timeq.qcover(), "
+            "dict(os.environ) == before)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "7m [('7m', 420.0)] False True"
