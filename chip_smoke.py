@@ -69,15 +69,16 @@ Phases, each printing its own lines; any failure exits non-zero:
        kernel launches must equal STACKED_LAUNCHES (paging is on: one
        assemble_pages a leaf fetch);
    4a. the per-shard engine (use_stacked = False) at full width: the
-       headline queries, TopK, MinRow/MaxRow, set-field Distinct, Min
-       and Max of age and the able GroupBy Sum, each timed beside the
-       stacked engine; BSI Distinct (a host decode) on 16 shards;
+       headline queries, TopK, MinRow/MaxRow, set-field Distinct and
+       the able GroupBy Sum, each timed beside the stacked engine; BSI
+       Min, Max and Distinct of age (host walks) on 16 shards;
        each TopN/TopK must launch masked_popcount once a run (one
        launch over its 954 shards) and popcount_rows never;
    4b. the fallbacks on the default executor: Min, Max and Distinct of
-       ts (depth 40), GroupBy Max of ts, GroupBy Min over the
-       overlapping t rows and Count(Distinct), the host loops on the 64
-       shards of ts; the executor's path counter must show each route;
+       ts (depth 40), GroupBy Max of ts and GroupBy Min over the
+       overlapping t rows (host loops on 16 shards, S_FALLBACK_GB) and
+       Count(Distinct) on the 64 shards of ts; the executor's path
+       counter must show each route;
        then Range counts of ts on both engines, which must launch
        bsi_range;
    4c. the one-hot arm (onepass_arm = "onehot"): the disjoint GroupBy
@@ -102,7 +103,7 @@ Phases, each printing its own lines; any failure exits non-zero:
        tiles the batch made stale must be patched (only stacks under new
        keys, and per-shard (W,) tiles a write dirtied whole, may be
        built);
-   5b. a keyed index of 2^20 column keys (about 256 shards) with a keyed
+   5b. a keyed index of 2^18 column keys (about 256 shards) with a keyed
        set field of 64 row keys, an unkeyed set field and a depth-20 INT,
        loaded through the translators and the import API; Count, Row
        (column keys), TopN with and without a filter (row keys), GroupBy
@@ -140,16 +141,16 @@ Phases, each printing its own lines; any failure exits non-zero:
        warm p50 printed beside phase 4's; the keyed index's Count, Row
        keys and TopN equal to 5b's, and a Set of a new column key gets
        the partition's next id;
-   6b. a fresh holder through the API: a Pipeline of 2^21 datagen
-       records on 4 workers (records/s), import_columns of 2^25 seeded
-       columns over 32 shards in calls of 2^22 (columns/s), the
+   6b. a fresh holder through the API: a Pipeline of 2^19 datagen
+       records on 4 workers (records/s), import_columns of 2^23 seeded
+       columns over 8 shards in calls of 2^22 (columns/s), the
        INGEST_QUERIES exact on both indexes against numpy from the same
        generators; 2^20 columns imported again over every shard, the
        first query after it exact with the stack cache's patches and
        rebuilds by reason printed; sync, reopen, the same answers again.
-7. a rolling time window: a fresh holder's index events (954 shards x
-   2^20 columns) with a TIME field ev (YMDH, 4 rows; 2^14 seeded columns
-   a row an hour over the 168 hours from 2022-06-01, about 11M bits,
+7. a rolling time window: a fresh holder's index events (80 shards x
+   2^20 columns) with a TIME field ev (YMDH, 4 rows; 2^13 seeded columns
+   a row an hour over the 168 hours from 2022-06-01, about 5.5M bits,
    imported with timestamps into 5 views each), ew (the same for one day
    under timeq.configure(write_finest=True): the standard and hour views
    only), a random-word set field a and the BSI age (depth 7); every
@@ -184,7 +185,7 @@ Phases, each printing its own lines; any failure exits non-zero:
        2022-06-08T00:00 (timed) removes the views numpy expects; 7a's
        window then counts what the 20 surviving views hold, with no
        build, on both engines;
-   7g. 2^24 seeded rows of an int and a float column in the pathless
+   7g. 2^22 seeded rows of an int and a float column in the pathless
        index's dataframe, each aggregate on the card against numpy under
        the JAX package's 32-bit rule (ints exact, float sums and means
        within a relative 1e-6).
@@ -278,8 +279,65 @@ Phases, each printing its own lines; any failure exits non-zero:
         then SIGKILL and a restart on the same directory, where every
         acknowledged write reads back; the seconds to the first answer
         after the restart printed.
+11. a cluster on the card (pilosa_tpu_torch.cluster): phase 10's writes
+   to the headline index are put back first (the holder then equals the
+   numpy mirror after 5a), and every answer is held exactly to phase
+   4's numpy reference after 5a (post["want"]):
+   11a. three ClusterNodes (replica_n 2, one InMemDisCo with 5 s
+        leases, HTTP on loopback, grpc-port -1, hedging off) in this
+        process, each shard's fragments of the headline index copied
+        through Fragment.set_row_words to the two nodes
+        ClusterSnapshot.shard_nodes names, about 2 x 5.5 GiB of words;
+        phase 4's query set through node0's ClusterExecutor.execute,
+        first call and warm p50 beside phase 4's in-process p50 and
+        10a's HTTP p50; each node's resident stack bytes and the
+        ledger's total; each node's own leg launches its kernels; the
+        last fan-out's flight record names every node's attempt;
+   11b. 256 seeded Set/Clear of a through the coordinator (both owners
+        of each shard hold them, read with shards=), written back;
+        import_bits and import_values of 2^16 records of new fields imp
+        and iv over the first 64 shards through the replicated import,
+        every count and sum exact on the cluster and on each owner;
+   11c. node2 dies (pause) and its server closes; the query set exact
+        through the survivors (first call after the failover beside the
+        warm p50, and node0's new stack keys); 64 bits of imp=9 written
+        to 16 shards node2 owns; node1 paused too: Count sheds with
+        LoadShedError (503) and partial_ok answers the live shards'
+        exact count with missing_shards; node1 reopens, node2 reopens
+        with warm=True and its sync_from_peers repairs what it missed
+        (its imp fragments equal their replicas'); the set exact again;
+   11d. an rpc-delay of HEDGE_DELAY_S on node1's legs: HEDGE_QUERIES
+        exact with hedging off and with a HEDGE_MS hedge set through
+        coordinator.configure(), the hedges fired and won counted, both
+        p50s printed;
+   11e. a second cluster (its own disco, two nodes on disk, replica_n 1)
+        over the headline's first 32 shards of a, t and age; node2
+        opens member=False and joins, then node1 drains, each under 4
+        reader threads and a writer: no read fails or mismatches, a
+        reader's Count(Row(wr=9)) never falls below the writes
+        acknowledged when it starts, every acknowledged write reads
+        back through node0 and on its shard's owner before the writes
+        the writer did not reach land, the shards and bytes moved and
+        the seconds printed; a StreamWriter
+        window on a donor to a moved shard is forwarded to its new
+        owner and read back there;
+   11f. `cli.main backup` of node2 (on disk) and `cli.main restore`
+        into a fresh Server on the card, which answers node2's queries
+        equally.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-10
+   launched over 4-11.
+
+Cut to make room for phase 11 (every check kept): 5b's keyed index
+from 2^20 to 2^18 column keys (KEYS_N; restart reopens it too); phase
+6b's Pipeline from 2^21 to 2^19 records and its import_columns from
+2^25 columns over 32 shards to 2^23 over 8; phase 7's events index from
+954 to 80 shards (EV_SHARDS) and from 2^14 to 2^13 columns a row an
+hour (EV_COLS), and 7g's dataframe from 2^24 to 2^22 rows; phase 8a
+from 3 rounds to 2 (MEM_ROUNDS); 4a's per-shard Min and Max of age
+from 954 shards to the S_DECODE leading ones of its Distinct; 4b's
+GroupBy Max of ts and GroupBy Min of age from 64 shards to 16
+(S_FALLBACK_GB); phase 3 takes no separate warm-up call of a plain
+version (its check's call warms it).
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -367,6 +425,7 @@ ONEHOT_QUERIES = [
     "Min(field=age)", "Max(Row(a=1), field=age)", "Distinct(field=age)"]
 S_DECODE = 16      # shards of the per-shard BSI Distinct (a host decode)
 S_DEEP = 64        # shards holding the depth-40 field ts
+S_FALLBACK_GB = 16  # shards of 4b's GroupBy Min/Max (host loops, ~7 s at 64)
 TS_BASE = 1 << 39
 TS_DEPTH = 40
 # bsi_range's phase-3 cases, (op, p, q): the main path's predicates
@@ -835,7 +894,8 @@ def phase_kernels(device) -> dict:
             print(f"kernel {name} {label}: {host_ms:.4f} ms a call back to "
                   f"back through the wrapper (its host work), {ms:.4f} ms "
                   f"of kernel (profiler), empty-kernel floor {floor_ms:.4f} ms")
-        plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
+        # the check's call above is the plain version's warm-up
+        plain_ms = cuda_ms(plain, reps=plain_reps, warmup=0)
         bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, n_ops, OPS_PER_S,
                                                    popcs, popc_rate, tensor_ops)
         print(f"kernel {name} {label}: exact vs plain; {ms:.4f} ms "
@@ -1400,7 +1460,7 @@ def loop_answers(data, headline, groupby) -> tuple[dict, dict]:
     """Phase 4a's reference: the queries answered at full width, and
     those on a leading subset of shards (query -> (shards, answer))."""
     import numpy as np
-    a, t, planes = data["a"], data["t"], data["age"]
+    a, t = data["a"], data["t"]
 
     def pc(x):
         return int(np.bitwise_count(x).sum(dtype=np.int64))
@@ -1413,15 +1473,18 @@ def loop_answers(data, headline, groupby) -> tuple[dict, dict]:
     full["MaxRow(Row(a=1), field=t)"] = (R - 1, pc(t[R - 1, 0] & a[0]))
     full["Distinct(Row(a=1), field=t)"] = [r for r in range(R)
                                            if pc(t[r] & a)]
-    for q in ("Min(field=age)", "Max(Row(a=1), field=age)", ABLE_SUM,
-              "GroupBy(Rows(t), Rows(a), aggregate=Sum(field=age))"):
+    for q in (ABLE_SUM, "GroupBy(Rows(t), Rows(a), aggregate=Sum(field=age))"):
         full[q] = groupby[q]
+    # the BSI Min, Max and Distinct walk every shard's planes on the host
+    # (~2 s a call at full width): the S_DECODE leading shards
     sub = list(range(S_DECODE))
-    vals = np.zeros((S_DECODE, W * 32), np.uint8)
-    for p in range(DEPTH):
-        vals |= unpack(planes[p, :S_DECODE]) << np.uint8(p)
-    subset = {"Distinct(field=age)": (
-        sub, [int(v) for v in np.unique(vals)])}
+    h_any, h_a = age_hists(data, sub)
+    lo_v = int(np.nonzero(h_any)[0][0])
+    hi_a = int(np.nonzero(h_a)[0][-1])
+    subset = {"Min(field=age)": (sub, (lo_v, int(h_any[lo_v]))),
+              "Max(Row(a=1), field=age)": (sub, (hi_a, int(h_a[hi_a]))),
+              "Distinct(field=age)": (
+                  sub, [int(v) for v in np.nonzero(h_any)[0]])}
     return full, subset
 
 
@@ -1460,20 +1523,21 @@ def deep_answers(data, secs) -> dict:
     edu, gen = digits(data["edu"][:, sl]), digits(data["gen"][:, sl])
     lo = int(secs.min())
     hi_a = int(secs[abits].max())
+    gb = slice(0, S_FALLBACK_GB)
     max_groups = []
     for r in range(CATEGORIES["edu"]):
         for g in range(CATEGORIES["gen"]):
-            m = (edu == r) & (gen == g)
+            m = (edu[gb] == r) & (gen[gb] == g)
             n = int(m.sum())
             if n:
-                max_groups.append(((r, g), n, TS_BASE + int(secs[m].max()),
-                                   n))
+                max_groups.append(((r, g), n,
+                                   TS_BASE + int(secs[gb][m].max()), n))
     min_groups = []
     for r in range(R):
-        m = tbits[r] & abits
+        m = tbits[r, gb] & abits[gb]
         n = int(m.sum())
         if n:
-            min_groups.append(((r, 1), n, int(age[m].min()), n))
+            min_groups.append(((r, 1), n, int(age[gb][m].min()), n))
     distinct_groups = []
     for g in range(CATEGORIES["gen"]):
         m = gen == g
@@ -1488,9 +1552,9 @@ def deep_answers(data, secs) -> dict:
         "Distinct(field=ts)": (None, [TS_BASE + int(v)
                                       for v in np.unique(secs)]),
         "GroupBy(Rows(edu), Rows(gen), aggregate=Max(field=ts))":
-            (S_DEEP, max_groups),
+            (S_FALLBACK_GB, max_groups),
         "GroupBy(Rows(t), Rows(a), aggregate=Min(field=age))":
-            (S_DEEP, min_groups),
+            (S_FALLBACK_GB, min_groups),
         "GroupBy(Rows(gen), aggregate=Count(Distinct(field=edu)))":
             (S_DEEP, distinct_groups),
     }
@@ -1702,10 +1766,10 @@ def launches_of(run) -> tuple[dict, object]:
 
 def phase_main_path(device, root: str, kernels_phase,
                     reps: int = 5) -> tuple[dict, dict]:
-    """Phases 4 to 10, the holders persisted under root, with
+    """Phases 4 to 11, the holders persisted under root, with
     kernels_phase() (phase 3, once the kernels are built) run between
     the host's preparation of phase 4 and its first query; returns phase
-    3's records and each kernel's launches summed over phases 4-10."""
+    3's records and each kernel's launches summed over phases 4-11."""
     import gc
     import os
 
@@ -1896,13 +1960,17 @@ def phase_main_path(device, root: str, kernels_phase,
         phase_serving(h, device, note)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_node(h, post["want"], sql_want, root, note)
+        http_p50, undo = phase_node(h, post["want"], sql_want, root, note)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_cluster(h, post["want"], stacked_p50, http_p50, undo, root,
+                      note)
     finally:
         h.close()
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-10 {totals}")
+    print(f"main path: kernel launches over phases 4-11 {totals}")
     return records, totals
 
 
@@ -2114,7 +2182,7 @@ def phase_writes(ex, lp, data, hist, before: dict, note) -> dict:
 
 
 # phase 5b: a keyed index through the translators and the import API
-KEYS_N = 1 << 20
+KEYS_N = 1 << 18
 KEY_ROWS = 64
 
 
@@ -2137,7 +2205,7 @@ def keyed_norm(res):
 
 
 def phase_keys(h, note) -> dict:
-    """5b: the keyed index kidx: 2^20 column keys through the
+    """5b: the keyed index kidx: 2^18 column keys through the
     PartitionedTranslator (256 partitions), a keyed set field kf of 64
     row keys (each column in one row), an unkeyed set field ks of 8
     rows, and an INT kv of depth 20; its queries on both engines, each
@@ -2587,8 +2655,8 @@ DISK_NEEDED = 12 << 30      # the headline index's ~4.7 GB of WAL, twice
 NEW_KEY = "c9999998"        # the column key 6a creates after the reopen
 RESTART_KEYED = ['Count(Row(kf="k17"))', 'Row(kf="k17")', "TopN(kf, n=10)"]
 INGEST_SEED = 2027
-INGEST_RECORDS = 1 << 21    # the Pipeline's datagen records (2 shards)
-INGEST_COLS = 1 << 25       # import_columns' columns (32 shards)
+INGEST_RECORDS = 1 << 19    # the Pipeline's datagen records (1 shard)
+INGEST_COLS = 1 << 23       # import_columns' columns (8 shards)
 INGEST_CHUNK = 1 << 22      # columns a call
 REIMPORT = 1 << 20          # columns imported again into resident stacks
 INGEST_QUERIES = ["Count(Row(segment=3))", "TopN(segment, n=16)",
@@ -2786,7 +2854,7 @@ def ingest_answers(seg, amount, active) -> dict:
 def phase_ingest(path, note) -> None:
     """6b: a fresh path-backed holder through the API: the Pipeline of
     INGEST_RECORDS datagen records on 4 workers (index dg), and
-    import_columns of INGEST_COLS seeded columns over 32 shards in
+    import_columns of INGEST_COLS seeded columns over 8 shards in
     chunks of INGEST_CHUNK (index cols); INGEST_QUERIES on both, exact
     against numpy from the same generators; REIMPORT columns imported
     again into the resident stacks and the first query after it exact,
@@ -2848,7 +2916,7 @@ def phase_ingest(path, note) -> None:
             note(f"{label} {index}", launches)
 
     query_all(api, "ingest")
-    # again into the resident stacks: a seeded spread over all 32 shards
+    # again into the resident stacks: a seeded spread over all 8 shards
     cache = api.executor.stacked.cache
     was = cache.counters()
     cols = np.sort(rng.choice(INGEST_COLS, REIMPORT, replace=False))
@@ -2897,14 +2965,15 @@ def phase_ingest(path, note) -> None:
 
 EV_HOURS = 168              # 2022-06-01 to 2022-06-07, hour by hour
 EV_ROWS = 4
-EV_COLS = 1 << 14           # seeded columns a (hour, row)
+EV_COLS = 1 << 13           # seeded columns a (hour, row)
 S_TOPN_LOOP = 64            # shards of the per-shard engine's 7a queries
 # hours after 2022-06-01T00:00: 7a's window, 2022-06-02T06:00 to
 # 2022-06-05T18:00, covers 18 hour + 2 day + 18 hour views
 WINDOW_A = (30, 114)
 WINDOW_B = (31, 115)        # 7b: rolled by one hour
 COVER_LEAVES = 38
-DF_ROWS = 1 << 24           # 7g: dataframe rows
+EV_SHARDS = 80             # shards of the events index
+DF_ROWS = 1 << 22           # 7g: dataframe rows
 
 
 def ev_time(hours: float):
@@ -2930,7 +2999,8 @@ def window_queries(lo: int, hi: int) -> dict:
                     f"to='{ev_stamp(hi)}')"}
 
 
-def window_answers(ev, a, planes, lo: int, hi: int, n_shards: int = S) -> dict:
+def window_answers(ev, a, planes, lo: int, hi: int,
+                   n_shards: int = EV_SHARDS) -> dict:
     """numpy answers of window_queries from the (row, column, hour)
     triples, over the first n_shards shards."""
     import numpy as np
@@ -2975,7 +3045,7 @@ def build_events():
             cache_type=CACHE_TYPE_NONE))
         hrs = np.repeat(np.arange(hours), EV_ROWS * EV_COLS)
         rows = np.tile(np.repeat(np.arange(EV_ROWS), EV_COLS), hours)
-        cols = rng.integers(0, S * W * 32, size=hrs.size)
+        cols = rng.integers(0, EV_SHARDS * W * 32, size=hrs.size)
         f.import_bits(rows, cols, [times[i] for i in hrs.tolist()])
         return rows, cols, hrs
 
@@ -2988,17 +3058,18 @@ def build_events():
     views = sorted(idx.field("ew").views)
     if len(views) != 25 or views[0] != VIEW_STANDARD:
         raise AssertionError(f"ew under write-finest holds {views}")
-    a_words = rng.integers(0, 1 << 32, size=(S, W), dtype=np.uint32)
+    a_words = rng.integers(0, 1 << 32, size=(EV_SHARDS, W), dtype=np.uint32)
     view = idx.create_field("a", FieldOptions(
         cache_type=CACHE_TYPE_NONE)).view(VIEW_STANDARD, create=True)
-    for shard in range(S):
+    for shard in range(EV_SHARDS):
         view.fragment(shard, create=True).import_row_words(1, a_words[shard])
     age = idx.create_field("age", FieldOptions(type=FieldType.INT,
                                                min=0, max=127))
     aview = age.view(age.bsi_view, create=True)
-    planes = rng.integers(0, 1 << 32, size=(DEPTH, S, W), dtype=np.uint32)
+    planes = rng.integers(0, 1 << 32, size=(DEPTH, EV_SHARDS, W),
+                          dtype=np.uint32)
     full = np.full(W, 0xFFFFFFFF, dtype=np.uint32)
-    for shard in range(S):
+    for shard in range(EV_SHARDS):
         frag = aview.fragment(shard, create=True)
         frag.import_row_words(0, full)
         for p in range(DEPTH):
@@ -3121,7 +3192,7 @@ def phase_time_window(device, note) -> None:
     if d["full_rebuilds"] != COVER_LEAVES or d["rebuilds"] != {
             "cold": COVER_LEAVES} or qc != 6:
         raise AssertionError(f"7a: cover built {d}, qcover ops {qc}")
-    cover_bytes = COVER_LEAVES * S * W * 4
+    cover_bytes = COVER_LEAVES * EV_SHARDS * W * 4
     print(f"7a: device memory allocated "
           f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB")
     print(f"7a: {COVER_LEAVES} single-view leaves built "
@@ -3146,7 +3217,7 @@ def phase_time_window(device, note) -> None:
           f"{off[qa['count']]:.3f} ms warm p50 ({card})")
     # the eager union of 38 leaves: 37 ORs, each reading two stacks and
     # writing one; a fused union-and-count reads each leaf once
-    eager = 3 * (COVER_LEAVES - 1) * S * W * 4
+    eager = 3 * (COVER_LEAVES - 1) * EV_SHARDS * W * 4
     print(f"7a: eager union moves {eager} bytes; a fused pass would read "
           f"{cover_bytes} bytes, {cover_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
           f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
@@ -3187,7 +3258,8 @@ def phase_time_window(device, note) -> None:
     rows, cols, hrs = ev
     have = set(cols[(rows == 1) & (hrs >= WINDOW_B[0])
                     & (hrs < WINDOW_B[1])].tolist())
-    col = next(c for c in range(S * W * 32 // 3, S * W * 32) if c not in have)
+    col = next(c for c in range(EV_SHARDS * W * 32 // 3, EV_SHARDS * W * 32)
+               if c not in have)
     ex.execute("events", f"Set({col}, ev=1, {ev_stamp(WINDOW_B[1] - 0.5)})")
     ev = (np.append(rows, 1), np.append(cols, col),
           np.append(hrs, WINDOW_B[1] - 1))
@@ -3271,7 +3343,8 @@ def phase_time_window(device, note) -> None:
     try:
         have = set(ev[1][(ev[0] == 1) & (ev[2] >= WINDOW_A[0])
                          & (ev[2] < WINDOW_A[1])].tolist())
-        col2 = next(c for c in range(2 * S * W * 32 // 3, S * W * 32)
+        col2 = next(c for c in range(2 * EV_SHARDS * W * 32 // 3,
+                                     EV_SHARDS * W * 32)
                     if c not in have)
         api.query("events", f"Set({col2}, ev=1, "
                             f"{ev_stamp(WINDOW_A[1] - 0.5)})")
@@ -3376,7 +3449,7 @@ def phase_time_window(device, note) -> None:
 MEM_SEED = 2029
 SP_ROWS, SP_BITS = 64, 256      # 8c: sp, 256 seeded bits a row a shard
 RN_ROWS, RN_RESID = 8, 64       # 8c: rn, a run over an eighth + 64 bits
-MEM_ROUNDS = 3
+MEM_ROUNDS = 2
 BALLAST_SLACK = 64 << 20        # 8d: device bytes left free beside the ballast
 BROAD_TOPN = "TopN(t, n=8)"
 HOT_COUNT = "Count(Row(a=1))"
@@ -4385,10 +4458,13 @@ def ms_stats(xs) -> str:
     return f"p50 {statistics.median(xs):.3f} ms, p99 {p99:.3f} ms"
 
 
-def phase_node(h, want: dict, sql_want: dict, root: str, note) -> None:
+def phase_node(h, want: dict, sql_want: dict, root: str,
+               note) -> tuple[dict, dict]:
     """Phase 10 (see the module docstring): the port's Server on the
     headline holder that phases 8-9 served, then a CLI node in a
-    subprocess."""
+    subprocess.  Returns 10a's HTTP p50s by query and the pre-write
+    state of every headline column 10b and 10d wrote ({"a": {col:
+    set}, "age": {col: value or None}}), which phase 11 puts back."""
     import os
 
     from pilosa_tpu_torch import config
@@ -4417,13 +4493,17 @@ def phase_node(h, want: dict, sql_want: dict, root: str, note) -> None:
               f"{srv.api.executor.device}, durable acks "
               f"{srv.api.durable_writes}) ({card_line()})")
         p50s = node_queries(srv, host, want, sql_want, note)
-        node_ingest(srv, host, note)
+        undo = node_ingest(srv, host, note)
         node_kafka(srv, note)
-        node_txn_slo(srv, host, p50s, cfg, note)
+        later = node_txn_slo(srv, host, p50s, cfg, note)
     finally:
         srv.close()
     node_cli(root, note)
     print(f"10: {time.perf_counter() - t_all:.1f} s")
+    for k in undo:  # the earliest pre-write state of a column wins
+        for col, was in later[k].items():
+            undo[k].setdefault(col, was)
+    return p50s, undo
 
 
 def node_queries(srv, host, want, sql_want, note) -> dict:
@@ -4523,8 +4603,9 @@ def solo_answers(ex, seng, want: dict, sql_want: dict, expect: dict):
             [[_json_value(v) for v in r] for r in rows]))
 
 
-def node_ingest(srv, host, note) -> None:
-    """10b: 8 clients streaming writes through /index/bench/ingest."""
+def node_ingest(srv, host, note) -> dict:
+    """10b: 8 clients streaming writes through /index/bench/ingest;
+    returns the written columns' state before the storm."""
     import numpy as np
     from pilosa_tpu_torch.cluster.client import InternalClient
     from pilosa_tpu_torch.executor.executor import Executor
@@ -4646,6 +4727,8 @@ def node_ingest(srv, host, note) -> None:
                              f"rebuilds {builds}")
     note("10b", dict(K.LAUNCHES))
     del solo
+    return {"a": {c: c in pre_a for c in sets | clears},
+            "age": {c: pre_age[c] for c in vc}}
 
 
 def node_kafka(srv, note) -> None:
@@ -4735,8 +4818,9 @@ def node_kafka(srv, note) -> None:
     note("10c", dict(K.LAUNCHES))
 
 
-def node_txn_slo(srv, host, p50s, cfg, note) -> None:
-    """10d: writes under an exclusive transaction, then the SLO plane."""
+def node_txn_slo(srv, host, p50s, cfg, note) -> dict:
+    """10d: writes under an exclusive transaction, then the SLO plane;
+    returns the written columns' state before the writes."""
     import numpy as np
     from pilosa_tpu_torch.cluster.client import InternalClient, RemoteError
     from pilosa_tpu_torch.obs import incidents, slo
@@ -4745,6 +4829,12 @@ def node_txn_slo(srv, host, p50s, cfg, note) -> None:
     ic = InternalClient()
     rng = np.random.default_rng(NODE_SEED + 2)
     c1, c2, c3 = (int(x) for x in rng.integers(0, S * W * 32, size=3))
+    pre = srv.api.query("bench", f"Intersect(Row(a=1), ConstRow(columns="
+                        f"{sorted({c1, c2})})) Extract(ConstRow(columns="
+                        f"[{c3}]), Rows(age))")["results"]
+    undo = {"a": {c: c in pre[0]["columns"] for c in (c1, c2)},
+            "age": {c3: pre[1]["columns"][0]["rows"][0]
+                    if pre[1]["columns"] else None}}
     writes = [
         ("PQL Set", "POST", "/index/bench/query",
          {"query": f"Set({c1}, a=1)"}),
@@ -4813,6 +4903,7 @@ def node_txn_slo(srv, host, p50s, cfg, note) -> None:
           f"(burn {ev})")
     cfg.apply_slo_settings()
     note("10d", dict(K.LAUNCHES))
+    return undo
 
 
 def node_cli(root, note) -> None:
@@ -4934,6 +5025,785 @@ def node_cli(root, note) -> None:
     finally:
         p.kill()
         p.wait(60)
+
+
+CLUSTER_SEED = 2032
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+CLUSTER_REPS = 2          # warm fan-out calls a query
+CLUSTER_WRITES = 256      # 11b's seeded Set/Clear of a
+CLUSTER_IMPORT = 1 << 16  # 11b's records of the new set and INT fields
+CLUSTER_IMPORT_SHARDS = 64
+FAILOVER_BITS = 64        # 11c's bits written while node2 is down
+FAILOVER_SHARDS = 16      # over this many of the shards node2 owns
+HEDGE_DELAY_S = 0.25      # 11d's rpc-delay on node1's legs
+HEDGE_MS = 20.0
+HEDGE_QUERIES = ["Count(Row(a=1))", "Sum(field=age)", "TopN(t, n=8)"]
+HEDGE_REPS = 3
+RESHARD_SHARDS = 32       # 11e's index: the headline's first 32 shards
+RESHARD_READERS = 4
+RESHARD_WRITES = 400      # 11e's writer: Set of wr=9 at seeded columns
+
+
+def cluster_config(**overrides):
+    """A node's config: no gRPC (the card machine has none), hedging as
+    given (off unless asked), everything else at its default."""
+    from pilosa_tpu_torch import config
+    return config.load(None, env={}, overrides={
+        "grpc_port": -1, "cluster_hedge_ms": -1.0, **overrides})
+
+
+def wire_norm(q: str, wire, width: int):
+    """A cluster answer's JSON as phase 4's normalised form, through
+    executor.results.deserialize_result."""
+    from pilosa_tpu_torch.executor.results import deserialize_result
+    from pilosa_tpu_torch.pql import parse
+    return normalise(deserialize_result(parse(q).calls[0], wire, width))
+
+
+def placement(n_nodes: int, replica_n: int):
+    """The ClusterSnapshot of nodes node0.. node{n-1}, all live: the
+    placement a cluster of them opened in order takes."""
+    from pilosa_tpu_torch.cluster import ClusterSnapshot, Node, NodeState
+    return ClusterSnapshot([Node(id=f"node{i}", state=NodeState.STARTED)
+                            for i in range(n_nodes)], replica_n)
+
+
+def copy_shards(h, holders, index: str, shards, snap, fields=None,
+                dst_index: str | None = None) -> int:
+    """Each shard's fragments of h's index into holders[i] of every node
+    node{i} that snap.shard_nodes assigns it (primary and replica),
+    under dst_index (the same name by default), with the index and its
+    fields made there first: row by row through
+    Fragment.import_row_words into empty rows; returns the rows
+    copied."""
+    from pilosa_tpu_torch.models.schema import FieldOptions
+    src = h.index(index)
+    dst_index = dst_index or index
+    n = 0
+    for i, hd in enumerate(holders):
+        didx = hd.index(dst_index) or hd.create_index(
+            dst_index, keys=src.keys, track_existence=False)
+        mine = [s for s in shards if f"node{i}" in
+                [o.id for o in snap.shard_nodes(dst_index, s)]]
+        for fname in sorted(src.fields):
+            if fields is not None and fname not in fields:
+                continue
+            f = src.field(fname)
+            df = didx.field(fname) or didx.create_field(
+                fname, FieldOptions.from_dict(f.to_dict()["options"]))
+            for vname, view in f.views.items():
+                dview = df.view(vname, create=True)
+                for shard in mine:
+                    frag = view.fragments.get(shard)
+                    if frag is None:
+                        continue
+                    dst = dview.fragment(shard, create=True)
+                    for r in frag.row_ids:
+                        dst.import_row_words(r, frag.row_words(r))
+                        n += 1
+    return n
+
+
+def write_back(h, undo: dict) -> int:
+    """Put back every column phase 10 wrote in the headline index (a's
+    row 1 and age), as 9d puts back its own, so that the holder again
+    equals the numpy mirror after 5a."""
+    idx = h.index("bench")
+    fa, fage = idx.field("a"), idx.field("age")
+    for col, was in undo["a"].items():
+        (fa.set_bit if was else fa.clear_bit)(1, col)
+    for col, old in undo["age"].items():
+        if old is None:
+            fage.clear_value(col)
+        else:
+            fage.set_value(col, old)
+    return len(undo["a"]) + len(undo["age"])
+
+
+def phase_cluster(h, want: dict, stacked_p50: dict, http_p50: dict,
+                  undo: dict, root: str, note) -> None:
+    """Phase 11 (see the module docstring): a three-node cluster of port
+    ClusterNodes on the card over the headline index, then a second
+    cluster for resharding and the backup/restore of one of its nodes."""
+    import gc
+
+    import torch
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    n = write_back(h, undo)
+    print(f"11: the {n} columns phase 10 wrote put back in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster_main(h, want, stacked_p50, http_p50, note)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster_reshard(h, root, note)
+    print(f"11: {time.perf_counter() - t_all:.1f} s ({card_line()})")
+
+
+def cluster_main(h, want, stacked_p50, http_p50, note) -> None:
+    """11a-11d on one three-node cluster of the headline index."""
+    from pilosa_tpu_torch import memory
+    from pilosa_tpu_torch.cluster import (
+        ClusterNode, InMemDisCo, LoadShedError, coordinator)
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.obs import faults, flight, metrics
+    from pilosa_tpu_torch.ops import kernels as K
+
+    cfg = cluster_config()
+    width = W * 32
+    # heartbeat leases of 5 s: a heartbeat thread starved of the
+    # interpreter lock by three nodes in one process must not read as
+    # a dead node
+    disco = InMemDisCo(lease_ttl=5.0)
+    holders = [Holder(width=width) for _ in range(CLUSTER_NODES)]
+    made = []
+
+    def open_node(i, **kw):
+        nd = ClusterNode(f"node{i}", disco, holder=holders[i],
+                         replica_n=CLUSTER_REPLICAS, heartbeat_interval=1.0,
+                         config=cfg).open(**kw)
+        made.append(nd)
+        return nd
+
+    try:
+        # the holders are filled before their nodes open, by the
+        # placement the opened cluster takes (checked below)
+        t0 = time.perf_counter()
+        snap = placement(CLUSTER_NODES, CLUSTER_REPLICAS)
+        rows = copy_shards(h, holders, "bench", range(S), snap)
+        t_copy = time.perf_counter() - t0
+        nodes = [open_node(i) for i in range(CLUSTER_NODES)]
+        if any(nd.api.executor.device.type != "cuda" for nd in nodes):
+            raise AssertionError("11a: a node is not on the card")
+        nodes[0].apply_schema({"indexes": [h.index("bench").to_dict()]})
+        disco.add_shards("bench", "", set(range(S)))
+        live = nodes[0].snapshot()
+        if any([o.id for o in live.shard_nodes("bench", s_)]
+               != [o.id for o in snap.shard_nodes("bench", s_)]
+               for s_ in range(S)):
+            raise AssertionError("11a: the cluster's placement differs")
+        host = [sum(fr.memory_bytes() for f in hd.index("bench").fields.values()
+                    for v in f.views.values() for fr in v.fragments.values())
+                for hd in holders]
+        groups = snap.shards_by_node("bench", range(S))
+        print(f"11a: {CLUSTER_NODES} ClusterNodes (replica_n "
+              f"{CLUSTER_REPLICAS}, one InMemDisCo, lease 5 s, HTTP on "
+              f"loopback, grpc-port -1) on {nodes[0].api.executor.device}; "
+              f"{rows} rows of {S} shards copied to their owners in "
+              f"{t_copy:.1f} s, the nodes opened in "
+              f"{time.perf_counter() - t0 - t_copy:.1f} s (host); host bytes a node "
+              f"{host} ({sum(host) / 2**30:.2f} GiB); fan-out groups "
+              f"{ {k: len(v) for k, v in sorted(groups.items())} }")
+        firsts, p50s, launches = cluster_queries(
+            nodes[0], want, "11a", width, K)
+        note("11a", launches)
+        for q, ms in p50s.items():
+            print(f"11a: {q[:70]}: first {firsts[q]:.2f} ms, warm p50 "
+                  f"{ms:.3f} ms through ClusterExecutor.execute; phase 4 "
+                  f"in-process p50 {stacked_p50.get(q, float('nan')):.3f} ms,"
+                  f" 10a HTTP p50 {http_p50.get(q, float('nan')):.3f} ms")
+        led = memory.ledger()
+        res = [nd.api.executor.stacked.cache.nbytes for nd in nodes]
+        print(f"11a: resident stack bytes a node {res} "
+              f"({sum(res) / 2**30:.2f} GiB); the one ledger's total "
+              f"{led.total_bytes / 2**30:.2f} GiB ({card_line()})")
+        # each node's own leg alone, past its result cache (which holds
+        # the fan-out's answers): every node launches on the card
+        per = {}
+        for nd in nodes:
+            K.reset_launches()
+            for q in ("Count(Intersect(Row(a=1), Row(b=1)))",
+                      "Sum(field=age)"):
+                nd.api.executor.execute("bench", q,
+                                        shards=groups[nd.node_id])
+            per[nd.node_id] = dict(K.LAUNCHES)
+            note(f"11a {nd.node_id}", per[nd.node_id])
+            if not sum(per[nd.node_id].values()):
+                raise AssertionError(f"11a: {nd.node_id} launched nothing")
+        rec = next(r for r in flight.recorder.recent(4096)
+                   if r.get("route") == "cluster")
+        att = [(a["node"], round(a["ms"], 3), a["outcome"])
+               for a in rec.get("attempts", ())]
+        print(f"11a: the last fan-out's flight record: {rec.get('query')!s:.60}"
+              f" {round(rec.get('duration_ms', 0.0), 3)} ms, attempts "
+              f"(node, ms, outcome) {att}")
+        if {a[0] for a in att} != {nd.node_id for nd in nodes}:
+            raise AssertionError(f"11a: attempts {att} miss a node")
+        cluster_writes(nodes, h, width, K, note)
+        nodes = cluster_failover(nodes, open_node, made, want, width,
+                                 p50s, K, LoadShedError, note)
+        # 11d: hedged reads under an rpc-delay on node1's legs, once
+        # every node is live again (a lease that ran out during the
+        # rejoin's load is renewed by the next beat)
+        t0 = time.perf_counter()
+        end = time.monotonic() + 30
+        while any(n.state != "STARTED" for n in disco.nodes()):
+            if time.monotonic() > end:
+                raise AssertionError(f"11d: nodes {[(n.id, n.state) for n in disco.nodes()]}")
+            time.sleep(0.1)
+        base = {q: want[q] for q in HEDGE_QUERIES}
+        faults.inject("rpc-delay", match=nodes[1].uri, times=0,
+                      delay_s=HEDGE_DELAY_S)
+        try:
+            _f, slow, _l = cluster_queries(nodes[0], base, "11d hedge off",
+                                           width, K, reps=HEDGE_REPS)
+            fired0 = metrics.CLUSTER_EVENTS.value(event="hedge_fired")
+            won0 = metrics.CLUSTER_EVENTS.value(event="hedge_won")
+            coordinator.configure(hedge_ms=HEDGE_MS)
+            _f, fast, launches = cluster_queries(
+                nodes[0], base, "11d hedge on", width, K, reps=HEDGE_REPS)
+            note("11d", launches)
+        finally:
+            coordinator.configure(hedge_ms=-1.0)
+            faults.clear("rpc-delay")
+        fired = metrics.CLUSTER_EVENTS.value(event="hedge_fired") - fired0
+        won = metrics.CLUSTER_EVENTS.value(event="hedge_won") - won0
+        if not fired or not won or \
+                min(slow.values()) < HEDGE_DELAY_S * 1e3:
+            rec = next(r for r in flight.recorder.recent(4096)
+                       if r.get("route") == "cluster")
+            raise AssertionError(
+                f"11d: hedges fired {fired}, won {won}; p50s without a "
+                f"hedge {slow}, with {fast}; knobs {coordinator.settings()};"
+                f" nodes {[(n.id, n.state, n.uri) for n in disco.nodes()]}; "
+                f"roster {disco.roster()}; last attempts "
+                f"{rec.get('attempts')}")
+        for q in HEDGE_QUERIES:
+            print(f"11d: {q}: warm p50 {slow[q]:.3f} ms with node1's legs "
+                  f"delayed {HEDGE_DELAY_S * 1e3:.0f} ms and no hedge, "
+                  f"{fast[q]:.3f} ms with a {HEDGE_MS:g} ms hedge "
+                  f"(configure(hedge_ms=))")
+        print(f"11d: hedges fired {fired:g}, won {won:g}; every answer exact "
+              f"in {time.perf_counter() - t0:.1f} s ({card_line()})")
+    finally:
+        for nd in made:
+            try:
+                nd.close()
+            except Exception:
+                pass
+
+
+def cluster_queries(coord, want, label, width, K, reps=CLUSTER_REPS):
+    """Each query of want through coord's ClusterExecutor, cold and then
+    reps times warm, its JSON held exactly to numpy; returns (first ms,
+    warm p50 ms, the launches of the whole run)."""
+    import torch
+    K.reset_launches()
+    firsts, p50s = {}, {}
+    for q, w in want.items():
+        times = []
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            got = coord.executor.execute("bench", q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if "partial" in got or wire_norm(
+                    q, got["results"][0], width) != w:
+                raise AssertionError(f"{label} {q}: {str(got)[:200]} != "
+                                     f"numpy {str(w)[:200]}")
+        firsts[q], p50s[q] = times[0], statistics.median(times[1:])
+    return firsts, p50s, dict(K.LAUNCHES)
+
+
+def cluster_writes(nodes, h, width, K, note) -> None:
+    """11b: routed PQL writes and replicated imports through node0."""
+    import numpy as np
+    rng = np.random.default_rng(CLUSTER_SEED)
+    t0 = time.perf_counter()
+    K.reset_launches()
+    cols = sorted({int(c) for c in rng.integers(0, S * width,
+                                                size=CLUSTER_WRITES)})
+    const = f"ConstRow(columns={cols})"
+    ex = nodes[0].executor
+    pre = set(ex.execute("bench", f"Intersect(Row(a=1), {const})")
+              ["results"][0]["columns"])
+    a0 = ex.execute("bench", "Count(Row(a=1))")["results"][0]
+    took = []
+    want_on = set()
+    for i, c in enumerate(cols):
+        call = "Set" if i % 2 else "Clear"
+        t1 = time.perf_counter()
+        ex.execute("bench", f"{call}({c}, a=1)")
+        took.append((time.perf_counter() - t1) * 1e3)
+        if call == "Set":
+            want_on.add(c)
+    a_want = a0 + len(want_on - pre) - len((set(cols) - want_on) & pre)
+    got = ex.execute("bench", f"Count(Row(a=1)) Intersect(Row(a=1), {const})")
+    if got["results"] != [a_want, {"columns": sorted(want_on)}]:
+        raise AssertionError(f"11b: after the writes {str(got)[:200]}; "
+                             f"want {a_want}")
+    snap = nodes[0].snapshot()
+    by_id = {nd.node_id: nd for nd in nodes}
+    by_shard: dict = {}
+    for c in cols:
+        by_shard.setdefault(c // width, []).append(c)
+    for s, cs in by_shard.items():
+        q = f"Intersect(Row(a=1), ConstRow(columns={cs}))"
+        for owner in snap.shard_nodes("bench", s):
+            r = by_id[owner.id].api.query("bench", q, shards=[s])
+            if r["results"][0]["columns"] != sorted(set(cs) & want_on):
+                raise AssertionError(f"11b: {owner.id} shard {s} holds "
+                                     f"{r['results']}")
+    print(f"11b: {len(cols)} seeded Set/Clear of a through "
+          f"ClusterExecutor.execute, each to both owners of its shard: "
+          f"write {ms_stats(took)} (holders in memory: no sync in the ack); "
+          f"Count(Row(a=1)) {a_want} equals the mirror, and both owners of "
+          f"each of {len(by_shard)} shards hold the written bits")
+    # put them back, so that the query set's numpy answers hold again
+    for c in cols:
+        ex.execute("bench", f"{'Set' if c in pre else 'Clear'}({c}, a=1)")
+    if ex.execute("bench", "Count(Row(a=1))")["results"] != [a0]:
+        raise AssertionError("11b: the write-back left a changed")
+    # replicated imports of new fields over HTTP
+    nodes[0].apply_schema({"indexes": [{"name": "bench", "fields": [
+        {"name": "imp", "options": {"type": "set"}},
+        {"name": "iv", "options": {"type": "int", "min": 0, "max": 1000}}]}]})
+    span = CLUSTER_IMPORT_SHARDS * width
+    icols = np.sort(rng.choice(span, CLUSTER_IMPORT, replace=False))
+    irows = rng.integers(0, 4, icols.size)
+    ivals = rng.integers(0, 1001, icols.size)
+    t1 = time.perf_counter()
+    nodes[0].import_bits("bench", "imp", irows.tolist(), icols.tolist())
+    tb = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    nodes[0].import_values("bench", "iv", icols.tolist(), ivals.tolist())
+    tv = time.perf_counter() - t1
+    for r in range(4):
+        got = ex.execute("bench", f"Count(Row(imp={r}))")["results"][0]
+        if got != int((irows == r).sum()):
+            raise AssertionError(f"11b: Count(Row(imp={r})) {got}")
+    got = ex.execute("bench", "Sum(field=iv)")["results"][0]
+    if got != {"value": int(ivals.sum()), "count": int(icols.size)}:
+        raise AssertionError(f"11b: Sum(field=iv) {got}")
+    shard_of = icols // width
+    for s in range(CLUSTER_IMPORT_SHARDS):
+        w1 = int(((shard_of == s) & (irows == 1)).sum())
+        wv = int(ivals[shard_of == s].sum())
+        for owner in snap.shard_nodes("bench", s):
+            r = by_id[owner.id].api.query(
+                "bench", "Count(Row(imp=1)) Sum(field=iv)", shards=[s])
+            if r["results"][0] != w1 or r["results"][1]["value"] != wv:
+                raise AssertionError(f"11b: {owner.id} shard {s} holds "
+                                     f"{r['results']}")
+    note("11b", dict(K.LAUNCHES))
+    print(f"11b: import_bits of {icols.size} records ({tb:.2f} s) and "
+          f"import_values ({tv:.2f} s) over {CLUSTER_IMPORT_SHARDS} shards "
+          f"through the replicated import (node0 local, the others over "
+          f"HTTP): every count and sum exact, both owners of each shard "
+          f"hold their records; 11b in {time.perf_counter() - t0:.1f} s")
+
+
+def cluster_failover(nodes, open_node, made, want, width, p50s, K,
+                     LoadShedError, note):
+    """11c: node2 dies (pause: its socket closes, its beats stop), writes
+    it misses, the query set through the survivors, a second node paused
+    for the partial and shed answers, and node2's warm rejoin."""
+    import numpy as np
+    from pilosa_tpu_torch.cluster import NodeState
+    t0 = time.perf_counter()
+    steps = {}
+
+    def step(name, t):
+        steps[name] = round(time.perf_counter() - t, 2)
+        return time.perf_counter()
+    disco = nodes[0].disco
+    nodes[2].pause()
+    # the dead node's server is closed (its serving threads and device
+    # stacks go); the node object stays off disco, as a crashed node
+    nodes[2].server.close()
+    dead = nodes[2]
+    ts = step("node2 paused and its server closed", t0)
+    cache = nodes[0].api.executor.stacked.cache
+    keys0 = len(cache.keys())
+    firsts, after, launches = cluster_queries(nodes[0], want, "11c failover",
+                                              width, K)
+    note("11c failover", launches)
+    ts = step("the query set after the failover", ts)
+    state = {n.id: n.state for n in disco.nodes()}
+    if state["node2"] != NodeState.DOWN:
+        raise AssertionError(f"11c: node2 is {state['node2']}")
+    new_keys = len(cache.keys()) - keys0
+    for q in want:
+        print(f"11c: {q[:70]}: first call after node2 died "
+              f"{firsts[q]:.2f} ms, warm p50 {after[q]:.3f} ms (before "
+              f"{p50s[q]:.3f} ms)")
+    print(f"11c: node0's stack cache took {new_keys} keys for its new "
+          f"fan-out group; the old ones stay until the ledger reclaims "
+          f"them")
+    snap = nodes[0].snapshot()
+    owned = [s for s in range(S)
+             if "node2" in [o.id for o in snap.shard_nodes("bench", s)]]
+    rng = np.random.default_rng(CLUSTER_SEED + 1)
+    wshards = sorted(rng.choice(owned, FAILOVER_SHARDS,
+                                replace=False).tolist())
+    wcols = sorted({int(s) * width + int(c) for s in wshards
+                    for c in rng.integers(0, width,
+                                          FAILOVER_BITS // FAILOVER_SHARDS)})
+    t1 = time.perf_counter()
+    nodes[0].import_bits("bench", "imp", [9] * len(wcols), wcols)
+    tw = time.perf_counter() - t1
+    got = nodes[0].executor.execute("bench", "Count(Row(imp=9))")
+    if got["results"] != [len(wcols)]:
+        raise AssertionError(f"11c: Count(Row(imp=9)) {got}")
+    print(f"11c: {len(wcols)} bits of imp=9 over {len(wshards)} shards node2 "
+          f"owns written while it is down in {tw:.2f} s; read back exact")
+    ts = step("the writes node2 missed", ts)
+    # a second node paused: shards whose owners are both down
+    nodes[1].pause()
+    nodes[1].server.close()
+    ts = step("node1 paused and its server closed", ts)
+    full = want["Count(Row(a=1))"]
+    try:
+        nodes[0].executor.execute("bench", "Count(Row(a=1))")
+    except LoadShedError as e:
+        shed = e
+    else:
+        raise AssertionError("11c: no LoadShedError with two nodes down")
+    if shed.status != 503 or not shed.missing_shards:
+        raise AssertionError(f"11c: shed {shed.status} {shed.missing_shards}")
+    r = nodes[0].executor.execute("bench", "Count(Row(a=1))", partial_ok=True)
+    missing = r["partial"]["missing_shards"]
+    live = [s for s in range(S) if s not in set(missing)]
+    exact = nodes[0].api.query("bench", "Count(Row(a=1))", shards=live)
+    if missing != shed.missing_shards or r["results"] != exact["results"]:
+        raise AssertionError(f"11c: partial {r} against {exact}")
+    if not 0 < r["results"][0] < full:
+        raise AssertionError(f"11c: partial count {r['results']}")
+    print(f"11c: with node1 paused too, Count(Row(a=1)) sheds with "
+          f"LoadShedError (status {shed.status}, {len(shed.missing_shards)} "
+          f"shards missing); partial_ok answers {r['results'][0]} over the "
+          f"{len(live)} live shards, equal to node0's own count of them")
+    ts = step("the shed and partial answers", ts)
+    # node1 missed no write: it reopens cold; node2 rejoins warm
+    nodes[1] = open_node(1)
+    ts = step("node1 reopened", ts)
+    t1 = time.perf_counter()
+    nodes[2] = open_node(2, warm=True)
+    took = time.perf_counter() - t1
+    ws = nodes[2].warm_stats
+    if not ws["sync"]["blocks"]:
+        raise AssertionError(f"11c: the rejoin repaired nothing: {ws}")
+    by_id = {nd.node_id: nd for nd in nodes}
+    snap = nodes[0].snapshot()
+    for s in wshards:
+        other = next(o.id for o in snap.shard_nodes("bench", s)
+                     if o.id != "node2")
+        mine = nodes[2].api.fragment_checksums("bench", "imp", "standard", s)
+        theirs = by_id[other].api.fragment_checksums("bench", "imp",
+                                                     "standard", s)
+        if mine != theirs or not mine:
+            raise AssertionError(f"11c: shard {s}: node2 {mine} != "
+                                 f"{other} {theirs}")
+        r = nodes[2].api.query("bench", "Count(Row(imp=9))", shards=[s])
+        if r["results"][0] != sum(1 for c in wcols if c // width == s):
+            raise AssertionError(f"11c: node2 shard {s} {r['results']}")
+    secs = {k: round(v, 2) for k, v in nodes[2].warm_seconds.items()}
+    print(f"11c: node2 reopened with warm=True in {took:.1f} s (seconds "
+          f"{secs}): sync {ws['sync']}, after registering "
+          f"{ws.get('sync_post_register')}, prefilled {ws['prefilled']}; "
+          f"its imp fragments on the {len(wshards)} written shards equal "
+          f"their replicas'")
+    ts = step("node2's warm rejoin and its checks", t1)
+    _f, _p, launches = cluster_queries(nodes[0], want, "11c rejoined",
+                                       width, K, reps=1)
+    note("11c rejoined", launches)
+    step("the query set after the rejoin", ts)
+    print(f"11c: the query set exact again through the three nodes; 11c "
+          f"in {time.perf_counter() - t0:.1f} s, by step {steps} "
+          f"({card_line()})")
+    del dead
+    return nodes
+
+
+def cluster_reshard(h, root, note) -> None:
+    """11e: a second cluster (its own disco) of two nodes on disk over
+    the headline's first RESHARD_SHARDS shards of a, t and age; a third
+    node joins and then node1 drains, under readers and a writer; a
+    stream window to a moved shard; 11f: the port CLI's backup of one
+    node and its restore into a fresh Server."""
+    import os
+
+    import numpy as np
+    from pilosa_tpu_torch.cli.main import main as cli_main
+    from pilosa_tpu_torch.cluster import ClusterNode, InMemDisCo
+    from pilosa_tpu_torch.models.holder import Holder
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server.http import Server
+
+    t0 = time.perf_counter()
+    width = W * 32
+    # on disk for 11f's backup; a write is acknowledged before the sync
+    # ([ingest] sync off), so the storm's writer does not sync each import
+    cfg = cluster_config(ingest_sync=False)
+    disco = InMemDisCo(lease_ttl=5.0)
+    paths = [os.path.join(root, f"reshard{i}") for i in range(3)]
+    holders = [Holder(path=p, width=width) for p in paths]
+    made = []
+
+    def open_node(i, **kw):
+        nd = ClusterNode(f"node{i}", disco, holder=holders[i], replica_n=1,
+                         heartbeat_interval=1.0, config=cfg).open(**kw)
+        made.append(nd)
+        return nd
+
+    # numpy answers of the 32 shards, from the headline's words
+    src = h.index("bench")
+    shards = range(RESHARD_SHARDS)
+    a = np.stack([src.field("a").views["standard"].fragments[s].row_words(1)
+                  for s in shards])
+    planes = np.stack([[src.field("age").view(src.field("age").bsi_view)
+                        .fragments[s].row_words(2 + p) for p in range(DEPTH)]
+                       for s in shards])
+    exists = np.stack([src.field("age").view(src.field("age").bsi_view)
+                       .fragments[s].row_words(0) for s in shards])
+    pc = np.bitwise_count(planes).sum(axis=(0, 2), dtype=np.int64)
+    t_rows = [int(np.bitwise_count(np.stack([
+        src.field("t").views["standard"].fragments[s].row_words(r)
+        for s in shards])).sum(dtype=np.int64)) for r in range(R)]
+    top = sorted(((r, c) for r, c in enumerate(t_rows) if c),
+                 key=lambda x: (-x[1], x[0]))
+    expect = {
+        "Count(Row(a=1))": int(np.bitwise_count(a).sum(dtype=np.int64)),
+        "Sum(field=age)": {"value": int(sum(int(pc[p]) << p
+                                            for p in range(DEPTH))),
+                           "count": int(np.bitwise_count(exists).sum(
+                               dtype=np.int64))},
+        "TopN(t, n=8)": [{"id": r, "count": c} for r, c in top],
+    }
+    try:
+        rows = copy_shards(h, holders[:2], "bench", shards,
+                           placement(2, 1), fields=("a", "t", "age"),
+                           dst_index="reshard")
+        nodes = [open_node(i) for i in range(2)]
+        nodes[0].apply_schema({"indexes": [{
+            "name": "reshard", "options": {"keys": False,
+                                           "trackExistence": False},
+            "fields": [f.to_dict() for f in src.public_fields()
+                       if f.name in ("a", "t", "age")]
+            + [{"name": "wr", "options": {"type": "set"}}]}]})
+        disco.add_shards("reshard", "", set(shards))
+        for hd in holders[:2]:
+            hd.sync()
+        for q, w in expect.items():
+            got = nodes[0].executor.execute("reshard", q)["results"][0]
+            if got != w:
+                raise AssertionError(f"11e: {q} {str(got)[:200]} != {w}")
+        print(f"11e: a second cluster (two nodes on disk, replica_n 1) over "
+              f"{RESHARD_SHARDS} shards of a, t and age ({rows} rows) built "
+              f"in {time.perf_counter() - t0:.1f} s; its answers equal numpy")
+        rng = np.random.default_rng(CLUSTER_SEED + 2)
+        wcols = [int(c) for c in rng.integers(0, RESHARD_SHARDS * width,
+                                              2 * RESHARD_WRITES)]
+        K.reset_launches()
+        joiner = open_node(2, member=False)
+        nodes.append(joiner)
+        moves, known = {}, set()
+        for k, (label, run) in enumerate((
+                ("join", lambda: nodes[0].rebalance_join("node2")),
+                ("drain", lambda: nodes[0].rebalance_drain("node1")))):
+            out, stats, known = reshard_storm(
+                nodes, expect, wcols[k::2], run, known, width)
+            moves[label] = out
+            print(f"11e: {label} of {'node2' if label == 'join' else 'node1'}"
+                  f": {out['shards_moved']} shards moved, "
+                  f"{out['bytes_copied']} bytes copied, "
+                  f"{out['bytes_delta_replayed']} bytes of deltas replayed in "
+                  f"{out['chase_rounds']} chase rounds, {stats['seconds']:.2f} "
+                  f"s; {stats['reads']} reads by {RESHARD_READERS} threads, "
+                  f"{stats['failed']} failed, {stats['mismatched']} "
+                  f"mismatched; {stats['writes']} writes acknowledged "
+                  f"during it ({stats['late']:g} also sent to an owner "
+                  f"that the placement read after the ack added), each "
+                  f"read back through node0 and on its owner before the "
+                  f"rest landed")
+            if stats["failed"] or stats["mismatched"] or \
+                    out["state"] != "done" or not out["shards_moved"]:
+                raise AssertionError(f"11e {label}: {out} {stats}")
+            if label == "join":
+                reshard_stream(nodes, disco, width)
+        got = nodes[0].executor.execute("reshard", "Count(Row(wr=9))")
+        if got["results"] != [len(known)] or known != set(wcols):
+            raise AssertionError(f"11e: Count(Row(wr=9)) {got}")
+        if disco.roster() != ["node0", "node2"]:
+            raise AssertionError(f"11e: roster {disco.roster()}")
+        note("11e", dict(K.LAUNCHES))
+        # 11f: backup of node2 (a node on disk) and restore
+        t1 = time.perf_counter()
+        bdir = os.path.join(root, "backup11f")
+        host = f"127.0.0.1:{nodes[2].server.port}"
+        if cli_main(["backup", "--host", host, "--output-dir", bdir,
+                     "--quiet"]) != 0:
+            raise AssertionError("11f: backup failed")
+        h2 = Holder(path=os.path.join(root, "restore11f"), width=width)
+        srv = Server(holder=h2, port=0, config=cfg)
+        srv.start()
+        try:
+            if cli_main(["restore", "--host", f"127.0.0.1:{srv.port}",
+                         "--source-dir", bdir, "--quiet"]) != 0:
+                raise AssertionError("11f: restore failed")
+            queries = list(expect) + ["Count(Row(wr=9))",
+                                      "GroupBy(Rows(t), aggregate=Sum(field=age))"]
+            for q in queries:
+                a1 = nodes[2].api.query("reshard", q)["results"]
+                a2 = srv.api.query("reshard", q)["results"]
+                if a1 != a2:
+                    raise AssertionError(f"11f: {q}: restored {str(a2)[:200]}"
+                                         f" != source {str(a1)[:200]}")
+            print(f"11f: `cli.main backup` of node2 ({len(os.listdir(bdir))} "
+                  f"entries) and `restore` into a fresh Server on "
+                  f"{srv.api.executor.device}: {len(queries)} queries answer "
+                  f"as node2 does, in {time.perf_counter() - t1:.1f} s")
+        finally:
+            srv.close()
+            h2.close()
+    finally:
+        for nd in made:
+            try:
+                nd.close()
+            except Exception:
+                pass
+        for hd in holders:
+            hd.close()
+
+
+def reshard_storm(nodes, expect, wcols, run, known, width):
+    """run() (a join or a drain) while RESHARD_READERS threads read
+    expect's queries and Count(Row(wr=9)) through nodes[0] and one
+    thread writes wr=9 at wcols; known holds the wr=9 columns set
+    before.  A read of Count(Row(wr=9)) lies between the acknowledged
+    writes when it starts and those when it ends plus the one in
+    flight, and never falls.  After the stop, every acknowledged write
+    reads back through nodes[0] and, shard by shard, on its owner;
+    only then do the writes the writer did not reach land.  Returns
+    (run's plan, counts, the wr=9 columns now set)."""
+    from pilosa_tpu_torch.obs import metrics
+    coord = nodes[0]
+    stop = threading.Event()
+    lock = threading.Lock()
+    stats = {"reads": 0, "failed": 0, "mismatched": 0, "writes": 0}
+    late0 = metrics.CLUSTER_EVENTS.value(event="late_owner")
+    acked = []
+    errors = []
+
+    def n_acked():
+        with lock:
+            return len(known.union(acked))
+
+    def reader(i):
+        qs = list(expect) + ["Count(Row(wr=9))"]
+        k, last = i, 0
+        while not stop.is_set():
+            q = qs[k % len(qs)]
+            k += 1
+            try:
+                lo = n_acked()
+                got = coord.executor.execute("reshard", q)["results"][0]
+                if q in expect:
+                    bad = got != expect[q]
+                else:
+                    bad = not max(lo, last) <= got <= n_acked() + 1
+                    lo, last = max(lo, last), max(last, got)
+                with lock:
+                    stats["reads"] += 1
+                    stats["mismatched"] += bad
+                if bad:
+                    errors.append(f"{q}: {str(got)[:120]} (at least {lo})")
+            except Exception as e:
+                with lock:
+                    stats["failed"] += 1
+                errors.append(f"{q}: {type(e).__name__}: {e}")
+            time.sleep(0.002)
+
+    def writer():
+        for c in wcols:
+            if stop.is_set():
+                return
+            try:
+                coord.import_bits("reshard", "wr", [9], [c])
+            except Exception as e:
+                errors.append(f"write: {type(e).__name__}: {e}")
+                with lock:
+                    stats["failed"] += 1
+                return
+            with lock:
+                acked.append(c)
+                stats["writes"] += 1
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=reader, args=(i,))
+               for i in range(RESHARD_READERS)] + [threading.Thread(
+                   target=writer)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        out = run()
+    finally:
+        stats["seconds"] = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(120)
+        stats["late"] = metrics.CLUSTER_EVENTS.value(
+            event="late_owner") - late0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("11e: a reader or the writer did not stop")
+    if errors:
+        print(f"11e: first errors {errors[:3]}")
+    have = known.union(acked)
+    got = coord.executor.execute("reshard", "Count(Row(wr=9))")["results"]
+    if got != [len(have)]:
+        raise AssertionError(f"11e: Count(Row(wr=9)) {got} != {len(have)} "
+                             f"acknowledged ({len(acked)} in this move)")
+    snap = coord.snapshot()
+    by_id = {nd.node_id: nd for nd in nodes}
+    for s in range(RESHARD_SHARDS):
+        owner = snap.shard_nodes("reshard", s)[0].id
+        want = sum(1 for c in have if c // width == s)
+        got = by_id[owner].api.query("reshard", "Count(Row(wr=9))",
+                                     shards=[s])["results"]
+        if got != [want]:
+            raise AssertionError(f"11e: shard {s} on its owner {owner}: "
+                                 f"Count(Row(wr=9)) {got} != {want}")
+    rest = wcols[len(acked):]
+    if rest:
+        coord.import_bits("reshard", "wr", [9] * len(rest), rest)
+    return out, stats, have.union(rest)
+
+
+def reshard_stream(nodes, disco, width) -> None:
+    """A StreamWriter window on a donor, to a shard that moved to node2,
+    forwards to the new owner and is read back there."""
+    from pilosa_tpu_torch.ingest.stream import StreamWriter
+    donor = next((nd for nd in nodes[:2]
+                  if nd.api.fences.moved_map("reshard")), None)
+    if donor is None:
+        raise AssertionError("11e: no donor holds a MOVED fence")
+    moved = donor.api.fences.moved_map("reshard")
+    s = min(moved)
+    col = s * width + 12345 % width
+    w = StreamWriter(donor.api, window_s=0.001, sync=False)
+    try:
+        w.submit("reshard", "wr", rows=[5], cols=[col], timeout=30)
+    finally:
+        w.close()
+    owner = next(nd for nd in nodes if nd.node_id == moved[s][0])
+    got = owner.api.query("reshard", "Count(Row(wr=5))", shards=[s])
+    frag = donor.api.holder.index("reshard").field("wr").views.get(
+        "standard")
+    left = frag.fragments.get(s) if frag is not None else None
+    stayed = left is not None and left.contains(5, col % width)
+    if got["results"] != [1] or stayed:
+        raise AssertionError(
+            f"11e: the window to moved shard {s} read {got} on "
+            f"{owner.node_id} (moved map {moved}; on the donor: {stayed}; "
+            f"the owner's shards "
+            f"{sorted(owner.api.holder.index('reshard').available_shards)})")
+    print(f"11e: a StreamWriter window on {donor.node_id} to shard {s} "
+          f"(moved to {owner.node_id}) was forwarded there and reads back")
 
 
 def _page_kinds(ps):

@@ -31,10 +31,13 @@ spans.  ``sql`` runs statements through ``sql_engine``, a
 from __future__ import annotations
 
 import base64
+import contextlib
 import datetime as dt
+import os
 import struct
 import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from decimal import Decimal
 
@@ -115,6 +118,10 @@ class API:
         # returns only after its index's dirty rows are synced: an
         # acknowledged write survives a kill, as a streamed one does
         self.durable_writes = False
+        # the online-resharding write fence (cluster/rebalance.py
+        # FenceTable), which a ClusterNode installs; None on a plain
+        # node, where every fence check below does nothing
+        self.fences = None
 
     def _ack(self, index: str | None) -> None:
         """The durability barrier of ``durable_writes`` after a write:
@@ -133,10 +140,75 @@ class API:
             raise ApiError(
                 "cluster is read-only: exclusive transaction active", 409)
 
+    # -- the online-resharding fence seams -----------------------------------
+
+    def _fence_import(self, index: str, cols):
+        """Import admission under the fence: a MOVED shard raises the
+        410 redirect (nothing applied, so re-sending to the new owner is
+        safe), a FENCING shard waits out the flip, and the import
+        registers in flight until its finalizer runs, so the
+        controller's drain waits for it.  Returns the finalizer, or None
+        on a plain node.  On a cluster node the registration is
+        unconditional: a write admitted just before a fence begins must
+        already be visible to the drain."""
+        if self.fences is None:
+            return None
+        width = self.holder.width
+        shards = ({int(c) // width for c in cols}
+                  if cols is not None and len(cols) else set())
+        tok = self.fences.enter_write(index, shards)
+        return lambda: self.fences.exit_write(tok)
+
+    def _fenced_import(self, index: str, cols):
+        """The context-manager form of ``_fence_import``, the one place
+        every import-shaped write takes the fence."""
+        @contextlib.contextmanager
+        def guard():
+            done = self._fence_import(index, cols)
+            try:
+                yield
+            finally:
+                if done is not None:
+                    done()
+        return guard()
+
+    def _fence_read_shards(self, index: str, shards):
+        """Read admission: a MOVED shard redirects, and the read
+        registers in flight so that a release cannot drop the donor's
+        fragments under a running scan.  Returns the finalizer, or None
+        on a plain node; unconditional on a cluster node, as above."""
+        if self.fences is None:
+            return None
+        tok = self.fences.enter_read(index, shards)
+        return lambda: self.fences.exit_read(tok)
+
+    def _fence_write_query(self, index: str, pql: str):
+        """A PQL write's fence: admit (waiting out a FENCING flip, 410
+        on a MOVED shard) and register in flight.  With no fence armed
+        the write registers as the index's wildcard, which every drain
+        waits on, instead of parsing the PQL a second time.  Returns the
+        finalizer, or None on a plain node."""
+        if self.fences is None:
+            return None
+        shards = set()
+        if self.fences.active():
+            try:
+                from pilosa_tpu_torch.pql import parse
+                q = parse(pql) if isinstance(pql, str) else pql
+                for c in q.calls:
+                    col = c.args.get("_col")
+                    if isinstance(col, int) and not isinstance(col, bool):
+                        shards.add(col // self.holder.width)
+            except Exception:
+                pass  # unparseable: the executor raises its own 400
+        tok = self.fences.enter_write(index, shards)
+        return lambda: self.fences.exit_write(tok)
+
     # -- queries -----------------------------------------------------------
 
     def query(self, index: str, pql: str, shards: list[int] | None = None,
-              profile: bool = False, qos=None) -> dict:
+              profile: bool = False, remote: bool = False,
+              qos=None) -> dict:
         """A PQL query (api.go:209 API.Query): {"results": [...]}, one
         serialized result a call, and with ``profile`` the span trees
         of the call under "profile" (tracing/tracing.go:22-50).  Reads
@@ -144,11 +216,17 @@ class API:
         on (``executor.enable_serving``) they pass admission (``qos``,
         executor/sched.py QoS), the result cache and the micro-batcher,
         and a profiled query's span tree holds the phases its batch
-        leader ran for it (tracing.capture_context / span_into)."""
+        leader ran for it (tracing.capture_context / span_into).
+        ``remote`` marks a coordinator's leg, whose column ids are
+        already translated.  On a cluster node the query passes the
+        resharding fence first."""
         t0 = time.time()
         write = is_write_query(pql)
         if write:
             self._check_writable()
+            fence_done = self._fence_write_query(index, pql)
+        else:
+            fence_done = self._fence_read_shards(index, shards)
         tracer = None
         # the long-query log records spans for every query, so a slow
         # one can show where its time went
@@ -156,13 +234,15 @@ class API:
             tracer = RecordingTracer()
             prev = _tr.push_thread_tracer(tracer)
         try:
-            results = self.executor.execute_serving(index, pql, shards,
-                                                    qos=qos)
+            results = self.executor.execute_serving(
+                index, pql, shards, remote=remote, qos=qos)
         except (ExecError, ParseError, ValueError, KeyError) as e:
             raise ApiError(str(e), 400) from e
         finally:
             if tracer is not None:
                 _tr.pop_thread_tracer(prev)
+            if fence_done is not None:
+                fence_done()
         if write:
             self._ack(index)
         resp = {"results": [serialize_result(r) for r in results]}
@@ -354,7 +434,7 @@ class API:
         cols = self._translate_cols(idx, cols, col_keys)
         if len(rows) != len(cols):
             raise ApiError("rows and columns length mismatch", 400)
-        with self._import_lock(index):
+        with self._fenced_import(index, cols), self._import_lock(index):
             if clear:
                 n = sum(bool(f.clear_bit(int(r), int(c)))
                         for r, c in zip(rows, cols))
@@ -384,7 +464,8 @@ class API:
         metrics.IMPORT_TOTAL.inc(index=index)
         n = 0
         touched = []
-        with self._import_lock(index):
+        with self._fenced_import(index, [int(shard) * idx.width]), \
+                self._import_lock(index):
             for row_s, blob in rows.items():
                 row = int(row_s)
                 data = base64.b64decode(blob) if isinstance(blob, str) \
@@ -439,7 +520,7 @@ class API:
             raise ApiError("values required", 400)
         if len(values) != len(cols):
             raise ApiError("columns and values length mismatch", 400)
-        with self._import_lock(index):
+        with self._fenced_import(index, cols), self._import_lock(index):
             if clear:
                 n = sum(bool(f.clear_value(int(c))) for c in cols)
             else:
@@ -460,7 +541,7 @@ class API:
         """Mark a columnar batch's records once (the per-field imports
         of the batch pass mark_exists=False)."""
         idx = self._index(index)
-        with self._import_lock(index):
+        with self._fenced_import(index, cols), self._import_lock(index):
             idx.mark_columns_exist(cols)
         self.sweep_import(index, set(), cols, mark_exists=True)
         self._ack(index)
@@ -476,7 +557,7 @@ class API:
         for c in cols:
             by_shard.setdefault(int(c) // idx.width, []).append(
                 int(c) % idx.width)
-        with self._import_lock(index):
+        with self._fenced_import(index, cols), self._import_lock(index):
             for shard, local in by_shard.items():
                 mask = bm.from_columns(local, idx.width)
                 for v in f.views.values():
@@ -506,7 +587,7 @@ class API:
         for fname, vals in (values or {}).items():
             jobs.append((self._field(idx, fname).import_values, (cols, vals)))
         metrics.IMPORT_TOTAL.inc(index=index)
-        with self._import_lock(index):
+        with self._fenced_import(index, cols), self._import_lock(index):
             if workers > 1 and len(jobs) > 1:
                 with ThreadPoolExecutor(max_workers=workers) as pool:
                     for fut in [pool.submit(fn, *args) for fn, args in jobs]:
@@ -592,6 +673,198 @@ class API:
     def available_shards(self, index: str) -> list[int]:
         return sorted(self._index(index).available_shards)
 
+    # -- backup and restore (ctl/backup.go, ctl/restore.go) ---------------
+
+    def _safe_rel_path(self, rel: str) -> str:
+        if not self.holder.path:
+            raise ApiError("node has no data directory", 400)
+        base = os.path.abspath(self.holder.path)
+        p = os.path.abspath(os.path.normpath(os.path.join(base, rel)))
+        if not p.startswith(base + os.sep):
+            raise ApiError(f"path escapes data directory: {rel}", 400)
+        return p
+
+    def backup_manifest(self) -> dict:
+        """Sync, then list every data file (schema, RBF shard files and
+        WALs, translate stores) relative to the data directory."""
+        if not self.holder.path:
+            raise ApiError("node has no data directory", 400)
+        self.holder.sync()
+        files = []
+        for root, _, fns in os.walk(self.holder.path):
+            for fn in fns:
+                files.append(os.path.relpath(os.path.join(root, fn),
+                                             self.holder.path))
+        return {"schema": self.schema(), "files": sorted(files)}
+
+    def backup_file(self, rel: str) -> bytes:
+        p = self._safe_rel_path(rel)
+        if not os.path.isfile(p):
+            raise ApiError(f"no such backup file: {rel}", 404)
+        with open(p, "rb") as f:
+            return f.read()
+
+    def restore_file(self, rel: str, data: bytes) -> None:
+        p = self._safe_rel_path(rel)
+        os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+        with open(p, "wb") as f:
+            f.write(data)
+
+    def restore_complete(self) -> dict:
+        """Reload the holder from the restored files (ctl/restore.go's
+        reload after the upload).  The reloaded fragments are new
+        objects with new generations, so no device stack or cached
+        result of the old ones is served again."""
+        if not self.holder.path:
+            raise ApiError("node has no data directory", 400)
+        self.holder.close()
+        self.holder.indexes = {}
+        self.holder.load_schema()
+        return {"indexes": sorted(self.holder.indexes)}
+
+    # -- translation sync (holder.go:1488-1715, the translate syncer) -------
+
+    def _keyed_index(self, index: str):
+        idx = self._index(index)
+        if not idx.keys:
+            raise ApiError(f"index {index} is not keyed", 400)
+        return idx
+
+    def translate_partitions(self, index: str) -> list[int]:
+        """The partitions of the index's column-key store holding keys."""
+        return self._keyed_index(index).column_translator \
+            .nonempty_partitions()
+
+    def translate_partition_snapshot(self, index: str,
+                                     partition: int) -> dict:
+        return self._keyed_index(index).column_translator \
+            .partition_snapshot(int(partition))
+
+    def translate_restore_partition(self, index: str, partition: int,
+                                    snap: dict) -> dict:
+        self._keyed_index(index).column_translator.restore_partition(
+            int(partition), snap)
+        return {"restored": int(partition),
+                "entries": len(snap.get("entries", []))}
+
+    def _row_translator(self, index: str, field: str):
+        f = self._index(index).field(field)
+        if f is None or f.row_translator is None:
+            raise ApiError(f"no keyed field {field} in {index}", 404)
+        return f.row_translator
+
+    def field_translate_snapshot(self, index: str, field: str) -> dict:
+        return self._row_translator(index, field).snapshot()
+
+    def field_translate_restore(self, index: str, field: str,
+                                snap: dict) -> dict:
+        self._row_translator(index, field).restore_snapshot(snap)
+        return {"entries": len(snap.get("entries", []))}
+
+    # -- fragment sync: replica repair (fragment.go checksum blocks) and
+    # -- the resharding transfer (block copy, delta chase) -----------------
+
+    def _fragment_or_none(self, index, field, view, shard):
+        idx = self.holder.index(index)
+        f = idx.field(field) if idx is not None else None
+        v = f.views.get(view) if f is not None else None
+        return v.fragment(int(shard)) if v is not None else None
+
+    def _fragment_or_404(self, index, field, view, shard):
+        """The fragment a transfer or repair writes, made as needed (a
+        fresh recipient has no existence field until its first mark)."""
+        idx = self._index(index)
+        f = idx.field(field)
+        if f is None and field == EXISTENCE_FIELD:
+            f = idx._ensure_existence()
+        if f is None:
+            raise ApiError(f"field not found: {field}", 404)
+        v = f.view(view, create=True)
+        if v is None:
+            raise ApiError(f"view not found: {view}", 404)
+        frag = v.fragment(int(shard), create=True)
+        if frag is None:
+            raise ApiError(f"no fragment shard={shard}", 404)
+        return frag
+
+    def fragment_views(self, index: str, field: str) -> list[str]:
+        return sorted(self._field(self._index(index), field).views)
+
+    def fragment_checksums(self, index: str, field: str, view: str,
+                           shard: int) -> dict:
+        """Block digests, to find where replicas diverge; {} when the
+        fragment does not exist (nothing stored is all-empty)."""
+        frag = self._fragment_or_none(index, field, view, shard)
+        if frag is None:
+            self._index(index)
+            return {}
+        return {str(b): d for b, d in frag.block_checksums().items()}
+
+    def fragment_checksums_many(self, index: str, field: str, view: str,
+                                shards) -> dict:
+        """``fragment_checksums`` of many shards in one call: {shard:
+        digests} (the port's batched form of the rejoin's diff)."""
+        return {str(int(s)): self.fragment_checksums(index, field, view,
+                                                     int(s))
+                for s in shards}
+
+    def fragment_block(self, index: str, field: str, view: str,
+                       shard: int, block: int) -> dict:
+        """One block's rows as base64(zlib(packed words)); {} when the
+        fragment does not exist (the repairing peer then clears its
+        diverged rows)."""
+        frag = self._fragment_or_none(index, field, view, shard)
+        if frag is None:
+            self._index(index)
+            return {}
+        return {str(r): _pack_words(w)
+                for r, w in frag.block_rows(int(block)).items()}
+
+    def fragment_set_block(self, index: str, field: str, view: str,
+                           shard: int, block: int, payload: dict) -> dict:
+        frag = self._fragment_or_404(index, field, view, shard)
+        rows = {int(r): _unpack_words(b64) for r, b64 in payload.items()}
+        frag.set_block_rows(int(block), rows)
+        return {"block": int(block), "rows": len(rows)}
+
+    def fragment_state(self, index: str, field: str, view: str,
+                       shard: int) -> dict:
+        """The copy's bootstrap in one round trip: the donor fragment's
+        (gen, version), taken before its block digests, so a chase from
+        ``version`` covers every write made during the copy."""
+        frag = self._fragment_or_none(index, field, view, shard)
+        if frag is None:
+            return {"absent": True}
+        gen, version = frag.gen, frag.version
+        return {"gen": gen, "version": version,
+                "checksums": {str(b): d for b, d
+                              in frag.block_checksums().items()}}
+
+    def fragment_deltas(self, index: str, field: str, view: str,
+                        shard: int, since: int) -> dict:
+        """The delta chase's feed: the current words of every row the
+        delta log names above ``since``; ``covered`` False when the log
+        cannot prove coverage (the caller diffs checksums again)."""
+        frag = self._fragment_or_none(index, field, view, shard)
+        if frag is None:
+            return {"absent": True}
+        gen, version, count, rows = frag.delta_export(int(since))
+        if rows is None:
+            return {"covered": False, "gen": gen, "version": version}
+        return {"covered": True, "gen": gen, "version": version,
+                "count": count,
+                "rows": {str(r): _pack_words(w) for r, w in rows.items()}}
+
+    def fragment_set_rows(self, index: str, field: str, view: str,
+                          shard: int, payload: dict) -> dict:
+        """The recipient's side of the chase: replace whole rows with the
+        donor's current words (idempotent)."""
+        frag = self._fragment_or_404(index, field, view, shard)
+        rows = payload.get("rows", payload)
+        for r, b64 in rows.items():
+            frag.set_row_words(int(r), _unpack_words(b64))
+        return {"rows": len(rows)}
+
     # -- key translation (api.go:929-1038) ---------------------------------
 
     def _translator(self, index: str, field: str | None):
@@ -621,6 +894,17 @@ class API:
         if idx is None:
             raise ApiError(f"index not found: {name}", 404)
         return idx
+
+
+def _pack_words(words) -> str:
+    """Packed row words on the node-to-node wire: base64(zlib(bytes))."""
+    return base64.b64encode(zlib.compress(
+        np.ascontiguousarray(words, dtype=np.uint32).tobytes())).decode()
+
+
+def _unpack_words(b64: str) -> np.ndarray:
+    return np.frombuffer(zlib.decompress(base64.b64decode(b64)),
+                         dtype=np.uint32)
 
 
 _NAME_OK = set("abcdefghijklmnopqrstuvwxyz0123456789-_")

@@ -4,6 +4,8 @@ Command set mirrors the reference CLI (cmd/root.go:94-111 subcommand
 registration; implementations in ctl/):
 
     server            run a node                       (ctl/server.go)
+    backup            snapshot a live node             (ctl/backup.go:30)
+    restore           upload a backup to a node        (ctl/restore.go)
     import            CSV import through the batcher   (ctl/import.go)
     export            dump a field as CSV              (ctl/export.go)
     generate-config   print default config             (cmd generate-config)
@@ -16,12 +18,13 @@ argparse instead of cobra; flags keep the reference's names where they
 exist (--host, --index, --field, ...).  ``server --device`` picks the
 torch device the node computes on: the CUDA card by default (a machine
 without one raises), ``cpu`` for the kernels' plain versions.  The
-multi-node commands (backup, restore, dax) are not ported.
+``dax`` command of the disaggregated tier is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -89,6 +92,72 @@ def cmd_server(args) -> int:
             grpc_srv.stop()
         holder.sync()
         srv.close()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# backup / restore (ctl/backup.go:30,87; ctl/restore.go)
+# ---------------------------------------------------------------------------
+
+def _safe_join(base: str, rel: str) -> str:
+    """Join a manifest's relative path under ``base``, refusing one that
+    leaves it (the server must not steer where the CLI writes)."""
+    if os.path.isabs(rel) or ".." in rel.replace("\\", "/").split("/"):
+        raise ValueError(f"unsafe path in manifest: {rel!r}")
+    return os.path.join(base, rel)
+
+
+def cmd_backup(args) -> int:
+    """Copy a live node's data files into ``--output-dir`` under an
+    exclusive transaction, which holds every writer off while the files
+    stream (ctl/backup.go:87)."""
+    cli = _client(args)
+    tx = cli._request(args.host, "POST", "/transaction",
+                      {"exclusive": True, "timeout": 300.0})
+    tid = tx["id"]
+    try:
+        deadline = time.time() + 30
+        while not tx.get("active"):
+            if time.time() > deadline:
+                print("timed out waiting for exclusive transaction",
+                      file=sys.stderr)
+                return 1
+            time.sleep(0.1)
+            tx = cli._request(args.host, "GET", f"/transaction/{tid}")
+        man = cli._request(args.host, "GET", "/internal/backup/manifest")
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "MANIFEST.json"),
+                  "w") as f:
+            json.dump(man, f, indent=1)
+        for rel in man["files"]:
+            data = cli.get_raw(args.host,
+                               f"/internal/backup/file?path={rel}")
+            dst = _safe_join(args.output_dir, rel)
+            os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+            with open(dst, "wb") as f:
+                f.write(data)
+            if not args.quiet:
+                print(f"backed up {rel} ({len(data)} bytes)")
+    finally:
+        cli._request(args.host, "POST", f"/transaction/{tid}/finish")
+    print(f"backup complete: {len(man['files'])} files "
+          f"-> {args.output_dir}")
+    return 0
+
+
+def cmd_restore(args) -> int:
+    """Upload a backup's files to a node, then have it reload them."""
+    cli = _client(args)
+    with open(os.path.join(args.source_dir, "MANIFEST.json")) as f:
+        man = json.load(f)
+    for rel in man["files"]:
+        with open(_safe_join(args.source_dir, rel), "rb") as f:
+            data = f.read()
+        cli.post_raw(args.host, f"/internal/restore/file?path={rel}", data)
+        if not args.quiet:
+            print(f"restored {rel} ({len(data)} bytes)")
+    got = cli._request(args.host, "POST", "/internal/restore/complete")
+    print(f"restore complete: indexes {got['indexes']}")
     return 0
 
 
@@ -353,6 +422,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "card, which must be present; 'cpu' runs the "
                          "kernels' plain versions)")
     sp.set_defaults(fn=cmd_server)
+
+    sp = sub.add_parser("backup", help="back up a live node")
+    host_flags(sp)
+    sp.add_argument("--output-dir", required=True)
+    sp.add_argument("--quiet", action="store_true")
+    sp.set_defaults(fn=cmd_backup)
+
+    sp = sub.add_parser("restore", help="restore a backup to a node")
+    host_flags(sp)
+    sp.add_argument("--source-dir", required=True)
+    sp.add_argument("--quiet", action="store_true")
+    sp.set_defaults(fn=cmd_restore)
 
     sp = sub.add_parser("import", help="import a CSV file")
     host_flags(sp)

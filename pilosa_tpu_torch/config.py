@@ -10,10 +10,10 @@ and flags give the JAX package's Config field for field.
 ``load`` is where the port reads ``PILOSA_TPU_*``: its modules read no
 environment switch, and each ``apply_*`` method hands the loaded
 values to the module's ``configure()`` call instead.  Sections of
-planes the port does not have ([dax], [blob], the multi-node and mesh
-knobs of [cluster], the replica scrubber, the kernel switch) are
-parsed into the same fields; their ``apply_*`` raises ``ConfigError``
-when one is set away from its default.
+planes the port does not have ([dax], [blob], the mesh knobs of
+[cluster], the kernel switch) are parsed into the same fields; their
+``apply_*`` raises ``ConfigError`` when one is set away from its
+default.
 """
 
 from __future__ import annotations
@@ -215,12 +215,12 @@ class Config:
                                   keep=self.flight_ring)
 
     def apply_fault_settings(self):
-        """Arm the config's fault points ([faults] spec).  Test-armed
-        faults (faults.inject) are never touched.  The hedge, deadline
-        and rebalance knobs of [cluster] belong to the multi-node
-        plane, which is not ported: they raise away from their
-        defaults."""
-        self._refuse("cluster")
+        """Arm the config's fault points ([faults] spec) and hand the
+        [cluster] hedge, deadline and rebalance knobs to the cluster
+        plane's configure() calls (read per fan-out and per rebalance,
+        so a reconfigure applies live).  Test-armed faults
+        (faults.inject) are never touched."""
+        from pilosa_tpu_torch.cluster import coordinator, rebalance
         from pilosa_tpu_torch.obs import faults
         # load() folds PILOSA_TPU_FAULT_SPEC into fault_spec: drop the
         # import-time arming before arming it again as config, or each
@@ -228,6 +228,12 @@ class Config:
         if self.fault_spec:
             faults.clear(source="env")
         faults.configure(self.fault_spec)
+        coordinator.configure(hedge_ms=self.cluster_hedge_ms,
+                              deadline_s=self.cluster_deadline_s)
+        rebalance.configure(
+            chase_lag=self.cluster_rebalance_chase_lag,
+            max_rounds=self.cluster_rebalance_max_rounds,
+            fence_timeout_s=self.cluster_rebalance_fence_timeout_s)
 
     def apply_roofline_settings(self):
         """Configure roofline attribution ([roofline]) and start the
@@ -240,17 +246,22 @@ class Config:
             roofline.ensure_peak(block=False)
 
     def apply_stats_settings(self, data_dir: str | None = None):
-        """Configure the statistics catalog ([stats]).  The port's
-        catalog keeps no file (its store waits for the multi-node
-        plane): ``persist`` and the snapshot interval raise away from
-        their defaults."""
-        self._refuse("stats")
+        """Configure the statistics catalog ([stats]).  With
+        ``persist`` and a data directory (``data_dir``, the holder's
+        path, or ``data-dir``) the catalog is kept in
+        ``<dir>/stats.jsonl``, saved every ``snapshot-interval-s``;
+        without a directory it lives in memory."""
         from pilosa_tpu_torch.obs import stats
+        base = data_dir if data_dir is not None else (self.data_dir
+                                                      or None)
+        path = (os.path.join(base, "stats.jsonl")
+                if (self.stats_persist and base) else None)
         stats.configure(
-            enabled=self.stats_enabled,
+            enabled=self.stats_enabled, path=path,
             heavy_cost_ms=self.stats_heavy_cost_ms,
             regression_ratio=self.stats_regression_ratio,
-            regression_min_samples=self.stats_regression_min_samples)
+            regression_min_samples=self.stats_regression_min_samples,
+            snapshot_interval_s=self.stats_snapshot_interval_s)
 
     def apply_sql_settings(self):
         """Configure the SQL serving plane ([sql] pushdown)."""
@@ -315,10 +326,8 @@ class Config:
                            max_registrations=self.standing_max)
 
     def apply_audit_settings(self):
-        """Configure the correctness-auditing plane ([audit]).  The
-        replica scrubber belongs to the multi-node plane:
-        ``scrub-replica-n`` raises away from its default."""
-        self._refuse("audit")
+        """Configure the correctness-auditing plane ([audit]), the
+        replica scrubber's budget a tick among its knobs."""
         from pilosa_tpu_torch.obs import audit
         audit.configure(
             enabled=self.audit_enabled,
@@ -328,6 +337,7 @@ class Config:
             concurrency=self.audit_concurrency,
             scrub_cache_n=self.audit_scrub_cache_n,
             scrub_standing_n=self.audit_scrub_standing_n,
+            scrub_replica_n=self.audit_scrub_replica_n,
             quarantine=self.audit_quarantine)
 
     def apply_dax_settings(self):
@@ -380,14 +390,8 @@ _DEFAULTS = {f.name: f.default for f in fields(Config)}
 # refused away from their defaults by the apply_* methods
 _UNPORTED = {
     "stacked": ("stacked", ("stack_patch",)),
-    "cluster": ("cluster", ("cluster_hedge_ms", "cluster_deadline_s",
-                            "cluster_rebalance_chase_lag",
-                            "cluster_rebalance_max_rounds",
-                            "cluster_rebalance_fence_timeout_s")),
     "placement": ("cluster", ("cluster_mesh_devices",
                               "cluster_placement_pin")),
-    "stats": ("stats", ("stats_persist", "stats_snapshot_interval_s")),
-    "audit": ("audit", ("audit_scrub_replica_n",)),
     "dax": ("dax", tuple(n for n in _DEFAULTS
                          if n.startswith(("dax_", "blob_")))),
 }

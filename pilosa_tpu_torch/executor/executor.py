@@ -57,6 +57,7 @@ the stacked engine refused a shape).
 
 from __future__ import annotations
 
+import contextvars
 import datetime as dt
 import time
 from collections import Counter
@@ -108,6 +109,11 @@ _WRITE_CALLS = {"Set", "Clear", "Store", "ClearRow", "Delete"}
 
 # rows per device batch in the per-shard engine's row scans
 _ROW_CHUNK = 256
+
+# true while serving a node-to-node (remote) leg, whose column ids the
+# coordinator already translated (executor.go opt.Remote): a keyed index
+# then takes raw column ids
+_REMOTE = contextvars.ContextVar("pilosa_tpu_torch_remote", default=False)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -206,19 +212,35 @@ class Executor(AdvancedOps):
         return self.serving
 
     def execute_serving(self, index_name: str, query: str | Query,
-                        shards: list[int] | None = None, qos=None) -> list:
+                        shards: list[int] | None = None,
+                        remote: bool = False, qos=None) -> list:
         """The serving entry: admission, the micro-batcher and the
         result cache when the layer is on, else ``execute``.  ``qos``
         (executor/sched.py QoS) carries the request's tenant, priority
-        and deadline."""
+        and deadline; ``remote`` marks a coordinator's leg (see
+        ``execute``)."""
         if self.serving is None:
-            return self.execute(index_name, query, shards)
-        return self.serving.execute(index_name, query, shards, qos=qos)
+            return self.execute(index_name, query, shards, remote=remote)
+        return self.serving.execute(index_name, query, shards,
+                                    remote=remote, qos=qos)
 
     # -- entry point (executor.Execute analog) -------------------------------
 
     def execute(self, index_name: str, query: str | Query,
-                shards: list[int] | None = None) -> list:
+                shards: list[int] | None = None,
+                remote: bool = False) -> list:
+        """Run a query's calls over ``shards`` (every shard when None).
+        ``remote`` marks a node-to-node leg whose column ids the
+        coordinator translated (executor.go opt.Remote): a keyed index
+        then takes raw column ids."""
+        tok = _REMOTE.set(remote)
+        try:
+            return self._execute(index_name, query, shards)
+        finally:
+            _REMOTE.reset(tok)
+
+    def _execute(self, index_name: str, query: str | Query,
+                 shards: list[int] | None) -> list:
         t0 = time.perf_counter()
         status = "error"
         idx = self.holder.index(index_name)
@@ -1220,7 +1242,8 @@ class Executor(AdvancedOps):
     def _col_id(self, idx: Index, col, create: bool = False):
         """A column value as a column id: a string key through the index's
         column translator, found on a read (None for an unknown key) and
-        created on a write.  A keyed index takes keys only."""
+        created on a write.  A keyed index takes keys only, except on a
+        remote leg (``_REMOTE``)."""
         if isinstance(col, str):
             tr = idx.column_translator
             if tr is None:
@@ -1228,7 +1251,7 @@ class Executor(AdvancedOps):
             if create:
                 return tr.create_keys(col)[col]
             return tr.find_keys(col).get(col)
-        if idx.keys:
+        if idx.keys and not _REMOTE.get():
             raise ExecError(f"index {idx.name} uses column keys; got id "
                             f"{col!r}")
         return int(col)

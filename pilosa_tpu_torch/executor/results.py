@@ -115,3 +115,43 @@ class ExtractedTable:
     a keyed index)."""
     fields: list = field(default_factory=list)
     columns: list = field(default_factory=list)
+
+
+def deserialize_result(call, data, width: int = SHARD_WIDTH):
+    """The inverse of ``api.serialize_result`` for one call's JSON form:
+    the result object a remote node serialized, so that code expecting
+    the rich result types can take a wire result (the JAX package's
+    ``executor/results.deserialize_result``)."""
+    name = call.name
+    if name in ("Count", "IncludesColumn") or isinstance(data, (int, bool)):
+        return data
+    if name in ("Sum", "Min", "Max"):
+        return ValCount(value=data.get("value"), count=data.get("count", 0))
+    if name in ("TopN", "TopK"):
+        return [Pair(id=p.get("id", 0), count=p.get("count", 0),
+                     key=p.get("key")) for p in data]
+    if name == "GroupBy":
+        return [GroupCount(group=g.get("group", []),
+                           count=g.get("count", 0), agg=g.get("agg"),
+                           agg_count=g.get("agg_count"))
+                for g in data]
+    if name == "Distinct":
+        if isinstance(data, dict) and "values" in data:
+            return DistinctValues(values=list(data["values"]))
+        r = RowResult.from_columns(data.get("columns", []), width)
+        r.is_row_ids = True
+        return r
+    if name == "Rows":
+        return list(data)
+    if name == "Extract":
+        return ExtractedTable(fields=list(data.get("fields", [])),
+                              columns=list(data.get("columns", [])))
+    if name == "Sort":
+        return SortedRow(columns=list(data.get("columns", [])),
+                         values=list(data.get("values", [])))
+    if isinstance(data, dict) and "columns" in data:
+        r = RowResult.from_columns(data["columns"], width)
+        if data.get("keys") is not None:
+            r.keys = list(data["keys"])
+        return r
+    return data

@@ -837,9 +837,15 @@ class ServingLayer:
 
     # -- entry point ---------------------------------------------------
 
-    def execute(self, index: str, query, shards=None, qos=None) -> list:
+    def execute(self, index: str, query, shards=None,
+                remote: bool = False, qos=None) -> list:
         from pilosa_tpu_torch.executor import sched as _sched
         ex = self.executor
+        if remote:
+            # a node-to-node leg carries the _REMOTE context variable,
+            # which a batch leader's thread would not inherit: it runs
+            # solo
+            return ex.execute(index, query, shards, remote=True)
         q = parse(query) if isinstance(query, str) else query
         if any(c.name in _WRITE_CALLS for c in q.calls):
             try:

@@ -35,9 +35,10 @@ record per window (route ``ingest``) at /debug/queries.
 The applies go through ``Field.import_bits``/``import_values`` under
 ``API._import_lock`` and end in ``API.sweep_import``, so the next read
 patches the resident device stacks instead of uploading them again.
-The resharding fences and the forward of moved shards to their new
-owner belong to the multi-node plane, which is not ported: every
-window lands locally.
+On a cluster node (``api.fences`` set) a window waits out a fence
+flip, forwards the mutations of shards that moved to their new owner
+(``_reroute_moved``) and registers the rest in flight, so the
+rebalance's drain covers it.
 """
 
 from __future__ import annotations
@@ -422,7 +423,37 @@ class StreamWriter:
             touched_fields.add(m.field)
             if m.n:
                 shard_sets.append(m.cols // idx.width)
-        self._apply_groups(idx, index, groups, exist_cols, touched_fields)
+        # online resharding: a fence flipping now is waited out, the
+        # mutations of shards that MOVED go to the new owner's import
+        # surface instead of the donor's released storage, and the
+        # local rest registers in flight so the controller's drain
+        # covers this window (a shard fenced after this point still
+        # lands in the donor's delta log before the final chase)
+        fences = getattr(self.api, "fences", None)
+        fence_done = None
+        if fences is not None:
+            if fences.active():
+                all_shards = ({int(s) for arr in shard_sets
+                               for s in np.unique(arr)}
+                              if shard_sets else set())
+                fences.await_writable(index, all_shards)
+                moved = fences.moved_map(index)
+                if moved:
+                    # n stays as admitted: the forwarded mutations
+                    # landed too, on the new owner
+                    groups, exist_cols = self._reroute_moved(
+                        idx, index, groups, exist_cols, moved)
+            # unconditional on a cluster node (as api._fence_import): a
+            # window admitted just before a fence arms must already be
+            # visible to the drain
+            tok = fences.enter_write(index, set())
+            fence_done = lambda: fences.exit_write(tok)  # noqa: E731
+        try:
+            self._apply_groups(idx, index, groups, exist_cols,
+                               touched_fields)
+        finally:
+            if fence_done is not None:
+                fence_done()
         # narrowed result-cache sweep: exactly the (field, shard)
         # slices this window dirtied (shared with the API import paths)
         shards = None
@@ -433,6 +464,87 @@ class StreamWriter:
         self.api.sweep_import(index, touched_fields, shards=shards)
         self._maintain_s += time.perf_counter() - tm
         return n
+
+    def _reroute_moved(self, idx, index: str, groups, exist_cols,
+                       moved: dict):
+        """Split every group's columns on the moved-shard table
+        (shard -> (owner id, owner uri)): the moved subsets go to their
+        new owner over the node-to-node transport (whose import marks
+        existence and acks there), the rest applies here.  A failed
+        forward fails the window (its submitters get the error, and a
+        client's retry routes against the settled placement)."""
+        from pilosa_tpu_torch.cluster.client import InternalClient
+        client = InternalClient()
+        moved_shards = np.asarray(sorted(moved), dtype=np.int64)
+        kept_groups: list = []
+        try:
+            for group in groups:
+                kept = []
+                for m in group:
+                    if not m.n:
+                        kept.append(m)
+                        continue
+                    shard_of = m.cols // idx.width
+                    mask = np.isin(shard_of, moved_shards)
+                    if not mask.any():
+                        kept.append(m)
+                        continue
+                    for s in np.unique(shard_of[mask]):
+                        _owner_id, owner_uri = moved[int(s)]
+                        sel = shard_of == s
+                        if m.kind == "values":
+                            client.import_values(
+                                owner_uri, index, m.field, m.cols[sel],
+                                np.asarray(m.values)[sel].tolist(),
+                                clear=m.clear)
+                        else:
+                            tss = None
+                            if m.timestamps is not None:
+                                tss = [m.timestamps[i]
+                                       for i in np.flatnonzero(sel)]
+                            client.import_bits(
+                                owner_uri, index, m.field, m.rows[sel],
+                                m.cols[sel], timestamps=tss,
+                                clear=m.clear)
+                    keep = ~mask
+                    if keep.any():
+                        m.cols = m.cols[keep]
+                        if m.kind == "values":
+                            m.values = np.asarray(m.values)[keep]
+                        else:
+                            m.rows = m.rows[keep]
+                            if m.timestamps is not None:
+                                m.timestamps = [m.timestamps[i] for i
+                                                in np.flatnonzero(keep)]
+                        kept.append(m)
+                if kept:
+                    kept_groups.append(kept)
+            kept_exist: list[np.ndarray] = []
+            for arr in exist_cols:
+                shard_of = arr // idx.width
+                mask = np.isin(shard_of, moved_shards)
+                if not mask.any():
+                    kept_exist.append(arr)
+                    continue
+                for s in np.unique(shard_of[mask]):
+                    _owner_id, owner_uri = moved[int(s)]
+                    sel = arr[shard_of == s]
+                    try:
+                        client.import_bits(owner_uri, index,
+                                           EXISTENCE_FIELD,
+                                           [0] * len(sel), sel)
+                    except Exception:
+                        # a bare existence mark for a shard the new
+                        # owner has not made yet: its next real write
+                        # there marks it anyway
+                        pass
+                if (~mask).any():
+                    kept_exist.append(arr[~mask])
+        except ValueError:
+            raise
+        except Exception as e:
+            raise ValueError(f"moved-shard forward failed: {e}") from e
+        return kept_groups, kept_exist
 
     def _apply_groups(self, idx, index: str, groups, exist_cols,
                       touched_fields: set) -> None:

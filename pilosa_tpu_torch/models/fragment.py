@@ -125,6 +125,8 @@ class Fragment:
         self._cache_stale: dict[int, None] = {}
         # rows written since the last sync (IndexStorage.write_fragments)
         self.dirty_rows: set[int] = set()
+        # ((gen, version), {block: digest}) of the last block_checksums
+        self._sums = None
         # held by every host mutation and by the sync of this fragment
         # (re-entrant: import_mutex and set_value call other mutations)
         self.lock = threading.RLock()
@@ -454,22 +456,26 @@ class Fragment:
     @property
     def row_ids(self) -> list[int]:
         """The ids of the rows holding a bit, ascending.  After writes
-        only the written rows are checked again."""
-        if self._row_ids_cache is None:
-            self._row_ids_cache = sorted(
-                r for r in set(self._rows) | set(self._sparse)
-                if self._has_bits(r))
-            self._rows_touched.clear()
-        elif self._rows_touched:
-            ids = set(self._row_ids_cache)
-            for r in self._rows_touched:
-                if self._has_bits(r):
-                    ids.add(r)
-                else:
-                    ids.discard(r)
-            self._row_ids_cache = sorted(ids)
-            self._rows_touched.clear()
-        return list(self._row_ids_cache)
+        only the written rows are checked again, under the fragment's
+        lock: a write landing meanwhile (a replica repair or a
+        resharding transfer beside a read) would otherwise change the
+        set of written rows while it is walked."""
+        with self.lock:
+            if self._row_ids_cache is None:
+                self._row_ids_cache = sorted(
+                    r for r in set(self._rows) | set(self._sparse)
+                    if self._has_bits(r))
+                self._rows_touched.clear()
+            elif self._rows_touched:
+                ids = set(self._row_ids_cache)
+                for r in self._rows_touched:
+                    if self._has_bits(r):
+                        ids.add(r)
+                    else:
+                        ids.discard(r)
+                self._row_ids_cache = sorted(ids)
+                self._rows_touched.clear()
+            return list(self._row_ids_cache)
 
     def max_row_id(self) -> int:
         ids = self.row_ids
@@ -500,13 +506,101 @@ class Fragment:
         arr = self._sparse.get(row)
         return int(arr.size) if arr is not None else 0
 
+    def memory_bytes(self) -> int:
+        """Host bytes of the fragment's rows."""
+        return (sum(w.nbytes for w in self._rows.values())
+                + sum(a.nbytes for a in self._sparse.values()))
+
+    # -- node sync (fragment.go checksum blocks; online resharding) --------
+
+    # rows a checksum block covers
+    BLOCK_ROWS = 64
+
+    @_locked
+    def delta_export(self, since: int):
+        """The resharding chase's unit: the current words of every row
+        the delta log names above ``since``, as ``(gen, version,
+        span_count, {row: words})``, or ``(gen, version, None, None)``
+        when the log cannot prove coverage (the caller then diffs block
+        checksums again).  Current contents, not historical patches,
+        make the replay idempotent."""
+        gen, version = self.gen, self.version
+        spans = self.deltas_since(int(since))
+        if spans is None:
+            return gen, version, None, None
+        rows = sorted({int(r) for r, _lo, _hi in spans})
+        return gen, version, len(spans), {r: self.row_words(r).copy()
+                                          for r in rows}
+
+    @_locked
+    def block_checksums(self) -> dict[int, str]:
+        """A digest a row block b (rows [b*BLOCK_ROWS, (b+1)*BLOCK_ROWS))
+        holding a bit, over each row's id and contents in row order,
+        whatever form a row is held in: a row of at most SPARSE_MAX bits
+        hashes its sorted set columns as int64, as the JAX package's
+        digest does; a denser row hashes its packed words behind a
+        marker (the JAX digest hashes its columns, 8 bytes a set bit,
+        16 times the words' bytes for a half-full row).  So at widths up
+        to SPARSE_MAX bits the digests are the JAX package's.  They are
+        kept for the fragment's (gen, version): a second pass over an
+        unchanged fragment hashes nothing."""
+        import hashlib
+        stamp = (self.gen, self.version)
+        if self._sums is not None and self._sums[0] == stamp:
+            return dict(self._sums[1])
+        acc: dict = {}
+        for r in self.row_ids:
+            b = r // self.BLOCK_ROWS
+            h = acc.get(b)
+            if h is None:
+                h = acc[b] = hashlib.blake2b(digest_size=16)
+            h.update(int(r).to_bytes(8, "little"))
+            arr = self._sparse.get(r)
+            if arr is None:
+                w = self._rows[r]
+                if int(np.bitwise_count(w).sum()) > SPARSE_MAX:
+                    h.update(b"words")
+                    h.update(np.ascontiguousarray(w).tobytes())
+                    continue
+                arr = bm.to_columns(w).astype(np.int64)
+            h.update(np.ascontiguousarray(arr).tobytes())
+        out = {b: h.hexdigest() for b, h in acc.items()}
+        self._sums = (stamp, out)
+        return dict(out)
+
+    @_locked
+    def block_rows(self, block: int) -> dict[int, np.ndarray]:
+        """The packed words of every non-empty row of one block."""
+        lo, hi = block * self.BLOCK_ROWS, (block + 1) * self.BLOCK_ROWS
+        return {r: self.row_words(r).copy() for r in self.row_ids
+                if lo <= r < hi}
+
+    @_locked
+    def set_block_rows(self, block: int, rows: dict) -> None:
+        """Replace one block with a peer's rows (the repair and transfer
+        write); a row absent from ``rows`` is cleared.  Each row goes
+        through ``set_row_words``, so the version, the delta log, the
+        dirty rows and the mutation epoch move as for any write: a
+        resident stack is patched and the result cache drops what the
+        write made stale."""
+        lo, hi = block * self.BLOCK_ROWS, (block + 1) * self.BLOCK_ROWS
+        for r in [r for r in self.row_ids if lo <= r < hi]:
+            if r not in rows:
+                self.set_row_words(r, 0)
+        for r, words in rows.items():
+            if not lo <= int(r) < hi:
+                raise ValueError(f"row {r} outside block {block}")
+            self.set_row_words(int(r), words)
+
     def row_cache(self):
         """The TopN rank/LRU cache, refreshed for rows written since
-        the last access (None when the cache type is none)."""
+        the last access (None when the cache type is none), under the
+        fragment's lock (see row_ids)."""
         if self._cache is None:
             return None
-        if self._cache_stale:
-            for r in self._cache_stale:
-                self._cache.add(r, self.row_count(r))
-            self._cache_stale = {}
+        with self.lock:
+            if self._cache_stale:
+                for r in self._cache_stale:
+                    self._cache.add(r, self.row_count(r))
+                self._cache_stale = {}
         return self._cache

@@ -24,8 +24,11 @@ against served traffic:
 - **Scrubbers** (``scrub``, on a maintenance tick): a ResultCache
   audit (sampled cached entries recomputed on the oracle under the
   entry's own snapshot guard) and a standing-query drift audit
-  (maintained results against one cold execution at quiesce points).
-  The replica scrub of a cluster waits for the cluster slice.
+  (maintained results against one cold execution at quiesce points),
+  and on a cluster node the replica scrub: ``replica_scrub``, which
+  ``ClusterNode`` sets to its ``audit_scrub`` (block checksums of its
+  fragments against a live co-owner; a divergence is counted as a
+  detection, then repaired through the rejoin's block pull).
 
 - **Evidence**: every outcome counts into
   ``pilosa_audit_total{kind,outcome}``; a mismatch lands in a bounded
@@ -60,6 +63,7 @@ _QUEUE_MAX = 64
 _CONCURRENCY = 1
 _SCRUB_CACHE_N = 4
 _SCRUB_STANDING_N = 2
+_SCRUB_REPLICA_N = 2
 _QUARANTINE = 32
 _RECENT = 64
 # bounded key->query side-table: the result cache's key carries only a
@@ -71,9 +75,10 @@ _KEYS_MAX = 512
 def configure(enabled: bool | None = None, sample_rate=None,
               route_rates=None, queue_max=None, concurrency=None,
               scrub_cache_n=None, scrub_standing_n=None,
-              quarantine=None) -> None:
+              scrub_replica_n=None, quarantine=None) -> None:
     global _ENABLED, _SAMPLE_RATE, _ROUTE_RATES, _QUEUE_MAX, \
-        _CONCURRENCY, _SCRUB_CACHE_N, _SCRUB_STANDING_N, _QUARANTINE
+        _CONCURRENCY, _SCRUB_CACHE_N, _SCRUB_STANDING_N, \
+        _SCRUB_REPLICA_N, _QUARANTINE
     if enabled is not None:
         _ENABLED = bool(enabled)
     if sample_rate is not None:
@@ -90,6 +95,8 @@ def configure(enabled: bool | None = None, sample_rate=None,
         _SCRUB_CACHE_N = max(0, int(scrub_cache_n))
     if scrub_standing_n is not None:
         _SCRUB_STANDING_N = max(0, int(scrub_standing_n))
+    if scrub_replica_n is not None:
+        _SCRUB_REPLICA_N = max(0, int(scrub_replica_n))
     if quarantine is not None:
         _QUARANTINE = max(1, int(quarantine))
 
@@ -255,8 +262,12 @@ class AuditPlane:
         self._keys_lock = threading.Lock()
         self._cache_cursor = 0
         self._standing_cursor = 0
+        # set by ClusterNode: the replica scrub (this module stays
+        # cluster-agnostic; the coordinator owns placement and repair)
+        self.replica_scrub = None
         self.scrub_stats = {"ticks": 0, "cache_scanned": 0,
-                            "standing_scanned": 0}
+                            "standing_scanned": 0,
+                            "replica_scanned": 0}
 
     # -- hot sampler ---------------------------------------------------
 
@@ -510,8 +521,9 @@ class AuditPlane:
     # -- maintenance-ticker scrubbers ----------------------------------
 
     def scrub(self) -> None:
-        """One maintenance pass: cache audit + standing drift audit,
-        each budgeted by its scrub_*_n knob."""
+        """One maintenance pass: cache audit, standing drift audit and
+        (on a cluster node) the replica scrub, each budgeted by its
+        scrub_*_n knob."""
         if not enabled():
             return
         self.scrub_stats["ticks"] += 1
@@ -523,6 +535,12 @@ class AuditPlane:
             self._scrub_standing(_SCRUB_STANDING_N)
         except Exception as e:
             capture_exception(e, where="audit.scrub_standing")
+        if self.replica_scrub is not None and _SCRUB_REPLICA_N > 0:
+            try:
+                self.scrub_stats["replica_scanned"] += int(
+                    self.replica_scrub(_SCRUB_REPLICA_N) or 0)
+            except Exception as e:
+                capture_exception(e, where="audit.scrub_replica")
 
     def _scrub_cache(self, budget: int) -> None:
         cache = self.serving.cache
@@ -669,7 +687,8 @@ def payload(plane: AuditPlane | None) -> dict:
         "sample_rate": _SAMPLE_RATE,
         "route_rates": dict(_ROUTE_RATES),
         "scrub_budgets": {"cache": _SCRUB_CACHE_N,
-                          "standing": _SCRUB_STANDING_N},
+                          "standing": _SCRUB_STANDING_N,
+                          "replica": _SCRUB_REPLICA_N},
         "active": plane is not None,
     }
     if plane is not None:

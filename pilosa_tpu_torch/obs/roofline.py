@@ -23,6 +23,7 @@ the peak.
 
 from __future__ import annotations
 
+import atexit
 import threading
 
 from pilosa_tpu_torch.obs import flight, metrics
@@ -34,6 +35,15 @@ _stats: dict[str, list] = {}
 _peak_bytes_per_s: float | None = None
 _enabled = True
 _probe_thread: threading.Thread | None = None
+
+
+def _join_probe() -> None:
+    """At exit, let a running background probe finish: an interpreter
+    that exits while the probe's torch ops run aborts in torch's thread
+    pool teardown."""
+    t = _probe_thread
+    if t is not None and t.is_alive():
+        t.join(timeout=30)
 
 
 def enabled() -> bool:
@@ -108,6 +118,8 @@ def ensure_peak(block: bool = True) -> float | None:
     if not block:
         with _probe_lock:
             if _probe_thread is None or not _probe_thread.is_alive():
+                if _probe_thread is None:
+                    atexit.register(_join_probe)
                 _probe_thread = threading.Thread(
                     target=lambda: ensure_peak(block=True), daemon=True)
                 _probe_thread.start()

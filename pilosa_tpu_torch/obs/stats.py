@@ -21,9 +21,15 @@ serving layer's admission signal (executor/sched.py classify),
 ``est_recompute_ms`` the result cache's eviction signal, and the
 regression sentinel exports ``pilosa_perf_regression`` and reports a
 "perf-regression" incident while a fingerprint runs ``regression_ratio``
-times over its baseline.  ``tick`` folds pending records.  The catalog
-keeps no file (the JAX package's ``stats_store`` persistence waits for
-the server slice).
+times over its baseline.  ``hedge_samples`` gives the cluster
+coordinator its per-node attempt times.  ``tick`` folds pending records
+and saves on the snapshot cadence.
+
+Persistence (``configure(path=...)``, the server's ``[stats] persist``
+under its data directory): ``storage/stats_store.py``, a snapshot plus a
+tail log of ingest events, in the JAX package's format.  A node
+restarted on the same directory plans with its old profiles, field
+stats and per-node attempt times.
 
 The switch goes through ``configure(enabled=...)`` only (on by default,
 as in the JAX package); the port reads no environment variable for it.
@@ -33,6 +39,7 @@ Stats steer plans, never results.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict, deque
 
 import numpy as np
@@ -101,6 +108,32 @@ class FieldStats:
         vals = list(self.shard_bits.values())
         mean = sum(vals) / len(vals)
         return round(max(vals) / mean, 4) if mean > 0 else None
+
+    def to_state(self) -> dict:
+        # "vhist" is the JAX package's value-histogram summary, which
+        # the port does not keep: written empty so either package reads
+        # the other's file
+        return {"rows": sorted(self.rows),
+                "rows_capped": self.rows_capped,
+                "shard_bits": {str(k): v
+                               for k, v in self.shard_bits.items()},
+                "vmin": self.vmin, "vmax": self.vmax,
+                "vcount": self.vcount, "vhist": None,
+                "encodings": dict(self.encodings)}
+
+    @classmethod
+    def from_state(cls, st: dict) -> "FieldStats":
+        fs = cls()
+        fs.rows = {int(r) for r in st.get("rows", ())}
+        fs.rows_capped = bool(st.get("rows_capped"))
+        fs.shard_bits = {int(k): int(v)
+                         for k, v in st.get("shard_bits", {}).items()}
+        fs.vmin = st.get("vmin")
+        fs.vmax = st.get("vmax")
+        fs.vcount = int(st.get("vcount", 0))
+        fs.encodings = {str(k): int(v)
+                        for k, v in (st.get("encodings") or {}).items()}
+        return fs
 
     def payload(self) -> dict:
         out = {"rows": len(self.rows), "rows_capped": self.rows_capped,
@@ -173,6 +206,28 @@ class FingerprintProfile:
         if not self.firing and self.n > 3:
             self.base_ms = _ewma(self.base_ms, d, 0.05)
 
+    def to_state(self) -> dict:
+        return {"n": self.n, "ms": self.ms, "exec_ms": self.exec_ms,
+                "recompute_ms": self.recompute_ms,
+                "bytes": self.bytes, "batch": self.batch,
+                "hits": self.hits, "total": self.total,
+                "fast_ms": self.fast_ms, "base_ms": self.base_ms}
+
+    @classmethod
+    def from_state(cls, st: dict) -> "FingerprintProfile":
+        p = cls()
+        p.n = int(st.get("n", 0))
+        p.ms = st.get("ms")
+        p.exec_ms = st.get("exec_ms")
+        p.recompute_ms = st.get("recompute_ms")
+        p.bytes = st.get("bytes")
+        p.batch = st.get("batch")
+        p.hits = int(st.get("hits", 0))
+        p.total = int(st.get("total", 0))
+        p.fast_ms = st.get("fast_ms")
+        p.base_ms = st.get("base_ms")
+        return p
+
     def payload(self) -> dict:
         out = {"n": self.n,
                "ms": round(self.ms or 0.0, 4),
@@ -194,13 +249,20 @@ class StatsCatalog:
     stats, the per-fingerprint runtime profiles and the regression
     sentinel."""
 
-    def __init__(self, heavy_cost_ms: float = 5.0,
+    def __init__(self, path: str | None = None,
+                 heavy_cost_ms: float = 5.0,
                  regression_ratio: float = 3.0,
-                 regression_min_samples: int = 6):
+                 regression_min_samples: int = 6,
+                 snapshot_interval_s: float = 60.0):
         self.heavy_cost_ms = float(heavy_cost_ms)
         self.regression_ratio = float(regression_ratio)
         self.regression_min_samples = int(regression_min_samples)
+        self.snapshot_interval_s = float(snapshot_interval_s)
         self._lock = threading.Lock()
+        # orders (apply an ingest event, append it to the tail) against
+        # (capture the state, snapshot it): an event landing between
+        # the two halves of a save must not be truncated unsaved
+        self._persist_mu = threading.Lock()
         self._fields: dict[tuple[str, str], FieldStats] = {}
         self._profiles: OrderedDict[str, FingerprintProfile] = \
             OrderedDict()
@@ -209,33 +271,132 @@ class StatsCatalog:
         # lock-free pending list (list.append is GIL-atomic): flight
         # records queue here and fold in batches off the hot path
         self._pending: list[dict] = []
+        self._last_save = time.monotonic()
+        self.store = None
+        self.store_path: str | None = None  # kept across detach_store
+        self.loaded_from_disk = False
+        if path:
+            self._open_store(path)
+
+    # -- persistence -----------------------------------------------------
+
+    def _open_store(self, path: str):
+        from pilosa_tpu_torch.storage.stats_store import StatsStore
+        self.store = StatsStore(path)
+        self.store_path = path
+        state, events, torn = self.store.load()
+        if state is not None:
+            self._load_state(state)
+            self.loaded_from_disk = True
+        for ev in events:
+            self._apply_event(ev)
+            self.loaded_from_disk = True
+        if torn or self.store.tail_over_threshold():
+            # a torn tail must not be appended after, and a tail over
+            # its threshold means the last run died before compacting
+            self.store.compact(self._state())
+
+    def _state(self) -> dict:
+        # "gates" is the JAX package's cost-gate rates, which the port
+        # does not keep
+        with self._lock:
+            return {
+                "v": 1,
+                "fields": {f"{i}\x00{f}": fs.to_state()
+                           for (i, f), fs in self._fields.items()},
+                "profiles": {fp: p.to_state()
+                             for fp, p in self._profiles.items()},
+                "nodes": {n: [round(v, 3) for v in dq]
+                          for n, dq in self._node_ms.items()},
+                "cluster_durs": [round(v, 3) for v in self._cluster_durs],
+                "gates": {},
+            }
+
+    def _load_state(self, st: dict):
+        with self._lock:
+            for key, fst in st.get("fields", {}).items():
+                i, _, f = key.partition("\x00")
+                self._fields[(i, f)] = FieldStats.from_state(fst)
+            for fp, pst in st.get("profiles", {}).items():
+                self._profiles[fp] = FingerprintProfile.from_state(pst)
+            for n, lst in st.get("nodes", {}).items():
+                self._node_ms[n] = deque(
+                    (float(v) for v in lst), maxlen=_MAX_NODE_SAMPLES)
+            # replace, not extend: a reopen after a detach would count
+            # every persisted duration twice
+            self._cluster_durs.clear()
+            self._cluster_durs.extend(
+                float(v) for v in st.get("cluster_durs", ()))
+
+    def save(self):
+        """Snapshot the whole catalog (tmp + rename) and truncate the
+        tail, under the persistence lock."""
+        if self.store is None:
+            return
+        self.fold()
+        with self._persist_mu:
+            self.store.compact(self._state())
+        self._last_save = time.monotonic()
+
+    def maybe_save(self):
+        if self.store is None:
+            return
+        if (time.monotonic() - self._last_save >= self.snapshot_interval_s
+                or self.store.tail_over_threshold()):
+            self.save()
+
+    def detach_store(self):
+        """Close and drop the store (its server is closing): later notes
+        stay in memory instead of appending to a closed server's
+        file."""
+        with self._persist_mu:
+            if self.store is not None:
+                self.store.close()
+                self.store = None
+                self.loaded_from_disk = False
+
+    def close(self):
+        if self.store is not None:
+            self.store.close()
+
+    # -- data plane (ingest path) ----------------------------------------
 
     def note_ingest(self, index: str, field: str, rows=None, cols=None,
                     values=None, width: int = 1 << 20):
-        """Fold one import call into the field's stats."""
-        rows_l: list = []
-        sb: dict = {}
-        vmin = vmax = None
-        vn = 0
+        """Fold one import call into the field's stats and append it to
+        the store's tail."""
+        ev: dict = {"t": "ingest", "i": index, "f": field}
         if rows is not None and len(rows):
             uniq = np.unique(np.asarray(rows).astype(np.int64))
-            rows_l = [int(r) for r in uniq[:_ROWS_CAP]]
+            ev["rows"] = [int(r) for r in uniq[:_ROWS_CAP]]
         if cols is not None and len(cols):
             sh, cnt = np.unique(np.asarray(cols).astype(np.int64) // width,
                                 return_counts=True)
-            sb = {int(s): int(c) for s, c in zip(sh, cnt)}
+            ev["sb"] = {str(int(s)): int(c) for s, c in zip(sh, cnt)}
         if values is not None and len(values):
             va = np.asarray(values)
             if va.dtype.kind in "iu":
-                vmin, vmax, vn = int(va.min()), int(va.max()), int(va.size)
+                ev["vmin"], ev["vmax"] = int(va.min()), int(va.max())
+                ev["vn"] = int(va.size)
             elif va.dtype.kind == "f":
-                vmin, vmax = float(va.min()), float(va.max())
-                vn = int(va.size)
+                ev["vmin"], ev["vmax"] = float(va.min()), float(va.max())
+                ev["vn"] = int(va.size)
+        with self._persist_mu:
+            self._apply_event(ev)
+            if self.store is not None:
+                self.store.append(ev)
+
+    def _apply_event(self, ev: dict):
+        if ev.get("t") != "ingest":
+            return
+        key = (str(ev.get("i", "")), str(ev.get("f", "")))
         with self._lock:
-            fs = self._fields.get((index, field))
+            fs = self._fields.get(key)
             if fs is None:
-                fs = self._fields[(index, field)] = FieldStats()
-            fs.note(rows_l, sb, vmin=vmin, vmax=vmax, vcount=vn)
+                fs = self._fields[key] = FieldStats()
+            fs.note(ev.get("rows", ()), ev.get("sb", {}),
+                    vmin=ev.get("vmin"), vmax=ev.get("vmax"),
+                    vcount=ev.get("vn", 0))
 
     def note_page_encoding(self, index: str, field: str, kind: str):
         """Tally one page-encoding decision for a field's pages."""
@@ -429,12 +590,17 @@ class StatsCatalog:
                      if fingerprint is None or fp == fingerprint]
         if limit is not None:
             profs = profs[: max(0, int(limit))]
-        return {"enabled": enabled(), "data": fields,
-                "runtime": dict(profs), "regressions": self.regressions(),
-                "knobs": {"heavy_cost_ms": self.heavy_cost_ms,
-                          "regression_ratio": self.regression_ratio,
-                          "regression_min_samples":
-                              self.regression_min_samples}}
+        out = {"enabled": enabled(), "data": fields,
+               "runtime": dict(profs), "regressions": self.regressions(),
+               "knobs": {"heavy_cost_ms": self.heavy_cost_ms,
+                         "regression_ratio": self.regression_ratio,
+                         "regression_min_samples":
+                             self.regression_min_samples}}
+        if self.store is not None:
+            out["store"] = {"path": self.store.path,
+                            "loaded": self.loaded_from_disk,
+                            "tail_records": self.store.tail_records}
+        return out
 
     def clear(self):
         with self._lock:
@@ -443,6 +609,7 @@ class StatsCatalog:
             self._node_ms.clear()
             self._cluster_durs.clear()
             self._pending = []
+            self.loaded_from_disk = False
 
 
 _catalog = StatsCatalog()
@@ -452,21 +619,38 @@ def get() -> StatsCatalog:
     return _catalog
 
 
-def configure(enabled: bool | None = None,
+def configure(enabled: bool | None = None, path: str | None = None,
               heavy_cost_ms: float | None = None,
               regression_ratio: float | None = None,
-              regression_min_samples: int | None = None) -> StatsCatalog:
-    """The [stats] knobs; None leaves a knob as it is."""
+              regression_min_samples: int | None = None,
+              snapshot_interval_s: float | None = None) -> StatsCatalog:
+    """The [stats] knobs; None leaves a knob as it is.  A new ``path``
+    opens that store and loads what it holds, after forgetting the
+    catalog's state (another directory's stats must not be written into
+    this one's file); the same path with its store detached reopens
+    it."""
     global _enabled
+    cat = _catalog
     if enabled is not None:
         _enabled = bool(enabled)
     if heavy_cost_ms is not None:
-        _catalog.heavy_cost_ms = float(heavy_cost_ms)
+        cat.heavy_cost_ms = float(heavy_cost_ms)
     if regression_ratio is not None:
-        _catalog.regression_ratio = float(regression_ratio)
+        cat.regression_ratio = float(regression_ratio)
     if regression_min_samples is not None:
-        _catalog.regression_min_samples = int(regression_min_samples)
-    return _catalog
+        cat.regression_min_samples = int(regression_min_samples)
+    if snapshot_interval_s is not None:
+        cat.snapshot_interval_s = float(snapshot_interval_s)
+    if path is not None:
+        if cat.store_path != path:
+            if cat.store is not None:
+                cat.store.close()
+                cat.store = None
+            cat.clear()
+            cat._open_store(path)
+        elif cat.store is None:
+            cat._open_store(path)
+    return cat
 
 
 def swap(catalog: StatsCatalog) -> StatsCatalog:
@@ -535,9 +719,10 @@ def hedge_samples(min_records: int = 32):
 
 
 def tick():
-    """Maintenance hook: fold pending records and refresh the
-    sentinel."""
+    """Maintenance hook: fold pending records, refresh the sentinel
+    and save on the snapshot cadence."""
     try:
         _catalog.fold()
+        _catalog.maybe_save()
     except Exception:
         pass  # the stats plane must never take its caller down

@@ -21,10 +21,23 @@ server.go (the Server wiring holder, executor and monitors).  Routes:
     POST   /index/{index}/field/{field}/import-roaring/{shard}
     GET    /index/{index}/field/{field}/row/{row}/roaring
     POST   /index/{index}/dataframe, GET, POST .../dataframe/apply
+    GET    /internal/translate/{index}/partitions,
+           .../partition/{p}/snapshot, POST .../partition/{p}/restore
+    GET    /internal/translate/{index}/field/{field}/snapshot, POST
+           .../restore
+    GET    /internal/fragment/{index}/{field}/views, and under
+           /internal/fragment/{index}/{field}/{view}/{shard}: GET
+           /checksums, /block/{b}, /state, /deltas; POST /block/{b},
+           /rows (replica repair and the resharding transfer); POST
+           /internal/fragment/{index}/{field}/{view}/checksums, the
+           digests of many shards in one request (the port's own)
+    GET    /internal/backup/manifest, /internal/backup/file;
+    POST   /internal/restore/file, /internal/restore/complete
 
-The node-to-node routes of the multi-node plane (translate partitions,
-fragment sync, backup and restore) are not registered: that plane is
-not ported, and a query body with ``"remote": true`` answers 400.
+A query body with ``"remote": true`` is a coordinator's leg: its ids
+are already translated (``Executor.execute(remote=True)``).  An
+embedding service adds its own routes with ``add_route`` (the cluster
+node's ``/debug/cluster/*`` and ``/internal/rebalance/*``).
 
 ``Server(device=None)`` serves from the CUDA card and raises without
 one; ``device="cpu"`` runs the kernels' plain versions.  The server is
@@ -36,6 +49,7 @@ their own but parse and encode JSON.
 from __future__ import annotations
 
 import json
+import os
 import re
 import threading
 import time
@@ -57,12 +71,14 @@ class _Httpd(ThreadingHTTPServer):
 
 
 class Route:
-    def __init__(self, method: str, pattern: str, fn):
+    def __init__(self, method: str, pattern: str, fn,
+                 admin_only: bool = False):
         self.method = method
         self.pattern = pattern  # kept for route-surface introspection
         self.re = re.compile("^" + re.sub(
             r"\{(\w+)\}", r"(?P<\1>[^/]+)", pattern) + "$")
         self.fn = fn
+        self.admin_only = admin_only
 
 
 class Server:
@@ -233,8 +249,22 @@ class Server:
         """Stop the listener, the maintenance ticker, the stream
         writer and the serving layer's threads (prefetcher, audit
         workers), then close the holder if the server made it."""
-        from pilosa_tpu_torch.obs import testhook
+        from pilosa_tpu_torch.obs import stats, testhook
         testhook.closed("http.Server", self)
+        # save the statistics catalog (a node restarted within the
+        # snapshot interval still plans warm) and detach its store when
+        # it lives under this server's directory, so that later notes
+        # do not append to a closed server's file; a sibling server's
+        # store stays attached
+        try:
+            cat = stats.get()
+            cat.save()
+            if cat.store is not None and self.holder.path and \
+                    cat.store.path.startswith(
+                        os.path.join(self.holder.path, "")):
+                cat.detach_store()
+        except Exception as e:
+            self.logger.warn("stats snapshot on close failed: %s", e)
         if self.api.executor.serving is not None:
             self.api.executor.serving.close()
         if self.stream is not None:
@@ -357,6 +387,65 @@ class Server:
         r(Route("GET", "/index/{index}/dataframe", self._get_dataframe))
         r(Route("POST", "/index/{index}/dataframe/apply",
                 self._post_dataframe_apply))
+        # translation sync and replica repair (holder.go:1488-1715;
+        # fragment.go checksum blocks)
+        r(Route("GET", "/internal/translate/{index}/partitions",
+                lambda req: self.api.translate_partitions(
+                    req.vars["index"])))
+        r(Route("GET",
+                "/internal/translate/{index}/partition/{p}/snapshot",
+                lambda req: self.api.translate_partition_snapshot(
+                    req.vars["index"], int(req.vars["p"]))))
+        r(Route("POST",
+                "/internal/translate/{index}/partition/{p}/restore",
+                lambda req: self.api.translate_restore_partition(
+                    req.vars["index"], int(req.vars["p"]), req.json())))
+        r(Route("GET",
+                "/internal/translate/{index}/field/{field}/snapshot",
+                lambda req: self.api.field_translate_snapshot(
+                    req.vars["index"], req.vars["field"])))
+        r(Route("GET", "/internal/fragment/{index}/{field}/views",
+                lambda req: self.api.fragment_views(
+                    req.vars["index"], req.vars["field"])))
+        frag = "/internal/fragment/{index}/{field}/{view}/{shard}"
+
+        def fv(req):
+            v = req.vars
+            return v["index"], v["field"], v["view"], int(v["shard"])
+        r(Route("GET", frag + "/checksums",
+                lambda req: self.api.fragment_checksums(*fv(req))))
+        # the port's batched form: many shards' digests in one request
+        r(Route("POST", "/internal/fragment/{index}/{field}/{view}/checksums",
+                lambda req: self.api.fragment_checksums_many(
+                    req.vars["index"], req.vars["field"], req.vars["view"],
+                    (req.json() or {}).get("shards", []))))
+        r(Route("GET", frag + "/block/{b}",
+                lambda req: self.api.fragment_block(
+                    *fv(req), int(req.vars["b"]))))
+        # the online-resharding transfer: the resumable block push, the
+        # copy's bootstrap state, and the delta chase's feed and apply
+        r(Route("POST", frag + "/block/{b}",
+                lambda req: self.api.fragment_set_block(
+                    *fv(req), int(req.vars["b"]), req.json() or {})))
+        r(Route("GET", frag + "/state",
+                lambda req: self.api.fragment_state(*fv(req))))
+        r(Route("GET", frag + "/deltas",
+                lambda req: self.api.fragment_deltas(
+                    *fv(req), int(req.query.get("since", ["0"])[0]))))
+        r(Route("POST", frag + "/rows",
+                lambda req: self.api.fragment_set_rows(
+                    *fv(req), req.json() or {})))
+        r(Route("POST",
+                "/internal/translate/{index}/field/{field}/restore",
+                lambda req: self.api.field_translate_restore(
+                    req.vars["index"], req.vars["field"],
+                    req.json() or {})))
+        r(Route("GET", "/internal/backup/manifest",
+                lambda req: self.api.backup_manifest()))
+        r(Route("GET", "/internal/backup/file", self._get_backup_file))
+        r(Route("POST", "/internal/restore/file", self._post_restore_file))
+        r(Route("POST", "/internal/restore/complete",
+                lambda req: self.api.restore_complete()))
     # paths served without a token when auth is enabled
     # (http_handler.go: login/metrics/version stay open)
     _OPEN_PATHS = {"/version", "/metrics", "/metrics.json", "/login"}
@@ -506,7 +595,8 @@ class Server:
         authn_, _ = self.auth
         return {"url": authn_.login_url()}
 
-    def _check_auth(self, method: str, path: str, req):
+    def _check_auth(self, method: str, path: str, req,
+                    admin_only: bool = False):
         """chkAuthZ middleware (http_handler.go chkAuthZ): validate the
         bearer token, then require read (GET) / write (other) on the
         route's index, or admin for /internal + schema writes."""
@@ -523,7 +613,7 @@ class Server:
         if authz_ is None:
             return
         groups = claims.get("groups", [])
-        if path.startswith("/internal") or \
+        if admin_only or path.startswith("/internal") or \
                 path.startswith("/transaction") or \
                 path.startswith("/debug") or (
                 path == "/schema" and method != "GET"):
@@ -547,6 +637,19 @@ class Server:
         if not authz_.allowed(groups, index, need):
             raise ApiError(f"not authorized for {need} on {index}", 403)
 
+    def add_route(self, method: str, pattern: str, fn,
+                  admin_only: bool = True, override: bool = False):
+        """Register an extra route (an embedding service's, such as the
+        cluster node's).  Under auth it is admin-only by default: the
+        per-index rules do not know it, and a node's control surface
+        must not answer a read token.  ``override`` puts it ahead of
+        the built-in routes."""
+        rt = Route(method, pattern, fn, admin_only=admin_only)
+        if override:
+            self._routes.insert(0, rt)
+        else:
+            self._routes.append(rt)
+
     def dispatch(self, method: str, path: str, req) -> tuple[int, object]:
         for rt in self._routes:
             if rt.method != method:
@@ -555,7 +658,8 @@ class Server:
             if m:
                 req.vars = m.groupdict()
                 try:
-                    self._check_auth(method, path, req)
+                    self._check_auth(method, path, req,
+                                     admin_only=rt.admin_only)
                     return 200, rt.fn(req)
                 except ApiError as e:
                     return e.status, {"error": str(e)}
@@ -610,21 +714,17 @@ class Server:
         if body is not None:
             pql = body.get("query", "")
             shards = body.get("shards")
-            if body.get("remote"):
-                # a coordinator's leg with pre-translated ids: the
-                # multi-node plane is not ported, and executing it
-                # here as a local query would answer something else
-                raise ApiError("remote query legs need the cluster "
-                               "layer, which this node does not have",
-                               400)
+            # a coordinator's leg: its ids are already translated
+            remote = bool(body.get("remote"))
         else:  # raw PQL body, like the reference's text/plain mode
             pql = req.text()
             shards = None
+            remote = False
         profile = req.query.get("profile", ["false"])[0] == "true"
         trace_id = req.headers.get("X-Pilosa-Trace-Id")
         if trace_id is None:
             return self.api.query(req.vars["index"], pql, shards,
-                                  profile,
+                                  profile, remote=remote,
                                   qos=_qos_from_headers(req.headers))
         # cross-node trace propagation: this node is a
         # remote leg of a cluster fan-out.  The query's flight record
@@ -642,7 +742,7 @@ class Server:
                              **({"parent": parent} if parent else {})):
                 resp = self.api.query(
                     req.vars["index"], pql, shards, profile,
-                    qos=_qos_from_headers(req.headers))
+                    remote=remote, qos=_qos_from_headers(req.headers))
         if spans:
             resp["trace"] = {"node": node, "spans": spans}
         return resp
@@ -825,6 +925,16 @@ class Server:
             int(req.vars["shard"]), body.get("rows", {}),
             clear=bool(body.get("clear")))
         return {"imported": n}
+
+    def _get_backup_file(self, req):
+        rel = req.query.get("path", [""])[0]
+        return RawResponse(self.api.backup_file(rel),
+                           "application/octet-stream")
+
+    def _post_restore_file(self, req):
+        rel = req.query.get("path", [""])[0]
+        self.api.restore_file(rel, req._raw or b"")
+        return {}
 
     def _get_row_roaring(self, req):
         shard = int(req.query.get("shard", ["0"])[0])

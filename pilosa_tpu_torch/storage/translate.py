@@ -49,16 +49,18 @@ def _fnv64a(*parts: bytes) -> int:
     return h
 
 
-def key_to_key_partition(index: str, key: str) -> int:
+def key_to_key_partition(index: str, key: str,
+                         partition_n: int = PARTITION_N) -> int:
     """disco.KeyToKeyPartition: fnv64a(index + key) % N."""
-    return _fnv64a(index.encode(), key.encode()) % PARTITION_N
+    return _fnv64a(index.encode(), key.encode()) % partition_n
 
 
 @functools.lru_cache(maxsize=65536)
-def shard_to_shard_partition(index: str, shard: int) -> int:
+def shard_to_shard_partition(index: str, shard: int,
+                             partition_n: int = PARTITION_N) -> int:
     """disco.ShardToShardPartition: fnv64a(index + bigendian(shard)) % N,
     memoised (translating ids hits the same few shards many times)."""
-    return _fnv64a(index.encode(), shard.to_bytes(8, "big")) % PARTITION_N
+    return _fnv64a(index.encode(), shard.to_bytes(8, "big")) % partition_n
 
 
 def next_partitioned_id(index: str, prev: int, partition_id: int,
@@ -232,6 +234,29 @@ class TranslateStore:
         with self._lock:
             return sorted(self._by_id.items())
 
+    # -- replication (holder.go:1488-1715, the translation syncer) ---------
+
+    def snapshot(self) -> dict:
+        """The whole store as JSON, streamed to a replica or a rejoining
+        node (the JAX package's form)."""
+        with self._lock:
+            return {"index": self.index, "partition": self.partition_id,
+                    "entries": [[i, k] for i, k in
+                                sorted(self._by_id.items())]}
+
+    def restore_snapshot(self, snap: dict):
+        """Replace the contents with an owner's snapshot; on disk the
+        compaction writes exactly the restored state (a stale snapshot
+        file would bring back keys the owner no longer has)."""
+        with self._lock:
+            self._by_key.clear()
+            self._by_id.clear()
+            self._max_id = 0
+            for i, k in snap.get("entries", []):
+                self._set(int(i), k)
+            if self._log:
+                self._compact_locked()
+
 
 class PartitionedTranslator:
     """Index column-key translation over N partition stores
@@ -304,6 +329,13 @@ class PartitionedTranslator:
         a reopen no store is open yet)."""
         return sorted(p for p in set(self._stores) | set(self._on_disk())
                       if self._store(p).max_id())
+
+    def partition_snapshot(self, partition: int) -> dict:
+        """One partition store's snapshot, streamed to a peer."""
+        return self._store(partition).snapshot()
+
+    def restore_partition(self, partition: int, snap: dict):
+        self._store(partition).restore_snapshot(snap)
 
     def match(self, predicate) -> list[int]:
         ids: set[int] = set()

@@ -5,9 +5,11 @@ fields in both packages, and ``generate-config`` prints the same text.
 Each ``apply_*`` of the port reaches the port's ``configure()`` calls
 (read back through the modules' getters) and writes no environment
 variable.  The knobs of planes the port does not have ([dax], [blob],
-the multi-node and mesh knobs of [cluster], the stats snapshot
-interval, the replica scrubber, ``[stacked] patch = false``) and
-``[tpu] kernels = "off"`` raise ``ConfigError``."""
+the mesh knobs of [cluster], ``[stacked] patch = false``) and ``[tpu]
+kernels = "off"`` raise ``ConfigError``; the cluster plane's knobs
+([cluster] hedge, deadline and rebalance, ``[stats] persist`` and
+``snapshot-interval-s``, ``[audit] scrub-replica-n``) reach its
+``configure()`` calls."""
 
 import dataclasses
 import importlib
@@ -237,8 +239,8 @@ def _state():
 
 
 def test_apply_reaches_the_port_configure_calls(toml_path, tmp_path):
-    # the file's one unported knob, [stats] persist, back at its default
-    cfg = config.load(toml_path, env={}, overrides={"stats_persist": True})
+    # the file sets [stats] persist = false: the catalog opens no store
+    cfg = config.load(toml_path, env={})
     env_before = dict(os.environ)
     with restore_globals():
         cfg.apply_all(data_dir=str(tmp_path))
@@ -280,12 +282,46 @@ def test_defaults_apply_to_module_defaults():
     ("audit_scrub_replica_n", 0), ("blob_backend", "dir"),
     ("blob_root", "/b"), ("dax_blob", False), ("dax_max_workers", 2),
 ])
-def test_unported_knobs_raise(key, value):
+def test_unported_knobs_raise(key, value, tmp_path):
+    """The knobs of planes the port does not have raise; those of the
+    cluster plane, which these cases listed before it was ported,
+    apply and land in its configure() calls (the test keeps its name
+    and cases)."""
     cfg = config.load(None, env={}, overrides={key: value})
+    if key in _CLUSTER_KNOBS:
+        from pilosa_tpu_torch.cluster import coordinator, rebalance
+        from pilosa_tpu_torch.obs import audit, stats
+        cfg.check_supported()
+        with restore_globals():
+            prev = stats.swap(stats.StatsCatalog())
+            try:
+                cfg.apply_all(data_dir=str(tmp_path))
+                got = {
+                    "cluster_hedge_ms": coordinator.settings()["hedge_ms"],
+                    "cluster_deadline_s":
+                        coordinator.settings()["deadline_s"],
+                    "cluster_rebalance_chase_lag":
+                        rebalance.settings()["chase_lag"],
+                    "stats_persist": stats.get().store is not None,
+                    "stats_snapshot_interval_s":
+                        stats.get().snapshot_interval_s,
+                    "audit_scrub_replica_n": audit._SCRUB_REPLICA_N,
+                }[key]
+                stats.get().detach_store()
+            finally:
+                stats.swap(prev)
+        assert got == value
+        return
     with pytest.raises(config.ConfigError, match="kernel switch|not ported"):
         cfg.check_supported()
     with restore_globals(), pytest.raises(config.ConfigError):
         cfg.apply_all()
+
+
+# the cluster plane's knobs among the cases above: they apply
+_CLUSTER_KNOBS = {"cluster_hedge_ms", "cluster_deadline_s",
+                  "cluster_rebalance_chase_lag", "stats_persist",
+                  "stats_snapshot_interval_s", "audit_scrub_replica_n"}
 
 
 @pytest.mark.parametrize("kernels", ["auto", "on"])

@@ -1510,3 +1510,73 @@ def test_server_on_the_card_answers_over_http(cuda, tmp_path):
     finally:
         srv.close()
         h.close()
+
+
+def test_cluster_on_the_card_fans_out_and_fails_over(cuda):
+    """Two port nodes on the card, replica_n = 2, at width 2^20 over 8
+    shards: a fan-out Count, Sum and GroupBy through the coordinator
+    equal numpy, each node's own leg launches its kernels, and the
+    answers stay exact after one node dies."""
+    from pilosa_tpu_torch import config
+    from pilosa_tpu_torch.cluster import ClusterNode, InMemDisCo
+    from pilosa_tpu_torch.models.holder import Holder
+
+    w, n_shards = 1 << 20, 8
+    rng = np.random.default_rng(21)
+    cols = np.unique(rng.integers(0, n_shards * w, size=200_000))
+    a = rng.integers(0, 4, cols.size)
+    b = rng.integers(0, 3, cols.size)
+    v = rng.integers(0, 1000, cols.size)
+    cfg = config.load(None, env={}, overrides={"grpc_port": -1,
+                                               "cluster_hedge_ms": -1.0})
+    disco = InMemDisCo(lease_ttl=5.0)
+    nodes = [ClusterNode(f"node{i}", disco, holder=Holder(width=w),
+                         replica_n=2, heartbeat_interval=0.5,
+                         config=cfg).open() for i in range(2)]
+    try:
+        assert all(nd.api.executor.device.type == "cuda" for nd in nodes)
+        nodes[0].apply_schema({"indexes": [{"name": "c", "fields": [
+            {"name": "a", "options": {"type": "set"}},
+            {"name": "b", "options": {"type": "set"}},
+            {"name": "v", "options": {"type": "int", "min": 0,
+                                      "max": 1000}}]}]})
+        nodes[0].import_bits("c", "a", a.tolist(), cols.tolist())
+        nodes[0].import_bits("c", "b", b.tolist(), cols.tolist())
+        nodes[0].import_values("c", "v", cols.tolist(), v.tolist())
+        want = {
+            "Count(Row(a=1))": [int((a == 1).sum())],
+            "Sum(Row(b=2), field=v)": [{"value": int(v[b == 2].sum()),
+                                        "count": int((b == 2).sum())}],
+        }
+        gb = sorted((int(x), int(y), int(((a == x) & (b == y)).sum()))
+                    for x in range(4) for y in range(3)
+                    if ((a == x) & (b == y)).any())
+        snap = nodes[0].snapshot()
+        groups = snap.shards_by_node("c", range(n_shards))
+        assert set(groups) == {"node0", "node1"}
+        for nd in nodes:
+            K.reset_launches()
+            nd.api.query("c", "Count(Row(a=1))", shards=groups[nd.node_id])
+            assert sum(K.LAUNCHES.values()) > 0, nd.node_id
+
+        def check():
+            for q, r in want.items():
+                assert nodes[0].query("c", q)["results"] == r, q
+            got = nodes[0].query("c", "GroupBy(Rows(a), Rows(b))")
+            assert sorted((g["group"][0]["row_id"], g["group"][1]["row_id"],
+                           g["count"]) for g in got["results"][0]) == gb
+
+        K.reset_launches()
+        check()
+        assert K.LAUNCHES["groupby_fused"] + K.LAUNCHES["groupby_sum"] > 0
+        nodes[1].pause()
+        check()
+        assert {n.id: n.state for n in disco.nodes()}["node1"] == "DOWN"
+    finally:
+        for nd in nodes:
+            try:
+                nd.close()
+            except Exception:
+                pass
+        for nd in nodes:
+            nd.api.holder.close()

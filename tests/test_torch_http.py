@@ -19,9 +19,10 @@ the fields each case lists in its ``drop`` set:
 
 Answers that depend on what else ran in the process (metrics values,
 flight records, logs, stack samples) are compared by status and shape
-(keys, names), as each case says.  The port's deliberate differences
-are tested on their own: a ``"remote": true`` body answers 400, and the
-node-to-node routes of the multi-node plane answer 404.  A port node
+(keys, names), as each case says.  A coordinator's leg (a
+``"remote": true`` body, whose column ids are already translated) and
+the node-to-node routes of the cluster plane answer as the JAX node's
+do.  A port node
 on disk is also held to its own durability promise: every write it
 acknowledged, through PQL or /ingest, reads back from its files while
 another thread syncs the holder over and over."""
@@ -315,12 +316,24 @@ def test_slo_windows_match_jax(nodes):
 
 
 def test_remote_leg_answers_400(nodes):
-    """A coordinator's leg ("remote": true) needs the multi-node plane:
-    the port answers 400 naming it instead of executing it locally."""
-    _js, ps = nodes
-    st, _h, b = call(ps, "POST", Q, {"query": "Count(All())",
-                                     "remote": True})
-    assert st == 400 and "cluster layer" in b["error"]
+    """A coordinator's leg ("remote": true) runs with its column ids
+    already translated: on the keyed index a raw column id answers as
+    the JAX node's does, where the same body without "remote" is the
+    400 both packages give a keyed index's raw id.  (The test keeps the
+    name it had when the port refused remote legs.)"""
+    js, ps = nodes
+    kq = "/index/k/query"
+    for body, want in (({"query": "Count(All())", "remote": True}, 200),
+                       ({"query": "Count(ConstRow(columns=[1, 2]))",
+                         "remote": True}, 200),
+                       ({"query": "Count(ConstRow(columns=[1, 2]))"},
+                        None)):
+        for q in (Q, kq):
+            (jst, _jh, jb), (pst, _ph, pb) = [call(s, "POST", q, body)
+                                              for s in (js, ps)]
+            assert (pst, pb) == (jst, jb), (q, body)
+            if want is not None:
+                assert pst == want
 
 
 @pytest.mark.parametrize("method,path", [
@@ -330,9 +343,15 @@ def test_remote_leg_answers_400(nodes):
     ("POST", "/internal/restore/complete"),
 ])
 def test_multi_node_routes_not_registered(nodes, method, path):
-    _js, ps = nodes
-    st, _h, b = call(ps, method, path)
-    assert st == 404 and b["error"].startswith("no route")
+    """The node-to-node routes answer as the JAX node's: the keyed
+    index's partitions, a field's views, and the backup and restore
+    routes' 400 on a node without a data directory.  (The test keeps
+    the name it had when the port did not register them.)"""
+    js, ps = nodes
+    (jst, _jh, jb), (pst, _ph, pb) = [call(s, method, path)
+                                      for s in (js, ps)]
+    assert (pst, pb) == (jst, jb)
+    assert pst != 404
 
 
 def test_shed_is_typed_503_with_retry_after():

@@ -46,7 +46,9 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "ingest.stream", "ingest.kafka", "ingest.avro", "config",
           "server", "server.authn", "server.authz", "server.http",
           "server.grpc", "server.proto", "client", "cli", "cli.fbsql",
-          "cli.main"):
+          "cli.main", "cluster.hash", "cluster.disco", "cluster.snapshot",
+          "cluster.coordinator", "cluster.rebalance",
+          "storage.stats_store"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -271,3 +273,46 @@ def test_config_load_reads_the_environment_apply_writes_none():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[0] == "7m [('7m', 420.0)] False True"
+
+
+def test_cluster_switches_read_no_environment():
+    """The cluster plane's knobs come through coordinator.configure()
+    and rebalance.configure() only: the JAX package's environment twins
+    (hedge, deadline and the rebalance tunables) leave them at their
+    defaults, in the modules and in a controller made with no
+    arguments."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               PILOSA_TPU_CLUSTER_HEDGE_MS="7",
+               PILOSA_TPU_CLUSTER_DEADLINE_S="3",
+               PILOSA_TPU_REBALANCE_CHASE_LAG="2",
+               PILOSA_TPU_REBALANCE_MAX_ROUNDS="3",
+               PILOSA_TPU_REBALANCE_FENCE_TIMEOUT_S="1.5")
+    code = ("from pilosa_tpu_torch.cluster import coordinator as c, "
+            "rebalance as r\n"
+            "from pilosa_tpu_torch.cluster.coordinator import "
+            "ClusterExecutor as E\n"
+            "print(c.settings(), r.settings(), E._default_deadline())\n"
+            "class N:\n"
+            "    replica_n = 1\n"
+            "    def _client(self): return None\n"
+            "    def snapshot(self):\n"
+            "        from pilosa_tpu_torch.cluster import ClusterSnapshot\n"
+            "        return ClusterSnapshot([])\n"
+            "k = r.RebalanceController(N())\n"
+            "print(k.chase_lag, k.max_rounds, k.fence_timeout_s)\n"
+            "c.configure(hedge_ms=7, deadline_s=3)\n"
+            "r.configure(chase_lag=2, max_rounds=3, fence_timeout_s=1.5)\n"
+            "k = r.RebalanceController(N())\n"
+            "print(c.settings(), k.chase_lag, k.max_rounds, "
+            "k.fence_timeout_s, E._hedge_delay(), "
+            "E._default_deadline().remaining() > 2)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[0] == ("{'hedge_ms': 0.0, 'deadline_s': 0.0} "
+                        "{'chase_lag': 8, 'max_rounds': 12, "
+                        "'fence_timeout_s': 10.0} None")
+    assert lines[1] == "8 12 10.0"
+    assert lines[2] == ("{'hedge_ms': 7.0, 'deadline_s': 3.0} 2 3 1.5 "
+                        "0.007 True")

@@ -12,8 +12,8 @@ else the raw bytes.  ``strip`` drops the fields a parity test leaves out
 environment (the JAX ``config.apply_*`` write ``os.environ``), and in
 both packages the module switches their ``configure()`` calls set and
 the threads they start (watchdog, continuous profiler, incident
-manager, fault rules, SLO tracker), so a later test file in the same
-worker sees the defaults.
+manager, fault rules, SLO tracker), and the statistics catalog's store,
+so a later test file in the same worker sees the defaults.
 """
 
 from __future__ import annotations
@@ -113,10 +113,15 @@ _PORT_SWITCHES = {
     "pilosa_tpu_torch.obs.audit": (
         "_ENABLED", "_SAMPLE_RATE", "_ROUTE_RATES", "_QUEUE_MAX",
         "_CONCURRENCY", "_SCRUB_CACHE_N", "_SCRUB_STANDING_N",
-        "_QUARANTINE"),
+        "_SCRUB_REPLICA_N", "_QUARANTINE"),
     "pilosa_tpu_torch.obs.slo": ("tracker",),
+    "pilosa_tpu_torch.cluster.coordinator": ("_HEDGE_MS", "_DEADLINE_S",
+                                             "_HEDGE_CACHE"),
+    "pilosa_tpu_torch.cluster.rebalance": ("_CHASE_LAG", "_MAX_ROUNDS",
+                                           "_FENCE_TIMEOUT_S"),
 }
-_STATS_KNOBS = ("heavy_cost_ms", "regression_ratio", "regression_min_samples")
+_STATS_KNOBS = ("heavy_cost_ms", "regression_ratio", "regression_min_samples",
+                "snapshot_interval_s")
 _INCIDENT_KNOBS = ("dir", "min_interval_s", "max_bundles", "max_bundle_bytes",
                    "slo_burn_threshold", "config_snapshot")
 
@@ -142,6 +147,7 @@ def restore_globals():
     rec_saved = (flight.recorder.enabled, flight.recorder._ring.maxlen)
     cat = stats.get()
     cat_saved = {k: getattr(cat, k) for k in _STATS_KNOBS}
+    store_saved = (cat.store, cat.store_path)
     mgr = incidents.get()
     mgr_saved = {k: getattr(mgr, k) for k in _INCIDENT_KNOBS}
     ring_saved = logger.ring._ring.maxlen
@@ -159,6 +165,12 @@ def restore_globals():
         flight.recorder.configure(enabled=rec_saved[0], keep=rec_saved[1])
         for k, v in cat_saved.items():
             setattr(cat, k, v)
+        # a store a server under test opened (persist under its data
+        # directory) is closed, and the catalog's own put back
+        if cat.store is not store_saved[0]:
+            if cat.store is not None:
+                cat.store.close()
+            cat.store, cat.store_path = store_saved
         for k, v in mgr_saved.items():
             setattr(mgr, k, v)
         logger.ring.configure(ring_saved)
