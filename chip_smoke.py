@@ -281,13 +281,16 @@ Phases, each printing its own lines; any failure exits non-zero:
         after the restart printed.
 11. a cluster on the card (pilosa_tpu_torch.cluster): phase 10's writes
    to the headline index are put back first (the holder then equals the
-   numpy mirror after 5a), and every answer is held exactly to phase
-   4's numpy reference after 5a (post["want"]):
+   numpy mirror after 5a); the words of its S_SUB leading shards are
+   read back from the holder and phase 4's numpy reference functions
+   (numpy_answers, with the joint histogram built from the categorical
+   rows as they stand) run over them (sub_reference), and every answer
+   of 11a-11d and 12 is held exactly to that:
    11a. three ClusterNodes (replica_n 2, one InMemDisCo with 5 s
         leases, HTTP on loopback, grpc-port -1, hedging off) in this
-        process, each shard's fragments of the headline index copied
-        through Fragment.set_row_words to the two nodes
-        ClusterSnapshot.shard_nodes names, about 2 x 5.5 GiB of words;
+        process, the fragments of the headline index's S_SUB leading
+        shards copied through Fragment.set_row_words to the two nodes
+        ClusterSnapshot.shard_nodes names, about 2 x 1.9 GiB of words;
         phase 4's query set through node0's ClusterExecutor.execute,
         first call and warm p50 beside phase 4's in-process p50 and
         10a's HTTP p50; each node's resident stack bytes and the
@@ -311,8 +314,9 @@ Phases, each printing its own lines; any failure exits non-zero:
         coordinator.configure(), the hedges fired and won counted, both
         p50s printed;
    11e. a second cluster (its own disco, two nodes on disk, replica_n 1)
-        over the headline's first 32 shards of a, t and age; node2
-        opens member=False and joins, then node1 drains, each under 4
+        over the headline's first RESHARD_SHARDS (16) shards of a, t
+        and age; node2 opens member=False and joins, then node1 drains,
+        each under 4
         reader threads and a writer: no read fails or mismatches, a
         reader's Count(Row(wr=9)) never falls below the writes
         acknowledged when it starts, every acknowledged write reads
@@ -324,20 +328,65 @@ Phases, each printing its own lines; any failure exits non-zero:
    11f. `cli.main backup` of node2 (on disk) and `cli.main restore`
         into a fresh Server on the card, which answers node2's queries
         equally.
+12. the DAX tier (pilosa_tpu_torch.dax, storage/blob.py) on the card
+   over the headline's S_SUB leading shards at 2^20 columns with every
+   phase-4 field, each answer held exactly to 11's sub_reference:
+   12a. a "dir" BlobStore under the run's root (its free bytes checked
+        first), each shard's rows encoded by snapshot_fragment_rows and
+        put by BlobStore.put_snapshot (encode and put seconds, bytes);
+        DAXService(n_workers=2, blob=that store) on the card, the cli dax
+        shape with [blob] backend = "dir" (shared-storage workers that
+        hydrate lazily from the tier), the shards registered from
+        blob.shards(), the queryer's HTTP front started; phase 4's
+        stacked query set through Queryer.query (the first call hydrates
+        each worker's share: restore and decode seconds, then the warm
+        p50s), three of it through POST /queryer/bench; each worker's
+        hydrations and resident bytes (/dax/residency) and its own leg's
+        launches;
+   12b. 5c's statements the DAX SQL front serves (DAX_SQL: not
+        PERCENTILE, whose wire result neither package's queryer decodes,
+        nor kidx's) through Queryer.sql and POST /sql, exact;
+   12c. seeded import_bits, import_values and a SQL INSERT over
+        DAX_WRITE_SHARDS shards through the queryer, each read back; half
+        of the shards snapshot_shard'ed into the tier, the rest's tails
+        sealed (seal_tail); worker1 killed and the poller's pass
+        (Controller.poll_once) reassigns its shards; the survivor hydrates
+        them from the tier and the shared write-log tail: the seconds to
+        the first answer after the death, the query set exact, every
+        acknowledged write read back;
+   12d. a standby admitted owning nothing (Controller.admit_standby) and
+        DAX_MOVES shards moved to it by Controller.migrate_shard under
+        DAX_READERS readers and a writer of mw=1: no read fails or
+        mismatches, every acknowledged write reads back through the
+        queryer and on its shard's new owner; shards, bytes, seconds;
+   12e. a second service over the same tier with one stateless worker
+        (add_blob_worker) whose worker-budget-bytes is a quarter of its
+        share of DAX_PAGED_SHARDS shards: Count, Sum and the able GroupBy
+        exact (numpy over those shards), with evictions > 0 and its
+        resident bytes within the budget;
+   12f. `python -m pilosa_tpu_torch.cli.main dax` on the card in a
+        subprocess, [blob] backend = "dir" from its --config: CREATE
+        TABLE, an INSERT and a GROUP BY over its /sql, then SIGINT.
    Each phase's launches are counted from 0; every kernel must have
-   launched over 4-11.
+   launched over 4-12.
 
-Cut to make room for phase 11 (every check kept): 5b's keyed index
-from 2^20 to 2^18 column keys (KEYS_N; restart reopens it too); phase
-6b's Pipeline from 2^21 to 2^19 records and its import_columns from
-2^25 columns over 32 shards to 2^23 over 8; phase 7's events index from
-954 to 80 shards (EV_SHARDS) and from 2^14 to 2^13 columns a row an
-hour (EV_COLS), and 7g's dataframe from 2^24 to 2^22 rows; phase 8a
-from 3 rounds to 2 (MEM_ROUNDS); 4a's per-shard Min and Max of age
-from 954 shards to the S_DECODE leading ones of its Distinct; 4b's
-GroupBy Max of ts and GroupBy Min of age from 64 shards to 16
-(S_FALLBACK_GB); phase 3 takes no separate warm-up call of a plain
-version (its check's call warms it).
+Cut to make room for phases 11 and 12 (every check kept): 11a-11d's
+cluster from 954 shards to the S_SUB (320) leading ones (its copy, its
+cold first calls and the rejoin's digests all scale with shards), 11e's
+resharded index from 32 to 16 shards (RESHARD_SHARDS: its join and
+drain take a chase a moved shard), and phase 12's tier on the same 320
+(the snapshot codec's host work scales with them); phase 8a from 3
+rounds to 1 (MEM_ROUNDS; two rounds rebuilt the same bytes);
+5b's keyed index from 2^20 to 2^18 column keys (KEYS_N; restart reopens
+it too); phase 6b's Pipeline from 2^21 to 2^19 records and its
+import_columns from 2^25 columns over 32 shards to 2^23 over 8; phase
+7's events index from 954 to 80 shards (EV_SHARDS) and from 2^14 to
+2^13 columns a row an hour (EV_COLS), and 7g's dataframe from 2^24 to
+2^22 rows; 4a's per-shard Min and Max of age from 954 shards to the
+S_DECODE leading ones of its Distinct; 4b's GroupBy Max of ts and
+GroupBy Min of age from 64 shards to 16 (S_FALLBACK_GB); phase 3 takes
+no separate warm-up call of a plain version (its check's call warms
+it).
 
 It then prints the kernels' JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Without a CUDA card it exits
@@ -1364,8 +1413,11 @@ NO_VALUE = 1 << DEPTH
 def joint_histogram(data):
     """Counts of columns per (edu digit, gen digit, dom digit, reg
     digit, a bit, age value), decoded from the generated words in
-    batches of 32 shards, where every column holds its digits and a
-    value: HIST_SHAPE, int64."""
+    batches of 32 shards (on 4 threads: numpy releases the interpreter
+    lock in these loops, and nvcc's processes build beside them), where
+    every column holds its digits and a value: HIST_SHAPE, int64."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     def bits(words):
@@ -1376,8 +1428,8 @@ def joint_histogram(data):
     cat_planes = [p for f in ("edu", "gen", "dom", "reg")
                   for p in data[f][::-1]]
     n_bins = (1 << len(cat_planes)) * 2 * (1 << DEPTH)
-    total = np.zeros(n_bins, dtype=np.int64)
-    for lo in range(0, S, 32):
+
+    def batch(lo):
         sl = slice(lo, lo + 32)
         low = bits(data["a"][sl]) << np.uint8(DEPTH)    # a above age
         for p in range(DEPTH):
@@ -1386,7 +1438,10 @@ def joint_histogram(data):
         for plane in cat_planes:
             high = (high << np.uint16(1)) | bits(plane[sl])
         code = (high.astype(np.uint32) << np.uint32(DEPTH + 1)) | low
-        total += np.bincount(code.reshape(-1), minlength=n_bins)
+        return np.bincount(code.reshape(-1), minlength=n_bins)
+
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        total = sum(ex.map(batch, range(0, S, 32)))
     out = np.zeros(HIST_SHAPE, dtype=np.int64)
     out[:, :2, :, :4, :, :NO_VALUE] = total.reshape(8, 2, 8, 4, 2,
                                                     1 << DEPTH)
@@ -1766,10 +1821,10 @@ def launches_of(run) -> tuple[dict, object]:
 
 def phase_main_path(device, root: str, kernels_phase,
                     reps: int = 5) -> tuple[dict, dict]:
-    """Phases 4 to 11, the holders persisted under root, with
+    """Phases 4 to 12, the holders persisted under root, with
     kernels_phase() (phase 3, once the kernels are built) run between
     the host's preparation of phase 4 and its first query; returns phase
-    3's records and each kernel's launches summed over phases 4-11."""
+    3's records and each kernel's launches summed over phases 4-12."""
     import gc
     import os
 
@@ -1963,14 +2018,16 @@ def phase_main_path(device, root: str, kernels_phase,
         http_p50, undo = phase_node(h, post["want"], sql_want, root, note)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_cluster(h, post["want"], stacked_p50, http_p50, undo, root,
-                      note)
+        ref = phase_cluster(h, stacked_p50, http_p50, undo, root, note)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dax(h, ref, root, note)
     finally:
         h.close()
     missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    print(f"main path: kernel launches over phases 4-11 {totals}")
+    print(f"main path: kernel launches over phases 4-12 {totals}")
     return records, totals
 
 
@@ -3449,7 +3506,7 @@ def phase_time_window(device, note) -> None:
 MEM_SEED = 2029
 SP_ROWS, SP_BITS = 64, 256      # 8c: sp, 256 seeded bits a row a shard
 RN_ROWS, RN_RESID = 8, 64       # 8c: rn, a run over an eighth + 64 bits
-MEM_ROUNDS = 2
+MEM_ROUNDS = 1
 BALLAST_SLACK = 64 << 20        # 8d: device bytes left free beside the ballast
 BROAD_TOPN = "TopN(t, n=8)"
 HOT_COUNT = "Count(Row(a=1))"
@@ -5028,6 +5085,7 @@ def node_cli(root, note) -> None:
 
 
 CLUSTER_SEED = 2032
+S_SUB = 320               # the headline's leading shards of 11a-11d and 12
 CLUSTER_NODES = 3
 CLUSTER_REPLICAS = 2
 CLUSTER_REPS = 2          # warm fan-out calls a query
@@ -5040,9 +5098,124 @@ HEDGE_DELAY_S = 0.25      # 11d's rpc-delay on node1's legs
 HEDGE_MS = 20.0
 HEDGE_QUERIES = ["Count(Row(a=1))", "Sum(field=age)", "TopN(t, n=8)"]
 HEDGE_REPS = 3
-RESHARD_SHARDS = 32       # 11e's index: the headline's first 32 shards
+RESHARD_SHARDS = 16       # 11e's index: the headline's first 16 shards
 RESHARD_READERS = 4
 RESHARD_WRITES = 400      # 11e's writer: Set of wr=9 at seeded columns
+
+
+def holder_words(h, n: int) -> tuple[dict, dict]:
+    """The headline index's words over its n leading shards, read back
+    from the holder: build_index's layout of a, b, t, the age planes and
+    age_exists, plus s (5a's Store), and each categorical field's rows
+    (rows, n, W)."""
+    import numpy as np
+    from pilosa_tpu_torch.models.view import VIEW_STANDARD
+    idx = h.index("bench")
+
+    def rows(fname, row_ids, view=VIEW_STANDARD):
+        out = np.zeros((len(row_ids), n, W), dtype=np.uint32)
+        v = idx.field(fname).view(view)
+        for s in range(n):
+            frag = v.fragments.get(s) if v is not None else None
+            if frag is None:
+                continue
+            for i, r in enumerate(row_ids):
+                out[i, s] = frag.row_words(r)
+        return out
+
+    planes = rows("age", range(2 + DEPTH), idx.field("age").bsi_view)
+    if planes[1].any():
+        raise AssertionError("age holds a negative value")
+    data = {"a": rows("a", [1])[0], "b": rows("b", [1])[0],
+            "t": rows("t", range(R)), "age": planes[2:],
+            "age_exists": planes[0], "s": rows("s", [1])[0]}
+    cats = {f: rows(f, range(n_rows)) for f, n_rows in CATEGORIES.items()}
+    return data, cats
+
+
+def rows_histogram(data, cats, n: int):
+    """joint_histogram's counts over the n leading shards, from the
+    categorical fields' rows as they stand (a column in no row of a
+    field, deleted or never given one, in the field's ABSENT slot).
+    Each field's digit bits are built from its (disjoint) rows' words,
+    then every column's digits, a bit, exists bit and age value are
+    packed into one 20-bit code, counted in batches of 32 shards and
+    laid out as HIST_SHAPE, int64."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    def bits(words):
+        return np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                             axis=-1, bitorder="little")
+
+    # digit bits a field: room for its rows and its ABSENT slot
+    widths = {f: max(CATEGORIES[f] - 1, ABSENT[f]).bit_length()
+              for f in CATEGORIES}
+    n_high = sum(widths.values()) + 1          # the digits, then exists
+    n_bins = 1 << (n_high + 1 + DEPTH)
+
+    def batch(lo):
+        sl = slice(lo, min(lo + 32, n))
+        high = None
+        for f in ("edu", "gen", "dom", "reg"):
+            rows_f = cats[f][:, sl]
+            absent = ~np.bitwise_or.reduce(rows_f, axis=0)
+            for b in reversed(range(widths[f])):
+                plane = absent.copy() if (ABSENT[f] >> b) & 1 \
+                    else np.zeros_like(absent)
+                for r in range(CATEGORIES[f]):
+                    if (r >> b) & 1:
+                        plane |= rows_f[r]
+                d = bits(plane).astype(np.uint16)
+                high = d if high is None else (high << np.uint16(1)) | d
+        high = (high << np.uint16(1)) | bits(data["age_exists"][sl])
+        low = bits(data["a"][sl]) << np.uint8(DEPTH)
+        for p in range(DEPTH):
+            low |= bits(data["age"][p, sl]) << np.uint8(p)
+        code = (high.astype(np.uint32) << np.uint32(1 + DEPTH)) | low
+        return np.bincount(code.reshape(-1), minlength=n_bins)
+
+    # numpy releases the interpreter lock in these loops: batches on
+    # threads
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        total = sum(ex.map(batch, range(0, n, 32)))
+    shape = [1 << widths[f] for f in ("edu", "gen", "dom", "reg")]
+    t = total.reshape(*shape, 2, 2, 1 << DEPTH)   # ..., exists, a, age
+    out = np.zeros(HIST_SHAPE, dtype=np.int64)
+    ne, ng, nd, nr = HIST_SHAPE[:4]
+    t = t[:ne, :ng, :nd, :nr]
+    out[..., :NO_VALUE] = t[:, :, :, :, 1]
+    out[..., NO_VALUE] = t[:, :, :, :, 0].sum(axis=-1)
+    return out
+
+
+def sub_reference(h, n: int) -> dict:
+    """Phase 4's query set's numpy answers (numpy_answers, and 5a's
+    Count of s) over the headline's n leading shards, from their words
+    read back from the holder; with the words, for the SQL and paged
+    references below."""
+    import numpy as np
+    data, cats = holder_words(h, n)
+    headline, groupby, ages = numpy_answers(data, rows_histogram(data, cats,
+                                                                 n))
+    want = {**headline, **groupby,
+            STORE_COUNT: int(np.bitwise_count(data["s"]).sum(
+                dtype=np.int64))}
+    return {"n": n, "data": data, "cats": cats, "want": want,
+            "ages": ages}
+
+
+def slice_reference(ref: dict, n: int) -> dict:
+    """numpy_answers over the n leading shards of ref's words."""
+    data = {k: (v[:, :n] if v.ndim == 3 else v[:n])
+            for k, v in ref["data"].items()}
+    cats = {f: v[:, :n] for f, v in ref["cats"].items()}
+    headline, groupby, _ages = numpy_answers(data,
+                                             rows_histogram(data, cats, n))
+    return {**headline, **groupby}
+
 
 
 def cluster_config(**overrides):
@@ -5121,11 +5294,13 @@ def write_back(h, undo: dict) -> int:
     return len(undo["a"]) + len(undo["age"])
 
 
-def phase_cluster(h, want: dict, stacked_p50: dict, http_p50: dict,
-                  undo: dict, root: str, note) -> None:
+def phase_cluster(h, stacked_p50: dict, http_p50: dict, undo: dict,
+                  root: str, note) -> dict:
     """Phase 11 (see the module docstring): a three-node cluster of port
-    ClusterNodes on the card over the headline index, then a second
-    cluster for resharding and the backup/restore of one of its nodes."""
+    ClusterNodes on the card over the headline index's S_SUB leading
+    shards, then a second cluster for resharding and the backup/restore
+    of one of its nodes.  Returns the numpy reference of those shards
+    (sub_reference), which phase 12 holds its answers to."""
     import gc
 
     import torch
@@ -5135,13 +5310,19 @@ def phase_cluster(h, want: dict, stacked_p50: dict, http_p50: dict,
     n = write_back(h, undo)
     print(f"11: the {n} columns phase 10 wrote put back in "
           f"{time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    ref = sub_reference(h, S_SUB)
+    print(f"11: numpy reference of the {S_SUB} leading shards from their "
+          f"words read back from the holder in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
     gc.collect()
     torch.cuda.empty_cache()
-    cluster_main(h, want, stacked_p50, http_p50, note)
+    cluster_main(h, ref["want"], stacked_p50, http_p50, note)
     gc.collect()
     torch.cuda.empty_cache()
     cluster_reshard(h, root, note)
     print(f"11: {time.perf_counter() - t_all:.1f} s ({card_line()})")
+    return ref
 
 
 def cluster_main(h, want, stacked_p50, http_p50, note) -> None:
@@ -5174,26 +5355,26 @@ def cluster_main(h, want, stacked_p50, http_p50, note) -> None:
         # placement the opened cluster takes (checked below)
         t0 = time.perf_counter()
         snap = placement(CLUSTER_NODES, CLUSTER_REPLICAS)
-        rows = copy_shards(h, holders, "bench", range(S), snap)
+        rows = copy_shards(h, holders, "bench", range(S_SUB), snap)
         t_copy = time.perf_counter() - t0
         nodes = [open_node(i) for i in range(CLUSTER_NODES)]
         if any(nd.api.executor.device.type != "cuda" for nd in nodes):
             raise AssertionError("11a: a node is not on the card")
         nodes[0].apply_schema({"indexes": [h.index("bench").to_dict()]})
-        disco.add_shards("bench", "", set(range(S)))
+        disco.add_shards("bench", "", set(range(S_SUB)))
         live = nodes[0].snapshot()
         if any([o.id for o in live.shard_nodes("bench", s_)]
                != [o.id for o in snap.shard_nodes("bench", s_)]
-               for s_ in range(S)):
+               for s_ in range(S_SUB)):
             raise AssertionError("11a: the cluster's placement differs")
         host = [sum(fr.memory_bytes() for f in hd.index("bench").fields.values()
                     for v in f.views.values() for fr in v.fragments.values())
                 for hd in holders]
-        groups = snap.shards_by_node("bench", range(S))
+        groups = snap.shards_by_node("bench", range(S_SUB))
         print(f"11a: {CLUSTER_NODES} ClusterNodes (replica_n "
               f"{CLUSTER_REPLICAS}, one InMemDisCo, lease 5 s, HTTP on "
               f"loopback, grpc-port -1) on {nodes[0].api.executor.device}; "
-              f"{rows} rows of {S} shards copied to their owners in "
+              f"{rows} rows of {S_SUB} shards copied to their owners in "
               f"{t_copy:.1f} s, the nodes opened in "
               f"{time.perf_counter() - t0 - t_copy:.1f} s (host); host bytes a node "
               f"{host} ({sum(host) / 2**30:.2f} GiB); fan-out groups "
@@ -5203,9 +5384,10 @@ def cluster_main(h, want, stacked_p50, http_p50, note) -> None:
         note("11a", launches)
         for q, ms in p50s.items():
             print(f"11a: {q[:70]}: first {firsts[q]:.2f} ms, warm p50 "
-                  f"{ms:.3f} ms through ClusterExecutor.execute; phase 4 "
-                  f"in-process p50 {stacked_p50.get(q, float('nan')):.3f} ms,"
-                  f" 10a HTTP p50 {http_p50.get(q, float('nan')):.3f} ms")
+                  f"{ms:.3f} ms through ClusterExecutor.execute over "
+                  f"{S_SUB} shards; phase 4 in-process p50 "
+                  f"{stacked_p50.get(q, float('nan')):.3f} ms, 10a HTTP p50 "
+                  f"{http_p50.get(q, float('nan')):.3f} ms (both over {S})")
         led = memory.ledger()
         res = [nd.api.executor.stacked.cache.nbytes for nd in nodes]
         print(f"11a: resident stack bytes a node {res} "
@@ -5315,7 +5497,7 @@ def cluster_writes(nodes, h, width, K, note) -> None:
     rng = np.random.default_rng(CLUSTER_SEED)
     t0 = time.perf_counter()
     K.reset_launches()
-    cols = sorted({int(c) for c in rng.integers(0, S * width,
+    cols = sorted({int(c) for c in rng.integers(0, S_SUB * width,
                                                 size=CLUSTER_WRITES)})
     const = f"ConstRow(columns={cols})"
     ex = nodes[0].executor
@@ -5435,7 +5617,7 @@ def cluster_failover(nodes, open_node, made, want, width, p50s, K,
           f"fan-out group; the old ones stay until the ledger reclaims "
           f"them")
     snap = nodes[0].snapshot()
-    owned = [s for s in range(S)
+    owned = [s for s in range(S_SUB)
              if "node2" in [o.id for o in snap.shard_nodes("bench", s)]]
     rng = np.random.default_rng(CLUSTER_SEED + 1)
     wshards = sorted(rng.choice(owned, FAILOVER_SHARDS,
@@ -5467,7 +5649,7 @@ def cluster_failover(nodes, open_node, made, want, width, p50s, K,
         raise AssertionError(f"11c: shed {shed.status} {shed.missing_shards}")
     r = nodes[0].executor.execute("bench", "Count(Row(a=1))", partial_ok=True)
     missing = r["partial"]["missing_shards"]
-    live = [s for s in range(S) if s not in set(missing)]
+    live = [s for s in range(S_SUB) if s not in set(missing)]
     exact = nodes[0].api.query("bench", "Count(Row(a=1))", shards=live)
     if missing != shed.missing_shards or r["results"] != exact["results"]:
         raise AssertionError(f"11c: partial {r} against {exact}")
@@ -5804,6 +5986,626 @@ def reshard_stream(nodes, disco, width) -> None:
             f"{sorted(owner.api.holder.index('reshard').available_shards)})")
     print(f"11e: a StreamWriter window on {donor.node_id} to shard {s} "
           f"(moved to {owner.node_id}) was forwarded there and reads back")
+
+
+DAX_SEED = 2033
+DAX_WORKERS = 2
+DAX_REPS = 2              # warm calls a query through the queryer
+# 12a's queries through POST /queryer/{table} as well
+DAX_FRONT_QUERIES = ["Count(Intersect(Row(a=1), Row(b=1)))",
+                     "Sum(field=age)", ABLE_SUM]
+# 5c's statements the DAX SQL front serves: PERCENTILE's wire result is
+# decoded by neither package's queryer, and kidx is not in the tier
+DAX_SQL = [SQL_COUNT_AB, SQL_SUM_A, SQL_SUM, SQL_GE64, SQL_BETWEEN, SQL_ABLE,
+           SQL_TA, SQL_MINMAX, SQL_DISTINCT, SQL_ORDER, SQL_LIMIT]
+DAX_WRITE_SHARDS = 16     # 12c's writes fall in this many shards
+DAX_WRITE_BITS = 1 << 12  # 12c's import_bits and import_values records
+DAX_MOVES = 16            # 12d's shards moved to the admitted standby
+DAX_READERS = 2
+DAX_MOVE_WRITES = 400     # 12d's writer: Set of mw=1 at seeded columns
+DAX_READ_QUERIES = ["Count(Row(a=1))", "Sum(field=age)", "TopN(t, n=8)"]
+DAX_PAGED_SHARDS = 64     # 12e's stateless worker's share
+DAX_PAGED_QUERIES = ["Count(Row(a=1))", "Sum(field=age)", ABLE_SUM]
+
+
+def shard_rows(idx, shard: int) -> dict:
+    """One shard's rows as ComputeNode.snapshot_shard gathers them:
+    {(field, view, row): words}, fields and views in the index's order,
+    rows ascending."""
+    rows = {}
+    for f in idx.fields.values():
+        for v in f.views.values():
+            frag = v.fragment(shard)
+            if frag is None:
+                continue
+            for r in frag.row_ids:
+                rows[(f.name, v.name, r)] = frag.row_words(r)
+    return rows
+
+
+def dax_seed_tier(h, tier: str):
+    """12a's tier: each of the S_SUB leading shards of the headline index
+    encoded by the port's snapshot_fragment_rows and put by
+    BlobStore.put_snapshot (at version 0) into a "dir" tier under tier,
+    the puts on a thread beside the encoding.  Returns the store and each
+    shard's bytes of words."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.dax.snapshotter import snapshot_fragment_rows
+    from pilosa_tpu_torch.storage.blob import BlobStore, LocalDirBackend
+    idx = h.index("bench")
+    t0 = time.perf_counter()
+    first = snapshot_fragment_rows(shard_rows(idx, 0))
+    t_enc = time.perf_counter() - t0
+    free = shutil.disk_usage(os.path.dirname(tier)).free
+    need = int(len(first) * S_SUB * 1.1)
+    print(f"12a: the tier under {tier} on a disk with {free} bytes free "
+          f"(~{need} needed)")
+    if free < need:
+        raise RuntimeError(f"12a: the blob tier needs ~{need} bytes; "
+                           f"{free} free")
+    blob = BlobStore(LocalDirBackend(os.path.join(tier, "blob")))
+
+    def put(s, data):
+        t1 = time.perf_counter()
+        blob.put_snapshot("bench", s, 0, data)
+        return time.perf_counter() - t1
+
+    words, nbytes, t_put = [], 0, 0.0
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = []
+        for s in range(S_SUB):
+            t1 = time.perf_counter()
+            rows = shard_rows(idx, s)
+            data = first if s == 0 else snapshot_fragment_rows(rows)
+            if s:
+                t_enc += time.perf_counter() - t1
+            words.append(sum(int(w.nbytes) for w in rows.values()))
+            nbytes += len(data)
+            pending.append(pool.submit(put, s, data))
+            if len(pending) > 3:
+                t_put += pending.pop(0).result()
+        t_put += sum(f.result() for f in pending)
+    wall = time.perf_counter() - t0
+    print(f"12a: {S_SUB} shards ({sum(words)} bytes of words) encoded by "
+          f"snapshot_fragment_rows in {t_enc:.2f} s and put by "
+          f"BlobStore.put_snapshot in {t_put:.2f} s (sha256 and a "
+          f"tmp+fsync+rename, on a thread beside the encoding), {wall:.2f} s "
+          f"in all (host); {nbytes} bytes of snapshots, "
+          f"{nbytes / max(sum(words), 1):.3f} a byte of words")
+    return blob, words
+
+
+def hydrate_timers(svc) -> dict:
+    """Seconds the service's workers spend restoring shards from the blob
+    tier (read and sha256) and decoding them into fragments
+    (load_fragment_rows and set_row_words), summed over their threads."""
+    acc = {"restore": 0.0, "decode": 0.0, "shards": 0}
+    lock = threading.Lock()
+    restore = svc.blob.restore
+
+    def timed_restore(table, shard):
+        t0 = time.perf_counter()
+        out = restore(table, shard)
+        with lock:
+            acc["restore"] += time.perf_counter() - t0
+        return out
+    svc.blob.restore = timed_restore
+    for w in svc.workers:
+        def timed_load(idx, shard, data, load=w.hyd._load_snapshot):
+            t0 = time.perf_counter()
+            out = load(idx, shard, data)
+            with lock:
+                acc["decode"] += time.perf_counter() - t0
+                acc["shards"] += 1
+            return out
+        w.hyd._load_snapshot = timed_load
+    return acc
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              timeout: float = 300.0):
+    """One request to a local server: (status, parsed JSON)."""
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request(method, path, body=None if body is None
+                  else json.dumps(body))
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        c.close()
+
+
+def dax_queries(queryer, want: dict, label: str, reps: int = DAX_REPS):
+    """Each query of want through Queryer.query, cold and then reps times
+    warm, its wire answer held exactly to numpy; returns (first ms, warm
+    p50 ms)."""
+    import torch
+    firsts, p50s = {}, {}
+    for q, w in want.items():
+        times = []
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            got = queryer.query("bench", q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if wire_norm(q, got["results"][0], W * 32) != w:
+                raise AssertionError(f"{label} {q}: {str(got)[:200]} != "
+                                     f"numpy {str(w)[:200]}")
+        firsts[q] = times[0]
+        p50s[q] = statistics.median(times[1:]) if reps else float("nan")
+    return firsts, p50s
+
+
+def dax_sql_answers(ref: dict) -> dict:
+    """DAX_SQL's rows from numpy over ref's shards (sql_answers' rules)."""
+    want, data, n = ref["want"], ref["data"], ref["n"]
+    full = bsi_sql_answers(*ref["ages"])
+    cols, vals = sort_ref(data, n, True, 0, 100)
+    if min(vals) <= 120:
+        raise AssertionError("12b: fewer than 100 columns of a over 120")
+    first = limit_ref(data, n, 10, 0)
+    ages = [sum(bit(data["age"][p], c) << p for p in range(DEPTH))
+            if bit(data["age_exists"], c) else None for c in first]
+    ta = want["GroupBy(Rows(t), Rows(a), aggregate=Sum(field=age))"]
+    full.update({
+        SQL_COUNT_AB: [(want["Count(Intersect(Row(a=1), Row(b=1)))"],)],
+        SQL_ABLE: [([e], [g], [d], s) for (e, g, d), _n, s, nv in
+                   want[ABLE_SUM] if nv],
+        SQL_TA: [([r], [a], s) for (r, a), _n, s, nv in ta if nv],
+        SQL_ORDER: list(zip(cols, vals)),
+        SQL_LIMIT: list(zip(first, ages)),
+    })
+    return {q: full[q] for q in DAX_SQL}
+
+
+def phase_dax(h, ref: dict, root: str, note, device=None) -> None:
+    """Phase 12 (see the module docstring): the DAX tier over the
+    headline's S_SUB leading shards, from a blob tier this phase seeds,
+    every answer held to ref (sub_reference)."""
+    import os
+
+    import torch
+    from pilosa_tpu_torch import config
+    from pilosa_tpu_torch.dax.server import DAXService
+    from pilosa_tpu_torch.ops import kernels as K
+
+    t_all = time.perf_counter()
+    tier = os.path.join(root, "dax")
+    blob, words = dax_seed_tier(h, tier)
+    cfg = config.load(None, env={}, overrides={"grpc_port": -1})
+    on = torch.device(device).type if device is not None else "cuda"
+    made = []
+    try:
+        t0 = time.perf_counter()
+        svc = DAXService(os.path.join(tier, "svc"), n_workers=DAX_WORKERS,
+                         blob=blob, device=device, config=cfg)
+        made.append(svc)
+        if svc.device.type != on or any(
+                w.api.executor.device.type != on for w in svc.workers):
+            raise AssertionError(f"12a: a worker is not on {on}")
+        svc.queryer.apply_schema({"indexes": [h.index("bench").to_dict()]})
+        shards = [s for t, s in blob.shards() if t == "bench"]
+        if shards != list(range(S_SUB)):
+            raise AssertionError(f"12a: the tier holds {len(shards)} shards")
+        svc.controller.add_shards("bench", shards)
+        front = svc.serve_queryer()
+        timers = hydrate_timers(svc)
+        print(f"12a: DAXService (controller, queryer, {DAX_WORKERS} "
+              f"shared-storage workers hydrating lazily from the tier) on "
+              f"{svc.device}, {S_SUB} shards registered, the queryer's HTTP "
+              f"front on :{front.port}, in {time.perf_counter() - t0:.1f} s")
+        dax_serve(svc, front, ref, timers, words, note, K)
+        dax_sql(svc, front, ref, note, K)
+        dax_failover(svc, ref, note, K)
+        dax_migrate(svc, ref, note, K)
+        paged = DAXService(os.path.join(tier, "paged"), n_workers=0,
+                           blob=blob, device=device, config=cfg)
+        made.append(paged)
+        dax_paged(paged, svc.controller.schema, ref, words, note, K)
+    finally:
+        for s in made:
+            s.close()
+    dax_cli(tier, device)
+    shutil.rmtree(tier, ignore_errors=True)
+    print(f"12: {time.perf_counter() - t_all:.1f} s ({card_line()})")
+
+
+def dax_serve(svc, front, ref, timers, words, note, K) -> None:
+    """12a: phase 4's query set through Queryer.query (the first call
+    hydrates every worker's share), three of it through POST
+    /queryer/bench; each worker's residency and own launches."""
+    from pilosa_tpu_torch.cluster.client import InternalClient
+    want = ref["want"]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    firsts, p50s = dax_queries(svc.queryer, want, "12a")
+    took = time.perf_counter() - t0
+    note("12a", dict(K.LAUNCHES))
+    q0 = next(iter(want))
+    print(f"12a: the first call ({q0}) hydrated {timers['shards']} shards: "
+          f"{firsts[q0] / 1e3:.2f} s, of which restore (read, sha256) "
+          f"{timers['restore']:.2f} s and decode (load_fragment_rows, "
+          f"set_row_words) {timers['decode']:.2f} s summed over the "
+          f"workers' threads; the rest is the stacks' builds and uploads, "
+          f"the kernels and HTTP")
+    for q, ms in p50s.items():
+        print(f"12a: {q[:70]}: first {firsts[q]:.2f} ms, warm p50 "
+              f"{ms:.3f} ms through Queryer.query")
+    client = InternalClient(timeout=60.0)
+    for w in svc.workers:
+        res = client._request(w.uri, "GET", "/dax/residency")
+        held = sorted(w.held.get("bench", ()))
+        K.reset_launches()
+        for q in ("Count(Intersect(Row(a=1), Row(b=1)))", "Sum(field=age)"):
+            w.api.executor.execute("bench", q, shards=held)
+        got = dict(K.LAUNCHES)
+        note(f"12a {w.address}", got)
+        if not sum(got.values()):
+            raise AssertionError(f"12a: {w.address} launched nothing")
+        mine = sum(words[s] for s in held)
+        if res["hydrations"] < len(held) or res["resident_bytes"] < mine:
+            raise AssertionError(f"12a: {w.address} residency {res}")
+        print(f"12a: {w.address}: {len(held)} shards, {res['hydrations']} "
+              f"hydrations, resident {res['resident_bytes']} bytes "
+              f"(/dax/residency); its own leg launched {got}")
+    K.reset_launches()
+    for q in DAX_FRONT_QUERIES:
+        times = []
+        for _ in range(1 + DAX_REPS):
+            t1 = time.perf_counter()
+            st, body = http_json(front.port, "POST", "/queryer/bench",
+                                 {"query": q})
+            times.append((time.perf_counter() - t1) * 1e3)
+            if st != 200 or wire_norm(q, body["results"][0], W * 32) != \
+                    want[q]:
+                raise AssertionError(f"12a front {q}: {st} {str(body)[:200]}")
+        print(f"12a: POST /queryer/bench {q[:60]}: first {times[0]:.2f} ms, "
+              f"warm p50 {statistics.median(times[1:]):.3f} ms, exact")
+    note("12a front", dict(K.LAUNCHES))
+    print(f"12a: the query set exact in {took:.1f} s ({card_line()})")
+
+
+def dax_sql(svc, front, ref, note, K) -> None:
+    """12b: DAX_SQL through Queryer.sql and POST /sql, exact."""
+    import torch
+    from pilosa_tpu_torch.api import _json_value
+    K.reset_launches()
+    for q, rows in dax_sql_answers(ref).items():
+        times = []
+        for _ in range(1 + DAX_REPS):
+            t0 = time.perf_counter()
+            got = [tuple(r) for r in svc.queryer.sql(q)["data"]]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got != rows:
+                raise AssertionError(f"12b {q}: {str(got)[:200]} != numpy "
+                                     f"{str(rows)[:200]}")
+        t0 = time.perf_counter()
+        st, body = http_json(front.port, "POST", "/sql", {"sql": q})
+        t_http = (time.perf_counter() - t0) * 1e3
+        if st != 200 or [tuple(r) for r in body["data"]] != \
+                [tuple(_json_value(c) for c in r) for r in rows]:
+            raise AssertionError(f"12b POST /sql {q}: {st} "
+                                 f"{str(body)[:200]}")
+        print(f"12b: {q[:70]}: first {times[0]:.2f} ms, warm p50 "
+              f"{statistics.median(times[1:]):.3f} ms through Queryer.sql, "
+              f"{t_http:.2f} ms through POST /sql; exact")
+    note("12b", dict(K.LAUNCHES))
+
+
+def dax_write_fields(svc) -> None:
+    """Add 12c's and 12d's fields (dw, dv, mw) to the tier's schema."""
+    import copy
+    schema = copy.deepcopy(svc.controller.schema)
+    ix = next(i for i in schema["indexes"] if i["name"] == "bench")
+    ix["fields"] += [{"name": "dw", "options": {"type": "set"}},
+                     {"name": "dv", "options": {"type": "int", "min": 0,
+                                                "max": 1000}},
+                     {"name": "mw", "options": {"type": "set"}}]
+    svc.queryer.apply_schema(schema)
+
+
+def dax_failover(svc, ref, note, K) -> None:
+    """12c: seeded import_bits, import_values and a SQL INSERT over
+    DAX_WRITE_SHARDS shards, read back; half the shards snapshotted into
+    the tier, the rest's tails sealed; worker1 killed, the poller's pass
+    reassigns its shards, and the survivor hydrates them: the query set
+    exact, every acknowledged write read back."""
+    import numpy as np
+    t0 = time.perf_counter()
+    width = W * 32
+    K.reset_launches()
+    rng = np.random.default_rng(DAX_SEED)
+    wshards = sorted(int(s) for s in rng.choice(S_SUB, DAX_WRITE_SHARDS,
+                                                replace=False))
+    owners = {s: svc.controller.worker_for("bench", s)[0] for s in wshards}
+    dax_write_fields(svc)
+    last = {(s + 1) * width - 1 for s in wshards}
+    cols = sorted({int(s) * width + int(c) for s in wshards
+                   for c in rng.integers(0, width,
+                                         DAX_WRITE_BITS // DAX_WRITE_SHARDS)}
+                  - last)
+    rows = rng.integers(0, 4, len(cols))
+    vals = rng.integers(0, 1001, len(cols))
+    ins = sorted(last)
+    ins_vals = rng.integers(0, 1001, len(ins))
+    q = svc.queryer
+    t1 = time.perf_counter()
+    q.import_bits("bench", "dw", rows.tolist(), cols)
+    tb = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    q.import_values("bench", "dv", cols, vals.tolist())
+    tv = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out = q.sql("INSERT INTO bench (_id, dw, dv) VALUES " + ", ".join(
+        f"({c}, 5, {int(v)})" for c, v in zip(ins, ins_vals)))
+    ti = time.perf_counter() - t1
+    if out["data"] != [[len(ins)]]:
+        raise AssertionError(f"12c: INSERT answered {out}")
+    expect = {f"Count(Row(dw={r}))": int((rows == r).sum()) for r in range(4)}
+    expect["Count(Row(dw=5))"] = len(ins)
+    expect["Sum(field=dv)"] = {"value": int(vals.sum() + ins_vals.sum()),
+                               "count": len(cols) + len(ins)}
+    expect["Row(dw=5)"] = ins
+
+    def read_back(label):
+        for pql, w in expect.items():
+            got = q.query("bench", pql)["results"][0]
+            if pql.startswith("Row("):
+                got = got["columns"]
+            if got != w:
+                raise AssertionError(f"12c {label}: {pql} {str(got)[:200]} "
+                                     f"!= {str(w)[:200]}")
+    read_back("after the writes")
+    print(f"12c: import_bits of {len(cols)} records ({tb:.2f} s), "
+          f"import_values ({tv:.2f} s) and an INSERT of {len(ins)} rows "
+          f"({ti:.2f} s) over {len(wshards)} shards (owners "
+          f"{dict(sorted(Counter(owners.values()).items()))}) through the "
+          f"queryer, each read back")
+    by_addr = {w.address: w for w in svc.workers}
+    t1 = time.perf_counter()
+    for s in wshards[::2]:
+        by_addr[owners[s]].snapshot_shard("bench", s)
+    t_snap = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sealed = sum(by_addr[owners[s]].hyd.seal_tail("bench", s)
+                 for s in wshards[1::2])
+    t_seal = time.perf_counter() - t1
+    for s in wshards:
+        if svc.blob.covered_version("bench", s) != svc.wl.version("bench", s):
+            raise AssertionError(f"12c: shard {s}: the tier covers "
+                                 f"{svc.blob.covered_version('bench', s)} of "
+                                 f"{svc.wl.version('bench', s)}")
+    print(f"12c: snapshot_shard of {len(wshards[::2])} shards into the tier "
+          f"in {t_snap:.2f} s; seal_tail of {len(wshards[1::2])} shards "
+          f"({sealed} write-log entries) in {t_seal:.2f} s")
+    t1 = time.perf_counter()
+    svc.kill_worker("worker1")
+    dead = svc.controller.poll_once()
+    if dead != ["worker1"] or sorted(svc.controller.workers) != ["worker0"]:
+        raise AssertionError(f"12c: poll_once found {dead}; workers "
+                             f"{sorted(svc.controller.workers)}")
+    q0 = next(iter(ref["want"]))
+    got = q.query("bench", q0)
+    t_first = time.perf_counter() - t1
+    if wire_norm(q0, got["results"][0], width) != ref["want"][q0]:
+        raise AssertionError(f"12c: {q0} after the death: {str(got)[:200]}")
+    firsts, p50s = dax_queries(q, ref["want"], "12c", reps=1)
+    read_back("after worker1 died")
+    note("12c", dict(K.LAUNCHES))
+    w0 = svc.workers[0]
+    print(f"12c: worker1 killed; the poller's pass reassigned its shards; "
+          f"the first answer {t_first:.2f} s after the kill (worker0 "
+          f"hydrated {len(w0.hyd._resident)} shards in all, "
+          f"{w0.hyd.hydrations} hydrations); the query set exact again "
+          f"(first calls {min(firsts.values()):.1f}-"
+          f"{max(firsts.values()):.1f} ms, warm {min(p50s.values()):.2f}-"
+          f"{max(p50s.values()):.2f} ms); every acknowledged write read "
+          f"back; 12c in {time.perf_counter() - t0:.1f} s ({card_line()})")
+
+
+def dax_migrate(svc, ref, note, K) -> None:
+    """12d: a standby admitted owning nothing, DAX_MOVES shards moved to it
+    one at a time by Controller.migrate_shard under DAX_READERS readers
+    and a writer of mw=1: no read fails or mismatches, every acknowledged
+    write reads back, on its shard's new owner too."""
+    import numpy as np
+    from pilosa_tpu_torch.cluster.client import InternalClient
+    t0 = time.perf_counter()
+    width = W * 32
+    K.reset_launches()
+    rng = np.random.default_rng(DAX_SEED + 1)
+    moves = sorted(int(s) for s in rng.choice(S_SUB, DAX_MOVES,
+                                              replace=False))
+    wcols = [int(rng.choice(moves)) * width + int(c)
+             for c in rng.integers(0, width, DAX_MOVE_WRITES)]
+    standby = svc.add_standby("standby0")
+    svc.controller.admit_standby("standby0")
+    want = {q: ref["want"][q] for q in DAX_READ_QUERIES}
+    stop = threading.Event()
+    lock = threading.Lock()
+    stats = {"reads": 0, "failed": 0, "mismatched": 0}
+    acked, errors = [], []
+
+    def reader(i):
+        k = i
+        while not stop.is_set():
+            q = DAX_READ_QUERIES[k % len(DAX_READ_QUERIES)]
+            k += 1
+            try:
+                got = svc.queryer.query("bench", q)["results"][0]
+                bad = wire_norm(q, got, width) != want[q]
+            except Exception as e:
+                bad = None
+                errors.append(f"{q}: {type(e).__name__}: {e}")
+            with lock:
+                stats["reads"] += 1
+                if bad is None:
+                    stats["failed"] += 1
+                elif bad:
+                    stats["mismatched"] += 1
+                    errors.append(f"{q}: {str(got)[:120]}")
+
+    def writer():
+        for c in wcols:
+            if stop.is_set():
+                return
+            try:
+                svc.queryer.import_bits("bench", "mw", [1], [c])
+            except Exception as e:
+                errors.append(f"write: {type(e).__name__}: {e}")
+                with lock:
+                    stats["failed"] += 1
+                return
+            with lock:
+                acked.append(c)
+
+    threads = [threading.Thread(target=reader, args=(i,))
+               for i in range(DAX_READERS)] + [threading.Thread(target=writer)]
+    for t in threads:
+        t.start()
+    outcomes = {}
+    t1 = time.perf_counter()
+    try:
+        for s in moves:
+            outcomes[s] = svc.controller.migrate_shard("bench", s,
+                                                       "standby0")
+    finally:
+        took = time.perf_counter() - t1
+        stop.set()
+        for t in threads:
+            t.join(120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("12d: a reader or the writer did not stop")
+    if errors:
+        print(f"12d: first errors {errors[:3]}")
+    if stats["failed"] or stats["mismatched"] or \
+            set(outcomes.values()) != {"done"}:
+        raise AssertionError(f"12d: {stats}, outcomes {outcomes}")
+    held = sorted(standby.held.get("bench", ()))
+    if held != moves:
+        raise AssertionError(f"12d: standby0 holds {held}")
+    got = svc.queryer.query("bench", "Count(Row(mw=1))")["results"]
+    if got != [len(set(acked))]:
+        raise AssertionError(f"12d: Count(Row(mw=1)) {got} != "
+                             f"{len(set(acked))} acknowledged")
+    client = InternalClient(timeout=60.0)
+    for s in moves:
+        mine = sorted({c for c in acked if c // width == s})
+        r = client._request(standby.uri, "POST", "/index/bench/query",
+                            {"query": "Row(mw=1)", "shards": [s]})
+        if r["results"][0]["columns"] != mine:
+            raise AssertionError(f"12d: shard {s} on standby0: "
+                                 f"{str(r)[:200]} != {len(mine)} columns")
+    res = client._request(standby.uri, "GET", "/dax/residency")
+    note("12d", dict(K.LAUNCHES))
+    print(f"12d: {len(moves)} shards moved to the admitted standby0 by "
+          f"migrate_shard in {took:.2f} s ({took / len(moves):.2f} s a "
+          f"shard), {res['resident_bytes']} bytes hydrated there; "
+          f"{stats['reads']} reads by {DAX_READERS} threads, none failed or "
+          f"mismatched; {len(acked)} writes acknowledged during the moves, "
+          f"each read back through the queryer and on its new owner; 12d "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+
+def dax_paged(paged, schema, ref, words, note, K) -> None:
+    """12e: a stateless worker (add_blob_worker) of a second service over
+    the same tier, its worker-budget-bytes a quarter of its share of
+    DAX_PAGED_SHARDS shards: Count, Sum and the able GroupBy exact, with
+    evictions and its resident bytes within the budget."""
+    import torch
+    t0 = time.perf_counter()
+    share = sum(words[:DAX_PAGED_SHARDS])
+    budget = share // 4
+    paged.queryer.apply_schema(schema)
+    w = paged.add_blob_worker("paged0", budget_bytes=budget)
+    paged.controller.add_shards("bench", range(DAX_PAGED_SHARDS))
+    want = slice_reference(ref, DAX_PAGED_SHARDS)
+    K.reset_launches()
+    for q in DAX_PAGED_QUERIES:
+        t1 = time.perf_counter()
+        got = paged.queryer.query("bench", q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        if wire_norm(q, got["results"][0], W * 32) != want[q]:
+            raise AssertionError(f"12e {q}: {str(got)[:200]} != numpy "
+                                 f"{str(want[q])[:200]}")
+        p = w.hyd.payload()
+        print(f"12e: {q[:70]}: {ms:.1f} ms, exact; {p['hydrations']} "
+              f"hydrations and {p['evictions']} evictions so far, resident "
+              f"{p['resident_bytes']} of {budget} bytes")
+    note("12e", dict(K.LAUNCHES))
+    p = w.hyd.payload()
+    if not p["evictions"] or p["resident_bytes"] > budget:
+        raise AssertionError(f"12e: {p}")
+    print(f"12e: a stateless worker with worker-budget-bytes {budget} (a "
+          f"quarter of its {DAX_PAGED_SHARDS} shards' {share} bytes) paged "
+          f"them in windows: {p['hydrations']} hydrations, {p['evictions']} "
+          f"evictions, resident {p['resident_bytes']} bytes; 12e in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def dax_cli(tier: str, device=None) -> None:
+    """12f: `python -m pilosa_tpu_torch.cli.main dax` (on the card unless
+    device names another, [blob] backend = "dir") in a subprocess:
+    CREATE TABLE, INSERT and SELECT over its /sql, then SIGINT."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = os.path.join(tier, "cli.toml")
+    with open(cfg, "w") as f:
+        f.write('[blob]\nbackend = "dir"\n')
+    port = free_port()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli.main", "dax", "--config",
+         cfg, "--data-dir", os.path.join(tier, "cli"), "--port", str(port)]
+        + (["--device", str(device)] if device is not None else []),
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), text=True,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    lines: list = []
+    up = threading.Event()
+
+    def drain():
+        for ln in p.stderr:
+            lines.append(ln)
+            if "listening" in ln:
+                up.set()
+    threading.Thread(target=drain, daemon=True).start()
+    try:
+        if not up.wait(180):
+            raise AssertionError(f"12f: cli dax never listened: "
+                                 f"{''.join(lines)[-1500:]}")
+        up_s = time.perf_counter() - t0
+        width = W * 32
+        out = []
+        for stmt in ("CREATE TABLE ev (_id id, n int min 0 max 100, g id)",
+                     f"INSERT INTO ev (_id, n, g) VALUES (1, 5, 1), "
+                     f"({width + 2}, 7, 1), ({2 * width + 3}, 9, 2)",
+                     "SELECT g, COUNT(*), SUM(n) FROM ev GROUP BY g"):
+            st, body = http_json(port, "POST", "/sql", {"sql": stmt})
+            if st != 200:
+                raise AssertionError(f"12f: {stmt}: {st} {body}")
+            out.append(body["data"])
+        if sorted(out[2]) != [[1, 2, 12], [2, 1, 9]] or out[1] != [[3]]:
+            raise AssertionError(f"12f: {out}")
+        print(f"12f: `cli.main dax` ([blob] backend = \"dir\", on "
+              f"{device or 'the card'}) "
+              f"listening after {up_s:.1f} s; CREATE TABLE, an INSERT over 3 "
+              f"shards and a GROUP BY over its /sql exact; "
+              f"{''.join(ln for ln in lines if 'dax' in ln).strip()[:200]}")
+    finally:
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(60)
+    print(f"12f: stopped by SIGINT (exit {p.returncode}); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _page_kinds(ps):

@@ -4,6 +4,7 @@ Command set mirrors the reference CLI (cmd/root.go:94-111 subcommand
 registration; implementations in ctl/):
 
     server            run a node                       (ctl/server.go)
+    dax               controller + queryer + workers   (dax/server/)
     backup            snapshot a live node             (ctl/backup.go:30)
     restore           upload a backup to a node        (ctl/restore.go)
     import            CSV import through the batcher   (ctl/import.go)
@@ -17,8 +18,8 @@ registration; implementations in ctl/):
 argparse instead of cobra; flags keep the reference's names where they
 exist (--host, --index, --field, ...).  ``server --device`` picks the
 torch device the node computes on: the CUDA card by default (a machine
-without one raises), ``cpu`` for the kernels' plain versions.  The
-``dax`` command of the disaggregated tier is not ported.
+without one raises), ``cpu`` for the kernels' plain versions; ``dax
+--device`` does the same for every worker of the disaggregated tier.
 """
 
 from __future__ import annotations
@@ -92,6 +93,49 @@ def cmd_server(args) -> int:
             grpc_srv.stop()
         holder.sync()
         srv.close()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# dax (dax/server/)
+# ---------------------------------------------------------------------------
+
+def cmd_dax(args) -> int:
+    """Host the DAX services in one process — controller + queryer +
+    N compute workers over a shared storage dir (the reference's
+    `featurebase dax` single binary, dax/server/), with the
+    queryer's SQL surface on HTTP.  The [dax] and [blob] stanzas come
+    from ``--config`` and the environment (``config.load``)."""
+    from pilosa_tpu_torch import config as cfgmod
+    from pilosa_tpu_torch.dax import settings as dax_settings
+    from pilosa_tpu_torch.dax.server import DAXService
+    from pilosa_tpu_torch.obs.logger import StderrLogger
+
+    cfg = cfgmod.load(args.config)
+    cfg.check_supported()
+    logger = StderrLogger()
+    svc = DAXService(args.data_dir, n_workers=args.workers,
+                     device=args.device, config=cfg)
+    try:
+        front = svc.serve_queryer(bind=args.bind, port=args.port)
+        logger.info("dax queryer listening on %s:%d (%d workers on %s, "
+                    "storage %s)", args.bind, front.port, args.workers,
+                    svc.device, args.data_dir)
+        if svc.blob is not None:
+            # disaggregated shape: warm spares + the autoscaler's
+            # reconcile loop ([dax] standby / thresholds)
+            for i in range(dax_settings.standby()):
+                svc.add_standby(f"standby{i}")
+            svc.start_autoscaler()
+            logger.info("dax blob tier active (%d standby)",
+                        dax_settings.standby())
+        svc.controller.start_poller()
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        svc.close()
     return 0
 
 
@@ -422,6 +466,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "card, which must be present; 'cpu' runs the "
                          "kernels' plain versions)")
     sp.set_defaults(fn=cmd_server)
+
+    sp = sub.add_parser(
+        "dax", help="run the DAX services (controller + queryer + "
+                    "compute workers) in one process")
+    sp.add_argument("--config", "-c", default=None,
+                    help="TOML config file ([dax] and [blob] stanzas)")
+    sp.add_argument("--data-dir", required=True,
+                    help="shared storage dir (write-log, snapshots, "
+                         "controller schemar)")
+    sp.add_argument("--workers", type=int, default=2)
+    sp.add_argument("--bind", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=0,
+                    help="queryer HTTP port (0 = ephemeral)")
+    sp.add_argument("--device", default=None,
+                    help="torch device every worker computes on "
+                         "(default: the CUDA card, which must be "
+                         "present; 'cpu' runs the kernels' plain "
+                         "versions)")
+    sp.set_defaults(fn=cmd_dax)
 
     sp = sub.add_parser("backup", help="back up a live node")
     host_flags(sp)

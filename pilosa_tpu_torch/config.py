@@ -9,9 +9,9 @@ and flags give the JAX package's Config field for field.
 
 ``load`` is where the port reads ``PILOSA_TPU_*``: its modules read no
 environment switch, and each ``apply_*`` method hands the loaded
-values to the module's ``configure()`` call instead.  Sections of
-planes the port does not have ([dax], [blob], the mesh knobs of
-[cluster], the kernel switch) are parsed into the same fields; their
+values to the module's ``configure()`` call instead.  Knobs of planes
+the port does not have (the mesh knobs of [cluster], ``[stacked] patch
+= false``, the kernel switch) are parsed into the same fields; their
 ``apply_*`` raises ``ConfigError`` when one is set away from its
 default.
 """
@@ -144,7 +144,10 @@ class Config:
     audit_scrub_standing_n: int = 2
     audit_scrub_replica_n: int = 2
     audit_quarantine: int = 32
-    # the disaggregated tier ([dax] + [blob]), not ported
+    # the disaggregated tier ([dax] + [blob], dax/settings.py): blob is
+    # the tier's kill-switch; backend/root pick the blob store;
+    # worker-budget-bytes bounds each stateless worker's resident set
+    # (0 = unbounded); the scale-* thresholds drive the autoscaler
     blob_backend: str = ""
     blob_root: str = ""
     dax_blob: bool = True
@@ -341,9 +344,27 @@ class Config:
             quarantine=self.audit_quarantine)
 
     def apply_dax_settings(self):
-        """[dax] and [blob]: the disaggregated tier is not ported, so
-        every knob raises away from its default."""
-        self._refuse("dax")
+        """Push the [dax]/[blob] stanzas into dax/settings.py (the
+        ``PILOSA_TPU_DAX_*``/``PILOSA_TPU_BLOB_*`` variables reached
+        them in ``load``; the settings module reads none)."""
+        from pilosa_tpu_torch.dax import settings as dax_settings
+        dax_settings.configure(
+            blob=self.dax_blob,
+            backend=self.blob_backend,
+            root=self.blob_root,
+            lazy_hydrate=self.dax_lazy_hydrate,
+            worker_budget_bytes=self.dax_worker_budget_bytes,
+            prefetch=self.dax_prefetch,
+            scale_out_burn=self.dax_scale_out_burn,
+            scale_in_burn=self.dax_scale_in_burn,
+            pressure_high=self.dax_pressure_high,
+            min_workers=self.dax_min_workers,
+            max_workers=self.dax_max_workers,
+            standby=self.dax_standby,
+            reconcile_interval_s=self.dax_reconcile_interval_s,
+            cooldown_s=self.dax_cooldown_s,
+            chase_lag=self.dax_chase_lag,
+            chase_rounds=self.dax_chase_rounds)
 
     def apply_placement_settings(self):
         """[cluster] mesh-devices and placement-pin: the serving mesh
@@ -392,8 +413,6 @@ _UNPORTED = {
     "stacked": ("stacked", ("stack_patch",)),
     "placement": ("cluster", ("cluster_mesh_devices",
                               "cluster_placement_pin")),
-    "dax": ("dax", tuple(n for n in _DEFAULTS
-                         if n.startswith(("dax_", "blob_")))),
 }
 
 

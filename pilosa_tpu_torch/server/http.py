@@ -822,9 +822,20 @@ class Server:
                              if srv is not None else None)
 
     def _get_debug_dax(self, req):
-        """Disaggregated-tier state, as a plain node answers it: empty
-        rosters (the tier is not ported)."""
-        return {"workers": [], "controllers": []}
+        """Disaggregated-tier state: every in-process worker's
+        residency (dax/worker.py) and every controller's roster +
+        last reconcile decision.  A plain cluster node answers with
+        empty rosters — only modules ALREADY imported are consulted,
+        so the debug sweep never drags the DAX stack in."""
+        import sys
+        payload: dict = {"workers": [], "controllers": []}
+        wmod = sys.modules.get("pilosa_tpu_torch.dax.worker")
+        if wmod is not None:
+            payload["workers"] = wmod.hydrator_payloads()
+        cmod = sys.modules.get("pilosa_tpu_torch.dax.controller")
+        if cmod is not None:
+            payload["controllers"] = cmod.controller_payloads()
+        return payload
 
     def _post_import_columns(self, req):
         """Binary columnar import — the wire form of

@@ -10,8 +10,11 @@
   subprocess: started, imported into, queried, killed with SIGKILL and
   started again on the same directory, where every acknowledged write
   reads back;
-- no fallback: ``cli server`` without ``--device`` on a machine with no
-  card fails naming it."""
+- ``python -m pilosa_tpu_torch.cli.main dax --device cpu`` in a
+  subprocess with [blob] backend = "dir": SQL DDL, INSERT and SELECT
+  through the queryer front;
+- no fallback: ``cli server`` and ``cli dax`` without ``--device`` on a
+  machine with no card fail naming it."""
 
 import base64
 import contextlib
@@ -334,6 +337,64 @@ def test_server_command_kill_and_restart(tmp_path):
     finally:
         p.kill()
         p.wait(30)
+
+
+def test_dax_command_serves_sql_from_a_blob_tier(tmp_path):
+    """``cli.main dax --device cpu`` in a subprocess, with [blob]
+    backend = "dir" from its --config: two workers and a standby; the
+    queryer front answers a CREATE TABLE, an INSERT over three shards
+    and a GROUP BY on /sql and a PQL count on /queryer/{table}; the
+    blob tier lives under --data-dir; SIGINT stops it."""
+    port = _free_port()
+    cfg = tmp_path / "dax.toml"
+    cfg.write_text('[blob]\nbackend = "dir"\n\n[dax]\nstandby = 1\n'
+                   'prefetch = 0\n')
+    data = tmp_path / "dax"
+    p = _spawn(["dax", "--device", "cpu", "--config", str(cfg),
+                "--data-dir", str(data), "--port", str(port)])
+    try:
+        deadline = time.time() + 120
+        while True:
+            try:
+                st, status = _req(port, "GET", "/dax/status", timeout=5)
+                break
+            except OSError:
+                if p.poll() is not None or time.time() > deadline:
+                    pytest.fail(f"dax never listened: "
+                                f"{p.stderr.read()[-800:]}")
+                time.sleep(0.2)
+        assert st == 200
+        assert status["workers"] == ["worker0", "worker1"]
+        assert status["standbys"] == ["standby0"]
+        shard = 1 << 20
+        for stmt in ("CREATE TABLE ev (_id id, n int min 0 max 100, g id)",
+                     f"INSERT INTO ev (_id, n, g) VALUES (1, 5, 1), "
+                     f"({shard + 2}, 7, 1), ({2 * shard + 3}, 9, 2)"):
+            st, body = _req(port, "POST", "/sql", {"sql": stmt})
+            assert st == 200, body
+        st, body = _req(port, "POST", "/sql",
+                        {"sql": "SELECT g, count(*), sum(n) FROM ev "
+                                "GROUP BY g"})
+        assert st == 200, body
+        assert sorted(body["data"]) == [[1, 2, 12], [2, 1, 9]]
+        st, body = _req(port, "POST", "/queryer/ev",
+                        {"query": "Count(Row(g=1))"})
+        assert st == 200 and body["results"] == [2]
+        assert (data / "blob").is_dir()
+    finally:
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(30)
+
+
+def test_dax_command_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with restore_globals():
+        rc, _out, err = _run(cli, ["dax", "--data-dir", str(tmp_path)])
+    assert rc == 1 and "no CUDA device" in err
 
 
 def test_server_command_needs_a_card_unless_told_cpu(monkeypatch):

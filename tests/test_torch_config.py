@@ -4,12 +4,13 @@ The same TOML file, environment and overrides give equal ``Config``
 fields in both packages, and ``generate-config`` prints the same text.
 Each ``apply_*`` of the port reaches the port's ``configure()`` calls
 (read back through the modules' getters) and writes no environment
-variable.  The knobs of planes the port does not have ([dax], [blob],
-the mesh knobs of [cluster], ``[stacked] patch = false``) and ``[tpu]
-kernels = "off"`` raise ``ConfigError``; the cluster plane's knobs
-([cluster] hedge, deadline and rebalance, ``[stats] persist`` and
-``snapshot-interval-s``, ``[audit] scrub-replica-n``) reach its
-``configure()`` calls."""
+variable.  The knobs of planes the port does not have (the mesh knobs
+of [cluster], ``[stacked] patch = false``) and ``[tpu] kernels = "off"``
+raise ``ConfigError``; the cluster plane's knobs ([cluster] hedge,
+deadline and rebalance, ``[stats] persist`` and ``snapshot-interval-s``,
+``[audit] scrub-replica-n``) reach its ``configure()`` calls, and the
+[dax] and [blob] stanzas reach ``dax.settings`` as the JAX Config's
+reach the JAX package's."""
 
 import dataclasses
 import importlib
@@ -201,6 +202,7 @@ def _state():
     from pilosa_tpu_torch.obs import (audit, faults, flight, incidents,
                                       logger, profiler, roofline, slo, stats,
                                       watchdog)
+    from pilosa_tpu_torch.dax import settings as dax_settings
     from pilosa_tpu_torch.sql import costplan
     inc = incidents.get()
     t = slo.get()
@@ -235,7 +237,20 @@ def _state():
         "audit": (audit.enabled(), audit._SAMPLE_RATE, audit._QUEUE_MAX,
                   audit._CONCURRENCY, audit._SCRUB_CACHE_N,
                   audit._SCRUB_STANDING_N, audit._QUARANTINE),
+        "dax": _dax_state(dax_settings),
     }
+
+
+def _dax_state(settings) -> tuple:
+    """A dax.settings module's accessors, in either package."""
+    return (settings.blob_enabled(), settings.backend(), settings.root(),
+            settings.lazy_hydrate(), settings.worker_budget_bytes(),
+            settings.prefetch(), settings.scale_out_burn(),
+            settings.scale_in_burn(), settings.pressure_high(),
+            settings.min_workers(), settings.max_workers(),
+            settings.standby(), settings.reconcile_interval_s(),
+            settings.cooldown_s(), settings.chase_lag(),
+            settings.chase_rounds())
 
 
 def test_apply_reaches_the_port_configure_calls(toml_path, tmp_path):
@@ -259,6 +274,8 @@ def test_apply_reaches_the_port_configure_calls(toml_path, tmp_path):
         "slo": (50.0, 0.95, 0.99, [("30s", 30.0), ("5m", 300.0)]),
         "timeq": (True, True, False), "standing": (False, 7),
         "audit": (False, 0.5, 8, 2, 1, 0, 4),
+        "dax": (True, "", "", True, 0, 2, 2.0, 0.5, 0.9, 1, 8, 1, 5.0,
+                30.0, 8, 12),
     }
 
 
@@ -284,10 +301,21 @@ def test_defaults_apply_to_module_defaults():
 ])
 def test_unported_knobs_raise(key, value, tmp_path):
     """The knobs of planes the port does not have raise; those of the
-    cluster plane, which these cases listed before it was ported,
-    apply and land in its configure() calls (the test keeps its name
-    and cases)."""
+    cluster plane and of the DAX tier, which these cases listed before
+    they were ported, apply and land in their configure() calls (the
+    test keeps its name and cases)."""
     cfg = config.load(None, env={}, overrides={key: value})
+    if key in _DAX_KNOBS:
+        from pilosa_tpu_torch.dax import settings
+        cfg.check_supported()
+        with restore_globals():
+            cfg.apply_all()
+            got = {"blob_backend": settings.backend(),
+                   "blob_root": settings.root(),
+                   "dax_blob": settings.blob_enabled(),
+                   "dax_max_workers": settings.max_workers()}[key]
+        assert got == value
+        return
     if key in _CLUSTER_KNOBS:
         from pilosa_tpu_torch.cluster import coordinator, rebalance
         from pilosa_tpu_torch.obs import audit, stats
@@ -318,6 +346,9 @@ def test_unported_knobs_raise(key, value, tmp_path):
         cfg.apply_all()
 
 
+# the DAX tier's knobs among the cases above: they apply
+_DAX_KNOBS = {"blob_backend", "blob_root", "dax_blob", "dax_max_workers"}
+
 # the cluster plane's knobs among the cases above: they apply
 _CLUSTER_KNOBS = {"cluster_hedge_ms", "cluster_deadline_s",
                   "cluster_rebalance_chase_lag", "stats_persist",
@@ -332,10 +363,32 @@ def test_kernels_auto_and_on_accepted(kernels):
 
 
 def test_unported_section_from_toml_raises(tmp_path):
+    """[dax] and [blob] from a file (refused before the tier was
+    ported; the test keeps its name): both packages' Configs load them
+    equal, and each one's apply_dax_settings leaves its package's
+    dax.settings in the same state."""
+    from pilosa_tpu.dax import settings as jax_settings
+    from pilosa_tpu_torch.dax import settings
     p = tmp_path / "dax.toml"
     p.write_text('[dax]\nmax-workers = 3\n\n[blob]\nbackend = "mem"\n')
     j = jax_config.load(str(p), env={})
     c = config.load(str(p), env={})
     assert dataclasses.asdict(c) == dataclasses.asdict(j)
-    with pytest.raises(config.ConfigError, match=r"\[dax\]"):
-        c.check_supported()
+    c.check_supported()
+    saved = {k: getattr(jax_settings, k) for k in vars(jax_settings)
+             if k.startswith("_") and not k.startswith("__")
+             and not callable(getattr(jax_settings, k))}
+    with restore_globals():
+        try:
+            for var in [v for v in os.environ
+                        if v.startswith(("PILOSA_TPU_DAX_",
+                                         "PILOSA_TPU_BLOB_"))]:
+                del os.environ[var]  # the JAX accessors read them
+            c.apply_all()
+            j.apply_dax_settings()
+            got, want = _dax_state(settings), _dax_state(jax_settings)
+        finally:
+            for k, v in saved.items():
+                setattr(jax_settings, k, v)
+    assert got == want
+    assert (got[1], got[10]) == ("mem", 3)

@@ -244,7 +244,7 @@ CASES = [
     ("long-queries", "GET", "/debug/long-queries", None, {}),
     ("login-400", "GET", "/login", None, {}),
     ("debug-faults", "GET", "/debug/faults", None, {}),
-    ("debug-dax", "GET", "/debug/dax", None, {}),
+    ("debug-dax", "GET", "/debug/dax", None, {"rosters": True}),
     ("delete-field", "DELETE", "/index/x/field/v", None, {}),
     ("delete-field-404", "DELETE", "/index/x/field/v", None, {}),
     ("delete-index", "DELETE", "/index/y", None, {}),
@@ -263,7 +263,23 @@ def test_route_matches_jax(nodes, case):
     (jst, jh, jb), (pst, ph, pb) = got
     assert pst == jst, (jb, pb)
     assert ph.get("Content-Type") == jh.get("Content-Type")
+    if extra.get("rosters"):
+        # /debug/dax lists every live DAX worker and controller of the
+        # process, each package its own (test_torch_dax_tier.py holds
+        # their entries to the JAX package's): the same shape
+        assert set(pb) == set(jb) == {"workers", "controllers"}
+        for key, fields in (("workers", _HYDRATOR_KEYS),
+                            ("controllers", _CONTROLLER_KEYS)):
+            assert all(set(e) == fields for e in pb[key] + jb[key])
+        return
     assert strip(pb, drop) == strip(jb, drop)
+
+
+_HYDRATOR_KEYS = {"worker", "lazy", "blob", "budget_bytes", "resident_bytes",
+                  "pressure", "hydrations", "evictions", "resident",
+                  "assigned"}
+_CONTROLLER_KEYS = {"workers", "standbys", "admitted", "overlay", "fenced",
+                    "last_reconcile"}
 
 
 # routes whose answer depends on what else ran in the process: equal

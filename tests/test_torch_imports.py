@@ -48,7 +48,10 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "server.grpc", "server.proto", "client", "cli", "cli.fbsql",
           "cli.main", "cluster.hash", "cluster.disco", "cluster.snapshot",
           "cluster.coordinator", "cluster.rebalance",
-          "storage.stats_store"):
+          "storage.stats_store", "storage.blob", "dax", "dax.directive",
+          "dax.settings", "dax.writelogger", "dax.snapshotter",
+          "dax.schemar", "dax.worker", "dax.computer", "dax.controller",
+          "dax.queryer", "dax.server"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -316,3 +319,28 @@ def test_cluster_switches_read_no_environment():
     assert lines[1] == "8 12 10.0"
     assert lines[2] == ("{'hedge_ms': 7.0, 'deadline_s': 3.0} 2 3 1.5 "
                         "0.007 True")
+
+
+def test_dax_switches_read_no_environment():
+    """The [dax]/[blob] knobs come through dax.settings.configure()
+    only: the JAX package's environment twins leave the port's
+    accessors at their defaults until a Config (whose load reads them)
+    applies them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               PILOSA_TPU_DAX_BLOB="0", PILOSA_TPU_BLOB_BACKEND="dir",
+               PILOSA_TPU_DAX_PREFETCH="5",
+               PILOSA_TPU_DAX_COOLDOWN_S="1.5",
+               PILOSA_TPU_DAX_CHASE_LAG="3")
+    code = ("from pilosa_tpu_torch.dax import settings as s\n"
+            "def show():\n"
+            "    print(s.blob_enabled(), s.backend(), s.prefetch(), "
+            "s.cooldown_s(), s.chase_lag())\n"
+            "show()\n"
+            "from pilosa_tpu_torch import config\n"
+            "config.load().apply_dax_settings()\n"
+            "show()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["True  2 30.0 8",
+                                          "False dir 5 1.5 3"]

@@ -119,6 +119,12 @@ _PORT_SWITCHES = {
                                              "_HEDGE_CACHE"),
     "pilosa_tpu_torch.cluster.rebalance": ("_CHASE_LAG", "_MAX_ROUNDS",
                                            "_FENCE_TIMEOUT_S"),
+    "pilosa_tpu_torch.dax.settings": (
+        "_blob", "_backend", "_root", "_lazy_hydrate",
+        "_worker_budget_bytes", "_prefetch", "_scale_out_burn",
+        "_scale_in_burn", "_pressure_high", "_min_workers", "_max_workers",
+        "_standby", "_reconcile_interval_s", "_cooldown_s", "_chase_lag",
+        "_chase_rounds"),
 }
 _STATS_KNOBS = ("heavy_cost_ms", "regression_ratio", "regression_min_samples",
                 "snapshot_interval_s")
