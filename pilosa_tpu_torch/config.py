@@ -10,10 +10,9 @@ and flags give the JAX package's Config field for field.
 ``load`` is where the port reads ``PILOSA_TPU_*``: its modules read no
 environment switch, and each ``apply_*`` method hands the loaded
 values to the module's ``configure()`` call instead.  Knobs of planes
-the port does not have (the mesh knobs of [cluster], ``[stacked] patch
-= false``, the kernel switch) are parsed into the same fields; their
-``apply_*`` raises ``ConfigError`` when one is set away from its
-default.
+the port does not have (``[stacked] patch = false``, the kernel switch)
+are parsed into the same fields; their ``apply_*`` raises
+``ConfigError`` when one is set away from its default.
 """
 
 from __future__ import annotations
@@ -367,10 +366,13 @@ class Config:
             chase_rounds=self.dax_chase_rounds)
 
     def apply_placement_settings(self):
-        """[cluster] mesh-devices and placement-pin: the serving mesh
-        is multi-GPU work, not ported; both raise away from their
-        defaults."""
-        self._refuse("placement")
+        """[cluster] mesh-devices and placement-pin: the serving mesh's
+        width and pins (memory/placement.py; the ``PILOSA_TPU_MESH_
+        DEVICES``/``PILOSA_TPU_PLACEMENT_PIN`` twins reached them in
+        ``load``).  The slots are the visible cards."""
+        from pilosa_tpu_torch.memory import placement
+        placement.configure(mesh_devices=self.cluster_mesh_devices,
+                            pin=self.cluster_placement_pin)
 
     def apply_memory_settings(self):
         """Push the [memory] knobs into the residency manager
@@ -411,8 +413,6 @@ _DEFAULTS = {f.name: f.default for f in fields(Config)}
 # refused away from their defaults by the apply_* methods
 _UNPORTED = {
     "stacked": ("stacked", ("stack_patch",)),
-    "placement": ("cluster", ("cluster_mesh_devices",
-                              "cluster_placement_pin")),
 }
 
 
@@ -545,6 +545,10 @@ def _flatten(doc: dict, prefix: str = "") -> dict:
     return out
 
 
+_PLACEMENT_TWINS = {"MESH_DEVICES": "cluster_mesh_devices",
+                    "PLACEMENT_PIN": "cluster_placement_pin"}
+
+
 def load(path: str | None = None, env: dict | None = None,
          overrides: dict | None = None) -> Config:
     """Build a Config with flag > env > file > default precedence
@@ -561,6 +565,13 @@ def load(path: str | None = None, env: dict | None = None,
     env = os.environ if env is None else env
     for attr in names:
         ev = env.get(ENV_PREFIX + attr.upper())
+        if ev is not None:
+            setattr(cfg, attr, _coerce(cfg, attr, ev))
+    # the JAX placement module's own twins, which outrank the config
+    # there (memory/placement.py reads them on every call); here they
+    # are read once, into the same fields
+    for name, attr in _PLACEMENT_TWINS.items():
+        ev = env.get(ENV_PREFIX + name)
         if ev is not None:
             setattr(cfg, attr, _coerce(cfg, attr, ev))
     for k, v in (overrides or {}).items():

@@ -236,19 +236,17 @@ class AdvancedOps:
     def _topnk_stacked(self, idx, f, row_ids, views, filter_call, shards, pre,
                        ids):
         """Candidate scan: per chunk of rows, one (R, S, W) device pass
-        with the filter tree inlined."""
+        with the filter tree inlined; under a mesh (StackedEngine.set_mesh)
+        the rows split over its "rows" axis and the shards over its
+        "shards" axis."""
         eng = self.stacked
         skey = tuple(self._shard_list(idx, shards))
         chunk = max(1, self._ROWS_STACK_BUDGET
-                    // (len(skey) * (idx.width // 32) * 4))
+                    // (max(len(skey), 1) * (idx.width // 32) * 4))
         counts: dict[int, int] = {}
         for i in range(0, len(row_ids), chunk):
             rows = row_ids[i:i + chunk]
-            # under sparse_raw() a stack of encoded pages comes back as
-            # a PageView, which an unfiltered scan counts on the host
-            with eng.sparse_raw():
-                stack = eng.rows_stack_for(idx, f, tuple(views), rows, skey)
-            got = eng.row_counts(idx, stack, filter_call, list(skey), pre)
+            got = eng.row_counts(idx, f, views, rows, filter_call, skey, pre)
             for r, c in zip(rows, got.tolist()):
                 counts[r] = int(c)
         return [Pair(id=r, count=c) for r, c in counts.items()

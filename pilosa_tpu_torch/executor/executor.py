@@ -191,6 +191,14 @@ class Executor(AdvancedOps):
         # opts in with enable_serving()
         self.serving = None
 
+    def set_mesh(self, mesh):
+        """Run the stacked engine over a mesh (parallel.make_mesh), or on
+        the executor's device again with None: every stacked call splits
+        its shards over the mesh's slots and combines on the lead slot
+        (executor/mesh_arm.py).  The per-shard engine stays on the
+        executor's device."""
+        self.stacked.set_mesh(mesh)
+
     def enable_serving(self, window_s: float = 0.001, max_batch: int = 32,
                        cache_bytes: int = 64 << 20, batching: bool = True,
                        **qos_kwargs):
@@ -456,7 +464,11 @@ class Executor(AdvancedOps):
 
     def _tree_stack(self, idx: Index, call: Call, shard_list,
                     pre: dict) -> torch.Tensor:
-        """(S, W) device words of a bitmap tree, one shard at a time."""
+        """(S, W) device words of a bitmap tree, one shard at a time
+        ((0, W) for no shard)."""
+        if not shard_list:
+            return torch.zeros((0, idx.width // 32), dtype=torch.int32,
+                               device=self.device)
         return torch.stack([self._bitmap_call_shard(idx, call, s, pre)
                             for s in shard_list])
 
@@ -698,6 +710,8 @@ class Executor(AdvancedOps):
             "Count", lambda: self.stacked.count(idx, call, shard_list, pre))
         if done:
             return n
+        if not shard_list:
+            return 0
         words = self._tree_stack(idx, call, shard_list, pre)
         return int(kernels.popcount_rows(words).sum(dtype=torch.int64))
 

@@ -44,8 +44,24 @@ Consistency is inherited from the serving layer: the post-batch
 snapshot re-check (executor/serving.py ``_run_batch``) re-executes any
 rider whose fragment-version snapshot moved while the program ran.
 A program that fails to build or run sends its riders to their solo
-paths, never to an error.  The serving mesh's arm waits for the
-multi-GPU slice.
+paths, never to an error.
+
+**The serving mesh** (``memory/placement.py``, on where its width is
+above 1): every paged stack partitions its lanes by their shard's owner
+slot and each page lives on its owner's device.  The program becomes
+``("ragged_mesh", ...)``: each slot's buckets hold only its own pages
+(``_add_mesh_leaf``), each virtual leaf is gathered on every slot out
+of that slot's pool with its shard axis cut to the shards the slot owns
+(``_finalize_mesh``), each subplan and segment family runs on every
+slot that owns shards of its group, and the partials combine on the
+lead slot's device: an int64 sum for the reduced outputs, and a copy to
+the shard positions (``index_copy_``) for a bitmap's words.  A leaf
+whose lane owner is not its group's owner (a rebalance between the
+build and the program: "placement drift"), or a leaf that is not
+paged, raises RaggedUnbuildable, and the batch takes its per-group
+path.  The cached canonical program pins the mesh width and the
+placement epoch it was built under; a change of either builds it
+again.
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.executor.stacked import PageView, PlanBuilder, raw_pages
+from pilosa_tpu_torch.memory import encode, placement
 from pilosa_tpu_torch.obs import flight
 from pilosa_tpu_torch.ops import kernels
 
@@ -161,7 +178,14 @@ class RaggedProgram:
     # subplan; at two or more it shares one segment_count launch
     _SEG_MIN = 2
 
-    def __init__(self):
+    def __init__(self, ndev: int = 1):
+        # the serving mesh's width; above 1 finalize() emits a
+        # ("ragged_mesh", ...) plan and the buckets hold one page list
+        # a slot
+        self.ndev = int(ndev)
+        self.mesh = self.ndev > 1
+        self.group_owners: list = []
+        self.dev_mix = [dict() for _ in range(self.ndev)]
         # (page_lanes, width_words) -> dense pages of the bucket
         self.buckets: OrderedDict[tuple, list] = OrderedDict()
         # (bucket key, lane_idx (L,) int32, shape)
@@ -175,14 +199,30 @@ class RaggedProgram:
         self.groups: list = []
         self.device = None
 
-    def add_group(self, builder: PlanBuilder, entries: list) -> None:
+    def add_group(self, builder: PlanBuilder, entries: list,
+                  owners=None) -> None:
         """``entries``: [(riders, subplan, demux, slot_key), ...] built
-        against ``builder``, whose leaves may be PageViews."""
+        against ``builder``, whose leaves may be PageViews.  ``owners``:
+        each shard's owner slot (int32, len(builder.skey)), required
+        under the serving mesh, where a leaf that is not a placed
+        PageView raises RaggedUnbuildable (nothing is added then)."""
+        if self.mesh:
+            for leaf in builder.leaves:
+                if (not isinstance(leaf, PageView) or leaf.page_device is None
+                        or leaf.shard_axis is None):
+                    raise RaggedUnbuildable(
+                        "a leaf with no placed pages under the mesh")
+            if owners is None:
+                raise RaggedUnbuildable("a mesh group without owners")
         poff = len(self.params)
         self.params.extend(builder.params)
         self.device = builder.engine.device
+        gidx = len(self.groups)
         lmap: dict = {}
         for i, leaf in enumerate(builder.leaves):
+            if self.mesh:
+                lmap[i] = ("v", self._add_mesh_leaf(leaf, gidx))
+                continue
             if isinstance(leaf, PageView):
                 key = (leaf.page_lanes, leaf.width_words)
                 pages = self.buckets.setdefault(key, [])
@@ -198,6 +238,38 @@ class RaggedProgram:
                 lmap[i] = ("d", len(self.direct))
                 self.direct.append(leaf)
         self.groups.append((entries, lmap, poff))
+        self.group_owners.append(owners)
+
+    def _add_mesh_leaf(self, leaf: PageView, gidx: int) -> int:
+        """One placed PageView's pages into its slots' bucket pools
+        (expanded to dense on their owner's device); returns the virtual
+        leaf's index.  ``pool_row[lane]`` is the lane's row in its owner
+        slot's pool of the bucket."""
+        key = (leaf.page_lanes, leaf.width_words)
+        per_dev = self.buckets.setdefault(key, [[] for _ in range(self.ndev)])
+        slot = np.empty(len(leaf.pages), dtype=np.int64)
+        for pi, page in enumerate(leaf.pages):
+            d = int(leaf.page_device[pi])
+            if not 0 <= d < self.ndev:
+                raise RaggedUnbuildable("an owner slot outside the mesh")
+            slot[pi] = len(per_dev[d])
+            per_dev[d].append(encode.to_dense(page))
+            mk = encode.page_kind(page)
+            self.dev_mix[d][mk] = self.dev_mix[d].get(mk, 0) + 1
+        lane_page = leaf.lane_page.astype(np.int64)
+        pool_row = slot[lane_page] * leaf.page_lanes + leaf.lane_slot
+        lane_dev = np.asarray(leaf.page_device, dtype=np.int32)[lane_page]
+        self.vleaves.append((key, pool_row, lane_dev, leaf.shape,
+                             leaf.shard_axis, gidx))
+        return len(self.vleaves) - 1
+
+    def _add_mesh_param(self, arr: np.ndarray, device,
+                        dtype=torch.int32) -> int:
+        """An index array on one slot's device (int32 for the kernels,
+        int64 for index_copy_); returns its index."""
+        self.params.append(torch.from_numpy(np.ascontiguousarray(arr))
+                           .to(device=device, dtype=dtype))
+        return len(self.params) - 1
 
     def _add_param(self, arr) -> int:
         """Append a param (an int32 index array goes to the device
@@ -248,6 +320,8 @@ class RaggedProgram:
                         kept.add(i)
         vkeep = sorted(kept)
         vre = {vi: k for k, vi in enumerate(vkeep)}
+        if self.mesh:
+            return self._finalize_mesh(families, plain, vkeep, vre)
         # -- leaf layout: the pages of every bucket something reads,
         # then the direct leaves
         used = {self.vleaves[vi][0] for vi in vkeep} | set(families)
@@ -314,6 +388,168 @@ class RaggedProgram:
             return None
         plan = ("ragged", tuple(bucket_meta), vmeta, tuple(subs))
         return plan, leaves, self.params, served, table
+
+    def _finalize_mesh(self, families, plain, vkeep, vre):
+        """The ``("ragged_mesh", ndev, epoch, buckets, vmeta, subs,
+        runs_on, combines, lead device)`` plan: one page list and gather table a
+        (bucket, slot), one gather param a (virtual leaf, slot) over the
+        shards the slot owns, and for each subplan the slots it runs on
+        and how its partials combine (``("sum",)`` or ``("scatter",
+        per-slot shard positions, S)``).  Returns what finalize() returns plus
+        the per-slot bytes and page mix."""
+        ndev = self.ndev
+        devs = placement.devices()
+        if len(devs) < ndev:
+            raise RaggedUnbuildable("the mesh shrank below the plan's width")
+        used = {self.vleaves[vi][0] for vi in vkeep} | set(families)
+        leaves: list = []
+        bucket_meta: list = []
+        bucket_id: dict = {}
+        dev_bytes = [0] * ndev
+        for key, per_dev in self.buckets.items():
+            if key not in used:
+                continue
+            metas = []
+            for d in range(ndev):
+                pages = per_dev[d]
+                if not pages:
+                    metas.append(None)
+                    continue
+                self.params.append(kernels.gather_table(pages))
+                metas.append((len(leaves), len(pages), len(self.params) - 1))
+                leaves.extend(pages)
+                dev_bytes[d] += sum(int(p.nbytes) for p in pages)
+            bucket_id[key] = len(bucket_meta)
+            bucket_meta.append(tuple(metas))
+        # each group's shards by owner slot
+        geo: dict = {}
+
+        def owned(gidx):
+            g = geo.get(gidx)
+            if g is None:
+                own = self.group_owners[gidx]
+                g = geo[gidx] = (int(own.shape[0]), [
+                    np.flatnonzero(own == d) for d in range(ndev)])
+            return g
+        vmeta: list = []
+        for vi in vkeep:
+            key, pool_row, lane_dev, shape, sa, gidx = self.vleaves[vi]
+            s, sel = owned(gidx)
+            lead = tuple(shape[:-1])
+            if lead[sa] != s:
+                raise RaggedUnbuildable("a leaf's shard axis differs from "
+                                        "its group's shards")
+            grid = np.arange(pool_row.size, dtype=np.int64).reshape(lead)
+            per = []
+            for d in range(ndev):
+                if not sel[d].size:
+                    per.append(None)
+                    continue
+                lanes = np.take(grid, sel[d], axis=sa).reshape(-1)
+                if np.any(lane_dev[lanes] != d):
+                    raise RaggedUnbuildable("placement drift: a lane's "
+                                            "owner is not its group's")
+                local = list(lead)
+                local[sa] = sel[d].size
+                per.append((bucket_id[key],
+                            self._add_mesh_param(pool_row[lanes], devs[d]),
+                            tuple(local) + (shape[-1],)))
+            vmeta.append(tuple(per))
+        subs: list = []
+        runs_on: list = []
+        combines: list = []
+        served: list = []
+        table: dict = {}
+        sub_ix: dict = {}
+        spos: dict = {}
+
+        def scatter_params(gidx):
+            p = spos.get(gidx)
+            if p is None:
+                _s, sel = owned(gidx)
+                p = spos[gidx] = tuple(
+                    self._add_mesh_param(sel[d], devs[0], torch.int64)
+                    if sel[d].size else None for d in range(ndev))
+            return p
+
+        group_of = {id(gl): gi for gi, (_e, gl, _p) in enumerate(self.groups)}
+        for ent, lmap, poff in plain:
+            gidx = group_of[id(lmap)]
+            final = {li: vre[i] for li, (_tag, i) in lmap.items()
+                     if i in vre}
+            riders, sub, demux, slot_key = ent
+            rsub = _remap_sub(sub, final, poff)
+            i = sub_ix.get(rsub)
+            if i is None:
+                s, sel = owned(gidx)
+                subs.append(rsub)
+                runs_on.append(tuple(d for d in range(ndev) if sel[d].size))
+                combines.append(self._combine_of(rsub, gidx, s,
+                                                 scatter_params))
+                i = sub_ix[rsub] = len(subs) - 1
+            if slot_key is not None:
+                table[slot_key] = (demux, ("plain", i))
+            for r in riders:
+                served.append((r, demux, ("plain", i)))
+        for vkey, members in families.items():
+            slot_of: dict[int, int] = {}
+            uniq: list = []
+            member_slots: list = []
+            for ent, v in members:
+                s_ = slot_of.get(id(v))
+                if s_ is None:
+                    s_ = slot_of[id(v)] = len(uniq)
+                    uniq.append(v)
+                member_slots.append((ent, s_))
+            per = []
+            for d in range(ndev):
+                rows, segs = [], []
+                for seg, v in enumerate(uniq):
+                    _key, pool_row, lane_dev, _shape, _sa, _g = v
+                    mine = lane_dev == d
+                    rows.append(pool_row[mine])
+                    segs.append(np.full(int(mine.sum()), seg, np.int32))
+                rows = np.concatenate(rows)
+                if not rows.size:
+                    per.append(None)
+                    continue
+                per.append((self._add_mesh_param(rows, devs[d]),
+                            self._add_mesh_param(np.concatenate(segs),
+                                                 devs[d])))
+            subs.append(("segcount", bucket_id[vkey], tuple(per), len(uniq)))
+            runs_on.append(tuple(d for d in range(ndev) if per[d] is not None))
+            combines.append(("sum",))
+            for ent, slot in member_slots:
+                riders, _sub, demux, slot_key = ent
+                ext = ("seg", len(subs) - 1, slot)
+                if slot_key is not None:
+                    table[slot_key] = (demux, ext)
+                for r in riders:
+                    served.append((r, demux, ext))
+        if not subs:
+            return None
+        plan = ("ragged_mesh", ndev, placement.epoch(), tuple(bucket_meta),
+                tuple(vmeta), tuple(subs), tuple(runs_on), tuple(combines),
+                devs[0])
+        meshinfo = {"ndev": ndev, "dev_bytes": dev_bytes,
+                    "dev_pages": [dict(m) for m in self.dev_mix]}
+        return plan, leaves, self.params, served, table, meshinfo
+
+    @staticmethod
+    def _combine_of(sub, gidx: int, s: int, scatter_params):
+        """How a subplan's slot partials combine: the reduced outputs
+        (the serving layer reduces every count, Sum and TopN subplan on
+        the device) and a GroupBy histogram by an int64 sum, a bitmap's
+        (S, W) words by copying each slot's rows to their shard
+        positions."""
+        kind = sub[0]
+        if kind == "words":
+            return ("scatter", scatter_params(gidx), s)
+        reduced = {"count": 2, "bsi_sum": 3, "row_counts": 3}.get(kind)
+        if kind == "gb_hist" or (reduced and len(sub) > reduced
+                                 and sub[reduced]):
+            return ("sum",)
+        raise RaggedUnbuildable(f"an unreduced {kind} under the mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -441,12 +677,34 @@ class CanonicalComposition:
 # batch execution (called by ServingLayer._run_batch on the leader)
 # ---------------------------------------------------------------------------
 
-def _note_roofline(leaves, dt) -> None:
+def _mesh_width(eng) -> int:
+    """The serving mesh's width for the fused program: above 1 only
+    where the serving mesh is configured and the engine runs the paged
+    single-device layout (not the engine's mesh arm)."""
+    from pilosa_tpu_torch import memory
+    if eng.mesh is not None or not eng._pageable() \
+            or not memory.paged_enabled():
+        return 1
+    return placement.mesh_devices()
+
+
+def _note_roofline(leaves, dt, meshinfo=None, served=()) -> None:
     """The fused program's bandwidth attribution: its operand pages'
-    bytes over its time, under the "ragged" op family."""
+    bytes over its time, under the "ragged" op family; under the mesh
+    also each slot's pool bytes over the same time (the "ragged/dev<d>"
+    series) and each slot's page mix on every rider's flight record."""
     from pilosa_tpu_torch.executor.stacked import leaf_bytes
     from pilosa_tpu_torch.obs import roofline
     roofline.note("ragged", leaf_bytes(leaves), dt)
+    if not meshinfo:
+        return
+    for d, b in enumerate(meshinfo["dev_bytes"]):
+        roofline.note("ragged", b, dt, device=d)
+    mix = {f"d{d}:{k}": v for d, m in enumerate(meshinfo["dev_pages"])
+           for k, v in m.items()}
+    if mix:
+        for r, _d, _e in served:
+            r.acc.add_pages(mix)
 
 
 def run_ragged(layer, groups: dict) -> None:
@@ -469,10 +727,22 @@ def run_ragged(layer, groups: dict) -> None:
         for r in reqs:
             if r.result is None and r.error is None:
                 by_key.setdefault(_slot_key(r), []).append(r)
+    width = _mesh_width(layer.executor.stacked)
     with canon.lock:
         cached = canon.cached
         if cached is not None and (cached[0] != fp or cached[1] != epoch):
             cached = None
+        plan = None if cached is None else cached[2]
+        if plan is not None and (
+                (plan[0] == "ragged_mesh") != (width > 1)
+                or (plan[0] == "ragged_mesh"
+                    and (plan[1] != width
+                         or plan[2] != placement.epoch()))):
+            # a mesh plan pins the width and the placement epoch it was
+            # built under: a rebalance or a width flip builds it again,
+            # never replays pools of a dead placement (and a plan built
+            # before the mesh came up is not one)
+            cached = canon.cached = None
     if cached is not None:
         _serve_cached(layer, cached, by_key, len(groups))
     else:
@@ -517,7 +787,8 @@ def _plan_and_dispatch(layer, work, n_groups: int, canon=None,
     canonical set, and a successful build returns the (plan, leaves,
     params, table, consts) payload for the cross-batch cache."""
     eng = layer.executor.stacked
-    prog = RaggedProgram()
+    ndev = _mesh_width(eng)
+    prog = RaggedProgram(ndev)
     dead_keys: list = []
     consts: dict = {}
     for idx, skey, pairs in work:
@@ -549,20 +820,33 @@ def _plan_and_dispatch(layer, work, n_groups: int, canon=None,
                 continue
             entries.append((riders, built[0], built[1], slot_key))
         if entries:
-            prog.add_group(b, entries)
+            owners = (placement.owners(idx.name, shards) if ndev > 1
+                      else None)
+            try:
+                prog.add_group(b, entries, owners)
+            except RaggedUnbuildable:
+                # the group cannot enter the mesh program (an operand
+                # with no placed pages): its riders go solo
+                for riders, _sub, _demux, slot_key in entries:
+                    for r in riders:
+                        r.direct = True
+                    if slot_key is not None:
+                        dead_keys.append(slot_key)
     if canon is not None and dead_keys:
         canon.drop(dead_keys)
     cacheable = canon is not None and not dead_keys
     fin = prog.finalize()
     if fin is None:
         # a program of constants alone is still cacheable
-        return ((None, None, None, {}, consts)
+        return ((None, None, None, {}, consts, None)
                 if cacheable and consts else None)
-    plan, leaves, params, served, table = fin
-    payload = (plan, leaves, params, table, consts) if cacheable else None
+    plan, leaves, params, served, table = fin[:5]
+    meshinfo = fin[5] if len(fin) > 5 else None
+    payload = ((plan, leaves, params, table, consts, meshinfo)
+               if cacheable else None)
     if served:
         _dispatch_served(layer, plan, leaves, params, served, n_groups,
-                         program)
+                         program, meshinfo)
     return payload
 
 
@@ -571,7 +855,7 @@ def _serve_cached(layer, cached, by_key, n_groups: int) -> None:
     plan building, no stack fetches; map each rider to its slot's demux
     and extract, run the one program, demux.  Keys the cache does not
     know stay in ``by_key`` for the extras program."""
-    _fp, _epoch, plan, leaves, params, table, consts = cached
+    _fp, _epoch, plan, leaves, params, table, consts, meshinfo = cached
     served: list = []
     for key in list(by_key):
         if key in consts:
@@ -585,19 +869,24 @@ def _serve_cached(layer, cached, by_key, n_groups: int) -> None:
                 served.append((r, demux, ext))
     if served and plan is not None:
         _dispatch_served(layer, plan, leaves, params, served, n_groups,
-                         "canonical-cached")
+                         "canonical-cached", meshinfo)
 
 
 def _dispatch_served(layer, plan, leaves, params, served, n_groups: int,
-                     program: str) -> None:
+                     program: str, meshinfo=None) -> None:
     from pilosa_tpu_torch.executor.serving import demux_into, dispatch
     riders = [r for r, _d, _e in served]
+    mesh = plan[0] == "ragged_mesh"
+    subs = plan[5] if mesh else plan[3]
     outs = dispatch(layer, plan, leaves, params, riders,
                     where="serving.ragged_dispatch",
-                    tags={"subqueries": len(plan[3]), "ragged": True,
+                    tags={"subqueries": len(subs), "ragged": True,
                           "program": program, "groups": n_groups},
-                    kind="ragged", note=_note_roofline,
-                    needed={ext[1] for _r, _d, ext in served})
+                    kind="ragged_mesh" if mesh else "ragged",
+                    note=lambda lv, dt: _note_roofline(lv, dt, meshinfo,
+                                                       served),
+                    needed={ext[1] for _r, _d, ext in served},
+                    devices=placement.devices() if mesh else None)
     if outs is None:
         return
     for r, demux, ext in served:

@@ -1018,9 +1018,13 @@ class ServingLayer:
 
     def _classify(self, index, idx, q: Query, shards, fields, key,
                   snapshot=None):
-        """A _Req when the query can ride a fused batch, else None."""
+        """A _Req when the query can ride a fused batch, else None.  Under
+        the engine's mesh arm (Executor.set_mesh) every read goes solo,
+        through the arm: a fused plan runs on one device."""
         if len(q.calls) != 1 or not getattr(self.executor,
                                             "use_stacked", False):
+            return None
+        if getattr(self.executor.stacked, "mesh", None) is not None:
             return None
         call = q.calls[0]
         name = call.name
@@ -1371,7 +1375,7 @@ class ServingLayer:
 
 
 def dispatch(layer, plan, leaves, params, riders, where: str,
-             tags: dict, kind: str, note=None, needed=None):
+             tags: dict, kind: str, note=None, needed=None, devices=None):
     """Run one fused plan on the leader for ``riders`` (objects with
     ``acc``, ``ctx``, ``trace_id`` and ``direct``): the
     ``serving-dispatch`` fault point, the OOM ladder (memory/pressure.py;
@@ -1383,7 +1387,9 @@ def dispatch(layer, plan, leaves, params, riders, where: str,
     ``pilosa_serving_dispatch_total{kind}``, and the outputs as host
     values (``to_host``; only the outputs in ``needed`` when given, the
     others None: a canonical program's absent slots stay on the card).
-    A failure marks every rider direct and returns None."""
+    A failure marks every rider direct and returns None.  ``devices``
+    (the serving mesh's slots) are every device the plan runs on; each
+    is synchronised."""
     from pilosa_tpu_torch.memory import pressure
     from pilosa_tpu_torch.obs import roofline
     from pilosa_tpu_torch.executor.stacked import ROOF_OPS
@@ -1401,7 +1407,8 @@ def dispatch(layer, plan, leaves, params, riders, where: str,
 
         def go():
             out = run(leaves, params)
-            sync_device(device)
+            for dev in devices or (device,):
+                sync_device(dev)
             return out
         outs = pressure.guarded(go)
         outs = tuple(to_host(o) if needed is None or i in needed else None

@@ -51,6 +51,16 @@ outcomes, the ``pilosa_stack_cache_total`` outcomes and
 fault point, whose injected fault is answered by a rebuild counted
 under the reason "fault".
 
+Two meshes reach the engine.  ``set_mesh`` (executor/mesh_arm.py) runs
+each engine method on the slots of a ``parallel.Mesh``, each over its
+slice of the shards, and combines on the lead slot.  The serving mesh
+(memory/placement.py) keeps the single-device methods but gives every
+paged stack a device axis: its lanes page by their shard's owner slot,
+each page on its owner's device; a fetch assembles such a stack on the
+engine's device (``_assemble_placed``), and the serving layer's ragged
+program runs on the owners (``_ragged_mesh_run``).  An empty shard list
+answers without a stack or a kernel.
+
 Per-shard partials are int32 (counts < 2^20 per shard); cross-shard
 totals are summed as int64 on the device and combined as Python ints.
 Histogram and per-combo totals are int32 on the device, exact below
@@ -71,7 +81,9 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import memory
-from pilosa_tpu_torch.memory import encode, policy, pressure
+from pilosa_tpu_torch.executor.mesh_arm import (MeshArm, cat_on,
+                                                minmax_table_on, sum_on)
+from pilosa_tpu_torch.memory import encode, placement, policy, pressure
 from pilosa_tpu_torch.memory.pages import PagedStack, StackRecipe, page_lanes_for
 from pilosa_tpu_torch.models import timeq
 from pilosa_tpu_torch.models.schema import FieldType
@@ -256,7 +268,8 @@ def _plan_run(plan):
     """``run(leaves, params)`` for one plan:
     ("words", tree) | ("count", tree[, reduce]) | ("bsi_sum", planes_i,
     tree|None[, reduce]) | ("row_counts", rows_i, tree|None[, reduce])
-    | ("gb_hist", ...) | ("multi", subplans) | ("ragged", ...).  With
+    | ("gb_hist", ...) | ("multi", subplans) | ("ragged", ...) |
+    ("ragged_mesh", ...).  With
     ``reduce`` true a per-shard output is summed over the shards as
     int64 on the device (the serving layer's fused subplans)."""
     kind = plan[0]
@@ -270,6 +283,8 @@ def _plan_run(plan):
         return run
     if kind == "ragged":
         return _ragged_run(plan)
+    if kind == "ragged_mesh":
+        return _ragged_mesh_run(plan)
     if kind == "gb_hist":
         return _gb_hist_run(plan)
     n = _REDUCIBLE.get(kind)
@@ -383,6 +398,72 @@ def _ragged_run(plan):
                                              nseg, table=table))
             else:
                 outs.append(r(all_leaves, params))
+        return tuple(outs)
+    return run
+
+
+def _ragged_mesh_run(plan):
+    """("ragged_mesh", ndev, epoch, buckets, vmeta, subs, runs_on,
+    combines, lead device): the ragged program over the serving mesh
+    (executor/ragged.py ``_finalize_mesh``).  ``leaves`` holds each
+    (bucket, slot)'s dense pages; ``buckets`` has a (first leaf, pages,
+    table param) or None a slot; ``vmeta`` a (bucket, gather param,
+    local shape) or None a slot for each virtual leaf, gathered by one
+    concat_gather launch on that slot.  Each subplan (or ("segcount",
+    bucket, per-slot (lane param, segment param), nseg) family) runs on
+    the slots of ``runs_on`` over their local leaves; the slots' partials
+    move to the lead slot's device (non_blocking) and combine there:
+    ("sum",) by an int64 sum, ("scatter", per-slot shard positions, S)
+    by index_copy_ into an (S, W) zeros (each shard has one owner).
+    Every slot's launches are queued before anything waits."""
+    ndev, _epoch, buckets, vmeta, subs, runs_on, combines, lead = plan[1:9]
+    runs = tuple(None if s[0] == "segcount" else _plan_run(s) for s in subs)
+
+    def combine(parts, comb, params, lead):
+        if comb[0] == "sum":
+            acc = None
+            for _d, o in parts:
+                o = (tuple(x.to(lead, non_blocking=True).to(torch.int64)
+                           for x in o) if isinstance(o, tuple) else
+                     o.to(lead, non_blocking=True).to(torch.int64))
+                acc = o if acc is None else (
+                    tuple(a + b for a, b in zip(acc, o))
+                    if isinstance(o, tuple) else acc + o)
+            return acc
+        _c, spos, s = comb
+        first = parts[0][1]
+        out = torch.zeros((s,) + tuple(first.shape[1:]), dtype=first.dtype,
+                          device=lead)
+        for d, o in parts:
+            out.index_copy_(0, params[spos[d]], o.to(lead, non_blocking=True))
+        return out
+
+    def run(leaves, params):
+        pools = [[None if m is None else
+                  (leaves[m[0]:m[0] + m[1]], params[m[2]]) for m in per]
+                 for per in buckets]
+        local = [[None] * len(vmeta) for _ in range(ndev)]
+        for vi, per in enumerate(vmeta):
+            for d, m in enumerate(per):
+                if m is not None:
+                    b, gi, shape = m
+                    pages, table = pools[b][d]
+                    local[d][vi] = bm.concat_gather(
+                        pages, params[gi], table=table).reshape(shape)
+        outs = []
+        for s, r, devs, comb in zip(subs, runs, runs_on, combines):
+            parts = []
+            for d in devs:
+                if r is None:
+                    _k, b, per, nseg = s
+                    pages, table = pools[b][d]
+                    gi, si = per[d]
+                    o = bm.segment_count(pages, params[gi], params[si],
+                                         nseg, table=table)
+                else:
+                    o = r(local[d], params)
+                parts.append((d, o))
+            outs.append(combine(parts, comb, params, lead))
         return tuple(outs)
     return run
 
@@ -765,15 +846,29 @@ class PageView:
     version) the snapshot came from, whose kept page table its
     expansion reuses."""
 
-    __slots__ = ("shape", "lanes", "page_lanes", "pages", "source")
+    __slots__ = ("shape", "lanes", "page_lanes", "pages", "source",
+                 "page_device", "lane_page", "lane_slot", "shard_axis",
+                 "home")
 
     def __init__(self, shape: tuple, lanes: int, page_lanes: int,
-                 pages: list, source=None):
+                 pages: list, source=None, placed=None, home=None):
         self.shape = tuple(shape)
         self.lanes = int(lanes)
         self.page_lanes = int(page_lanes)
         self.pages = list(pages)
         self.source = source
+        # the serving mesh's layout (``placed``, a device-partitioned
+        # PagedStack): each page's owner slot, each lane's page and row,
+        # and the shard axis; ``home`` is the device its operand
+        # assembles on
+        self.page_device = self.lane_page = self.lane_slot = None
+        self.shard_axis = None
+        self.home = home
+        if placed is not None:
+            self.page_device = placed.page_device
+            self.lane_page = placed.lane_page
+            self.lane_slot = placed.lane_slot
+            self.shard_axis = placed.shard_axis
 
     def all_encoded(self) -> bool:
         return all(encode.is_encoded(p) for p in self.pages)
@@ -781,8 +876,14 @@ class PageView:
     def lead_dropped(self) -> "PageView":
         """The view of a (1, ...) stack as its one (...) slab, whose
         lanes are the same."""
-        return PageView(self.shape[1:], self.lanes, self.page_lanes,
-                        self.pages, self.source)
+        v = PageView(self.shape[1:], self.lanes, self.page_lanes,
+                     self.pages, self.source, home=self.home)
+        if self.page_device is not None:
+            v.page_device, v.lane_page = self.page_device, self.lane_page
+            v.lane_slot = self.lane_slot
+            v.shard_axis = None if self.shard_axis is None else max(
+                self.shard_axis - 1, 0)
+        return v
 
     @property
     def width_words(self) -> int:
@@ -827,11 +928,27 @@ def _pages_mix(ps: PagedStack, pages: list, version) -> dict:
     return mix
 
 
-def _paged_operand(ps: PagedStack, pages: list, version, shape=None):
+def _assemble_placed(ps: PagedStack, pages: list, shape, device):
+    """The dense operand of a device-partitioned entry (the serving
+    mesh's layout) on ``device``: its pages moved there, assembled in
+    page order by one assemble_pages launch, and the placement
+    permutation undone."""
+    moved = [encode.moved(p, device) for p in pages]
+    n = len(moved) * ps.page_lanes
+    flat = _assemble_operand(moved, (n, ps.width_words), n, ps.page_lanes)
+    inv = torch.from_numpy(ps.inv_perm()).to(device)
+    return flat.index_select(0, inv).reshape(shape)
+
+
+def _paged_operand(ps: PagedStack, pages: list, version, shape=None,
+                   device=None):
     """The dense operand of a snapshot of ``ps``'s pages (in ``shape``,
     by default the entry's), over the page table kept for its version:
-    a warm hit builds no table and walks no page."""
+    a warm hit builds no table and walks no page.  A device-partitioned
+    entry assembles on ``device``."""
     shape = ps.shape if shape is None else shape
+    if ps.lane_device is not None:
+        return _assemble_placed(ps, pages, shape, device)
     table = None
     if version is not None and len(pages) > 1:
         made = _kept(ps, version)
@@ -849,9 +966,17 @@ def _expand_view(view):
         return view
     if view.source is not None:
         ps, version = view.source
-        return _paged_operand(ps, view.pages, version, view.shape)
+        return _paged_operand(ps, view.pages, version, view.shape,
+                              view.home)
     return _assemble_operand(view.pages, view.shape, view.lanes,
                              view.page_lanes)
+
+
+def _same_lanes(a, b) -> bool:
+    """Two lane_device maps (or None) describe the same layout."""
+    if a is None or b is None:
+        return a is None and b is None
+    return np.array_equal(a, b)
 
 
 def _page_mix(pages) -> dict:
@@ -960,6 +1085,9 @@ class StackCache:
         self.full_rebuilds = self.page_rebuilds = self.rebuilt_bytes = 0
         self.too_big = 0
         self.rebuilds: Counter = Counter()
+        # bytes of freed pages by owner slot (the serving mesh's
+        # layout), drained into device-labelled releases (_release)
+        self._freed_dev: Counter = Counter()
 
     def keys(self) -> list:
         """The keys of the resident stacks, least recently used first."""
@@ -1142,9 +1270,9 @@ class StackCache:
         return segs
 
     @staticmethod
-    def _scatter(flat: torch.Tensor, segs: list, words, base: int = 0):
-        """The segments' live words into flat (rows = lanes - base), one
-        patch_rows call a width."""
+    def _scatter(flat: torch.Tensor, segs: list, words, row_of=None):
+        """The segments' live words into flat (row ``row_of(lane)``, by
+        default the lane), one patch_rows call a width."""
         cur: dict[int, np.ndarray] = {}
         by_len: dict[int, list] = {}
         for start, plen, lane in segs:
@@ -1155,7 +1283,8 @@ class StackCache:
                 if lane not in cur:
                     cur[lane] = words(lane)
                 data[k] = cur[lane][start:start + plen]
-            bm.patch_rows(flat, [ln - base for ln, _s in group],
+            bm.patch_rows(flat, [ln if row_of is None else row_of(ln)
+                                 for ln, _s in group],
                           [s_ for _l, s_ in group], data)
 
     # -- whole entries ---------------------------------------------------------
@@ -1211,7 +1340,7 @@ class StackCache:
             self._bytes += nbytes
             shed = self._enforce_local_cap_locked()
         if shed:
-            self._client.release(shed)
+            self._release(shed)
 
     def _drop_entry(self, key, ent, payload=None) -> None:
         """Drop the entry ``ent`` (or whichever holds ``payload``) from
@@ -1222,8 +1351,34 @@ class StackCache:
                 return
             self._entries.pop(key)
             self._bytes -= ent[2]
+            self._note_freed_locked(ent[1])
         if ent[2]:
-            self._client.release(ent[2])
+            self._release(ent[2])
+
+    def _note_freed_locked(self, payload, pi: int | None = None) -> None:
+        """Tally the placed pages a drop frees (one page ``pi``, or every
+        resident page of ``payload``) by owner slot."""
+        if not isinstance(payload, PagedStack) or payload.page_device is None:
+            return
+        for i in (range(payload.n_pages) if pi is None else (pi,)):
+            p = payload.pages[i]
+            if p is not None:
+                self._freed_dev[payload.page_device[i]] += \
+                    encode.page_nbytes(p)
+
+    def _release(self, nbytes: int) -> None:
+        """Release ``nbytes`` to the ledger, labelled by owner slot as far
+        as freed placed pages account for them."""
+        with self._lock:
+            labelled = dict(self._freed_dev)
+            self._freed_dev.clear()
+        for dev, b in labelled.items():
+            b = min(b, nbytes)
+            if b > 0:
+                self._client.release(b, device=dev)
+                nbytes -= b
+        if nbytes > 0:
+            self._client.release(nbytes)
 
     # -- paged entries -----------------------------------------------------
 
@@ -1234,7 +1389,8 @@ class StackCache:
         pl = max(1, min(page_lanes_for(w), recipe.lanes))
         ps = old_versions = None
         if (stale is not None and isinstance(stale[1], PagedStack)
-                and stale[1].shape == shape and stale[1].page_lanes == pl):
+                and stale[1].shape == shape and stale[1].page_lanes == pl
+                and _same_lanes(stale[1].lane_device, recipe.lane_device)):
             ps, old_versions = stale[1], stale[0]
         elif stale is not None:
             self._drop_entry(key, stale)
@@ -1262,13 +1418,16 @@ class StackCache:
             prev = [None] if ps is None else list(ps.pages)
             if ps is not None:
                 self._drop_pages(key, ps)
-            ps = PagedStack(shape, pl, weight=recipe.weight)
+            ps = PagedStack(shape, pl, weight=recipe.weight,
+                            lane_device=recipe.lane_device,
+                            shard_axis=recipe.shard_axis)
             host = np.asarray(recipe.build_host(),
                               dtype=np.uint32).reshape(-1, w)
             retained = 0
             for pi in range(ps.n_pages):
-                lo, hi = ps.lane_range(pi)
-                block = host[lo:hi]
+                ids = ps.page_lane_ids(pi)
+                block = (host[ids[0]:ids[-1] + 1] if ps.page_table is None
+                         else host[ids])
                 if block.shape[0] < pl:
                     block = np.concatenate(
                         [block, np.zeros((pl - block.shape[0], w),
@@ -1276,7 +1435,8 @@ class StackCache:
                 was = prev[pi] if pi < len(prev) else None
                 local[pi] = self._commit_page(
                     block, key, prev=was,
-                    reason="build" if was is None else "drift")
+                    reason="build" if was is None else "drift",
+                    slot=ps.device_of(pi))
                 nb = encode.page_nbytes(local[pi])
                 rebuilt_b += nb
                 if (retained + nb <= resident_cap
@@ -1309,6 +1469,7 @@ class StackCache:
             if old is not None and old[1] is not ps:
                 self._entries.pop(key)
                 self._bytes -= old[2]
+                self._note_freed_locked(old[1])
                 repl = old[2]
             nb = ps.resident_bytes()
             self._entries[key] = (versions, ps, nb, time.time())
@@ -1316,9 +1477,9 @@ class StackCache:
             self._bytes += nb - old_nb
             shed = self._enforce_local_cap_locked()
         if repl:
-            self._client.release(repl)
+            self._release(repl)
         if shed:
-            self._client.release(shed)
+            self._release(shed)
         arrs = [local[i] for i in range(ps.n_pages)]
         return self._assemble(ps, arrs), outcome, patched_b + rebuilt_b
 
@@ -1343,7 +1504,7 @@ class StackCache:
             if pi in local:
                 continue
             block = ps.build_page_host(pi, recipe.lane_words)
-            local[pi] = self._commit_page(block, key)
+            local[pi] = self._commit_page(block, key, slot=ps.device_of(pi))
             nb = encode.page_nbytes(local[pi])
             if (retained + nb <= resident_cap
                     and self._page_install(key, ps, pi, local[pi])):
@@ -1367,16 +1528,19 @@ class StackCache:
             return key[1], key[2]
         return None
 
-    def upload(self, block: np.ndarray) -> torch.Tensor:
-        """Host words to the device under the OOM ladder (no host
-        fallback: a stack lives on the card)."""
-        return pressure.guarded(lambda: bm.to_tensor(block, self.device))
+    def upload(self, block: np.ndarray, device=None) -> torch.Tensor:
+        """Host words to the device (the cache's, or ``device``) under
+        the OOM ladder (no host fallback: a stack lives on the card)."""
+        dev = self.device if device is None else device
+        return pressure.guarded(lambda: bm.to_tensor(block, dev))
 
     def _commit_page(self, block: np.ndarray, key, prev=None,
-                     reason: str = "build"):
+                     reason: str = "build", slot: int | None = None):
         """One host page block on the device, encoded where that pays
         (memory/encode.py).  ``prev`` is the page's current payload
-        (hysteresis); ``reason`` labels pilosa_page_encode_total."""
+        (hysteresis); ``reason`` labels pilosa_page_encode_total; a
+        placed page (``slot``) goes to its owner slot's device."""
+        dev = self.device if slot is None else placement.device_of(slot)
         prev_kind = encode.page_kind(prev) if prev is not None else None
         enc = None
         if encode.enabled():
@@ -1392,13 +1556,14 @@ class StackCache:
             if ident is not None:
                 stats.note_page_encoding(ident[0], ident[1], kind)
         if enc is None:
-            return self.upload(block)
-        return pressure.guarded(lambda: enc.to_device(self.device))
+            return self.upload(block, dev)
+        return pressure.guarded(lambda: enc.to_device(dev))
 
     def _page_install(self, key, ps: PagedStack, pi: int, page) -> bool:
         """Retain one built page if the ledger admits it at its true
         size; a denied page serves this access and is built next time."""
-        if not self._client.reserve(encode.page_nbytes(page)):
+        if not self._client.reserve(encode.page_nbytes(page),
+                                    device=ps.device_of(pi)):
             metrics.STACK_CACHE.inc(outcome="denied")
             return False
         with self._lock:
@@ -1422,7 +1587,8 @@ class StackCache:
             block = ps.build_page_host(pi, recipe.lane_words)
             page = self._commit_page(
                 block, key, prev=cur,
-                reason="patch" if encode.is_encoded(cur) else "drift")
+                reason="patch" if encode.is_encoded(cur) else "drift",
+                slot=ps.device_of(pi))
             local[pi] = page
             self._page_replace(key, ps, pi, page)
             metrics.STACK_PAGES.inc(event="patch",
@@ -1430,7 +1596,8 @@ class StackCache:
             return 0, encode.page_nbytes(page)
         if not segs:
             return 0, 0
-        self._scatter(cur, segs, recipe.lane_words, base=pi * ps.page_lanes)
+        self._scatter(cur, segs, recipe.lane_words,
+                      row_of=lambda lane: ps.page_of(lane)[1])
         self._page_replace(key, ps, pi, cur)
         metrics.STACK_PAGES.inc(event="patch", encoding="dense")
         return words * 4, 0
@@ -1454,7 +1621,7 @@ class StackCache:
                 self._sync_entry_locked(key, ps)
                 release = nb_old
         if release:
-            self._client.release(release)
+            self._client.release(release, device=ps.device_of(pi))
         self._page_install(key, ps, pi, page)
 
     def _assemble(self, ps: PagedStack, pages: list, version=None):
@@ -1466,8 +1633,10 @@ class StackCache:
             flight.note_pages(_pages_mix(ps, pages, version))
         if getattr(_RAW_TLS, "on", False):
             return PageView(ps.shape, ps.lanes, ps.page_lanes, pages,
-                            (ps, version))
-        return _paged_operand(ps, pages, version)
+                            (ps, version), placed=(
+                                ps if ps.lane_device is not None else None),
+                            home=self.device)
+        return _paged_operand(ps, pages, version, device=self.device)
 
     # -- budget and eviction ---------------------------------------------
 
@@ -1511,6 +1680,7 @@ class StackCache:
                     break
                 if p is None:
                     continue
+                self._note_freed_locked(ps, pi)
                 ps.set_page(pi, None)
                 freed += encode.page_nbytes(p)
                 metrics.STACK_PAGES.inc(event="evict",
@@ -1527,7 +1697,7 @@ class StackCache:
         with self._lock:
             freed = self._shed_locked(int(need))
         if freed:
-            self._client.release(freed)
+            self._release(freed)
         return freed
 
     def _cold_ts(self) -> float:
@@ -1552,13 +1722,14 @@ class StackCache:
     def _drop_pages(self, key, ps: PagedStack):
         freed = 0
         with self._lock:
+            self._note_freed_locked(ps)
             for pi, p in enumerate(ps.pages):
                 if p is not None:
                     ps.set_page(pi, None)
                     freed += encode.page_nbytes(p)
             self._sync_entry_locked(key, ps)
         if freed:
-            self._client.release(freed)
+            self._release(freed)
 
     def _note_too_big(self, key, nbytes: int, cap: int):
         with self._lock:
@@ -1619,19 +1790,25 @@ class StackCache:
     def clear(self):
         with self._lock:
             total = self._bytes
+            for ent in self._entries.values():
+                self._note_freed_locked(ent[1])
             self._entries.clear()
             self._bytes = 0
         if total:
-            self._client.release(total)
+            self._release(total)
 
 
-class StackedEngine:
+class StackedEngine(MeshArm):
     """Runs bitmap trees and their reductions over shard stacks on one
-    device; owned by the Executor."""
+    device, or on the slots of a mesh (``set_mesh``, executor/
+    mesh_arm.py); owned by the Executor.  ``paged`` False keeps every
+    stack whole (a slot of a mesh of several slots).  An empty shard
+    list answers without building a stack or reaching a kernel."""
 
-    def __init__(self, executor, device: torch.device):
+    def __init__(self, executor, device: torch.device, paged: bool = True):
         self.executor = executor
         self.device = device
+        self.paged = paged
         self.cache = StackCache(seams=True, device=device)
         self._disjoint_cache: OrderedDict = OrderedDict()
         # which kernel serves the one-pass histogram: "fused", or
@@ -1641,13 +1818,25 @@ class StackedEngine:
     # -- stack builders (cached, patched on write) --------------------------
 
     def _stack(self, key, frags, build_host, make_layout, lead: tuple,
-               replay, alive_fn, weight: float = 1.0):
+               replay, alive_fn, weight: float = 1.0, placed=None):
         """The cached stack under key: whole, or paged under a recipe
         (the builder's host words, its _Layout's lane words and delta
-        map, and ``replay`` for the prefetcher)."""
+        map, and ``replay`` for the prefetcher).  ``placed`` is (index,
+        shard tuple, shard axis) for the serving mesh's layout."""
+        if not all(lead):
+            # a stack of no lane: no page, no build, no kernel input
+            return torch.zeros(tuple(lead) + (make_layout().w,),
+                               dtype=torch.int32, device=self.device)
+
         def make_recipe():
             layout = make_layout()
+            lane_device = shard_axis = None
+            if placed is not None:
+                shard_axis = placed[2]
+                lane_device = self._lane_devices(*placed[:2], lead,
+                                                 shard_axis)
             return StackRecipe(
+                lane_device=lane_device, shard_axis=shard_axis,
                 logical_lead=tuple(lead), width_words=layout.w,
                 lane_words=layout.words, build_host=build_host,
                 versions_fn=lambda: stamps(replay(fetch=False)),
@@ -1658,7 +1847,36 @@ class StackedEngine:
 
         return self.cache.get(
             key, frags, lambda: self.cache.upload(build_host()),
-            make_layout, make_recipe)
+            make_layout, make_recipe if self._pageable() else None)
+
+    def _lane_devices(self, idx, skey, lead, shard_axis: int):
+        """Each lane's serving-mesh owner slot (int32 (lanes,)) for a
+        pageable stack, or None where the serving mesh is off: the
+        owner of the lane's shard, which varies along ``shard_axis``."""
+        if not self._pageable() or placement.mesh_devices() <= 1:
+            return None
+        own = placement.owners(idx.name, skey)
+        shape = [1] * len(lead)
+        shape[shard_axis] = len(skey)
+        return np.ascontiguousarray(np.broadcast_to(
+            own.reshape(shape), tuple(lead)).reshape(-1))
+
+    def _pageable(self) -> bool:
+        """Paged entries only for a single-device engine (or the one slot
+        of a one-slot mesh); a slot of a wider mesh keeps whole stacks."""
+        return self.mesh is None and self.paged
+
+    def _mesh_key(self):
+        """The mesh and topology token of stack cache keys: the engine's
+        mesh identity, plus, where the serving mesh is on
+        (memory/placement.py), its width and placement epoch, so a
+        rebalance or a width flip never hits a stack of a dead
+        placement."""
+        mesh = self.mesh if self.mesh is not None else self._placed
+        n = placement.mesh_devices() if self._pageable() else 1
+        if n <= 1:
+            return id(mesh)
+        return (id(mesh), n, placement.epoch())
 
     def _frags(self, field, view: str, shards):
         v = field.views.get(view)
@@ -1696,14 +1914,16 @@ class StackedEngine:
             return out
 
         return self._stack(
-            ("rows", idx.name, field.name, views, row_key, skey), frags,
+            ("rows", idx.name, field.name, views, row_key, skey,
+             self._mesh_key()), frags,
             build_host,
             lambda: _RowsLayout(per_view, row_key, len(skey),
                                 idx.width // 32),
             (len(row_key), len(skey)),
             lambda fetch=True: self.rows_stack_for(idx, field, views,
                                                    row_key, skey, fetch),
-            lambda: idx.fields.get(field.name) is field)
+            lambda: idx.fields.get(field.name) is field,
+            placed=(idx, skey, 1))
 
     def row_stack(self, idx, field, views: tuple[str, ...], row_id: int,
                   skey: tuple):
@@ -1728,12 +1948,14 @@ class StackedEngine:
             return out
 
         return self._stack(
-            ("planes", idx.name, field.name, depth, skey), frags,
+            ("planes", idx.name, field.name, depth, skey, self._mesh_key()),
+            frags,
             build_host,
             lambda: _PlanesLayout(frags, depth, idx.width // 32),
             (len(skey), 2 + depth),
             lambda fetch=True: self.plane_stack(idx, field, skey, fetch),
-            lambda: idx.fields.get(field.name) is field)
+            lambda: idx.fields.get(field.name) is field,
+            placed=(idx, skey, 0))
 
     def existence_stack(self, idx, skey: tuple):
         from pilosa_tpu_torch.models.index import EXISTENCE_FIELD
@@ -1749,28 +1971,44 @@ class StackedEngine:
         stays out of memory after the OOM ladder's retry runs again as
         the host fallback (pressure.run_host_plan); on the card, and for
         an operand, the OOM is raised."""
-        run = _plan_run(plan)
         if not span:
+            run = _plan_run(plan)
             return pressure.guarded(lambda: run(b.leaves, b.params))
+        return self._run_plans([(plan, b)], lambda outs, _lead: outs[0])
+
+    def _run_plans(self, legs, combine):
+        """[(plan, builder)], one a leg, in one dispatch over the legs
+        (_dispatch_legs), combined on the lead device.  On an executor
+        on the CPU, plans that stay out of memory after the OOM ladder's
+        retry run again as the host fallback (pressure.run_host_plan);
+        on the card the OOM is raised."""
+        runs = [lambda run=_plan_run(plan), b=b: run(b.leaves, b.params)
+                for plan, b in legs]
         host = None
         if self.device.type == "cpu":
             def host():
-                return pressure.run_host_plan(plan, b.leaves, b.params)
-        return self._dispatch(plan[0], lambda: run(b.leaves, b.params),
-                              host=host, nbytes=leaf_bytes(b.leaves))
+                return combine([pressure.run_host_plan(plan, b.leaves,
+                                                       b.params)
+                                for plan, b in legs], self._lead())
+        return self._dispatch_legs(
+            legs[0][0][0], runs, combine, host=host,
+            nbytes=sum(leaf_bytes(b.leaves) for _plan, b in legs))
 
-    def _dispatch(self, kind: str, fn, host=None, nbytes: int = 0):
+    def _dispatch(self, kind: str, fn, host=None, nbytes: int = 0,
+                  devices=None):
         """fn() in a ``stacked.dispatch`` span, under the OOM ladder
         (memory/pressure.py; ``host`` is its degraded-mode closure),
         timed into the flight record's execute phase; the clock stops
         when the card has finished (every caller pulls the result to the
         host next).  A clean dispatch (no OOM caught) notes ``nbytes``,
         its operands' bytes, over its time in the roofline attribution
-        (obs/roofline.py) under the plan kind's op family."""
+        (obs/roofline.py) under the plan kind's op family.  ``devices``
+        (a mesh dispatch) are every device the legs ran on."""
         def run():
             out = fn()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in devices or (self.device,):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             return out
 
         oom0 = metrics.OOM_TOTAL.total(outcome="caught")
@@ -1807,23 +2045,25 @@ class StackedEngine:
         set op over leaves of packed pages, is counted on the host from
         what encoding took; any other tree expands its views to the
         operands the fetch would have assembled."""
-        b = PlanBuilder(self, idx, shards, pre)
-        if not self.sparse_fast():
-            tree = self._build(b, call)
-            if tree == ("zeros",):
-                return 0
-        else:
-            with raw_pages():
+        packed = self.mesh is None and self.sparse_fast()
+        legs = []
+        for eng, sl in self._legs(shards):
+            b = PlanBuilder(eng, idx, sl, pre)
+            with raw_pages() if packed else contextlib.nullcontext():
                 tree = self._build(b, call)
             if tree == ("zeros",):
                 return 0
-            fast = self._count_packed_host(b, tree)
-            if fast is None:
-                fast = self._count_setop_packed_host(b, tree)
-            if fast is not None:
-                return fast
-            b.leaves = [_expand_view(lf) for lf in b.leaves]
-        return int(self._run(("count", tree), b).sum(dtype=torch.int64))
+            if packed:
+                fast = self._count_packed_host(b, tree)
+                if fast is None:
+                    fast = self._count_setop_packed_host(b, tree)
+                if fast is not None:
+                    return fast
+                b.leaves = [_expand_view(lf) for lf in b.leaves]
+            legs.append((("count", tree, True), b))
+        if not legs:
+            return 0
+        return int(self._run_plans(legs, sum_on))
 
     # -- the packed arms (no device program) ----------------------------------
 
@@ -1925,44 +2165,76 @@ class StackedEngine:
 
     def words(self, idx, call: Call, shards: list[int], pre: dict):
         """(S, W) host uint32 result of a bitmap tree, or None for a
-        statically empty tree."""
-        out = self.filter_stack(idx, call, tuple(shards), pre, timed=True)
-        return None if out is None else np.array(bm.to_numpy(out))
+        statically empty tree (or an empty shard list)."""
+        legs = []
+        for eng, sl in self._legs(shards):
+            b = PlanBuilder(eng, idx, sl, pre)
+            tree = self._build(b, call)
+            if tree == ("zeros",):
+                return None
+            legs.append((("words", tree), b))
+        if not legs:
+            return None
+        return np.array(bm.to_numpy(self._run_plans(legs, cat_on)))
 
     def bsi_sum(self, idx, field, filter_call, shards: list[int], pre: dict):
         """(sum, count) over a BSI field under an optional filter tree;
         the plane-weighted total is combined in exact Python ints."""
-        b = PlanBuilder(self, idx, shards, pre)
-        planes_i = b._planes_leaf(field)
-        tree = None
-        if filter_call is not None:
-            tree = b.build(filter_call)
-            if tree == ("zeros",):
-                return 0, 0
-        cnt, pos, neg = self._run(("bsi_sum", planes_i, tree), b)
-        return bsi_ops.host_sum(
-            cnt.sum(dtype=torch.int64).cpu(),
-            pos.sum(dim=0, dtype=torch.int64).cpu(),
-            neg.sum(dim=0, dtype=torch.int64).cpu())
+        legs = []
+        for eng, sl in self._legs(shards):
+            b = PlanBuilder(eng, idx, sl, pre)
+            planes_i = b._planes_leaf(field)
+            tree = None
+            if filter_call is not None:
+                tree = b.build(filter_call)
+                if tree == ("zeros",):
+                    return 0, 0
+            legs.append((("bsi_sum", planes_i, tree, True), b))
+        if not legs:
+            return 0, 0
+        cnt, pos, neg = self._run_plans(legs, sum_on)
+        return bsi_ops.host_sum(cnt.cpu(), pos.cpu(), neg.cpu())
 
-    def row_counts(self, idx, rows_stack, filter_call, shards: list[int],
-                   pre: dict) -> np.ndarray:
-        """(R,) exact counts of candidate rows under an optional filter
-        tree — the TopN/TopK scan (executor.go:2750 topKFilter).  A
-        PageView stack (fetched under sparse_raw()) of encoded pages
-        answers an unfiltered scan from its lane popcounts; otherwise it
-        expands to the operand the fetch would have assembled."""
-        if isinstance(rows_stack, PageView):
-            if filter_call is None and rows_stack.all_encoded():
-                return self._row_counts_packed_host(rows_stack)
-            rows_stack = _expand_view(rows_stack)
-        b = PlanBuilder(self, idx, shards, pre)
-        rows_i = b._add_leaf(rows_stack)
-        tree = b.build(filter_call) if filter_call is not None else None
-        if tree == ("zeros",):
-            return np.zeros(rows_stack.shape[0], dtype=np.int64)
-        c = self._run(("row_counts", rows_i, tree), b)
-        return c.sum(dim=1, dtype=torch.int64).cpu().numpy()
+    def row_counts(self, idx, field, views, row_ids, filter_call,
+                   shards, pre: dict) -> np.ndarray:
+        """(R,) exact counts of candidate rows of ``field`` (each unioned
+        across ``views``) under an optional filter tree — the TopN/TopK
+        scan (executor.go:2750 topKFilter) — over the legs of
+        ``_grid_legs`` (on a mesh, rows split over "rows" and shards over
+        "shards").  On one device the stack is fetched under
+        sparse_raw(): a PageView of encoded pages answers an unfiltered
+        scan from its lane popcounts; otherwise it expands to the
+        operand the fetch would have assembled."""
+        row_ids = [int(r) for r in row_ids]
+        none = np.zeros(len(row_ids), dtype=np.int64)
+        legs, starts = [], []
+        for (rlo, rhi), eng, sl in self._grid_legs(len(row_ids), shards):
+            with (self.sparse_raw() if self.mesh is None
+                  else contextlib.nullcontext()):
+                stack = eng.rows_stack_for(idx, field, tuple(views),
+                                           row_ids[rlo:rhi], tuple(sl))
+            if isinstance(stack, PageView):
+                if filter_call is None and stack.all_encoded():
+                    return self._row_counts_packed_host(stack)
+                stack = _expand_view(stack)
+            b = PlanBuilder(eng, idx, sl, pre)
+            rows_i = b._add_leaf(stack)
+            tree = b.build(filter_call) if filter_call is not None else None
+            if tree == ("zeros",):
+                return none
+            legs.append((("row_counts", rows_i, tree, True), b))
+            starts.append(rlo)
+        if not legs:
+            return none
+
+        def combine(outs, lead):
+            if len(outs) == 1:
+                return outs[0]
+            total = torch.zeros(len(row_ids), dtype=torch.int64, device=lead)
+            for rlo, o in zip(starts, outs):
+                total[rlo:rlo + o.shape[0]] += o.to(lead, non_blocking=True)
+            return total
+        return self._run_plans(legs, combine).cpu().numpy()
 
     # -- value histogram -----------------------------------------------------
 
@@ -1972,7 +2244,10 @@ class StackedEngine:
         statically empty.  ``timed`` (a bitmap call's words) puts the
         build in a stacked.plan_build span and the launch in a
         stacked.dispatch span, as the JAX package does; a filter, an
-        operand of a later launch, opens neither."""
+        operand of a later launch, opens neither.  None too for an empty
+        shard list."""
+        if not skey:
+            return None
         b = PlanBuilder(self, idx, list(skey), pre)
         tree = self._build(b, filter_call) if timed else b.build(filter_call)
         if tree == ("zeros",):
@@ -1990,19 +2265,20 @@ class StackedEngine:
             raise Unstackable(
                 "value_hist_depth", f"value histogram of {field.name} at "
                 f"depth {depth}: past depth {_VALUEHIST_MAX_DEPTH}")
-        skey = tuple(shards)
         gb = self._onepass_kernel(2 << depth, 0, minmax=False)
         total = np.zeros(2 << depth, dtype=np.int64)
-        for lo in range(0, len(skey), _REDUCE_MAX_SHARDS):
-            sc = skey[lo:lo + _REDUCE_MAX_SHARDS]
-            filt = None
-            if filter_call is not None:
-                filt = self.filter_stack(idx, filter_call, sc, pre)
-                if filt is None:
-                    continue
-            pos, neg = kernels.bsi_value_hist(
-                self.plane_stack(idx, field, sc), filt, gb=gb)
-            total += torch.cat([pos, neg]).cpu().numpy().astype(np.int64)
+        for chunks in self._chunk_rounds(shards, _REDUCE_MAX_SHARDS):
+            outs = []
+            for eng, sc in chunks:
+                filt = None
+                if filter_call is not None:
+                    filt = eng.filter_stack(idx, filter_call, sc, pre)
+                    if filt is None:
+                        continue
+                outs.append(torch.cat(kernels.bsi_value_hist(
+                    eng.plane_stack(idx, field, sc), filt, gb=gb)))
+            if outs:
+                total += sum_on(outs, self._lead()).cpu().numpy()
         return total[:1 << depth], total[1 << depth:]
 
     def decode_stream(self, idx, field, skey: tuple):
@@ -2108,7 +2384,8 @@ class StackedEngine:
 
         # group-code pages OR many rows a lane: eviction holds them longer
         return self._stack(
-            ("groupcodes", idx.name, fkey, skey), frags, build_host,
+            ("groupcodes", idx.name, fkey, skey, self._mesh_key()), frags,
+            build_host,
             lambda: _GroupcodeLayout(fields_rows, per_field, shifts, cb,
                                      len(skey), idx.width // 32),
             (len(skey), cb + 1),
@@ -2116,7 +2393,7 @@ class StackedEngine:
                                                     fetch),
             lambda: all(idx.fields.get(f.name) is f
                         for f, _rl in fields_rows),
-            weight=4.0)
+            weight=4.0, placed=(idx, skey, 0))
 
     def _groupby_onepass_fits(self, idx, fields_rows, skey: tuple) -> bool:
         """The one-pass histogram's correctness bounds: a dense code space
@@ -2154,21 +2431,35 @@ class StackedEngine:
         _bits, shifts, n_codes = _code_space(fields_rows)
         codes = _combo_codes(shifts, np.asarray(combos, dtype=np.int64)
                              .reshape(len(combos), len(fields_rows)))
-        cg = self.groupcode_stack(idx, fields_rows, skey)
-        valid = cg[:, -1]
-        if filter_call is not None:
-            filt = self.filter_stack(idx, filter_call, skey, pre)
-            if filt is None:
-                return _zero_groupby_result(len(combos), depth, agg_field,
-                                            agg_op)
-            valid = valid & filt
-        planes = (self.plane_stack(idx, agg_field, skey)
-                  if agg_field is not None else None)
         gb = self._onepass_kernel(n_codes, depth, minmax)
-        out = self._dispatch("groupby", lambda: (
-            gb(cg[:, :-1], valid, planes, n_codes, signed, minmax=True)
-            if minmax else gb(cg[:, :-1], valid, planes, n_codes, signed)))
-        if planes is None:
+        runs = []
+        for eng, sl in self._legs(skey):
+            sc = tuple(sl)
+            cg = eng.groupcode_stack(idx, fields_rows, sc)
+            valid = cg[:, -1]
+            if filter_call is not None:
+                filt = eng.filter_stack(idx, filter_call, sc, pre)
+                if filt is None:
+                    return _zero_groupby_result(len(combos), depth,
+                                                agg_field, agg_op)
+                valid = valid & filt
+            planes = (eng.plane_stack(idx, agg_field, sc)
+                      if agg_field is not None else None)
+            runs.append(lambda cg=cg, v=valid, p=planes: (
+                gb(cg[:, :-1], v, p, n_codes, signed, minmax=True)
+                if minmax else gb(cg[:, :-1], v, p, n_codes, signed)))
+
+        def combine(outs, lead):
+            if len(outs) == 1:
+                return outs[0]
+            if outs[0][1] is None:
+                return (sum_on([o[0] for o in outs], lead),)
+            summed = sum_on([tuple(o[:4]) for o in outs], lead)
+            if not minmax:
+                return summed
+            return summed + (minmax_table_on([o[4] for o in outs], lead),)
+        out = self._dispatch_legs("groupby", runs, combine)
+        if agg_field is None:
             counts = out[0].cpu().numpy().astype(np.int64)
             return counts[codes], None
         g = n_codes
@@ -2184,44 +2475,49 @@ class StackedEngine:
         return counts[codes], (nn[codes], pos[codes], neg[codes])
 
     def _groupby_kernel_path(self, idx, fields_rows, agg_field, skey: tuple,
-                             combos, depth: int, signed: bool, filt=None):
+                             combos, depth: int, signed: bool, filter_call,
+                             pre: dict):
         """The per-combo kernel (groupby_sum) over shard chunks whose
         gathered row stacks fit _GROUPBY_STACK_BUDGET and whose int32
-        totals stay exact; chunk totals are summed as int64 on the host.
-        A filter, as (S, W) device words, is ANDed into the first field's
-        stack: every term of the kernel includes the combo's AND, so one
-        mask filters counts and aggregates alike."""
+        totals stay exact, one dispatch a round of the legs' chunks
+        (_chunk_rounds); totals are summed as int64.  A filter is ANDed
+        into the first field's stack: every term of the kernel includes
+        the combo's AND, so one mask filters counts and aggregates
+        alike.  None for a statically empty filter."""
         k, nf = len(combos), len(fields_rows)
-        counts = np.zeros(k, dtype=np.int64)
-        agg = None
-        if agg_field is not None:
-            agg = (np.zeros(k, np.int64), np.zeros((k, depth), np.int64),
-                   np.zeros((k, depth), np.int64))
-        sel = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(combos, dtype=np.int32).reshape(k, nf))).to(self.device)
+        sel_host = np.ascontiguousarray(
+            np.asarray(combos, dtype=np.int32).reshape(k, nf))
         per_shard = sum(len(rl) for _, rl in fields_rows) * idx.width // 8
         chunk = max(1, min(_REDUCE_MAX_SHARDS,
                            _GROUPBY_STACK_BUDGET // max(per_shard, 1)))
-        for lo in range(0, len(skey), chunk):
-            sc = skey[lo:lo + chunk]
-            stacks = [self.rows_stack_for(idx, f, (VIEW_STANDARD,), rl, sc)
-                      for f, rl in fields_rows]
-            if filt is not None:
-                stacks[0] = stacks[0] & filt[lo:lo + chunk].unsqueeze(0)
-            planes = (self.plane_stack(idx, agg_field, sc)
-                      if agg_field is not None else None)
-            out = self._dispatch("groupby", lambda: kernels.groupby_sum(
-                stacks, sel, planes, signed))
-            if agg is None:
-                counts += out[0].cpu().numpy()
-                continue
-            flat = torch.cat([x.reshape(-1) for x in out]).cpu().numpy() \
-                .astype(np.int64)
-            counts += flat[:k]
-            agg[0][:] += flat[k:2 * k]
-            agg[1][:] += flat[2 * k:2 * k + k * depth].reshape(k, depth)
-            agg[2][:] += flat[2 * k + k * depth:].reshape(k, depth)
-        return counts, agg
+        flat = np.zeros(k * (1 if agg_field is None else 2 + 2 * depth),
+                        dtype=np.int64)
+        for chunks in self._chunk_rounds(skey, chunk):
+            runs = []
+            for eng, sc in chunks:
+                stacks = [eng.rows_stack_for(idx, f, (VIEW_STANDARD,), rl, sc)
+                          for f, rl in fields_rows]
+                if filter_call is not None:
+                    filt = eng.filter_stack(idx, filter_call, sc, pre)
+                    if filt is None:
+                        return None
+                    stacks[0] = stacks[0] & filt.unsqueeze(0)
+                planes = (eng.plane_stack(idx, agg_field, sc)
+                          if agg_field is not None else None)
+                sel = torch.from_numpy(sel_host).to(eng.device)
+
+                def run(st=stacks, s=sel, p=planes):
+                    out = kernels.groupby_sum(st, s, p, signed)
+                    return torch.cat([x.reshape(-1) for x in out
+                                      if x is not None])
+                runs.append(run)
+            flat += self._dispatch_legs("groupby", runs,
+                                        sum_on).cpu().numpy()
+        if agg_field is None:
+            return flat, None
+        return flat[:k], (flat[k:2 * k],
+                          flat[2 * k:2 * k + k * depth].reshape(k, depth),
+                          flat[2 * k + k * depth:].reshape(k, depth))
 
     def groupby(self, idx, fields_rows, filter_call, agg_field,
                 shards: list[int], combos, pre: dict, agg_op: str = "sum"):
@@ -2234,6 +2530,8 @@ class StackedEngine:
         skey = tuple(shards)
         n_combos = len(combos)
         depth = agg_field.bit_depth if agg_field is not None else 0
+        if not skey:
+            return _zero_groupby_result(n_combos, depth, agg_field, agg_op)
         # skip the sign split when no fragment holds a sign bit — checked
         # against the data, since value writes are not range-enforced
         signed = False
@@ -2255,10 +2553,9 @@ class StackedEngine:
             return self._groupby_onepass_path(
                 idx, fields_rows, agg_field, skey, combos, depth, signed,
                 filter_call, pre)
-        filt = None
-        if filter_call is not None:
-            filt = self.filter_stack(idx, filter_call, skey, pre)
-            if filt is None:
-                return _zero_groupby_result(n_combos, depth, agg_field)
-        return self._groupby_kernel_path(idx, fields_rows, agg_field, skey,
-                                         combos, depth, signed, filt)
+        out = self._groupby_kernel_path(idx, fields_rows, agg_field, skey,
+                                        combos, depth, signed, filter_call,
+                                        pre)
+        if out is None:
+            return _zero_groupby_result(n_combos, depth, agg_field)
+        return out

@@ -19,6 +19,8 @@ Pieces:
   the flight recorder
 - ``pressure.py`` — the OOM ladder: relief sweep, one retry, then the
   plan on the host
+- ``placement.py`` — the serving mesh's shard-to-slot placement, which
+  gives paged stacks their device axis
 
 The settings go through :func:`configure` only; the port reads no
 environment variable for them (the JAX package's

@@ -179,6 +179,21 @@ def page_nbytes(page) -> int:
     return int(page.nbytes)
 
 
+def moved(page, device):
+    """The page on ``device``: itself where it is there already, else a
+    copy (an encoded page's payloads copied, its host state shared).
+    The cached page is never moved."""
+    if isinstance(page, EncodedPage):
+        if page.coords.device == torch.device(device):
+            return page
+        out = EncodedPage(page.kind, page.page_lanes, page.width_words,
+                          page.coords, page.run_starts, page.run_lens,
+                          page.lane_counts, page.n_valid, page.n_runs)
+        out.host_positions = page.host_positions
+        return out.to_device(device)
+    return page.to(device)
+
+
 def to_dense(page):
     """An encoded page expanded; a dense one as it is."""
     return page.expand() if isinstance(page, EncodedPage) else page

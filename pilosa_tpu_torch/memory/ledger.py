@@ -18,8 +18,12 @@ Clients are held by weak reference: a cache that is garbage-collected
 drops out of the accounting with its tensors.
 
 The device slots (``set_devices``, ``device_budget``,
-``reserve(..., device=slot)``) are the JAX package's serving-mesh
-split; the port runs one slot until placement comes over.
+``reserve(..., device=slot)``) are the serving mesh's split
+(memory/placement.py): the budget divides evenly between the slots, a
+slot-labelled reservation past its slot's share is denied, and
+``device_bytes()`` feeds the placer's balance and the
+``pilosa_memory_device_resident_bytes{device}`` gauge.  Without the
+mesh there is one slot.
 """
 
 from __future__ import annotations

@@ -13,9 +13,11 @@ Pages are independent device tensors:
   a query lost;
 - a point write patches the one page that holds its dirty lanes.
 
-The serving mesh's placement fields (``lane_device``, ``shard_axis``)
-are kept for ``memory/placement.py``; nothing sets them yet, and every
-page lives on the engine's one device.
+Under the serving mesh (``memory/placement.py``) a stack grows a device
+axis: its lanes partition by their shard's owner slot and each slot's
+lanes page on their own, so a page never straddles two slots and lives
+on its owner's device.  Without it (``lane_device`` None) the layout is
+the single-device one, contiguous lanes a page.
 """
 
 from __future__ import annotations
@@ -56,8 +58,12 @@ class StackRecipe:
       longer)
     - ``alive_fn()``: False once the fields the recipe captured were
       dropped, so the prefetcher builds nothing no query can hit
-    - ``lane_device``, ``shard_axis``: the serving mesh's placement
-      (None until memory/placement.py comes over)
+    - ``lane_device``: the serving mesh's owner slot of each lane (int32
+      (lanes,), from memory/placement.py), or None for the single-device
+      layout; it gives the PagedStack its device axis
+    - ``shard_axis``: which axis of ``logical_lead`` indexes the shards
+      (the axis ``lane_device`` varies along): the ragged program keeps
+      each slot's own shards along it
     """
 
     logical_lead: tuple
@@ -88,7 +94,13 @@ class PagedStack:
     evicted.  Slots are swapped only under the owning cache's lock;
     readers snapshot the page list, so an eviction never takes a tensor
     from under an assembly.  Recency and hits are entry-level: an
-    operand always needs all its pages."""
+    operand always needs all its pages.
+
+    With ``lane_device`` the lanes partition by owner slot (stably:
+    within a slot the global lane order is kept) and each slot's run of
+    lanes pages on its own.  ``page_device[pi]`` is the page's owner
+    slot, ``page_table[pi]`` its global lane ids, and ``lane_page`` /
+    ``lane_slot`` the page and row that hold each lane."""
 
     __slots__ = ("shape", "lanes", "page_lanes", "width_words",
                  "weight", "pages", "last_access", "hits",
@@ -99,9 +111,6 @@ class PagedStack:
     def __init__(self, shape: tuple, page_lanes: int,
                  weight: float = 1.0, lane_device=None,
                  shard_axis: int | None = None):
-        if lane_device is not None:
-            raise ValueError("device-partitioned pages come with "
-                             "memory/placement.py")
         self.shape = tuple(shape)
         self.width_words = int(shape[-1])
         n = 1
@@ -110,13 +119,33 @@ class PagedStack:
         self.lanes = n
         self.page_lanes = int(page_lanes)
         self.weight = float(weight)
-        self.lane_device = None
         self.shard_axis = shard_axis
+        self.lane_device = None
         self.page_device = None
         self.page_table = None
         self.lane_page = None
         self.lane_slot = None
-        self.pages: list = [None] * (-(-self.lanes // self.page_lanes))
+        n_pages = -(-self.lanes // self.page_lanes)
+        if lane_device is not None:
+            ld = np.ascontiguousarray(lane_device, dtype=np.int32)
+            if ld.shape != (self.lanes,):
+                raise ValueError("lane_device must be (lanes,)")
+            self.lane_device = ld
+            order = np.argsort(ld, kind="stable")
+            self.page_table, self.page_device = [], []
+            pl = self.page_lanes
+            for dev in np.unique(ld):
+                run = order[ld[order] == dev]
+                for k in range(0, run.size, pl):
+                    self.page_table.append(run[k:k + pl])
+                    self.page_device.append(int(dev))
+            self.lane_page = np.empty(self.lanes, dtype=np.int32)
+            self.lane_slot = np.empty(self.lanes, dtype=np.int32)
+            for pi, ids in enumerate(self.page_table):
+                self.lane_page[ids] = pi
+                self.lane_slot[ids] = np.arange(ids.size, dtype=np.int32)
+            n_pages = len(self.page_table)
+        self.pages: list = [None] * n_pages
         self.last_access = time.time()
         self.hits = 0
         # bumped by every slot change; ``assembly`` is what a hit at that
@@ -150,22 +179,37 @@ class PagedStack:
         # identity, not ``None in pages``: that would call each tensor's ==
         return not any(p is None for p in self.pages)
 
-    def lane_range(self, pi: int) -> tuple[int, int]:
+    def page_lane_ids(self, pi: int) -> np.ndarray:
+        """The global lane ids page ``pi`` holds, in row order."""
+        if self.page_table is not None:
+            return self.page_table[pi]
         lo = pi * self.page_lanes
-        return lo, min(lo + self.page_lanes, self.lanes)
-
+        return np.arange(lo, min(lo + self.page_lanes, self.lanes))
 
     def page_of(self, lane: int) -> tuple[int, int]:
         """(page index, row inside the page) holding ``lane``."""
+        if self.lane_page is not None:
+            return int(self.lane_page[lane]), int(self.lane_slot[lane])
         return divmod(int(lane), self.page_lanes)
+
+    def device_of(self, pi: int) -> int | None:
+        """The page's owner slot (None: the single-device layout)."""
+        return None if self.page_device is None else self.page_device[pi]
+
+    def inv_perm(self) -> "np.ndarray | None":
+        """lane -> row of the pages' padded concatenation, or None where
+        page order is lane order (the single-device layout)."""
+        if self.lane_page is None:
+            return None
+        return (self.lane_page.astype(np.int64) * self.page_lanes
+                + self.lane_slot)
 
     def build_page_host(self, pi: int, lane_words) -> np.ndarray:
         """Host words of one page (zero past the last lane)."""
         block = np.zeros((self.page_lanes, self.width_words),
                          dtype=np.uint32)
-        lo, hi = self.lane_range(pi)
-        for k, lane in enumerate(range(lo, hi)):
-            block[k] = lane_words(lane)
+        for k, lane in enumerate(self.page_lane_ids(pi)):
+            block[k] = lane_words(int(lane))
         return block
 
     def touch(self, now: float | None = None):

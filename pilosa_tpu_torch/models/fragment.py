@@ -48,6 +48,7 @@ import numpy as np
 from pilosa_tpu_torch.models.cache import make_cache
 from pilosa_tpu_torch.obs import faults
 from pilosa_tpu_torch.ops import bitmap as bm
+from pilosa_tpu_torch.storage import native_ingest
 from pilosa_tpu_torch.shardwidth import (
     BSI_OFFSET_BIT,
     BSI_SIGN_BIT,
@@ -58,6 +59,11 @@ from pilosa_tpu_torch.shardwidth import (
 # process-wide fragment generation: an identity that never repeats, so
 # a device stack built from a dropped fragment can never be mistaken
 # for one built from its successor
+# a mutex import of at most this many distinct rows fills dense scratch
+# planes in one native pass (storage/native_ingest.py mutex_fill); more
+# rows take the sort path (the JAX fragment's _MUTEX_KERNEL_MAX_ROWS)
+_MUTEX_FILL_MAX_ROWS = 256
+
 _FRAG_GEN = itertools.count(1)
 
 # process-wide mutation epoch: moves on every fragment version bump,
@@ -365,11 +371,27 @@ class Fragment:
         cols = np.asarray(cols, dtype=np.int64)
         if cols.size == 0:
             return
-        _, rev_first = np.unique(cols[::-1], return_index=True)
-        keep = cols.size - 1 - rev_first
-        rows, cols = rows[keep], cols[keep]
-        self.clear_columns(bm.from_columns(cols, self.width))
-        self.import_bits(rows, cols)
+        if rows.shape != cols.shape:
+            raise ValueError("rows and cols differ in length")
+        self._check_cols(cols)
+        uniq, rowidx = np.unique(rows, return_inverse=True)
+        if uniq.size > _MUTEX_FILL_MAX_ROWS:
+            _, rev_first = np.unique(cols[::-1], return_index=True)
+            keep = cols.size - 1 - rev_first
+            rows, cols = rows[keep], cols[keep]
+            self.clear_columns(bm.from_columns(cols, self.width))
+            self.import_bits(rows, cols)
+            return
+        # one reverse pass, the last write of a column winning
+        # (storage/csrc/scatter.cc pt_mutex_fill)
+        written = bm.empty(self.width)
+        scratch = np.zeros((uniq.size, self.width // 32), np.uint32)
+        native_ingest.mutex_fill(written, scratch, rowidx, cols)
+        self.clear_columns(written)
+        for k, r in enumerate(uniq.tolist()):
+            got = bm.to_columns(scratch[k])
+            if got.size:
+                self.import_bits(np.full(got.size, r, np.int64), got)
 
     # -- BSI mutation (fragment.setValueBase semantics) --------------------
 
@@ -421,23 +443,20 @@ class Fragment:
         if cols.size == 0:
             return
         self._check_cols(cols)
-        _, rev_first = np.unique(cols[::-1], return_index=True)
-        keep = cols.size - 1 - rev_first
-        cols, vals = cols[keep], vals[keep]
-        neg = vals < 0
         # uint64 view: INT64_MIN's magnitude 2^63 is visible, so an
-        # out-of-depth value is refused instead of wrapping
-        mags = np.where(neg, np.negative(vals), vals).view(np.uint64)
+        # out-of-depth value is refused instead of wrapping (the fill
+        # drops such bits only as a last bound)
+        mags = np.where(vals < 0, np.negative(vals), vals).view(np.uint64)
         if int(mags.max()).bit_length() > depth:
             raise ValueError(
                 f"value magnitude needs {int(mags.max()).bit_length()} "
                 f"bits, fragment depth is {depth}")
         wlo, whi = int(cols.min()) >> 5, (int(cols.max()) >> 5) + 1
-        touched = bm.from_columns(cols, self.width)
-        planes = [touched, bm.from_columns(cols[neg], self.width)]
-        planes += [bm.from_columns(
-            cols[(mags >> np.uint64(i)) & np.uint64(1) == 1], self.width)
-            for i in range(depth)]
+        # one reverse pass, the last write of a column winning
+        # (storage/csrc/scatter.cc pt_bsi_fill_t)
+        planes = np.zeros((2 + depth, self.width // 32), np.uint32)
+        native_ingest.bsi_fill(planes, cols, vals, depth)
+        touched = planes[0]           # the exists plane is what was written
         for r, new in enumerate(planes):
             w = self._row_mut(r)
             w &= ~touched

@@ -505,7 +505,9 @@ class AuditPlane:
 
     def _live_arm(self, s: _Sample) -> dict:
         """Which arm produced the live answer: the serve route plus
-        the flight record's stack and encoding evidence (the record is
+        the flight record's stack and encoding evidence, and the width
+        of the mesh it ran on (``mesh_devices``: the engine's mesh arm or
+        the serving mesh), where one runs (the record is
         the same ring dict: by verify time commit() has filled the
         device-side fields in)."""
         arm = {"route": s.route, "use_stacked": bool(
@@ -516,6 +518,14 @@ class AuditPlane:
                       "bytes_moved", "batch", "trace_id"):
                 if k in rec:
                     arm[k] = rec[k]
+        eng = getattr(self.serving.executor, "stacked", None)
+        mesh = getattr(eng, "mesh", None)
+        if mesh is not None:
+            arm["mesh_devices"] = mesh.size
+        else:
+            from pilosa_tpu_torch.memory import placement
+            if placement.mesh_devices() > 1:
+                arm["mesh_devices"] = placement.mesh_devices()
         return arm
 
     # -- maintenance-ticker scrubbers ----------------------------------

@@ -38,10 +38,10 @@ def empty(width: int = SHARD_WIDTH) -> np.ndarray:
 
 
 def or_bits(words: np.ndarray, cols) -> None:
-    """words[c >> 5] |= 1 << (c & 31) for every column c, in place."""
-    cols = np.asarray(cols, dtype=np.int64)
-    np.bitwise_or.at(words, cols >> 5,
-                     np.uint32(1) << (cols & 31).astype(np.uint32))
+    """words[c >> 5] |= 1 << (c & 31) for every column c, in place: the
+    host scatter of storage/csrc/scatter.cc (storage/native_ingest.py)."""
+    from pilosa_tpu_torch.storage import native_ingest
+    native_ingest.or_bits(words, cols)
 
 
 def from_columns(cols, width: int = SHARD_WIDTH) -> np.ndarray:

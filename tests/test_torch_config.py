@@ -301,9 +301,9 @@ def test_defaults_apply_to_module_defaults():
 ])
 def test_unported_knobs_raise(key, value, tmp_path):
     """The knobs of planes the port does not have raise; those of the
-    cluster plane and of the DAX tier, which these cases listed before
-    they were ported, apply and land in their configure() calls (the
-    test keeps its name and cases)."""
+    cluster plane, the DAX tier and the serving mesh, which these cases
+    listed before they were ported, apply and land in their configure()
+    calls (the test keeps its name and cases)."""
     cfg = config.load(None, env={}, overrides={key: value})
     if key in _DAX_KNOBS:
         from pilosa_tpu_torch.dax import settings
@@ -340,11 +340,24 @@ def test_unported_knobs_raise(key, value, tmp_path):
                 stats.swap(prev)
         assert got == value
         return
+    if key in _PLACEMENT_KNOBS:
+        from pilosa_tpu_torch.memory import placement
+        cfg.check_supported()
+        with restore_globals():
+            cfg.apply_all()
+            got = {"cluster_mesh_devices": placement._configured,
+                   "cluster_placement_pin": placement._pins}[key]
+        assert got == {"cluster_mesh_devices": 2,
+                       "cluster_placement_pin": {("i", 0): 1}}[key]
+        return
     with pytest.raises(config.ConfigError, match="kernel switch|not ported"):
         cfg.check_supported()
     with restore_globals(), pytest.raises(config.ConfigError):
         cfg.apply_all()
 
+
+# the serving mesh's knobs among the cases above: they apply
+_PLACEMENT_KNOBS = {"cluster_mesh_devices", "cluster_placement_pin"}
 
 # the DAX tier's knobs among the cases above: they apply
 _DAX_KNOBS = {"blob_backend", "blob_root", "dax_blob", "dax_max_workers"}

@@ -51,7 +51,9 @@ for n in ("executor.executor", "api", "ingest.batch", "ingest.importer",
           "storage.stats_store", "storage.blob", "dax", "dax.directive",
           "dax.settings", "dax.writelogger", "dax.snapshotter",
           "dax.schemar", "dax.worker", "dax.computer", "dax.controller",
-          "dax.queryer", "dax.server"):
+          "dax.queryer", "dax.server", "parallel", "parallel.mesh",
+          "parallel.dist", "memory.placement", "storage.native_ingest",
+          "executor.mesh_arm"):
     assert "pilosa_tpu_torch." + n in names, n
 # pyarrow loads only when a dataframe is saved, loaded or exported
 assert "pyarrow" not in sys.modules
@@ -344,3 +346,40 @@ def test_dax_switches_read_no_environment():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split("\n")[:2] == ["True  2 30.0 8",
                                           "False dir 5 1.5 3"]
+
+
+def test_placement_switches_read_no_environment():
+    """The serving mesh's knobs come through placement.configure() only:
+    the JAX package's PILOSA_TPU_MESH_DEVICES and PILOSA_TPU_PLACEMENT_PIN
+    leave the port's mesh off until a Config (whose load reads them)
+    applies them; the slots are then the given devices."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PILOSA_TPU_MESH_DEVICES="4",
+               PILOSA_TPU_PLACEMENT_PIN="i/*=2")
+    code = ("import sys, torch\n"
+            "from pilosa_tpu_torch.memory import placement as p\n"
+            "from pilosa_tpu_torch import parallel\n"
+            "from pilosa_tpu_torch.storage import native_ingest\n"
+            "def show():\n"
+            "    print(p.mesh_devices(), p._configured, p._pins)\n"
+            "show()\n"
+            "from pilosa_tpu_torch import config\n"
+            "config.load().apply_placement_settings()\n"
+            "p.configure(devices=[torch.device('cpu')] * 8)\n"
+            "show()\n"
+            "print(p.owners('i', [0, 1]).tolist())\n"
+            "assert not [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'pilosa_tpu' or "
+            "m.startswith('pilosa_tpu.')]\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:3] == ["1 0 {}", "4 4 {('i', '*'): 2}",
+                                          "[2, 2]"]
+
+
+def test_make_mesh_needs_a_card_unless_given_devices(monkeypatch):
+    from pilosa_tpu_torch.parallel import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(2)
+    assert make_mesh(2, devices=["cpu", "cpu"]).size == 2

@@ -99,6 +99,8 @@ def configs(**overrides):
 _PORT_SWITCHES = {
     "pilosa_tpu_torch.memory": ("_paged_default", "_page_bytes_default"),
     "pilosa_tpu_torch.memory.encode": ("_ENABLED", "_DENSE_FRAC"),
+    "pilosa_tpu_torch.memory.placement": ("_configured", "_pins", "_devices",
+                                          "_epoch"),
     "pilosa_tpu_torch.memory.pressure": ("OOM_RETRY", "HOST_FALLBACK"),
     "pilosa_tpu_torch.models.fragment": ("DELTA_LOG_MAX",),
     "pilosa_tpu_torch.executor.stacked": ("_PATCH_MAX_FRAC",),
