@@ -4499,7 +4499,10 @@ def phase_serving(h, device, note) -> None:
             check(f"9a {n} clients", res)
             d1, r1 = dispatches(), routes()
             per = {k: (d1[k] - d0[k]) / max(res["n"], 1) for k in d1}
-            phases = flight.phase_breakdown(flight.recorder.recent(4096))
+            phases: dict = {}       # ms a flight phase over the storm
+            for rec in flight.recorder.recent(4096):
+                for k, v in rec.get("phases", {}).items():
+                    phases[k] = round(phases.get(k, 0.0) + v, 3)
             print(f"9a: {n} clients x {STORM_S} s: {res['n']} queries, "
                   f"{res['qps']:.1f} qps, p50 {res['p50']:.3f} ms, p99 "
                   f"{res['p99']:.3f} ms; dispatches a query {per}; routes "

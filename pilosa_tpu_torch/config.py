@@ -89,8 +89,8 @@ class Config:
     # the query flight recorder (obs/flight.py)
     flight_recorder: bool = True
     flight_ring: int = 512
-    # roofline attribution (obs/roofline.py); peak-gbps 0 measures a
-    # probe at start
+    # roofline attribution (obs/roofline.py); peak-gbps 0 takes the
+    # card's published HBM rate
     roofline_attribution: bool = True
     roofline_peak_gbps: float = 0.0
     # the statistics catalog (obs/stats.py), memory-only in the port
@@ -238,14 +238,13 @@ class Config:
             fence_timeout_s=self.cluster_rebalance_fence_timeout_s)
 
     def apply_roofline_settings(self):
-        """Configure roofline attribution ([roofline]) and start the
-        peak-bandwidth probe on a background thread, so that a first
-        query never waits on it."""
+        """Configure roofline attribution ([roofline]); without a
+        configured peak, the card's published one."""
         from pilosa_tpu_torch.obs import roofline
         roofline.configure(enabled=self.roofline_attribution,
                            peak_gbps=self.roofline_peak_gbps or None)
         if roofline.enabled():
-            roofline.ensure_peak(block=False)
+            roofline.resolve_peak()
 
     def apply_stats_settings(self, data_dir: str | None = None):
         """Configure the statistics catalog ([stats]).  With
@@ -405,6 +404,9 @@ class Config:
         self.apply_incident_settings(data_dir=data_dir)
         self.apply_audit_settings()
         self.apply_dax_settings()
+        # the node is up: its garbage-collector passes are counted
+        from pilosa_tpu_torch.obs import runtime
+        runtime.install()
 
 
 _DEFAULTS = {f.name: f.default for f in fields(Config)}

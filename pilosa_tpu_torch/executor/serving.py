@@ -44,6 +44,7 @@ port reads no environment for them.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -602,7 +603,7 @@ class _Req:
     __slots__ = ("index", "idx", "q", "call", "kind", "shards", "skey",
                  "fields", "key", "snapshot", "result", "error",
                  "direct", "event", "ctx", "trace_id", "acc",
-                 "batch_size")
+                 "batch_size", "batch_id")
 
     def __init__(self, index, idx, q, call, kind, shards, skey,
                  fields, key, snapshot):
@@ -629,6 +630,7 @@ class _Req:
         self.trace_id = None
         self.acc = None
         self.batch_size = 1
+        self.batch_id = None
 
 
 class QueryBatcher:
@@ -639,7 +641,15 @@ class QueryBatcher:
     requests queue), flips the queue, and executes the fused batch
     while the NEXT batch accumulates behind a new leader.  Followers
     park on a per-request event.
+
+    Spans on the calling threads: a follower's park and the leader's
+    window are ``serving.batch_wait`` (tag ``wait``); the leader's work
+    from the queue flip to the riders' release is ``serving.batch``
+    (tags ``riders``, ``batch_id``, ``trace_ids``), the batch id also
+    stamped on each rider's flight record.
     """
+
+    _TRACE_IDS = 32   # trace ids a serving.batch span names at most
 
     def __init__(self, serving: "ServingLayer", window_s: float,
                  max_batch: int):
@@ -650,6 +660,7 @@ class QueryBatcher:
         self._pending: list[_Req] = []
         self._leader = False
         self._inflight = 0  # batches currently executing
+        self._ids = itertools.count(1)
         # serialize=True (the ragged canonical program, set by
         # ServingLayer): at most ONE batch executes at a time and the
         # next leader waits for it rather than for a wall-clock
@@ -673,11 +684,13 @@ class QueryBatcher:
                 self._leader = True
                 follower = False
         if follower:
-            req.event.wait()
+            with start_span("serving.batch_wait", wait=True):
+                req.event.wait()
             return
         t_lead = time.perf_counter()
         deadline = t_lead + self.window_s
-        with self._cond:
+        with start_span("serving.batch_wait", wait=True, leader=True), \
+                self._cond:
             # continuous batching: dispatch IMMEDIATELY when the
             # device is idle (a lone request must not eat the window
             # as pure latency); wait out the admission window only
@@ -700,6 +713,16 @@ class QueryBatcher:
             self._leader = False
             self._inflight += 1
             metrics.SERVING_QUEUE_DEPTH.set(0)
+        bid = f"b{next(self._ids):x}"
+        for r in batch:
+            r.batch_id = bid
+        with start_span("serving.batch", riders=len(batch), batch_id=bid,
+                        trace_ids=[r.trace_id for r in batch
+                                   if r.trace_id][:self._TRACE_IDS]):
+            self._lead(batch, t_lead)
+
+    def _lead(self, batch: list[_Req], t_lead: float) -> None:
+        """Run a flipped batch and release its riders."""
         metrics.SERVING_BATCH_WAIT.observe(time.perf_counter() - t_lead)
         metrics.SERVING_BATCH_SIZE.observe(len(batch))
         # watchdog arming (obs/watchdog.py): the leader is entering
@@ -742,7 +765,6 @@ class QueryBatcher:
                 r.event.set()
 
 
-
 # ---------------------------------------------------------------------------
 # serving layer
 # ---------------------------------------------------------------------------
@@ -765,6 +787,19 @@ def to_host(out):
 def sync_device(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def heavy_gate(sched, qos, cls: str):
+    """Hold a heavy slot of ``sched`` for the body.  The wait at the
+    gate is a ``serving.admit`` span (tags ``wait``, ``class``); yields
+    (perf_counter start, seconds waited) for the flight record that
+    follows, whose ``admit`` phase it is."""
+    with contextlib.ExitStack() as held:
+        with start_span("serving.admit", wait=True, **{"class": cls}):
+            t0 = time.perf_counter()
+            held.enter_context(sched.heavy_slot(qos))
+        yield t0, time.perf_counter() - t0
 
 
 class ServingLayer:
@@ -891,11 +926,12 @@ class ServingLayer:
         if cls == _sched.CLASS_HEAVY and self.sched is not None:
             # bounded heavy concurrency + weighted per-tenant fair
             # queueing: a GroupBy storm cannot occupy every thread
-            with self.sched.heavy_slot(qos):
+            with heavy_gate(self.sched, qos, cls) as admit:
                 with start_span("executor.Execute", index=index) as root:
                     return self._execute_read(ex, index, q, shards,
                                               root, qos=qos, cls=cls,
-                                              key=key, fp=fp)
+                                              key=key, fp=fp,
+                                              admit=admit)
         metrics.ADMISSION_TOTAL.inc(**{"class": cls,
                                        "outcome": "admitted"})
         with start_span("executor.Execute", index=index) as root:
@@ -903,11 +939,16 @@ class ServingLayer:
                                       qos=qos, cls=cls, key=key, fp=fp)
 
     def _execute_read(self, ex, index, q, shards, root=None, qos=None,
-                      cls=None, key=None, fp=None):
+                      cls=None, key=None, fp=None, admit=None):
+        """``admit`` (start, seconds) is the heavy-slot wait before this
+        call, the record's ``admit`` phase; ``duration_ms`` starts here,
+        after it (the statistics catalog's cost classes read it)."""
         t0 = time.perf_counter()
         route = "direct"
         fl = flight.begin(index, q)
         if fl is not None:
+            if admit is not None:
+                flight.note_phase("admit", admit[1], admit[0])
             fl["tenant"] = qos.tenant if qos is not None else "default"
             fl["priority"] = cls or "point"
             if qos is not None and qos.deadline_ms is not None:
@@ -927,20 +968,21 @@ class ServingLayer:
             # batcher's mid-flight consistency re-check
             fields = None
             tc = time.perf_counter()
-            try:
-                fields = query_fields(idx, q)
-            except Uncacheable:
-                if self.cache is not None:
-                    metrics.RESULT_CACHE.inc(outcome="bypass")
-            # one snapshot walk serves the cache guard, batch admission
-            # and the miss path's store protocol
-            sset = _shard_set(shards)
-            snap = (field_snapshot(idx, fields, sset)
-                    if fields is not None else None)
-            cache_res = _MISS
-            if self.cache is not None and fields is not None:
-                cache_res = self.cache.get(idx, key, cur_snap=snap)
-            flight.note_phase("cache_lookup", time.perf_counter() - tc)
+            with start_span("serving.cache_lookup"):
+                try:
+                    fields = query_fields(idx, q)
+                except Uncacheable:
+                    if self.cache is not None:
+                        metrics.RESULT_CACHE.inc(outcome="bypass")
+                # one snapshot walk serves the cache guard, batch
+                # admission and the miss path's store protocol
+                sset = _shard_set(shards)
+                snap = (field_snapshot(idx, fields, sset)
+                        if fields is not None else None)
+                cache_res = _MISS
+                if self.cache is not None and fields is not None:
+                    cache_res = self.cache.get(idx, key, cur_snap=snap)
+            flight.note_phase("cache_lookup", time.perf_counter() - tc, tc)
             if cache_res is not _MISS:
                 route = "cached"
                 metrics.RESULT_CACHE.inc(outcome="hit")
@@ -976,7 +1018,7 @@ class ServingLayer:
                     req.trace_id = fl["trace_id"]
                 tb = time.perf_counter()
                 self.batcher.run(req)
-                flight.note_phase("batch", time.perf_counter() - tb)
+                flight.note_phase("batch", time.perf_counter() - tb, tb)
                 if req.error is not None:
                     raise req.error
                 if req.result is not None and not req.direct:
@@ -1012,7 +1054,8 @@ class ServingLayer:
                 fingerprint=(fp if fp is not None else
                              (_fingerprint(key)
                               if fl is not None and key else None)),
-                extra_acc=req.acc if req is not None else None)
+                extra_acc=req.acc if req is not None else None,
+                batch_id=req.batch_id if req is not None else None)
 
     # -- classification ------------------------------------------------
 
@@ -1095,20 +1138,24 @@ class ServingLayer:
                 self._run_group(reqs)
         # post-pass: snapshot re-check.  A rider whose snapshot moved is
         # marked direct and re-executes on its own thread.
-        for r in batch:
-            if (not r.direct and r.error is None and r.result is not None
-                    and r.fields is not None
-                    and field_snapshot(r.idx, r.fields,
-                                       _shard_set(r.shards))
-                    != r.snapshot):
-                r.direct = True
-                r.result = None
-            if r.result is not None and not r.direct and \
-                    r.error is None and r.fields is not None and \
-                    self.cache is not None:
-                self.cache.put(r.key, r.fields, r.snapshot, r.result,
-                               cost_ms=self._recompute_cost(r.key,
-                                                            r.acc))
+        with start_span("serving.snapshot"):
+            for r in batch:
+                if (not r.direct and r.error is None
+                        and r.result is not None and r.fields is not None
+                        and field_snapshot(r.idx, r.fields,
+                                           _shard_set(r.shards))
+                        != r.snapshot):
+                    r.direct = True
+                    r.result = None
+        if self.cache is None:
+            return
+        with start_span("serving.cache_put"):
+            for r in batch:
+                if r.result is not None and not r.direct and \
+                        r.error is None and r.fields is not None:
+                    self.cache.put(r.key, r.fields, r.snapshot, r.result,
+                                   cost_ms=self._recompute_cost(r.key,
+                                                                r.acc))
 
     def build_rider(self, b: PlanBuilder, r, shards):
         """Build one request's subplan on the leader with its flight
@@ -1370,7 +1417,8 @@ class ServingLayer:
             return None
         cost = _stats.est_recompute_ms(_fingerprint(key))
         if cost is None and acc is not None:
-            cost = sum(acc.phases.values()) * 1e3
+            cost = sum(v for k, v in acc.phases.items()
+                       if k not in flight.IN_EXECUTE) * 1e3
         return cost
 
 
@@ -1389,7 +1437,12 @@ def dispatch(layer, plan, leaves, params, riders, where: str,
     others None: a canonical program's absent slots stay on the card).
     A failure marks every rider direct and returns None.  ``devices``
     (the serving mesh's slots) are every device the plan runs on; each
-    is synchronised."""
+    is synchronised.  Of the attempt that returned, ``execute`` splits
+    into ``launch``, until the plan has been enqueued, ``sync``, the
+    wait for the card, and ``to_host``, the copy of the outputs to the
+    host (a ``serving.to_host`` span on the leader); a failed attempt
+    and the OOM ladder's relief sweep after it are in ``execute``
+    alone."""
     from pilosa_tpu_torch.memory import pressure
     from pilosa_tpu_torch.obs import roofline
     from pilosa_tpu_torch.executor.stacked import ROOF_OPS
@@ -1397,8 +1450,12 @@ def dispatch(layer, plan, leaves, params, riders, where: str,
     device = layer.executor.device
     sp = Span("serving.dispatch")
     sp.tags.update(batch=len(riders), **tags)
+    bid = getattr(riders[0], "batch_id", None) if riders else None
+    if bid is not None:
+        sp.tags["batch_id"] = bid
     oom0 = metrics.OOM_TOTAL.total(outcome="caught")
     t0 = time.perf_counter()
+    ran = []
     try:
         # chaos seam: an armed fault fails the fused program exactly
         # like a device error, sending every rider to its solo path
@@ -1406,13 +1463,17 @@ def dispatch(layer, plan, leaves, params, riders, where: str,
         run = _plan_run(plan)
 
         def go():
+            ta = time.perf_counter()
             out = run(leaves, params)
+            tl = time.perf_counter()
             for dev in devices or (device,):
                 sync_device(dev)
+            ran.append((ta, tl, time.perf_counter()))
             return out
         outs = pressure.guarded(go)
-        outs = tuple(to_host(o) if needed is None or i in needed else None
-                     for i, o in enumerate(outs))
+        with start_span("serving.to_host"):
+            outs = tuple(to_host(o) if needed is None or i in needed
+                         else None for i, o in enumerate(outs))
     except Exception as e:
         capture_exception(
             e, where=where, batch=len(riders),
@@ -1425,14 +1486,20 @@ def dispatch(layer, plan, leaves, params, riders, where: str,
         sp.finish()
     metrics.SERVING_DISPATCH.inc(kind=kind)
     dt = time.perf_counter() - t0
-    if metrics.OOM_TOTAL.total(outcome="caught") == oom0:
+    clean = metrics.OOM_TOTAL.total(outcome="caught") == oom0
+    if clean:
         if note is not None:
             note(leaves, dt)
         else:
             roofline.note(ROOF_OPS.get(plan[0], plan[0]),
                           leaf_bytes(leaves), dt)
+    (ta, tl, ts), = ran
+    ta = t0 if clean else ta
     for r in riders:
-        r.acc.add_phase("execute", dt)
+        r.acc.add_phase("execute", dt, t0)
+        r.acc.add_phase("launch", tl - ta, ta)
+        r.acc.add_phase("sync", ts - tl, tl)
+        r.acc.add_phase("to_host", t0 + dt - ts, ts)
         if r.ctx is not None:
             r.ctx.attach(sp.copy())
     return outs

@@ -2003,12 +2003,23 @@ class StackedEngine(MeshArm):
         host next).  A clean dispatch (no OOM caught) notes ``nbytes``,
         its operands' bytes, over its time in the roofline attribution
         (obs/roofline.py) under the plan kind's op family.  ``devices``
-        (a mesh dispatch) are every device the legs ran on."""
+        (a mesh dispatch) are every device the legs ran on.  Of the
+        attempt that returned, the record's ``launch`` phase is the time
+        until ``fn()`` returned (the host enqueueing the work), ``sync``
+        the rest of ``execute`` (the host waiting for the card): their
+        sum is ``execute`` unless the OOM ladder caught one, whose failed
+        attempt and relief sweep are in ``execute`` alone.  A host
+        fallback launched nothing and notes neither."""
+        ran = []
+
         def run():
+            ta = time.perf_counter()
             out = fn()
+            tl = time.perf_counter()
             for dev in devices or (self.device,):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
+            ran.append((ta, tl))
             return out
 
         oom0 = metrics.OOM_TOTAL.total(outcome="caught")
@@ -2016,8 +2027,14 @@ class StackedEngine(MeshArm):
         with start_span("stacked.dispatch", kind=kind):
             out = pressure.guarded(run, host_fallback=host)
         dt = time.perf_counter() - t0
-        flight.note_phase("execute", dt)
-        if nbytes and metrics.OOM_TOTAL.total(outcome="caught") == oom0:
+        flight.note_phase("execute", dt, t0)
+        clean = metrics.OOM_TOTAL.total(outcome="caught") == oom0
+        if ran:
+            (ta, tl), = ran
+            ta = t0 if clean else ta
+            flight.note_phase("launch", tl - ta, ta)
+            flight.note_phase("sync", t0 + dt - tl, tl)
+        if nbytes and clean:
             roofline.note(ROOF_OPS.get(kind, kind), nbytes, dt)
         return out
 

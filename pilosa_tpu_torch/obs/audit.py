@@ -30,6 +30,11 @@ against served traffic:
   fragments against a live co-owner; a divergence is counted as a
   detection, then repaired through the rejoin's block pull).
 
+- **Time**: the seconds of every shadow execution count into
+  ``pilosa_audit_shadow_seconds_total`` when it ends;
+  ``shadow_seconds()`` adds the ones still running, so a window that
+  ends inside a 20-50 s shadow counts the part inside it.
+
 - **Evidence**: every outcome counts into
   ``pilosa_audit_total{kind,outcome}``; a mismatch lands in a bounded
   quarantine ring and reports a rate-limited ``audit-mismatch``
@@ -406,9 +411,14 @@ class AuditPlane:
         if sched is not None and slot is None:
             self._finish(s, "shed", None, "audit slots busy")
             return
+        t0 = time.perf_counter()
+        me = object()
+        with _shadow_lock:
+            _shadow_open[me] = t0
         try:
             got = self._shadow_exec(s)
         finally:
+            _shadow_ended(me, t0, time.perf_counter())
             if slot is not None:
                 slot.release()
         if field_snapshot(idx, s.fields, sset) != s.snapshot:
@@ -640,6 +650,36 @@ class AuditPlane:
 
 # every live plane, so stop_all() can end their workers
 _PLANES: "weakref.WeakSet[AuditPlane]" = weakref.WeakSet()
+
+# the process's shadow executions besides the finished ones' seconds
+# (AUDIT_SHADOW_SECONDS): the (start, end) of the recent ones and the
+# start of each running one, on perf_counter (a few a minute: one lock
+# is no cost)
+_shadow_lock = threading.Lock()
+_shadow_recent: deque = deque(maxlen=1024)
+_shadow_open: dict = {}
+
+
+def _shadow_ended(key, t0: float, t1: float) -> None:
+    with _shadow_lock:
+        _shadow_open.pop(key, None)
+        _shadow_recent.append((t0, t1))
+        metrics.AUDIT_SHADOW_SECONDS.inc(t1 - t0)
+
+
+def shadow_seconds(at: float | None = None) -> float:
+    """Seconds of shadow execution in this process up to ``at``
+    (``perf_counter``, by default now), the ones still running
+    included up to then: the difference of two readings is the shadow
+    time between them, however long each shadow runs."""
+    now = time.perf_counter()
+    t = now if at is None else min(at, now)
+    with _shadow_lock:
+        total = metrics.AUDIT_SHADOW_SECONDS.value()
+        # finished after t: take back their part past t
+        total -= sum(e - max(s, t) for s, e in _shadow_recent if e > t)
+        total += sum(max(0.0, t - s) for s in _shadow_open.values())
+    return total
 
 
 def stop_all(timeout: float = 5.0) -> bool:

@@ -35,11 +35,15 @@ import time
 from collections import deque
 from contextlib import contextmanager
 
-# phases the leader stamps per fused request; also the BENCH JSON
-# breakdown axes (compile/upload/execute/wait)
-PHASES = ("plan_build", "compile", "execute", "demux", "cache_lookup",
-          "batch", "wait", "stack_hit", "stack_patch", "stack_rebuild",
-          "stack_wait")
+# the parts of ``execute`` that a dispatch notes besides it: ``launch``
+# (the host enqueueing the work), ``sync`` (the host waiting for the
+# card) and, for a fused batch, ``to_host`` (the copy of its outputs)
+IN_EXECUTE = frozenset(("launch", "sync", "to_host"))
+# phases a record's derived ``wait`` does not subtract from ``batch``:
+# those outside the batch (``admit``, the heavy-slot gate before the
+# record opened), those inside ``execute``, and itself
+NOT_IN_BATCH = frozenset(("admit", "batch", "cache_lookup",
+                          "wait")) | IN_EXECUTE
 
 _tls = threading.local()
 
@@ -51,7 +55,7 @@ class Acc:
     request)."""
 
     __slots__ = ("phases", "stack", "bytes_moved", "keys", "attempts",
-                 "t0", "node_spans", "ops", "pages")
+                 "t0", "node_spans", "ops", "pages", "intervals")
 
     # per-record stack-key cap: a pathological query touching hundreds
     # of stacks must not bloat the ring
@@ -64,6 +68,9 @@ class Acc:
     # propagation): legs past the cap keep their timings in
     # `attempts` but drop the span detail
     _MAX_NODE_SPANS = 16
+    # per-record cap on phase intervals (where each phase happened):
+    # past it a phase keeps its total but is not drawn
+    _MAX_INTERVALS = 64
 
     def __init__(self):
         self.phases: dict[str, float] = {}
@@ -93,13 +100,22 @@ class Acc:
         # (encoding -> page count; memory/encode.py container kinds) —
         # how a record shows which arm served it, packed or dense
         self.pages: dict[str, int] = {}
+        # (phase, perf_counter start, seconds) of each phase noted, on
+        # the clock the device trace is placed on
+        self.intervals: list[tuple[str, float, float]] = []
 
     def add_pages(self, mix: dict):
         for k, v in mix.items():
             self.pages[k] = self.pages.get(k, 0) + int(v)
 
-    def add_phase(self, name: str, dt: float):
+    def add_phase(self, name: str, dt: float, start: float | None = None):
+        """Add ``dt`` seconds to a phase that started at ``start``
+        (``perf_counter``; by default ``dt`` before now)."""
         self.phases[name] = self.phases.get(name, 0.0) + dt
+        if len(self.intervals) < self._MAX_INTERVALS:
+            self.intervals.append(
+                (name, time.perf_counter() - dt if start is None else start,
+                 dt))
 
     def add_stack(self, outcome: str, nbytes: int, dt: float,
                   key_fp: str | None = None):
@@ -147,6 +163,9 @@ class Acc:
         room = self._MAX_NODE_SPANS - len(self.node_spans)
         if room > 0 and other.node_spans:
             self.node_spans.extend(other.node_spans[:room])
+        room = self._MAX_INTERVALS - len(self.intervals)
+        if room > 0 and other.intervals:
+            self.intervals.extend(other.intervals[:room])
         for op, (b, s) in other.ops.items():
             st = self.ops.get(op)
             if st is None:
@@ -173,10 +192,10 @@ def active_acc() -> Acc | None:
     return getattr(_tls, "acc", None)
 
 
-def note_phase(name: str, dt: float):
+def note_phase(name: str, dt: float, start: float | None = None):
     acc = getattr(_tls, "acc", None)
     if acc is not None:
-        acc.add_phase(name, dt)
+        acc.add_phase(name, dt, start)
 
 
 def note_route(route: str, cap: int = 32):
@@ -372,21 +391,15 @@ class FlightRecorder:
                 "cat": "query", "ph": "X", "pid": 1, "tid": tid,
                 "ts": ts, "dur": max(dur, 1.0), "args": args,
             })
-            # phases render sequentially inside the query slice; we
-            # record durations (not offsets), so lay them end to end
-            # in PHASES order — relative widths are what matters
-            off = ts
-            for name in PHASES:
-                pdur = rec.get("phases", {}).get(name)
-                if not pdur:
-                    continue
+            # each phase where it happened: its recorded offset from
+            # the record's start (a derived ``wait`` has none)
+            for name, off_ms, ms in rec.get("intervals", ()):
                 events.append({
                     "name": name, "cat": "phase", "ph": "X",
-                    "pid": 1, "tid": tid, "ts": off,
-                    "dur": max(pdur * 1e3, 0.5),
-                    "args": {"ms": round(pdur, 4)},
+                    "pid": 1, "tid": tid, "ts": ts + off_ms * 1e3,
+                    "dur": max(ms * 1e3, 0.5),
+                    "args": {"ms": ms},
                 })
-                off += pdur * 1e3
             # cluster fan-out: per-node attempt slices (true start
             # offsets — a hedge renders in parallel with the primary
             # attempt it raced) ...
@@ -448,6 +461,9 @@ def begin(index: str, query) -> dict | None:
         "start": time.time(),
         "acc": Acc(),
     }
+    # the record's origin on perf_counter, the clock of spans and of the
+    # device trace; phase intervals are offsets from it
+    rec["t0"] = rec["acc"].t0
     if inherited:
         # a remote leg of a cluster fan-out: same id as the
         # coordinator's record so /debug/cluster/queries merges them
@@ -460,10 +476,19 @@ def begin(index: str, query) -> dict | None:
 def commit(rec: dict | None, duration_s: float, route: str = "solo",
            batch: int = 1, error: str | None = None,
            fingerprint: str | None = None,
-           extra_acc: Acc | None = None):
+           extra_acc: Acc | None = None, batch_id: str | None = None):
     """Finish and ring-buffer a record opened by begin(); exports the
-    per-phase histograms with this record's trace id as exemplar."""
+    per-phase histograms with this record's trace id as exemplar.
+    With no record of its own (a read nested in a SQL statement's
+    record), ``extra_acc``, the leader's work for the read, merges into
+    the thread's active accumulator, the statement's.  ``batch_id``
+    names the serving batch the query rode (the ``serving.batch``
+    span's tag)."""
     if rec is None:
+        if extra_acc is not None:
+            acc = getattr(_tls, "acc", None)
+            if acc is not None:
+                acc.merge(extra_acc)
         return
     acc: Acc = rec.pop("acc")
     pop_acc(rec.pop("prev_acc"))
@@ -476,9 +501,8 @@ def commit(rec: dict | None, duration_s: float, route: str = "solo",
     # just the record dict.
     if "batch" in acc.phases:
         accounted = sum(v for k, v in acc.phases.items()
-                        if k not in ("batch", "cache_lookup"))
-        acc.add_phase("wait",
-                      max(acc.phases["batch"] - accounted, 0.0))
+                        if k not in NOT_IN_BATCH)
+        acc.phases["wait"] = max(acc.phases["batch"] - accounted, 0.0)
     phases = {k: round(v * 1e3, 4) for k, v in acc.phases.items()}
     rec.update({
         "duration_ms": round(duration_s * 1e3, 4),
@@ -491,6 +515,15 @@ def commit(rec: dict | None, duration_s: float, route: str = "solo",
         # prediction scan (memory/policy.py Prefetcher.step)
         "stack_keys": list(acc.keys),
     })
+    if acc.intervals:
+        # [phase, start offset ms from t0, ms]: where each phase
+        # happened, for /debug/trace and for joining the device trace
+        t0 = rec["t0"]
+        rec["intervals"] = [[k, round((s - t0) * 1e3, 4),
+                             round(d * 1e3, 4)]
+                            for k, s, d in acc.intervals]
+    if batch_id is not None:
+        rec["batch_id"] = batch_id
     if acc.attempts:
         # per-node cluster attempt timings (hedges included) — only
         # fan-out queries carry the field, so solo records stay small.
@@ -570,21 +603,3 @@ def _buffer_phase_samples(acc: Acc, trace_id: str):
         pend.append((dt, {"phase": name}, trace_id))
     if len(pend) >= _FLUSH_N:
         flush_metrics()
-
-
-def phase_breakdown(records: list[dict]) -> dict:
-    """Aggregate records into the BENCH JSON per-phase breakdown:
-    total ms by compile/upload/execute/wait (+ the rest verbatim)."""
-    out: dict[str, float] = {}
-    for rec in records:
-        for k, v in rec.get("phases", {}).items():
-            out[k] = out.get(k, 0.0) + v
-    agg = {
-        "compile_ms": round(out.pop("compile", 0.0), 3),
-        "execute_ms": round(out.pop("execute", 0.0), 3),
-        "upload_ms": round(out.pop("stack_rebuild", 0.0)
-                           + out.pop("stack_patch", 0.0), 3),
-        "wait_ms": round(out.pop("wait", 0.0), 3),
-    }
-    agg.update({k + "_ms": round(v, 3) for k, v in out.items()})
-    return agg

@@ -79,6 +79,26 @@ class Counter(_Metric):
         return out
 
 
+class ReadCounter(Counter):
+    """A counter whose series another module keeps and this one reads
+    (``bind(read)``, ``read()`` -> {label key: value}): for a writer that
+    must take no lock, such as a garbage-collector callback."""
+
+    def __init__(self, name: str, help_: str = ""):
+        _Metric.__init__(self, name, help_)
+        self._read = dict
+
+    def bind(self, read) -> None:
+        self._read = read
+
+    @property
+    def _vals(self) -> dict:
+        return self._read()
+
+    def inc(self, n: float = 1.0, **labels):
+        raise TypeError(f"{self.name} is kept by the module bound to it")
+
+
 class Gauge(_Metric):
     kind = "gauge"
 
@@ -276,6 +296,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, help_: str = "") -> Counter:
         return self._get(name, Counter, lambda: Counter(name, help_))
+
+    def read_counter(self, name: str, help_: str = "") -> ReadCounter:
+        return self._get(name, ReadCounter, lambda: ReadCounter(name, help_))
 
     def gauge(self, name: str, help_: str = "") -> Gauge:
         return self._get(name, Gauge, lambda: Gauge(name, help_))
@@ -607,6 +630,18 @@ AUDIT_TOTAL = registry.counter(
     "Correctness-audit events by verifier kind (shadow/cache/"
     "standing/replica) and outcome (sampled/match/mismatch/"
     "stale_skip/shed/unguarded/repaired/error)")
+
+AUDIT_SHADOW_SECONDS = registry.counter(
+    "pilosa_audit_shadow_seconds_total",
+    "Seconds of shadow execution the audit's workers have finished")
+
+# -- the garbage collector (obs/runtime.py) --
+GC_PAUSE = registry.read_counter(
+    "pilosa_gc_pause_seconds_total",
+    "Seconds the interpreter's garbage collector ran, by generation")
+GC_PASSES = registry.read_counter(
+    "pilosa_gc_passes_total",
+    "Garbage-collector passes, by generation")
 
 # -- SLO burn-rate plane (obs/slo.py) --
 SLO_BURN_RATE = registry.gauge(

@@ -9,11 +9,12 @@ achieved bandwidth:
   bytes / cumulative execute seconds)
 - ``pilosa_device_bandwidth_fraction{op}``  achieved / peak
 
-The peak is configured (``configure(peak_gbps=)``, a device spec) or
-measured once by a STREAM-style torch probe (:func:`ensure_peak`) on
-the card; on the CPU the probe measures host memory bandwidth, so the
-fraction stays meaningful there too.  Per-query shares land in each
-flight record's ``roofline`` field (obs/flight.py).
+The peak is configured (``configure(peak_gbps=)``) or the card's
+published HBM rate, looked up by the name torch reports
+(:func:`published_peak`; an H100 SXM's 3.35 TB/s).  With no card, or a
+card not in the table, there is no peak and no fraction.  Per-query
+shares land in each flight record's ``roofline`` field
+(obs/flight.py).
 
 Always-on budget: :func:`note` is one dict update + two gauge sets on a
 path that just paid a device dispatch; the disabled path is a single
@@ -23,27 +24,23 @@ the peak.
 
 from __future__ import annotations
 
-import atexit
 import threading
 
 from pilosa_tpu_torch.obs import flight, metrics
 
 _lock = threading.Lock()         # guards _stats
-_probe_lock = threading.Lock()   # serializes the peak probe/spawn
 # op -> [bytes, seconds, dispatches]; cumulative since process start
 _stats: dict[str, list] = {}
 _peak_bytes_per_s: float | None = None
 _enabled = True
-_probe_thread: threading.Thread | None = None
 
-
-def _join_probe() -> None:
-    """At exit, let a running background probe finish: an interpreter
-    that exits while the probe's torch ops run aborts in torch's thread
-    pool teardown."""
-    t = _probe_thread
-    if t is not None and t.is_alive():
-        t.join(timeout=30)
+# published HBM rates in bytes/s, by a part of the device name; the
+# first entry the name contains wins
+PUBLISHED_PEAKS = (
+    ("H100 PCIe", 2.0e12),
+    ("H100 NVL", 3.9e12),
+    ("H100", 3.35e12),
+)
 
 
 def enabled() -> bool:
@@ -53,8 +50,7 @@ def enabled() -> bool:
 def configure(enabled: bool | None = None,
               peak_gbps: float | None = None):
     """Apply the [roofline] config knobs (config.py).  ``peak_gbps``
-    overrides the measured probe (device-spec peak); 0/None keeps the
-    probe."""
+    overrides the card's published peak; 0/None keeps it."""
     global _enabled, _peak_bytes_per_s
     if enabled is not None:
         _enabled = bool(enabled)
@@ -70,66 +66,28 @@ def set_peak(bytes_per_s: float):
 
 
 def peak_or_none() -> float | None:
-    """The known peak (bytes/s) WITHOUT triggering a probe — hot-path
-    callers (flight.commit) must never block on measurement."""
+    """The known peak (bytes/s), or None."""
     return _peak_bytes_per_s
 
 
-def measure_peak(size_mb: int = 16, reps: int = 3,
-                 device=None) -> float:
-    """STREAM-style copy probe: time ``y = x ^ 1`` over a ``size_mb``
-    int32 buffer (reads + writes = 2x bytes) with torch, best of
-    ``reps`` after one warm run.  Returns bytes/s.  On the card
-    (``device`` None means the current CUDA device when there is one)
-    this measures its memory stream; on the CPU, host memory bandwidth:
-    each is the denominator of the fraction gauge for that device."""
-    import time as _time
-
-    import torch
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
-    n = (size_mb << 20) // 4
-    x = torch.zeros((n,), dtype=torch.int32, device=device)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    torch.bitwise_xor(x, 1)  # warm
-    sync()
-    best = float("inf")
-    for _ in range(reps):
-        t0 = _time.perf_counter()
-        torch.bitwise_xor(x, 1)
-        sync()
-        best = min(best, _time.perf_counter() - t0)
-    return 2 * x.numel() * 4 / max(best, 1e-9)
+def published_peak(device_name: str) -> float | None:
+    """The published HBM rate (bytes/s) of a card of this name, or
+    None for a card not in ``PUBLISHED_PEAKS``."""
+    for part, rate in PUBLISHED_PEAKS:
+        if part in device_name:
+            return rate
+    return None
 
 
-def ensure_peak(block: bool = True) -> float | None:
-    """Resolve the peak: a configured one, else the measured probe.
-    ``block=False`` runs the probe on a background daemon thread (the
-    server-startup path — first queries must not wait ~50 ms on a
-    bandwidth probe) and returns None until it lands."""
-    global _peak_bytes_per_s, _probe_thread
-    if _peak_bytes_per_s is not None:
-        return _peak_bytes_per_s
-    if not block:
-        with _probe_lock:
-            if _probe_thread is None or not _probe_thread.is_alive():
-                if _probe_thread is None:
-                    atexit.register(_join_probe)
-                _probe_thread = threading.Thread(
-                    target=lambda: ensure_peak(block=True), daemon=True)
-                _probe_thread.start()
-        return None
-    with _probe_lock:
-        if _peak_bytes_per_s is None:
-            try:
-                set_peak(measure_peak())
-            except Exception:
-                return None  # no usable backend: fractions stay unset
+def resolve_peak() -> float | None:
+    """The peak: a configured one, else the current CUDA card's
+    published rate; None on the CPU or an unknown card."""
+    if _peak_bytes_per_s is None:
+        import torch
+        if torch.cuda.is_available():
+            rate = published_peak(torch.cuda.get_device_name())
+            if rate is not None:
+                set_peak(rate)
     return _peak_bytes_per_s
 
 
@@ -177,8 +135,8 @@ def _split_key(key: str) -> dict:
 
 
 def _refresh_fractions():
-    """Re-derive the fraction gauges after the peak lands (the
-    background probe may finish after dispatches already noted)."""
+    """Re-derive the fraction gauges after the peak is set (dispatches
+    may have been noted before it)."""
     peak = _peak_bytes_per_s
     if not peak:
         return
@@ -193,7 +151,7 @@ def _refresh_fractions():
 def snapshot() -> dict:
     """Cumulative per-op attribution for bench cells and /debug use:
     ``{"peak_gbps": ..., "ops": {op: {bytes, seconds, dispatches,
-    gbps, fraction?}}}``.  Pure read — never triggers a probe."""
+    gbps, fraction?}}}``.  Pure read."""
     peak = _peak_bytes_per_s
     with _lock:
         items = {op: list(st) for op, st in _stats.items()}

@@ -5,6 +5,10 @@ default, opentracing adapter) and the profiled-span machinery
 (tracing/tracing.go:22-50) that returns a span tree with timings when
 ``QueryRequest.Profile=true`` (handler.go:40).  Spans are threaded
 through the engine the same way (``start_span`` at every layer).
+
+Every span is on ``time.perf_counter``, the clock a device trace is
+placed on, so a span can be intersected with the card's busy and idle
+intervals.
 """
 
 from __future__ import annotations
@@ -105,13 +109,16 @@ class NopTracer(Tracer):
 
 
 class _NopSpan(Span):
-    """Inert span: mutators are no-ops, duration is frozen at 0."""
+    """Inert span: mutators are no-ops, duration is frozen at 0; it
+    reads no clock."""
 
     __slots__ = ()
 
     def __init__(self):
-        super().__init__("nop")
-        self.end = self.start
+        self.name = "nop"
+        self.tags = {}
+        self.start = self.end = 0.0
+        self.children = []
 
     def set_tag(self, key: str, value):
         pass

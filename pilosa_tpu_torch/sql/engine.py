@@ -53,6 +53,7 @@ from pilosa_tpu_torch.executor.executor import ExecError, Executor
 from pilosa_tpu_torch.models import Holder
 from pilosa_tpu_torch.obs import flight, metrics
 from pilosa_tpu_torch.obs import stats as _stats
+from pilosa_tpu_torch.obs.tracing import start_span
 from pilosa_tpu_torch.sql import ast, costplan, plan
 from pilosa_tpu_torch.sql.common import SQLResult
 from pilosa_tpu_torch.sql.lexer import SQLError
@@ -305,23 +306,30 @@ class SQLEngine:
         host path: without a serving layer, with pushdown off, and for
         nested selects (the outer statement owns admission, cache and
         the flight record), counting the planner's pushdown decisions
-        with outcome "host"."""
+        with outcome "host".  Spans: ``sql.statement`` over ``sql.plan``
+        and ``sql.run``."""
         serving = getattr(self.executor, "serving", None)
-        t0 = time.perf_counter()
-        op = plan.plan_select(self, stmt)
-        metrics.SQL_PLAN_COST.observe((time.perf_counter() - t0) * 1e3)
-        nested = getattr(self._tls, "active", False)
-        if serving is None or not costplan.enabled() or nested:
-            if not nested:
-                for opname, _outcome in op.decisions():
-                    metrics.SQL_PUSHDOWN.inc(op=opname, outcome="host")
-            return op.run()
-        return self._select_serving(serving, op, stmt, qos)
+        with start_span("sql.statement", table=stmt.table or ""):
+            with start_span("sql.plan"):
+                t0 = time.perf_counter()
+                op = plan.plan_select(self, stmt)
+                metrics.SQL_PLAN_COST.observe(
+                    (time.perf_counter() - t0) * 1e3)
+            with start_span("sql.run"):
+                nested = getattr(self._tls, "active", False)
+                if serving is None or not costplan.enabled() or nested:
+                    if not nested:
+                        for opname, _outcome in op.decisions():
+                            metrics.SQL_PUSHDOWN.inc(op=opname,
+                                                     outcome="host")
+                    return op.run()
+                return self._select_serving(serving, op, stmt, qos)
 
     def _select_serving(self, serving, op, stmt, qos) -> SQLResult:
         """SELECT on the serving arm: per-statement cost-classed
         admission (executor/sched.py), then _run_select."""
         from pilosa_tpu_torch.executor import sched as _sched
+        from pilosa_tpu_torch.executor.serving import heavy_gate
         canon = costplan.canonical(stmt)
         fp = costplan.fingerprint(stmt.table or "", canon)
         cls = _sched.classify_sql(stmt, qos, fingerprint=fp)
@@ -332,22 +340,25 @@ class SQLEngine:
             raise _sched.ServingDeadlineExceeded(
                 "deadline expired before SQL execution")
         if cls == _sched.CLASS_HEAVY and serving.sched is not None:
-            with serving.sched.heavy_slot(qos):
+            with heavy_gate(serving.sched, qos, cls) as admit:
                 return self._run_select(serving, op, stmt, qos, canon,
-                                        fp, cls)
+                                        fp, cls, admit=admit)
         metrics.ADMISSION_TOTAL.inc(**{"class": cls,
                                        "outcome": "admitted"})
         return self._run_select(serving, op, stmt, qos, canon, fp, cls)
 
     def _run_select(self, serving, op, stmt, qos, canon: str,
-                    fp: str, cls: str) -> SQLResult:
+                    fp: str, cls: str, admit=None) -> SQLResult:
         """A single-table statement's result in the serving ResultCache
         (keyed by the canonical statement, guarded by its read set's
         snapshot, so writes invalidate SQL results as they do PQL ones),
         a standing registration's maintained result, or a run whose
         inner calls ride the point lane of the serving layer, with a
         route-"sql" flight record of the plan fingerprint and the
-        planner's pushdown decisions."""
+        planner's pushdown decisions.  ``admit`` (start, seconds) is the
+        heavy-slot wait before it, the record's ``admit`` phase; the
+        inner reads' phases, the batch leader's work for them included,
+        land in the same record."""
         from pilosa_tpu_torch.executor import sched as _sched
         from pilosa_tpu_torch.executor.serving import _MISS, field_snapshot
         t0 = time.perf_counter()
@@ -364,7 +375,8 @@ class SQLEngine:
                     metrics.RESULT_CACHE.inc(outcome="hit")
                     self._commit_sql_flight(
                         stmt, canon, fp, cls, qos, decisions,
-                        time.perf_counter() - t0, routes=["cached"])
+                        time.perf_counter() - t0, routes=["cached"],
+                        admit=admit)
                     return hit
                 # a standing SQL registration: a stale poll pulls
                 # maintenance instead of planning the SELECT again
@@ -374,10 +386,12 @@ class SQLEngine:
                         self._commit_sql_flight(
                             stmt, canon, fp, cls, qos, decisions,
                             time.perf_counter() - t0,
-                            routes=["standing"])
+                            routes=["standing"], admit=admit)
                         return got
                 metrics.RESULT_CACHE.inc(outcome="miss")
         fl = flight.begin(stmt.table or "", canon)
+        if fl is not None and admit is not None:
+            flight.note_phase("admit", admit[1], admit[0])
         inner = _sched.QoS(
             tenant=qos.tenant if qos is not None else "default",
             priority=_sched.CLASS_POINT,
@@ -416,13 +430,15 @@ class SQLEngine:
         return res
 
     def _commit_sql_flight(self, stmt, canon, fp, cls, qos, decisions,
-                           dur: float, routes=None):
+                           dur: float, routes=None, admit=None):
         """A route-"sql" flight record for a serve that ran no inner
         call (a cache hit or a standing result), marked cached so the
         catalog's recompute-cost estimate ignores it."""
         fl = flight.begin(stmt.table or "", canon)
         if fl is None:
             return
+        if admit is not None:
+            flight.note_phase("admit", admit[1], admit[0])
         fl["tenant"] = qos.tenant if qos is not None else "default"
         fl["priority"] = cls
         fl["pushdown"] = [{"op": o, "outcome": oc} for o, oc in decisions]

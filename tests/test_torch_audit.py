@@ -394,6 +394,23 @@ def test_flight_commit_feeds_stats_and_roofline():
         stats.swap(prev)
 
 
-def test_measure_peak_is_torch():
-    got = roofline.measure_peak(size_mb=1, reps=1, device="cpu")
-    assert got > 0
+def test_published_peak_of_an_h100():
+    assert roofline.published_peak("NVIDIA H100 80GB HBM3") == 3.35e12
+    assert roofline.published_peak("NVIDIA A40") is None
+
+
+def test_the_cpu_gets_no_peak_and_no_fraction():
+    """With no card there is no published peak, so a record's roofline
+    share and the snapshot carry bytes and GB/s but no fraction."""
+    prev = roofline.swap_state(True, None)
+    try:
+        assert roofline.resolve_peak() is None
+        flight.recorder.configure(enabled=True)
+        rec = flight.begin("i", "Count(Row(a=1))")
+        roofline.note("count", 1 << 20, 0.001)
+        flight.commit(rec, 0.002)
+        got = flight.recorder.recent(1)[0]["roofline"]["count"]
+        assert got["gbps"] > 0 and "fraction" not in got
+        assert "fraction" not in roofline.snapshot()["ops"]["count"]
+    finally:
+        roofline.swap_state(*prev)

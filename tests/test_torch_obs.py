@@ -313,7 +313,9 @@ def test_flight_ring_bounded(pkg):
 
 def test_flight_begin_commit_fields(pkg):
     """A record opened and committed by hand carries the same fields in
-    both packages; a nested begin opens nothing."""
+    both packages, the port's also its origin on perf_counter (``t0``)
+    and where its phases happened (``intervals``); a nested begin opens
+    nothing."""
     fl = pkg.flight
     fl.recorder.configure(enabled=True)
     fl.recorder.clear()
@@ -323,9 +325,14 @@ def test_flight_begin_commit_fields(pkg):
     fl.note_stack("rebuild", 128, 0.001)
     fl.commit(rec, 0.005, route="solo")
     (got,) = fl.recorder.recent(5)
-    assert sorted(got) == ["batch", "bytes_moved", "duration_ms", "index",
-                           "phases", "query", "route", "stack",
-                           "stack_keys", "start", "trace_id"]
+    shared = {k: v for k, v in got.items()
+              if pkg.flight is not flight or k not in ("t0", "intervals")}
+    assert sorted(shared) == ["batch", "bytes_moved", "duration_ms",
+                              "index", "phases", "query", "route", "stack",
+                              "stack_keys", "start", "trace_id"]
+    if pkg.flight is flight:
+        assert [i[0] for i in got["intervals"]] == ["execute",
+                                                    "stack_rebuild"]
     assert got["route"] == "solo" and got["stack"] == {"rebuild": 1}
     assert got["bytes_moved"] == 128
     assert set(got["phases"]) == {"execute", "stack_rebuild"}
